@@ -1,0 +1,341 @@
+"""Multi-head attention with a KV cache for decoding.
+
+Port of ``learning_jax_sharding_tpu/models/attention.py``. The module holds
+the q/k/v/out projections; in decode mode it writes each chunk's k/v into a
+per-layer :class:`KVCache` and attends the queries against it, through one
+of two backends:
+
+* ``"dense"``: attend the whole ``(B, L, N_kv, H)`` buffer with a mask;
+* ``"blocked"``: the length-aware kernel (``ops/decode_attention.py``) over a
+  ``(B, N_kv, L, H)`` buffer, reading only each row's valid prefix; ragged
+  single-token steps fold the cache write into the kernel.
+
+Not ported yet: int8 caches (``kv_cache_dtype=int8``) and paged pools come
+with the continuous-engine slice; custom ``attn_fn`` backends (flash, ring)
+with the training slice; quantized projections with the quantized-serving
+slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from learning_jax_sharding_tpu_torch.ops.attention import (
+    causal_mask,
+    dot_product_attention,
+    sliding_window_mask,
+)
+from learning_jax_sharding_tpu_torch.ops.decode_attention import decode_attention
+from learning_jax_sharding_tpu_torch.ops.rope import apply_rope
+
+
+def resolve_decode_backend(mode: str, device: torch.device) -> str:
+    """``"auto"`` → the blocked kernel on a GPU, the dense path elsewhere.
+    Explicit ``"dense"`` / ``"blocked"`` force a backend."""
+    if mode == "auto":
+        return "blocked" if device.type == "cuda" else "dense"
+    if mode not in ("dense", "blocked"):
+        raise ValueError(
+            f"unknown decode_attention {mode!r}: expected 'auto', 'dense', "
+            f"or 'blocked'"
+        )
+    return mode
+
+
+def repeat_kv(kv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Broadcast grouped k/v heads ``(B, S, N_kv, H)`` to ``num_heads``: kv
+    head ``j`` serves query heads ``j·group … (j+1)·group - 1``."""
+    n_kv = kv.shape[2]
+    if n_kv == num_heads:
+        return kv
+    if num_heads % n_kv:
+        raise ValueError(f"num_heads {num_heads} not a multiple of kv heads {n_kv}")
+    return kv.repeat_interleave(num_heads // n_kv, dim=2)
+
+
+def _seq_index(pos: torch.Tensor, like: torch.Tensor, seq_dim: int) -> torch.Tensor:
+    """``(B, S)`` positions → an index shaped like ``like`` for
+    ``gather``/``scatter_`` along ``seq_dim`` (1 or 2)."""
+    shape = [pos.shape[0], 1, 1, 1][: like.ndim]
+    shape[seq_dim] = pos.shape[1]
+    return pos.reshape(shape).expand(like.shape)
+
+
+def row_update(
+    buf: torch.Tensor, chunk: torch.Tensor, idx: torch.Tensor, *, seq_dim: int
+) -> torch.Tensor:
+    """Write ``chunk`` into ``buf`` IN PLACE at a per-row offset along
+    ``seq_dim``: row ``b``'s chunk lands at ``idx[b]``, the start clamped
+    into the buffer as ``dynamic_update_slice`` clamps it."""
+    s, cap = chunk.shape[seq_dim], buf.shape[seq_dim]
+    start = idx.long().clamp(0, cap - s)
+    pos = start[:, None] + torch.arange(s, device=buf.device)
+    return buf.scatter_(seq_dim, _seq_index(pos, chunk, seq_dim), chunk)
+
+
+def row_update_masked(
+    buf: torch.Tensor, chunk: torch.Tensor, idx: torch.Tensor,
+    lengths: torch.Tensor, *, seq_dim: int,
+) -> torch.Tensor:
+    """Length-aware :func:`row_update`, IN PLACE: row ``b`` writes only its
+    first ``lengths[b]`` chunk positions at ``idx[b]``; the rest of the
+    window writes back the buffer's own values, so a zero-length row (or a
+    window clamped at the buffer's end) never disturbs existing cache."""
+    s, cap = chunk.shape[seq_dim], buf.shape[seq_dim]
+    idx = idx.long()
+    start = idx.clamp(max=cap - s)
+    off = idx - start                                      # 0 unless clamped
+    j = torch.arange(s, device=buf.device)
+    pos = start[:, None] + j                               # window, (B, S)
+    keep = (j >= off[:, None]) & (j < off[:, None] + lengths.long()[:, None])
+    src = (j - off[:, None]).clamp(0, s - 1)               # the roll by off
+    rolled = chunk.gather(seq_dim, _seq_index(src, chunk, seq_dim))
+    index = _seq_index(pos, chunk, seq_dim)
+    keep = _seq_index(keep, chunk, seq_dim)
+    merged = torch.where(keep, rolled, buf.gather(seq_dim, index))
+    return buf.scatter_(seq_dim, index, merged)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's decode cache: preallocated buffers, updated IN PLACE by
+    every decode call (the JAX module threads a functional cache instead).
+
+    ``key``/``value`` are ``(B, L, N_kv, H)`` for the dense backend and
+    ``(B, N_kv, L, H)`` for the blocked one. ``index`` is the int32 write
+    position on the device: a scalar, or ``(B,)`` when ragged."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    index: torch.Tensor
+
+    @classmethod
+    def create(cls, shape, dtype, *, ragged: bool, device) -> "KVCache":
+        batch = shape[0]
+        return cls(
+            key=torch.zeros(shape, dtype=dtype, device=device),
+            value=torch.zeros(shape, dtype=dtype, device=device),
+            index=torch.zeros(
+                (batch,) if ragged else (), dtype=torch.int32, device=device
+            ),
+        )
+
+
+def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
+    """Flax's ``lecun_normal``: truncated normal (±2σ) with variance
+    1/fan_in, σ corrected for the truncation."""
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    return nn.init.trunc_normal_(
+        weight, 0.0, std, -2 * std, 2 * std, generator=generator
+    )
+
+
+def make_linear(in_features, out_features, *, bias, dtype, device, generator=None):
+    """``nn.Linear`` with Flax Dense's init (lecun-normal kernel, zero bias)."""
+    layer = nn.Linear(in_features, out_features, bias=bias, dtype=dtype, device=device)
+    with torch.no_grad():
+        lecun_normal_(layer.weight, generator)
+        if bias:
+            layer.bias.zero_()
+    return layer
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax Dense semantics: input and params cast to the compute dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head self-attention, with GQA, RoPE, a sliding window, and a KV
+    cache in decode mode. Field names follow the JAX module."""
+
+    def __init__(
+        self,
+        features: int,
+        num_heads: int = 8,
+        head_dim: int = 64,
+        *,
+        num_kv_heads: int | None = None,
+        rope: bool = False,
+        rope_theta: float = 10_000.0,
+        window: int | None = None,
+        dropout_rate: float = 0.0,
+        causal: bool = False,
+        use_bias: bool = False,
+        dtype: torch.dtype = torch.float32,
+        param_dtype: torch.dtype = torch.float32,
+        attn_fn=None,
+        decode: bool = False,
+        max_decode_len: int = 0,
+        kv_cache_dtype: torch.dtype | None = None,
+        decode_attention: str = "auto",
+        decode_block_k: int | None = None,
+        decode_ragged: bool = False,
+        decode_paged: bool = False,
+        quantization: str | None = None,
+        device=None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if attn_fn is not None:
+            raise NotImplementedError(
+                "attn_fn backends (flash, ring): ported with the training slice"
+            )
+        if kv_cache_dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 KV cache: ported with the continuous-engine slice"
+            )
+        if decode_paged:
+            raise NotImplementedError(
+                "paged KV cache: ported with the continuous-engine slice"
+            )
+        if quantization is not None:
+            raise NotImplementedError(
+                "quantized projections: ported with the quantized-serving slice"
+            )
+        n_kv = num_heads if num_kv_heads is None else num_kv_heads
+        if num_heads % n_kv:
+            raise ValueError(f"num_kv_heads {n_kv} must divide num_heads {num_heads}")
+        self.features, self.num_heads, self.head_dim = features, num_heads, head_dim
+        self.kv_heads = n_kv
+        self.rope, self.rope_theta, self.window = rope, rope_theta, window
+        self.causal, self.dtype = causal, dtype
+        self.decode, self.max_decode_len = decode, max_decode_len
+        self.kv_cache_dtype = kv_cache_dtype
+        self.decode_attention = decode_attention
+        self.decode_block_k = decode_block_k
+        self.decode_ragged = decode_ragged
+        kw = dict(bias=use_bias, dtype=param_dtype, device=device, generator=generator)
+        self.query = make_linear(features, num_heads * head_dim, **kw)
+        self.key = make_linear(features, n_kv * head_dim, **kw)
+        self.value = make_linear(features, n_kv * head_dim, **kw)
+        self.out = make_linear(num_heads * head_dim, features, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def init_cache(self, batch: int, device) -> KVCache:
+        """Zeroed cache for ``batch`` rows in this module's backend layout."""
+        if self.max_decode_len <= 0:
+            raise ValueError("decode=True requires max_decode_len > 0")
+        store = self.kv_cache_dtype if self.kv_cache_dtype is not None else self.dtype
+        n_kv, h, length = self.kv_heads, self.head_dim, self.max_decode_len
+        if resolve_decode_backend(self.decode_attention, device) == "blocked":
+            shape = (batch, n_kv, length, h)
+        else:
+            shape = (batch, length, n_kv, h)
+        return KVCache.create(shape, store, ragged=self.decode_ragged, device=device)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        cache: KVCache | None = None,
+        chunk_lengths: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``cache``: decode mode only, updated in place. ``chunk_lengths``:
+        ragged decode only: per-row count of valid tokens in this chunk
+        (prefill passes the prompt lengths, a frozen row 0)."""
+        b, s, _ = x.shape
+        if chunk_lengths is not None and not self.decode_ragged:
+            raise ValueError("chunk_lengths requires decode_ragged=True")
+        if self.decode != (cache is not None):
+            raise ValueError("decode mode takes a KVCache, and only decode mode does")
+        q = linear(self.query, x, self.dtype).reshape(b, s, self.num_heads, self.head_dim)
+        k = linear(self.key, x, self.dtype).reshape(b, s, self.kv_heads, self.head_dim)
+        v = linear(self.value, x, self.dtype).reshape(b, s, self.kv_heads, self.head_dim)
+
+        if self.rope:
+            # Rotate before caching: cached keys carry their absolute positions.
+            steps = torch.arange(s, device=x.device)
+            if cache is None:
+                positions = steps
+            elif self.decode_ragged:
+                positions = cache.index[:, None] + steps
+            else:
+                positions = cache.index + steps
+            q = apply_rope(q, positions, self.rope_theta)
+            k = apply_rope(k, positions, self.rope_theta)
+
+        if cache is not None:
+            out = self._cached_attention(q, k, v, cache, chunk_lengths)
+        else:
+            if self.window is not None:
+                if not self.causal:
+                    raise ValueError("window (sliding-window attention) requires causal=True")
+                mask = sliding_window_mask(s, self.window, device=x.device)
+            else:
+                mask = causal_mask(s, device=x.device) if self.causal else None
+            out = dot_product_attention(
+                q, repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads),
+                mask=mask,
+            )
+        out = linear(self.out, out.reshape(b, s, -1), self.dtype)
+        return self.dropout(out)
+
+    @staticmethod
+    def _advance(cache: KVCache, s: int, chunk_lengths) -> torch.Tensor:
+        """The write position of this chunk; the cache index then advances
+        by the chunk's valid length (``s``, or per-row ``chunk_lengths``)."""
+        idx = cache.index.clone()
+        cache.index += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
+        return idx
+
+    def _write(self, buf, chunk, idx, chunk_lengths, *, seq_dim: int) -> None:
+        """Write a chunk into a cache buffer in place at the write position:
+        one scalar offset, or per row (length-aware when ``chunk_lengths``
+        rides the call, so frozen rows leave their cache untouched)."""
+        if not self.decode_ragged:
+            pos = idx.long() + torch.arange(chunk.shape[seq_dim], device=buf.device)
+            buf.index_copy_(seq_dim, pos, chunk)
+        elif chunk_lengths is not None:
+            row_update_masked(buf, chunk, idx, chunk_lengths, seq_dim=seq_dim)
+        else:
+            row_update(buf, chunk, idx, seq_dim=seq_dim)
+
+    def _cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+        if resolve_decode_backend(self.decode_attention, q.device) == "blocked":
+            return self._blocked_cached_attention(q, k, v, cache, chunk_lengths)
+        _, s, n, _ = q.shape
+        length = cache.key.shape[1]
+        idx = self._advance(cache, s, chunk_lengths)
+        self._write(cache.key, k.to(cache.key.dtype), idx, chunk_lengths, seq_dim=1)
+        self._write(cache.value, v.to(cache.value.dtype), idx, chunk_lengths, seq_dim=1)
+        k_full = repeat_kv(cache.key.to(self.dtype), n)
+        v_full = repeat_kv(cache.value.to(self.dtype), n)
+        # Query i sits at absolute position idx + i: attend every slot at or
+        # before it (which also hides the zeroed tail).
+        steps = torch.arange(s, device=q.device)
+        k_pos = torch.arange(length, device=q.device)
+        if self.decode_ragged:
+            q_pos = idx[:, None, None] + steps[None, :, None]       # (B, S, 1)
+            mask = k_pos[None, None, :] <= q_pos
+        else:
+            q_pos = idx + steps[:, None]                             # (S, 1)
+            mask = k_pos[None, :] <= q_pos
+        if self.window is not None:
+            mask = mask & (k_pos > q_pos - self.window)
+        mask = mask[:, None] if self.decode_ragged else mask[None, None]
+        return dot_product_attention(q, k_full, v_full, mask=mask)
+
+    def _blocked_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+        """The length-aware kernel over the ``(B, N_kv, L, H)`` cache. Ragged
+        single-token steps fold the write into the kernel; other chunks are
+        written first."""
+        s = q.shape[1]
+        idx = self._advance(cache, s, chunk_lengths)
+        k_sm = k.to(cache.key.dtype).transpose(1, 2).contiguous()   # (B, N_kv, S, H)
+        v_sm = v.to(cache.value.dtype).transpose(1, 2).contiguous()
+        kwargs = dict(window=self.window, block_k=self.decode_block_k)
+        if self.decode_ragged and s == 1:
+            out, _, _ = decode_attention(
+                q, cache.key, cache.value, idx, k_new=k_sm, v_new=v_sm,
+                write_enable=chunk_lengths, **kwargs,
+            )
+            return out
+        self._write(cache.key, k_sm, idx, chunk_lengths, seq_dim=2)
+        self._write(cache.value, v_sm, idx, chunk_lengths, seq_dim=2)
+        return decode_attention(q, cache.key, cache.value, idx, **kwargs)

@@ -1,0 +1,272 @@
+"""Decoder-only transformer: embed → N pre-LN blocks → final norm → logits.
+
+Port of ``learning_jax_sharding_tpu/models/transformer.py``. Field names and
+defaults of :class:`TransformerConfig` follow the JAX config; dtypes are
+torch dtypes. The parameter init mirrors Flax's (normal(0.02) embeddings and
+``lm_head``, lecun-normal projections, unit norms), drawn from a seeded
+``torch.Generator``; ``models/convert.py`` carries a JAX parameter tree
+across instead.
+
+Not ported yet: MoE feed-forwards, quantized projections, the fused norm
+kernel, ``scan_layers``, ``remat``, custom ``attn_fn`` backends and the paged
+cache; each raises ``NotImplementedError`` naming the slice that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from learning_jax_sharding_tpu_torch import resolve_device
+from learning_jax_sharding_tpu_torch.models.attention import (
+    KVCache,
+    MultiHeadAttention,
+    linear,
+    make_linear,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Model hyperparameters (the JAX config's fields this slice uses)."""
+
+    vocab_size: int = 50304
+    num_layers: int = 12
+    features: int = 768
+    num_heads: int = 12
+    head_dim: int = 64
+    num_kv_heads: int | None = None
+    rope: bool = False
+    rope_theta: float = 10_000.0
+    window: int | None = None
+    hidden: int = 3072
+    max_seq_len: int = 1024
+    dropout_rate: float = 0.0
+    causal: bool = True
+    use_bias: bool = False
+    norm_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    scan_layers: bool = False
+    attn_fn: object = None
+    num_experts: int = 0
+    norm: str = "layernorm"
+    fused_norm: bool = False
+    decode: bool = False
+    kv_cache_dtype: torch.dtype | None = None
+    decode_attention: str = "auto"
+    decode_block_k: int | None = None
+    decode_ragged: bool = False
+    decode_paged: bool = False
+    quantization: str | None = None
+
+    def __post_init__(self):
+        later = {
+            "num_experts": (self.num_experts > 0, "the MoE slice"),
+            "quantization": (self.quantization is not None, "the quantized-serving slice"),
+            "fused_norm": (self.fused_norm, "the fused-norm slice"),
+            "scan_layers": (self.scan_layers, "the training slice"),
+            "remat": (self.remat, "the training slice"),
+            "attn_fn": (self.attn_fn is not None, "the training slice"),
+            "decode_paged": (self.decode_paged, "the continuous-engine slice"),
+        }
+        for name, (used, where) in later.items():
+            if used:
+                raise NotImplementedError(f"{name}: ported with {where}")
+
+
+#: The 125M flagship: 12 × 768, 12 heads × 64, GPT-2-small shape.
+CONFIG_125M = TransformerConfig()
+
+#: Small config for tests.
+CONFIG_TINY = TransformerConfig(
+    vocab_size=256,
+    num_layers=2,
+    features=64,
+    num_heads=4,
+    head_dim=16,
+    hidden=128,
+    max_seq_len=64,
+    dtype=torch.float32,
+)
+
+
+class Norm(nn.Module):
+    """Flax ``LayerNorm`` / ``RMSNorm``: statistics in fp32 (LayerNorm with
+    the fast variance E[x²] − E[x]², clipped at 0), scale and bias applied
+    in fp32, the result cast to the compute dtype."""
+
+    def __init__(self, kind: str, features: int, *, eps: float, dtype, param_dtype, device):
+        super().__init__()
+        if kind not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"unknown norm {kind!r}: expected 'layernorm' or 'rmsnorm'")
+        self.kind, self.eps, self.dtype = kind, eps, dtype
+        self.weight = nn.Parameter(torch.ones(features, dtype=param_dtype, device=device))
+        self.bias = None
+        if kind == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(features, dtype=param_dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.kind == "layernorm":
+            mean = xf.mean(-1, keepdim=True)
+            var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+            y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+            y = y + self.bias.float()
+        else:
+            var = (xf * xf).mean(-1, keepdim=True)
+            y = xf * (torch.rsqrt(var + self.eps) * self.weight.float())
+        return y.to(self.dtype)
+
+
+def make_norm(kind: str, features: int, dtype, param_dtype, eps: float = 1e-6, *, device=None) -> Norm:
+    """``"layernorm"`` (scale + bias) or ``"rmsnorm"`` (scale only)."""
+    return Norm(kind, features, eps=eps, dtype=dtype, param_dtype=param_dtype, device=device)
+
+
+class FeedForward(nn.Module):
+    """Position-wise FF: up-project → tanh GELU (Flax ``nn.gelu``) → down."""
+
+    def __init__(self, features: int, hidden: int, *, use_bias=False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(bias=use_bias, dtype=param_dtype, device=device, generator=generator)
+        self.up = make_linear(features, hidden, **kw)
+        self.down = make_linear(hidden, features, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = nn.functional.gelu(linear(self.up, x, self.dtype), approximate="tanh")
+        return linear(self.down, h, self.dtype)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: x + Attn(LN(x)); x + FF(LN(x))."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, generator=None):
+        super().__init__()
+        norm = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        self.ln_attn = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
+        self.attn = MultiHeadAttention(
+            cfg.features, cfg.num_heads, cfg.head_dim,
+            num_kv_heads=cfg.num_kv_heads, rope=cfg.rope, rope_theta=cfg.rope_theta,
+            window=cfg.window, dropout_rate=cfg.dropout_rate, causal=cfg.causal,
+            use_bias=cfg.use_bias, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+            attn_fn=cfg.attn_fn, decode=cfg.decode,
+            max_decode_len=cfg.max_seq_len if cfg.decode else 0,
+            kv_cache_dtype=cfg.kv_cache_dtype, decode_attention=cfg.decode_attention,
+            decode_block_k=cfg.decode_block_k, decode_ragged=cfg.decode_ragged,
+            decode_paged=cfg.decode_paged, quantization=cfg.quantization,
+            device=device, generator=generator,
+        )
+        self.ln_ff = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
+        self.ff = FeedForward(
+            cfg.features, cfg.hidden, use_bias=cfg.use_bias, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, device=device, generator=generator,
+        )
+
+    def forward(self, x, *, cache: KVCache | None = None, chunk_lengths=None):
+        x = x + self.attn(self.ln_attn(x), cache=cache, chunk_lengths=chunk_lengths)
+        return x + self.ff(self.ln_ff(x))
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """The model's decode state: one :class:`KVCache` per block plus the
+    position counter of the learned position table (a scalar, or ``(B,)``
+    when ragged). Updated IN PLACE by every decode forward."""
+
+    layers: list[KVCache]
+    position: torch.Tensor
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM. Runs on ``cuda`` unless ``device`` says otherwise
+    (``device="cpu"`` for the plain path); raises when no GPU is present and
+    none was asked for. ``seed`` drives the Flax-mirroring init."""
+
+    def __init__(self, config: TransformerConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.tok_embed = nn.Embedding(
+            cfg.vocab_size, cfg.features, dtype=cfg.param_dtype, device=device
+        )
+        self.pos_embed = None
+        if not cfg.rope:
+            self.pos_embed = nn.Parameter(
+                torch.empty(cfg.max_seq_len, cfg.features, dtype=cfg.param_dtype, device=device)
+            )
+        self.blocks = nn.ModuleList(
+            TransformerBlock(cfg, device=device, generator=gen)
+            for _ in range(cfg.num_layers)
+        )
+        self.ln_out = make_norm(
+            cfg.norm, cfg.features, cfg.dtype, cfg.param_dtype, cfg.norm_eps, device=device
+        )
+        self.lm_head = nn.Linear(
+            cfg.features, cfg.vocab_size, bias=False, dtype=cfg.param_dtype, device=device
+        )
+        with torch.no_grad():
+            nn.init.normal_(self.tok_embed.weight, 0.0, 0.02, generator=gen)
+            if self.pos_embed is not None:
+                nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=gen)
+            nn.init.normal_(self.lm_head.weight, 0.0, 0.02, generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    def init_cache(self, batch: int) -> DecodeCache:
+        """Zeroed decode caches for ``batch`` rows (decode configs only)."""
+        cfg = self.config
+        if not cfg.decode:
+            raise ValueError("init_cache requires a decode config (decode=True)")
+        return DecodeCache(
+            layers=[blk.attn.init_cache(batch, self.device) for blk in self.blocks],
+            position=torch.zeros(
+                (batch,) if cfg.decode_ragged else (), dtype=torch.int32, device=self.device
+            ),
+        )
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        *,
+        cache: DecodeCache | None = None,
+        chunk_lengths: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """``(B, S)`` token ids → ``(B, S, V)`` logits in the compute dtype.
+        Decode configs take a ``cache`` (updated in place); ``chunk_lengths``
+        is ragged decode only: per-row valid tokens of this chunk."""
+        cfg = self.config
+        b, s = tokens.shape
+        if s > cfg.max_seq_len:
+            raise ValueError(f"sequence length {s} exceeds max_seq_len {cfg.max_seq_len}")
+        if chunk_lengths is not None and not (cfg.decode and cfg.decode_ragged):
+            raise ValueError("chunk_lengths requires decode=True and decode_ragged=True")
+        if cfg.decode != (cache is not None):
+            raise ValueError("a decode config takes a DecodeCache, and only a decode config does")
+        tokens = tokens.long()
+        x = self.tok_embed(tokens).to(cfg.dtype)
+        if self.pos_embed is not None:
+            steps = torch.arange(s, device=tokens.device)
+            if cache is None:
+                positions = steps
+            elif cfg.decode_ragged:
+                positions = cache.position[:, None] + steps                  # (B, S)
+            else:
+                positions = cache.position + steps
+            x = x + self.pos_embed[positions.long()].to(cfg.dtype)
+            if cache is not None:
+                cache.position += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
+        for i, block in enumerate(self.blocks):
+            x = block(
+                x, cache=None if cache is None else cache.layers[i],
+                chunk_lengths=chunk_lengths,
+            )
+        return linear(self.lm_head, self.ln_out(x), cfg.dtype)
