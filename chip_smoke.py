@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``learning_jax_sharding_tpu_torch/csrc``
-(into ``build/torch_kernels/``), holds it against its plain PyTorch version
-on the card, then drives the port's main path, KV-cached greedy generation of
-the 125M model (seeded random weights, bf16) through ``make_generate_fn``,
-and checks the result against a teacher-forced dense forward. Every phase
-raises on failure; the last line is the JSON ``{"ok": true, "device": ...}``.
-Exits non-zero, printing no result, without a CUDA device.
+Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
+(into ``build/torch_kernels/``, one ``nvcc`` per source, in parallel) and
+holds each against its plain PyTorch version on the card. Then drives the
+port's two main paths at the 125M model's full width and depth (seeded
+random weights): KV-cached greedy generation in bf16 through
+``make_generate_fn``, checked against a teacher-forced dense forward; and
+the train step (flash attention, fused loss, AdamW, b=8, s=1024,
+8 steps per call) through ``make_train_step``, checked for descent and
+against the dense attention path. Each path's kernel launches are counted
+from zero around one run. Times the paths and the kernels, profiles both
+paths, and prints the ``kernels`` JSON line, the card's name and power
+limit, and last the JSON ``{"ok": true, "device": ...}``. Every phase raises
+on failure. Exits non-zero, printing no result, without a CUDA device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -23,25 +32,67 @@ import time
 import torch
 
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
-from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_125M, Transformer
+from learning_jax_sharding_tpu_torch.models.transformer import (
+    CONFIG_125M,
+    Transformer,
+    fused_next_token_loss,
+)
 from learning_jax_sharding_tpu_torch.ops import _build
+from learning_jax_sharding_tpu_torch.ops import flash_attention as flash
 from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
 )
+from learning_jax_sharding_tpu_torch.training.loop import adamw
+from learning_jax_sharding_tpu_torch.training.pipeline import (
+    make_train_step,
+    sharded_train_state,
+)
 from learning_jax_sharding_tpu_torch.utils.bench import (
     device_peak_flops,
     device_peak_hbm_bw,
+    mfu,
     time_fn,
 )
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16: both sides accumulate in fp32, the output rounds to bf16 (2^-8
 # relative at |out| ≲ 2).
+FLASH_TOL = {
+    # fp32: only the order of fp32 sums differs. Grads relative to the
+    # largest reference magnitude.
+    torch.float32: dict(out=1e-4, lse=1e-4, dq=1e-3, dk=1e-3, dv=1e-3),
+    # bf16: p and ds round to bf16 at other points of the online softmax
+    # than in the dense plain version (2^-8 relative), outputs round to bf16.
+    torch.bfloat16: dict(out=2e-2, lse=2e-2, dq=2e-2, dk=2e-2, dv=2e-2),
+}
 B, PROMPT, NEW = 8, 128, 128
 TF_GAP = 0.1   # teacher-forced: generated token's logit vs the position's max
 KERNEL_SOURCE = "learning_jax_sharding_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "learning_jax_sharding_tpu/ops/decode_attention.py:83"
+FLASH_SOURCE = "learning_jax_sharding_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "fwd": "learning_jax_sharding_tpu/ops/flash_attention.py:175",
+    "bwd_dkv": "learning_jax_sharding_tpu/ops/flash_attention.py:314",
+    "bwd_dq": "learning_jax_sharding_tpu/ops/flash_attention.py:380",
+}
+# The train step: bench.py's shape (b=8, s=1024, 8 steps per call).
+TRAIN_B, TRAIN_S, K_STEPS, DESCENT_STEPS = 8, 1024, 8, 10
+TRAIN_LOSS = dict(
+    loss_fn=functools.partial(fused_next_token_loss, chunk_size=128),
+    loss_needs_params=True, apply_kwargs={"return_hidden": True},
+)
+# Flash against dense attention, one bf16 step on the same weights: the two
+# round p to bf16 at other points (online vs dense softmax).
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-2, 5e-2
+FLASH_SHAPES = {
+    "125m_causal": dict(b=8, s=1024, n=12, n_kv=12, h=64, causal=True),
+    "case6_noncausal": dict(b=8, s=256, n=8, n_kv=8, h=64, causal=False),
+    "gqa_window_h128": dict(b=2, s=512, n=16, n_kv=4, h=128, causal=True, window=128),
+    "partial_tile_s200": dict(b=2, s=200, n=4, n_kv=4, h=64, causal=True),
+    # S_q < S_kv: keys past the last query get zero dk/dv from empty sweeps.
+    "unequal_lengths": dict(b=2, s=192, s_kv=320, n=4, n_kv=4, h=64, causal=True),
+}
 
 
 def log(msg: str) -> None:
@@ -117,6 +168,65 @@ def check_kernel(gen):
         ]
         errs[dtype] = max(cases)
     return errs
+
+
+def fold_rows(x, group):
+    """``(B, S, N, H)`` → the kernels' ``(B·N_kv, S·group, H)`` rows."""
+    b, s, n, h = x.shape
+    return (x.reshape(b, s, n // group, group, h).permute(0, 2, 1, 3, 4)
+            .reshape(b * n // group, s * group, h).contiguous())
+
+
+def flash_case(name, gen, dtype, *, b, s, n, n_kv, h, causal, window=None, s_kv=None):
+    """The three flash kernels against their plain versions on one shape →
+    errors: fwd ``out``/``lse`` absolute, bwd grads relative to the largest
+    reference magnitude. The backward pair gets the plain forward's
+    ``out``/``lse``, so each kernel is held on the same inputs."""
+    group, s_kv = n // n_kv, s if s_kv is None else s_kv
+    q = fold_rows(randn(gen, b, s, n, h, dtype=dtype), group)
+    k = fold_rows(randn(gen, b, s_kv, n_kv, h, dtype=dtype), 1)
+    v = fold_rows(randn(gen, b, s_kv, n_kv, h, dtype=dtype), 1)
+    do = randn(gen, *q.shape, dtype=dtype)
+    kw = dict(scale=h**-0.5, causal=causal, window=window, group=group)
+    out, lse = flash._fwd(q, k, v, kw["scale"], causal, window, group)
+    ref_out, ref_lse = flash.flash_attention_fwd_reference(q, k, v, **kw)
+    grads = flash._bwd(q, k, v, ref_out, ref_lse, do, kw["scale"], causal, window, group)
+    ref_grads = flash.flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do, **kw)
+    torch.cuda.synchronize()
+    errs = {
+        "out": (out.float() - ref_out.float()).abs().max().item(),
+        "lse": (lse - ref_lse).abs().max().item(),
+    }
+    abs_errs = dict(errs)
+    for gname, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name} {dtype}: non-finite {gname}")
+        abs_errs[gname] = (got.float() - want.float()).abs().max().item()
+        errs[gname] = abs_errs[gname] / want.float().abs().max().item()
+    tol = FLASH_TOL[dtype]
+    log(f"[flash] {name} {str(dtype)[6:]}: " + ", ".join(
+        f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"flash {name} {dtype}: errors {bad} over {tol}")
+    return errs, abs_errs
+
+
+def check_flash(gen):
+    """``FLASH_SHAPES`` in fp32 and bf16: (a) the 125M train step, (b)
+    non-causal (case6), (c) GQA + window at H=128 (fully masked rows at tile
+    edges), (d) a partial tile, (e) unequal q/kv lengths → the largest error
+    of each kernel per dtype, as checked and absolute."""
+    outputs = {"fwd": ("out", "lse"), "bwd_dkv": ("dk", "dv"), "bwd_dq": ("dq",)}
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [flash_case(name, gen, dtype, **kw) for name, kw in FLASH_SHAPES.items()]
+        for which, idx in (("checked", 0), ("abs", 1)):
+            worst[dtype, which] = {
+                kernel: max(c[idx][o] for c in cases for o in outs)
+                for kernel, outs in outputs.items()
+            }
+    return worst
 
 
 def teacher_forced_gap(model, out, starts, ends):
@@ -208,39 +318,201 @@ def run_main_path(params, gen, tf_model, card):
                 tok_s=tok_s, ms_per_step=sec / NEW * 1e3, gap=max(gap, gap_r))
 
 
-def profile_generate(params, gen, ms_per_step):
-    """Where a token step's time goes: one rectangular generate call under
-    torch.profiler → device kernels per step, device-busy time per step, and
-    the idle share against the unprofiled ms/step."""
+def profile_summary(label, run, steps, ms_per_step):
+    """Where a step's time goes: ``run()`` (``steps`` steps) once under
+    torch.profiler → device kernels per step, device-busy time per step, the
+    idle share against the unprofiled ms/step, and the top 6 kernels."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = torch.randint(0, CONFIG_125M.vocab_size, (B, PROMPT), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    rect = make_generate_fn(CONFIG_125M, max_new_tokens=NEW, inference_dtype=torch.bfloat16)
-    rect(params, prompt)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rect(params, prompt)
+        run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # Device activity without the ranges that annotations (such as the
+    # optimizer's step) draw over the kernels they enclose.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        raise AssertionError("the profiler saw no device kernels")
+        raise AssertionError(f"{label}: the profiler saw no device kernels")
     busy_us, by_name = 0.0, Counter()
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
         busy_us += dur
         by_name[e.name] += dur
-    busy_ms = busy_us / 1e3 / NEW
-    top = [(name[:60], round(us / 1e3 / NEW, 4)) for name, us in by_name.most_common(6)]
-    row = dict(kernels_per_step=len(kernels) / NEW, busy_ms_per_step=busy_ms,
+    busy_ms = busy_us / 1e3 / steps
+    top = [(name[:60], round(us / 1e3 / steps, 4)) for name, us in by_name.most_common(6)]
+    row = dict(kernels_per_step=len(kernels) / steps, busy_ms_per_step=busy_ms,
                idle_share=1 - busy_ms / ms_per_step, top_ms_per_step=top)
-    log(f"[profile] per token step: {row['kernels_per_step']:.1f} device kernels, "
+    log(f"[profile] {label}, per step: {row['kernels_per_step']:.1f} device kernels, "
         f"device busy {busy_ms:.3f} ms of {ms_per_step:.3f} ms unprofiled "
         f"(idle share {row['idle_share']:.3f}); top: {top}")
     return row
+
+
+def profile_generate(params, gen, ms_per_step):
+    """One rectangular generate call under the profiler, per token step."""
+    prompt = torch.randint(0, CONFIG_125M.vocab_size, (B, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    rect = make_generate_fn(CONFIG_125M, max_new_tokens=NEW, inference_dtype=torch.bfloat16)
+    rect(params, prompt)
+    torch.cuda.synchronize()
+    return profile_summary("125M generate token step", lambda: rect(params, prompt),
+                           NEW, ms_per_step)
+
+
+def train_batch(gen, vocab):
+    """One seeded (b, s) batch: inputs and the targets shifted by one."""
+    tokens = torch.randint(0, vocab, (TRAIN_B, TRAIN_S + 1), generator=gen, device="cuda")
+    return {"inputs": tokens[:, :-1].contiguous(), "targets": tokens[:, 1:].contiguous()}
+
+
+def step_check(batch):
+    """One bf16 loss and gradient of the 125M model through the flash
+    kernels and through the dense attention path (``attn_fn=None``), from
+    the same seeded weights → both losses, their difference, and the worst
+    relative Frobenius error of a parameter's gradient."""
+    losses, grads = {}, {}
+    for name, attn_fn in (("flash", flash.make_flash_attn_fn()), ("dense", None)):
+        model = Transformer(dataclasses.replace(CONFIG_125M, attn_fn=attn_fn),
+                            device="cuda", seed=0)
+        hidden = model(batch["inputs"], return_hidden=True)
+        loss = fused_next_token_loss(hidden, batch, model, chunk_size=128)
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        del model, hidden, loss
+    loss_err = abs(losses["flash"] - losses["dense"])
+    rel = {n: ((g - grads["dense"][n]).norm() / grads["dense"][n].norm()).item()
+           for n, g in grads["flash"].items()}
+    worst = max(rel, key=rel.get)
+    log(f"[train] flash vs dense, one step: loss {losses['flash']:.6f} vs "
+        f"{losses['dense']:.6f} (diff {loss_err:.2e}, tol {STEP_LOSS_TOL:g}); worst grad "
+        f"rel Frobenius err {rel[worst]:.3e} ({worst}, tol {STEP_GRAD_TOL:g})")
+    if not loss_err <= STEP_LOSS_TOL:
+        raise AssertionError(f"flash vs dense loss differ by {loss_err}")
+    if not rel[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"flash vs dense grad of {worst} differs by {rel[worst]}")
+    return dict(loss_flash=losses["flash"], loss_dense=losses["dense"],
+                loss_diff=loss_err, worst_grad_rel_err=rel[worst], worst_grad=worst)
+
+
+def run_train_path(gen, card):
+    """The 125M train step through ``make_train_step``: descent over 10
+    steps on one batch, the kernel launches of one 8-step call, its time."""
+    cfg = dataclasses.replace(CONFIG_125M, attn_fn=flash.make_flash_attn_fn())
+    state = sharded_train_state(Transformer(cfg, device="cuda", seed=0), adamw(3e-4))
+    batch = train_batch(gen, cfg.vocab_size)
+
+    step = make_train_step(**TRAIN_LOSS)
+    losses = torch.stack([step(state, batch)[1] for _ in range(DESCENT_STEPS)]).tolist()
+    log(f"[train] {DESCENT_STEPS} steps on one batch, losses {[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not descend: {losses}")
+
+    multi = make_train_step(steps_per_call=K_STEPS, **TRAIN_LOSS)
+    stacked = {k: v.expand(K_STEPS, *v.shape) for k, v in batch.items()}
+    multi(state, stacked)                                   # warm-up
+    torch.cuda.synchronize()
+    flash.flash_attention.launches = dict.fromkeys(flash.flash_attention.launches, 0)
+    _, call_losses = multi(state, stacked)
+    torch.cuda.synchronize()
+    launches = dict(flash.flash_attention.launches)
+    want = K_STEPS * cfg.num_layers
+    log(f"[main] 125M train step, one {K_STEPS}-step call: launches {launches} (want {want} each)")
+    if launches != dict.fromkeys(launches, want):
+        raise AssertionError(f"one {K_STEPS}-step call launched {launches}, want {want} each")
+    if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
+        raise AssertionError(f"the {K_STEPS}-step call returned {call_losses}")
+
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(state, stacked)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    step_s = sorted(secs)[1] / K_STEPS
+    flops = cfg.train_step_flops(TRAIN_B, TRAIN_S)
+    row = dict(launches=launches, descent_losses=losses, ms_per_step=step_s * 1e3,
+               tok_s=TRAIN_B * TRAIN_S / step_s, mfu=mfu(flops, step_s),
+               flops_per_step=flops, call_seconds=secs)
+    log(f"[time] 125M train step b={TRAIN_B} s={TRAIN_S} bf16, flash + fused loss + AdamW: "
+        f"{row['ms_per_step']:.3f} ms/step, {row['tok_s']:.1f} tok/s, MFU {row['mfu']:.4f} "
+        f"({flops / 1e12:.3f} TFLOP/step; median of 3 {K_STEPS}-step calls: "
+        f"{[round(x, 4) for x in secs]} s) on {card}")
+    row["profile"] = profile_summary(
+        f"125M train step ({K_STEPS}-step call)", lambda: multi(state, stacked),
+        K_STEPS, row["ms_per_step"])
+    del state
+    return row
+
+
+def bound(nbytes, ops):
+    """The least time the card takes: bytes over its memory rate or
+    operations over its bf16 peak, whichever is larger (ms, and which)."""
+    t_bytes = nbytes / (device_peak_hbm_bw() or 3.35e12) * 1e3
+    t_ops = ops / (device_peak_flops() or 989e12) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_flash(gen, card):
+    """Each flash kernel, the plain versions and SDPA at the train step's
+    attention shape: folded q (96, 1024, 64) bf16, causal."""
+    b, s, n, h, scale = TRAIN_B, TRAIN_S, 12, 64, 64**-0.5
+    q, k, v, do = (fold_rows(randn(gen, b, s, n, h, dtype=torch.bfloat16), 1)
+                   for _ in range(4))
+    out, lse = flash._fwd(q, k, v, scale, True, None, 1)
+    delta = flash._delta(out, do)
+    dq, dk, dv, out2, lse2 = map(torch.empty_like, (q, k, v, out, lse))
+    common = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    args = (q, k, scale, True, None, 1)
+    kernels = {
+        "fwd": lambda: flash._launch("fwd", [t.data_ptr() for t in (q, k, v, out2, lse2)], *args),
+        "bwd_dkv": lambda: flash._launch("bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], *args),
+        "bwd_dq": lambda: flash._launch("bwd_dq", common + [dq.data_ptr()], *args),
+    }
+    kw = dict(scale=scale, causal=True)
+    plain_fwd = time_fn(flash.flash_attention_fwd_reference, q, k, v, repeats=5, inner=3, **kw)
+    plain_bwd = time_fn(flash.flash_attention_bwd_reference, q, k, v, out, lse, do,
+                        repeats=5, inner=3, **kw)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.view(b, n, s, h).detach().requires_grad_() for x in (q, k, v))
+    lib_fwd = time_fn(sdpa, qs, ks, vs, is_causal=True)
+    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    lib_bwd = time_fn(torch.autograd.grad, lib_out, (qs, ks, vs), do.view(b, n, s, h),
+                      retain_graph=True)
+    lib_fwd_bwd = time_fn(lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do.view(b, n, s, h)))
+
+    pairs = int(flash._keep_mask(s, s, 1, True, None, q.device).sum()) * b * n
+    tensor, rowvec = q.numel() * q.element_size(), lse.numel() * 4
+    work = {   # (bytes read once + written once, FLOPs)
+        "fwd": (4 * tensor + rowvec, 4 * h * pairs),
+        "bwd_dkv": (6 * tensor + 2 * rowvec, 8 * h * pairs),
+        "bwd_dq": (5 * tensor + 2 * rowvec, 6 * h * pairs),
+    }
+    rows = {}
+    for name, launch in kernels.items():
+        bound_ms, by = bound(*work[name])
+        rows[name] = dict(
+            ms=time_fn(launch) * 1e3, bound_ms=bound_ms, bound_by=by,
+            plain_ms=(plain_fwd if name == "fwd" else plain_bwd) * 1e3,
+            library_ms=(lib_fwd if name == "fwd" else lib_bwd) * 1e3,
+            bytes=work[name][0], ops=work[name][1],
+        )
+        log(f"[time] flash {name} (folded q {tuple(q.shape)}, causal, bf16): kernel "
+            f"{rows[name]['ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}), "
+            f"plain {rows[name]['plain_ms'] * 1e3:.2f} us, sdpa "
+            f"{rows[name]['library_ms'] * 1e3:.2f} us")
+    log(f"[time] sdpa {tuple(qs.shape)} bf16 causal: fwd {lib_fwd * 1e6:.2f} us, bwd "
+        f"{lib_bwd * 1e6:.2f} us, fwd+bwd {lib_fwd_bwd * 1e6:.2f} us; the plain backward "
+        f"computes dq, dk and dv together ({plain_bwd * 1e6:.2f} us) on {card}")
+    return rows, dict(sdpa_fwd_ms=lib_fwd * 1e3, sdpa_bwd_ms=lib_bwd * 1e3,
+                      sdpa_fwd_bwd_ms=lib_fwd_bwd * 1e3)
 
 
 def time_shape(gen, name, *, s, index):
@@ -261,16 +533,56 @@ def time_shape(gen, name, *, s, index):
     nbytes = 2 * q.numel() * itemsize + 2 * B * n * valid * h * itemsize
     pairs = s * index + s * (s + 1) // 2        # (query, key) pairs per (b, head)
     ops = 4 * h * pairs * B * n
-    bw = device_peak_hbm_bw() or 3.35e12
-    flops = device_peak_flops() or 989e12
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+    bound_ms, bound_by = bound(nbytes, ops)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, bytes=nbytes, ops=ops)
     log(f"[time] decode_attention {name} (q {tuple(q.shape)}, index {index}, bf16): "
         f"kernel {ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
         f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us")
     return row
+
+
+def build_kernels() -> None:
+    """Build every kernel source at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:
+        built = list(pool.map(timed, ("decode_attention", "flash_attention")))
+    for lib, secs in built:
+        log(f"[build] {lib.name} in {secs:.1f} s")
+    log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    for name, report in _build.reports.items():
+        for kernel, regs, spills in ptxas_usage(report):
+            log(f"[build] {name}: {kernel}: {regs} registers, {spills}")
+
+
+def ptxas_usage(report: str):
+    """(kernel, registers, spill line) for each kernel in nvcc's
+    ``-Xptxas=-v`` report, the kernel named by its template arguments."""
+    kernel = spills = None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention)_kernel)"
+                          r"I(\w+?)Li(\d+)E", line)
+        if entry:
+            dtype = "bf16" if "bfloat16" in entry.group(2) else "fp32"
+            kernel = f"{entry.group(1)}<{dtype}, {entry.group(3)}>"
+        elif "spill" in line:
+            spills = line.strip()
+        elif kernel and (used := re.search(r"Used (\d+) registers", line)):
+            yield kernel, int(used.group(1)), spills
+            kernel = spills = None
+
+
+def result_line(kind: str) -> dict:
+    """The last line: every phase ran on the one card this run used, so
+    the count is 1 whatever else the host shows."""
+    return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}
 
 
 def main() -> int:
@@ -283,12 +595,10 @@ def main() -> int:
     log(f"[preflight] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    lib = _build.build("decode_attention")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-
+    build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernel(gen)
+    flash_errs = check_flash(gen)
 
     model = Transformer(CONFIG_125M, device="cuda", seed=0)
     params = model.state_dict()
@@ -297,29 +607,44 @@ def main() -> int:
     tf_model.load_state_dict(params)
     del model
     main_path = run_main_path(params, gen, tf_model, card)
-
     prefill = time_shape(gen, "prefill", s=PROMPT, index=0)
     decode = time_shape(gen, "decode", s=1, index=200)
     breakdown = profile_generate(params, gen, main_path["ms_per_step"])
+    del params, tf_model
+    torch.cuda.empty_cache()
+
+    step = step_check(train_batch(gen, CONFIG_125M.vocab_size))
+    torch.cuda.empty_cache()
+    train = run_train_path(gen, card)
+    torch.cuda.empty_cache()
+    flash_times, sdpa_times = time_flash(gen, card)
     log(f"[time] measured on {card}")
 
-    entry = dict(
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entries = [dict(
         name="decode_attention", route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
         launches=main_path["rect_launches"], ragged_launches=main_path["ragged_launches"],
         max_abs_err=errs[torch.bfloat16],
         max_err_bf16=errs[torch.bfloat16], max_err_fp32=errs[torch.float32],
-        **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: decode[k] for k in timing_keys},
         shapes={"prefill": prefill, "decode": decode},
-    )
-    print(json.dumps({"kernels": [entry], "tok_s": main_path["tok_s"],
-                      "ms_per_token_step": main_path["ms_per_step"],
-                      "teacher_forced_max_gap": main_path["gap"],
-                      "step_breakdown": breakdown}))
+    )]
+    for name in ("fwd", "bwd_dkv", "bwd_dq"):
+        entries.append(dict(
+            name=f"flash_{name}", route="cuda", source=FLASH_SOURCE,
+            replaces=FLASH_REPLACES[name], launches=train["launches"][name],
+            max_abs_err=flash_errs[torch.bfloat16, "abs"][name],
+            max_err_bf16=flash_errs[torch.bfloat16, "checked"][name],
+            max_err_fp32=flash_errs[torch.float32, "checked"][name],
+            **{k: flash_times[name][k] for k in timing_keys},
+            bytes=flash_times[name]["bytes"], ops=flash_times[name]["ops"],
+        ))
+    generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
+                    teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
+    print(json.dumps({"kernels": entries, "generate": generate, "train": train,
+                      "train_step_check": step, "sdpa": sdpa_times}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0
 
 

@@ -10,10 +10,16 @@ of two backends:
   ``(B, N_kv, L, H)`` buffer, reading only each row's valid prefix; ragged
   single-token steps fold the cache write into the kernel.
 
+Outside decode mode attention runs through the dense op with a mask, or
+through a custom ``attn_fn`` backend (the flash kernels,
+``ops/flash_attention.py::make_flash_attn_fn``). Dropout on the output
+projection is a function of ``deterministic`` and an explicit generator, as
+Flax's is of ``deterministic`` and a ``"dropout"`` key; the module's
+train/eval mode plays no part.
+
 Not ported yet: int8 caches (``kv_cache_dtype=int8``) and paged pools come
-with the continuous-engine slice; custom ``attn_fn`` backends (flash, ring)
-with the training slice; quantized projections with the quantized-serving
-slice.
+with the continuous-engine slice; quantized projections with the
+quantized-serving slice.
 """
 
 from __future__ import annotations
@@ -144,6 +150,21 @@ def make_linear(in_features, out_features, *, bias, dtype, device, generator=Non
     return layer
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    (a Bernoulli draw from ``generator``) and scale the kept ones by
+    ``1 / (1 - rate)``. The masks cannot match JAX's bits (Philox against
+    threefry); the same generator state gives the same mask."""
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    probs = torch.full(x.shape, keep_prob, dtype=torch.float32, device=x.device)
+    mask = torch.bernoulli(probs, generator=generator).bool()
+    return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Flax Dense semantics: input and params cast to the compute dtype."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -182,10 +203,6 @@ class MultiHeadAttention(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if attn_fn is not None:
-            raise NotImplementedError(
-                "attn_fn backends (flash, ring): ported with the training slice"
-            )
         if kv_cache_dtype == torch.int8:
             raise NotImplementedError(
                 "int8 KV cache: ported with the continuous-engine slice"
@@ -205,6 +222,7 @@ class MultiHeadAttention(nn.Module):
         self.kv_heads = n_kv
         self.rope, self.rope_theta, self.window = rope, rope_theta, window
         self.causal, self.dtype = causal, dtype
+        self.attn_fn, self.dropout_rate = attn_fn, dropout_rate
         self.decode, self.max_decode_len = decode, max_decode_len
         self.kv_cache_dtype = kv_cache_dtype
         self.decode_attention = decode_attention
@@ -215,7 +233,6 @@ class MultiHeadAttention(nn.Module):
         self.key = make_linear(features, n_kv * head_dim, **kw)
         self.value = make_linear(features, n_kv * head_dim, **kw)
         self.out = make_linear(num_heads * head_dim, features, **kw)
-        self.dropout = nn.Dropout(dropout_rate)
 
     def init_cache(self, batch: int, device) -> KVCache:
         """Zeroed cache for ``batch`` rows in this module's backend layout."""
@@ -233,12 +250,16 @@ class MultiHeadAttention(nn.Module):
         self,
         x: torch.Tensor,
         *,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
         cache: KVCache | None = None,
         chunk_lengths: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """``cache``: decode mode only, updated in place. ``chunk_lengths``:
-        ragged decode only: per-row count of valid tokens in this chunk
-        (prefill passes the prompt lengths, a frozen row 0)."""
+        """``deterministic=False`` applies dropout (``dropout_rate > 0``),
+        drawn from ``generator``. ``cache``: decode mode only, updated in
+        place. ``chunk_lengths``: ragged decode only: per-row count of valid
+        tokens in this chunk (prefill passes the prompt lengths, a frozen
+        row 0)."""
         b, s, _ = x.shape
         if chunk_lengths is not None and not self.decode_ragged:
             raise ValueError("chunk_lengths requires decode_ragged=True")
@@ -262,7 +283,7 @@ class MultiHeadAttention(nn.Module):
 
         if cache is not None:
             out = self._cached_attention(q, k, v, cache, chunk_lengths)
-        else:
+        elif self.attn_fn is None:
             if self.window is not None:
                 if not self.causal:
                     raise ValueError("window (sliding-window attention) requires causal=True")
@@ -273,8 +294,22 @@ class MultiHeadAttention(nn.Module):
                 q, repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads),
                 mask=mask,
             )
+        else:
+            if self.window is not None:
+                raise ValueError(
+                    "window with a custom attn_fn: configure the backend "
+                    "instead (e.g. make_flash_attn_fn(window=...))"
+                )
+            # A backend takes the structural causal flag, never a mask; one
+            # that reads grouped k/v at N_kv heads (the flash kernels) gets
+            # them unrepeated.
+            if not getattr(self.attn_fn, "supports_gqa", False):
+                k, v = repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads)
+            out = self.attn_fn(q, k, v, causal=self.causal)
         out = linear(self.out, out.reshape(b, s, -1), self.dtype)
-        return self.dropout(out)
+        if self.dropout_rate > 0.0 and not deterministic:
+            out = dropout(out, self.dropout_rate, generator)
+        return out
 
     @staticmethod
     def _advance(cache: KVCache, s: int, chunk_lengths) -> torch.Tensor:
@@ -297,6 +332,12 @@ class MultiHeadAttention(nn.Module):
             row_update(buf, chunk, idx, seq_dim=seq_dim)
 
     def _cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+        if self.attn_fn is not None:
+            raise ValueError(
+                "decode mode uses the cached paths (dense or blocked); "
+                "attn_fn backends (flash/ring) are for training-length "
+                "sequences"
+            )
         if resolve_decode_backend(self.decode_attention, q.device) == "blocked":
             return self._blocked_cached_attention(q, k, v, cache, chunk_lengths)
         _, s, n, _ = q.shape

@@ -41,7 +41,7 @@ def from_flax_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
     model."""
     if "blocks" in params:
         raise NotImplementedError(
-            "scan_layers (stacked 'blocks') trees: ported with the training slice"
+            "scan_layers (stacked 'blocks') trees: ported with slice D (training breadth)"
         )
     sd = {"tok_embed.weight": _tensor(params["tok_embed"]["embedding"])}
     if not cfg.rope:

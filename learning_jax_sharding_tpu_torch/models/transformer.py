@@ -5,11 +5,15 @@ defaults of :class:`TransformerConfig` follow the JAX config; dtypes are
 torch dtypes. The parameter init mirrors Flax's (normal(0.02) embeddings and
 ``lm_head``, lecun-normal projections, unit norms), drawn from a seeded
 ``torch.Generator``; ``models/convert.py`` carries a JAX parameter tree
-across instead.
+across instead. The training path: ``Transformer.forward(...,
+return_hidden=True)`` with :func:`fused_next_token_loss` (the chunked logits
+head), or logits with :func:`next_token_loss` /
+:func:`make_next_token_loss`; custom ``attn_fn`` backends (the flash
+kernels) in the config.
 
 Not ported yet: MoE feed-forwards, quantized projections, the fused norm
-kernel, ``scan_layers``, ``remat``, custom ``attn_fn`` backends and the paged
-cache; each raises ``NotImplementedError`` naming the slice that brings it.
+kernel, ``scan_layers``, ``remat`` and the paged cache; each raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.attention import (
@@ -68,14 +73,51 @@ class TransformerConfig:
             "num_experts": (self.num_experts > 0, "the MoE slice"),
             "quantization": (self.quantization is not None, "the quantized-serving slice"),
             "fused_norm": (self.fused_norm, "the fused-norm slice"),
-            "scan_layers": (self.scan_layers, "the training slice"),
-            "remat": (self.remat, "the training slice"),
-            "attn_fn": (self.attn_fn is not None, "the training slice"),
+            "scan_layers": (self.scan_layers, "slice D (training breadth)"),
+            "remat": (self.remat, "slice D (training breadth)"),
             "decode_paged": (self.decode_paged, "the continuous-engine slice"),
         }
         for name, (used, where) in later.items():
             if used:
                 raise NotImplementedError(f"{name}: ported with {where}")
+
+    def train_step_flops(self, batch: int, seq: int) -> float:
+        """Analytic model FLOPs of one train step (fwd + bwd ≈ 3× fwd), the
+        JAX config's count: ``6 × matmul_params`` per token plus the
+        attention einsums, causal attention at half the S² (what a
+        tile-skipping kernel computes)."""
+        matmul_params = (
+            self.num_layers * (self._attn_proj_params + 2 * self.features * self.hidden)
+            + self.features * self.vocab_size        # lm_head
+        )
+        attn_per_token = (
+            4 * seq * self.num_heads * self.head_dim * self.num_layers
+        ) * (0.5 if self.causal else 1.0)
+        per_token = 6 * matmul_params + 3 * attn_per_token
+        return float(per_token) * batch * seq
+
+    @property
+    def _attn_proj_params(self) -> int:
+        """q + k + v + out projection params (k/v shrink under GQA)."""
+        kv_heads = self.num_kv_heads if self.num_kv_heads is not None else self.num_heads
+        return (
+            2 * self.features * self.num_heads * self.head_dim   # q + out
+            + 2 * self.features * kv_heads * self.head_dim       # k + v
+        )
+
+    @property
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks + head), the JAX
+        config's count."""
+        per_block = (
+            self._attn_proj_params
+            + 2 * self.features * self.hidden                    # ff up + down
+            + 4 * self.features                                  # 2 LN scale+bias
+        )
+        pos = 0 if self.rope else self.max_seq_len * self.features
+        embed = self.vocab_size * self.features + pos
+        head = self.features * self.vocab_size
+        return embed + self.num_layers * per_block + 2 * self.features + head
 
 
 #: The 125M flagship: 12 × 768, 12 heads × 64, GPT-2-small shape.
@@ -168,8 +210,12 @@ class TransformerBlock(nn.Module):
             param_dtype=cfg.param_dtype, device=device, generator=generator,
         )
 
-    def forward(self, x, *, cache: KVCache | None = None, chunk_lengths=None):
-        x = x + self.attn(self.ln_attn(x), cache=cache, chunk_lengths=chunk_lengths)
+    def forward(self, x, *, deterministic: bool = True, generator=None,
+                cache: KVCache | None = None, chunk_lengths=None):
+        x = x + self.attn(
+            self.ln_attn(x), deterministic=deterministic, generator=generator,
+            cache=cache, chunk_lengths=chunk_lengths,
+        )
         return x + self.ff(self.ln_ff(x))
 
 
@@ -237,10 +283,17 @@ class Transformer(nn.Module):
         self,
         tokens: torch.Tensor,
         *,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
+        return_hidden: bool = False,
         cache: DecodeCache | None = None,
         chunk_lengths: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        """``(B, S)`` token ids → ``(B, S, V)`` logits in the compute dtype.
+        """``(B, S)`` token ids → ``(B, S, V)`` logits in the compute dtype,
+        or with ``return_hidden`` the ``(B, S, M)`` final-norm output (for
+        :func:`fused_next_token_loss`, which applies the head chunk by
+        chunk). ``deterministic=False`` applies dropout drawn from
+        ``generator``; the default, like the JAX ``apply``, applies none.
         Decode configs take a ``cache`` (updated in place); ``chunk_lengths``
         is ragged decode only: per-row valid tokens of this chunk."""
         cfg = self.config
@@ -266,7 +319,77 @@ class Transformer(nn.Module):
                 cache.position += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
         for i, block in enumerate(self.blocks):
             x = block(
-                x, cache=None if cache is None else cache.layers[i],
+                x, deterministic=deterministic, generator=generator,
+                cache=None if cache is None else cache.layers[i],
                 chunk_lengths=chunk_lengths,
             )
-        return linear(self.lm_head, self.ln_out(x), cfg.dtype)
+        x = self.ln_out(x)
+        if return_hidden:
+            return x
+        return linear(self.lm_head, x, cfg.dtype)
+
+
+def _chunk_total(hidden: torch.Tensor, targets: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Summed fp32 cross-entropy of one chunk's logits (compute-dtype head
+    product)."""
+    logits = nn.functional.linear(hidden, head)
+    return nn.functional.cross_entropy(
+        logits.float().flatten(0, 1), targets.flatten().long(), reduction="sum"
+    )
+
+
+def fused_next_token_loss(
+    hidden: torch.Tensor, batch: dict, model: Transformer, *, chunk_size: int = 128
+) -> torch.Tensor:
+    """Causal-LM loss with a chunked logits head: O(B·chunk·V) logits.
+
+    ``hidden`` is the final-norm output (``model(tokens,
+    return_hidden=True)``), ``batch["targets"]`` the inputs shifted left by
+    one. Per sequence chunk: the head product in the compute dtype (the
+    ``(V, M)`` ``model.lm_head.weight``, cast once), then fp32
+    cross-entropy, summed; the total is divided by ``B·S``. Each chunk runs
+    under ``torch.utils.checkpoint``, so forward and backward hold the
+    logits of one chunk only, as ``jax.checkpoint`` does in the JAX loss.
+    """
+    b, s, _ = hidden.shape
+    if s % chunk_size:
+        raise ValueError(f"seq len {s} not divisible by chunk_size {chunk_size}")
+    head = model.lm_head.weight.to(hidden.dtype)
+    targets = batch["targets"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, s, chunk_size):
+        end = start + chunk_size
+        total = total + checkpoint(
+            _chunk_total, hidden[:, start:end], targets[:, start:end], head,
+            use_reentrant=False,
+        )
+    return total / (b * s)
+
+
+def next_token_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Causal-LM loss: mean fp32 cross-entropy over all positions.
+    ``batch["targets"]`` must already be the inputs shifted left by one."""
+    return nn.functional.cross_entropy(
+        logits.float().flatten(0, -2), batch["targets"].flatten().long()
+    )
+
+
+def make_next_token_loss(*, label_smoothing: float = 0.0, z_loss: float = 0.0):
+    """Causal-LM loss with label smoothing ε (``(1-ε)·nll + ε·(logsumexp −
+    mean logits)``, no one-hot) and/or a z-loss ``z_loss·logsumexp²``. The
+    defaults reproduce :func:`next_token_loss`."""
+
+    def loss_fn(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+        logits = logits.float()
+        targets = batch["targets"].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - logits.gather(-1, targets[..., None])[..., 0]
+        loss = nll
+        if label_smoothing:
+            uniform_nll = lse - logits.mean(dim=-1)
+            loss = (1.0 - label_smoothing) * nll + label_smoothing * uniform_nll
+        if z_loss:
+            loss = loss + z_loss * lse.square()
+        return loss.mean()
+
+    return loss_fn

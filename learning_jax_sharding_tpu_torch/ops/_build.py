@@ -22,10 +22,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: What nvcc printed for each source built in this process: with
+#: ``-Xptxas=-v``, every kernel's registers, shared memory and spills.
+reports: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -71,6 +74,7 @@ def build(name: str) -> Path:
             raise RuntimeError(
                 f"nvcc failed on csrc/{name}.cu:\n{result.stdout}{result.stderr}"
             )
+        reports[name] = result.stdout + result.stderr
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):

@@ -87,3 +87,12 @@ def time_fn(
         end.synchronize()
         samples.append(start.elapsed_time(end) / 1e3 / inner)
     return statistics.median(samples)
+
+
+def mfu(flops_per_iter: float, seconds_per_iter: float, name: str | None = None) -> float | None:
+    """Model-FLOPs utilization: achieved FLOP/s over the card's dense bf16
+    peak (None when the card is unknown)."""
+    peak = device_peak_flops(name)
+    if peak is None or seconds_per_iter <= 0:
+        return None
+    return flops_per_iter / seconds_per_iter / peak
