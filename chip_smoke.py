@@ -6,16 +6,20 @@
 Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
 (into ``build/torch_kernels/``, one ``nvcc`` per source, in parallel) and
 holds each against its plain PyTorch version on the card. Then drives the
-port's two main paths at the 125M model's full width and depth (seeded
-random weights): KV-cached greedy generation in bf16 through
-``make_generate_fn``, checked against a teacher-forced dense forward; and
-the train step (flash attention, fused loss, AdamW, b=8, s=1024,
-8 steps per call) through ``make_train_step``, checked for descent and
-against the dense attention path. Each path's kernel launches are counted
-from zero around one run. Times the paths and the kernels, profiles both
-paths, and prints the ``kernels`` JSON line, the card's name and power
-limit, and last the JSON ``{"ok": true, "device": ...}``. Every phase raises
-on failure. Exits non-zero, printing no result, without a CUDA device.
+port's main paths at the 125M model's full width and depth (seeded random
+weights): KV-cached greedy generation in bf16 through ``make_generate_fn``,
+checked against a teacher-forced dense forward; int4 quantized serving of
+the same model through ``make_generate_fn(dequantize="fused" |
+"fused_w4a8")`` over ``quantize_tree(bits=4)``, checked against the dense
+bf16 model on the dequantized weights, then the decode ladder (bf16, int8,
+int4-fused, int4-w4a8); and the train step (flash attention, fused loss,
+AdamW, b=8, s=1024, 8 steps per call) through ``make_train_step``, checked
+for descent and against the dense attention path. Each path's kernel
+launches are counted from zero around one run. Times the paths and the
+kernels, profiles the paths, and prints the ``kernels`` JSON line, the
+card's name and power limit, and last the JSON ``{"ok": true, "device":
+...}``. Every phase raises on failure. Exits non-zero, printing no result,
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import functools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -32,6 +37,14 @@ import time
 import torch
 
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
+from learning_jax_sharding_tpu_torch.models.quantize import (
+    dequantize_leaf_int4,
+    dequantize_tree,
+    map_unquantized,
+    quantize_leaf_int4,
+    quantize_tree,
+    quantized_bytes,
+)
 from learning_jax_sharding_tpu_torch.models.transformer import (
     CONFIG_125M,
     Transformer,
@@ -39,6 +52,8 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
 )
 from learning_jax_sharding_tpu_torch.ops import _build
 from learning_jax_sharding_tpu_torch.ops import flash_attention as flash
+from learning_jax_sharding_tpu_torch.ops import int4_ff as ff4
+from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
 from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -51,6 +66,7 @@ from learning_jax_sharding_tpu_torch.training.pipeline import (
 from learning_jax_sharding_tpu_torch.utils.bench import (
     device_peak_flops,
     device_peak_hbm_bw,
+    mbu,
     mfu,
     time_fn,
 )
@@ -93,6 +109,47 @@ FLASH_SHAPES = {
     # S_q < S_kv: keys past the last query get zero dk/dv from empty sweeps.
     "unequal_lengths": dict(b=2, s=192, s_kv=320, n=4, n_kv=4, h=64, causal=True),
 }
+INT4_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_matmul.cu"
+INT4_FF_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_ff.cu"
+INT4_REPLACES = {
+    "int4_matmul": "learning_jax_sharding_tpu/ops/int4_matmul.py:59",
+    "int4_matmul_w4a8": "learning_jax_sharding_tpu/ops/int4_matmul.py:82",
+    "int4_matmul3": "learning_jax_sharding_tpu/ops/int4_matmul.py:65",
+    "int4_ff": "learning_jax_sharding_tpu/ops/int4_ff.py:55",
+}
+# Kernel against plain version, relative to the largest reference magnitude.
+INT4_TOL = {
+    # fp32: the same products (bf16 weights exact in fp32), summed in
+    # another order; |sum| ≤ 3072 terms.
+    torch.float32: 1e-5,
+    # bf16: both round the same fp32 sums to bf16; a sum order that moves the
+    # fp32 value across a rounding boundary flips the last bit: one bf16 ulp,
+    # at most 2^-7 of the value.
+    torch.bfloat16: 2.0**-7,
+}
+# bf16 also: the share of outputs whose bf16 bits differ from the plain
+# version's. Sum order flips a few in ten thousand; rounding a weight, u or
+# the FF's down weights otherwise than the plain version moves every fp32 sum
+# by ~2^-9 and flips ~40% (tests/test_torch_quantize.py's misrounding cases),
+# a change the 2^-7 bound above cannot see.
+INT4_BF16_FLIPS = 0.01
+# w4a8: every scale group's int32 partial is exact on both sides and the
+# fp32 epilogue runs the same operations in the same order; 1e-6 allows an
+# fp32 rounding the compiler may place differently.
+W4A8_TOL = 1e-6
+# Per-projection int4 sites of the 125M model: (K, N); the FF is (K, H).
+INT4_SITES = {"qkv_out": (768, 768), "ff_up": (768, 3072), "ff_down": (3072, 768),
+              "lm_head": (768, 50304)}
+# Teacher-forced gap of the quantized runs against the dense bf16 model on the
+# dequantized weights. int4-fused: the same bf16 weights except the whole-FF
+# kernel, which keeps the hidden activation and down weights in fp32 where
+# the dense model rounds them to bf16 (2^-9 relative): TF_GAP's 0.1 holds.
+# w4a8 rounds every projection input to int8 per row: one step of amax/127
+# for the whole row, where bf16 steps by 2^-8 of each element, so a typical
+# element (a few times below the row's max) rounds several times more
+# coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
+QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
+LADDER_ROUNDS = 3
 
 
 def log(msg: str) -> None:
@@ -451,11 +508,12 @@ def run_train_path(gen, card):
     return row
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=None):
     """The least time the card takes: bytes over its memory rate or
-    operations over its bf16 peak, whichever is larger (ms, and which)."""
+    operations over its peak for their type (default bf16), whichever is
+    larger (ms, and which)."""
     t_bytes = nbytes / (device_peak_hbm_bw() or 3.35e12) * 1e3
-    t_ops = ops / (device_peak_flops() or 989e12) * 1e3
+    t_ops = ops / (peak or device_peak_flops() or 989e12) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -542,6 +600,286 @@ def time_shape(gen, name, *, s, index):
     return row
 
 
+def queued_time(fn, *args, inner=20, repeats=7, **kwargs):
+    """Median device seconds per call of ``fn``, as kernels run back to back:
+    each sample enqueues ``inner`` calls behind a sleeping kernel, so the
+    CUDA events time the device work and not the host's launch overhead
+    (which exceeds a decode-size kernel). Returns (seconds, samples whose
+    enqueue outlasted the sleep, which may hold host gaps)."""
+    for _ in range(3):
+        fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    samples, late = [], 0
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)        # ~10 ms at the H100's clocks
+        start.record()
+        for _ in range(inner):
+            fn(*args, **kwargs)
+        late += bool(start.query())          # the sleep ended before the enqueue did
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / 1e3 / inner)
+    return statistics.median(samples), late
+
+
+def int4_weight(gen, k, n, group):
+    """A seeded (K, N) kernel of the 125M init's scale, int4-quantized."""
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+    return quantize_leaf_int4(w, group)
+
+
+def rel_err(name, got, want):
+    """Max abs error of ``got`` against ``want``, the same relative to the
+    largest reference magnitude, and the share of elements that differ."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    abs_err = (got.float() - want.float()).abs().max().item()
+    flips = (got != want).float().mean().item()
+    return abs_err / want.float().abs().max().item(), abs_err, flips
+
+
+def check_int4(gen):
+    """The four int4 kernels against their plain versions in fp32 and bf16
+    activations: the 125M decode (M=8) and prefill (M=1024) shapes of every
+    site, an odd M (37), a whole-K group and group 64 → per kernel and dtype
+    the largest relative (checked) and absolute error."""
+    mat_cases = [(f"{site} {ph}", m, *INT4_SITES[site], 128)
+                 for site in ("qkv_out", "lm_head") for ph, m in (("decode", B), ("prefill", 1024))]
+    extra = [("m37", 37, 768, 768, 128), ("whole-K group", B, 768, 768, 768),
+             ("group 64", B, 768, 768, 64)]
+    w4a8_cases = [(f"{site} {ph}", m, k, n, 128) for site, (k, n) in INT4_SITES.items()
+                  for ph, m in (("decode", B), ("prefill", 1024))] + extra
+    triple_cases = [(f"qkv {ph}", m, 768, 768, 128) for ph, m in (("decode", B), ("prefill", 1024))]
+    ff_cases = [("ff decode", B, 128), ("ff prefill", 1024, 128), ("ff m37", 37, 128),
+                ("ff whole-K/H group", B, 4096), ("ff group 64", B, 64)]
+    worst = {}
+
+    def note(kernel, dtype, name, errs, tol):
+        log(f"[int4] {kernel} {name} {str(dtype)[6:]}: max err {errs[0]:.3e} of the largest "
+            f"|ref| (abs {errs[1]:.3e}, tol {tol:.3g}), {errs[2]:.2e} of outputs differ")
+        if not errs[0] <= tol:
+            raise AssertionError(f"{kernel} {name} {dtype}: relative error {errs[0]} > {tol}")
+        if dtype == torch.bfloat16 and not errs[2] <= INT4_BF16_FLIPS:
+            raise AssertionError(f"{kernel} {name}: {errs[2]} of bf16 outputs differ from the "
+                                 f"plain version's > {INT4_BF16_FLIPS}")
+        old = worst.get((kernel, dtype), (0.0, 0.0))
+        worst[kernel, dtype] = (max(old[0], errs[0]), max(old[1], errs[1]))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = INT4_TOL[dtype]
+        for name, m, k, n, g in mat_cases + extra:
+            node = int4_weight(gen, k, n, g)
+            x = randn(gen, m, k, dtype=dtype)
+            got = mm4.int4_matmul(x, node["q4"], node["scale"], group=min(g, k))
+            want = mm4.int4_matmul_reference(x, node["q4"], node["scale"], group=min(g, k))
+            note("int4_matmul", dtype, name, rel_err(name, got, want), tol)
+        for name, m, k, n, g in triple_cases + extra:
+            nodes = [int4_weight(gen, k, n, g) for _ in range(3)]
+            x = randn(gen, m, k, dtype=dtype)
+            pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
+            outs = mm4.int4_matmul3(x, pairs, group=min(g, k))
+            errs = [rel_err(name, o, mm4.int4_matmul_reference(x, *pair, group=min(g, k)))
+                    for o, pair in zip(outs, pairs)]
+            note("int4_matmul3", dtype, name, tuple(map(max, zip(*errs))), tol)
+        for name, m, k, n, g in w4a8_cases:
+            node = int4_weight(gen, k, n, g)
+            x = randn(gen, m, k, dtype=dtype)
+            got = mm4.int4_matmul(x, node["q4"], node["scale"], group=min(g, k), w4a8=True)
+            xq, sx = mm4.quantize_rows_int8(x)
+            want = mm4.int4_matmul_w4a8_reference(xq, sx, node["q4"], node["scale"],
+                                                  group=min(g, k), out_dtype=dtype)
+            note("int4_matmul_w4a8", dtype, name, rel_err(name, got, want),
+                 W4A8_TOL if dtype == torch.float32 else tol)
+        for name, m, g in ff_cases:
+            up, dn = int4_weight(gen, 768, 3072, g), int4_weight(gen, 3072, 768, g)
+            x = randn(gen, m, 768, dtype=dtype)
+            args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
+            got = ff4.int4_ff(x, *args, group=g)
+            want = ff4.int4_ff_reference(x, *args, group=g)
+            note("int4_ff", dtype, name, rel_err(name, got, want), tol)
+    torch.cuda.synchronize()
+    return worst
+
+
+INT4_KERNELS = ("int4_matmul", "int4_matmul_w4a8", "int4_matmul3", "int4_ff")
+
+
+def reset_launches() -> None:
+    decode_attention.launches = 0
+    mm4.int4_matmul.launches = dict.fromkeys(mm4.int4_matmul.launches, 0)
+    mm4.int4_matmul3.launches = 0
+    ff4.int4_ff.launches = 0
+
+
+def read_launches() -> dict:
+    return {"int4_matmul": mm4.int4_matmul.launches["w4a16"],
+            "int4_matmul_w4a8": mm4.int4_matmul.launches["w4a8"],
+            "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def run_quantized_path(params, gen):
+    """int4 serving of the 125M model through ``make_generate_fn``: the
+    ``"fused"`` and ``"fused_w4a8"`` runs, each with its launches counted
+    from zero around one rectangular generate and its tokens held to the
+    dense bf16 model on the dequantized weights (teacher-forced)."""
+    cfg = CONFIG_125M
+    q4 = quantize_tree(params, bits=4)
+    tf_model = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16),
+                           device="cuda", seed=1).eval()
+    tf_model.load_state_dict(dequantize_tree(q4, torch.bfloat16))
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    layers = cfg.num_layers
+    want = {
+        "fused": {"int4_matmul": (layers + 1) * NEW, "int4_matmul_w4a8": 0,
+                  "int4_matmul3": layers * NEW, "int4_ff": layers * NEW,
+                  "decode_attention": layers * NEW},
+        "fused_w4a8": {"int4_matmul": 0, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
+                       "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW},
+    }
+    rows, fns = {}, {}
+    for mode in ("fused", "fused_w4a8"):
+        fn = fns[mode] = make_generate_fn(cfg, max_new_tokens=NEW,
+                                          inference_dtype=torch.bfloat16, dequantize=mode)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn(q4, prompt)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"[main] 125M int4 generate dequantize={mode!r} b={B} prompt {PROMPT} +{NEW}: "
+            f"launches {launches}")
+        if launches != want[mode]:
+            raise AssertionError(f"dequantize={mode!r} launched {launches}, want {want[mode]}")
+        check_output(out, B, PROMPT + NEW, cfg.vocab_size)
+        gap = teacher_forced_gap(tf_model, out, [PROMPT] * B, [PROMPT + NEW] * B)
+        log(f"[main] int4 {mode} teacher-forced max gap {gap:.4f} against the dense bf16 "
+            f"model on the dequantized weights (limit {QUANT_TF_GAP[mode]})")
+        if gap > QUANT_TF_GAP[mode]:
+            raise AssertionError(f"int4 {mode} teacher-forced gap {gap} > {QUANT_TF_GAP[mode]}")
+        rows[mode] = dict(launches=launches, teacher_forced_max_gap=gap)
+    del tf_model
+    return q4, prompt, rows, fns
+
+
+def run_ladder(params, q4, prompt, card, int4_fns):
+    """``bench.py``'s ``_decode_ladder`` at the 125M serving shape: bf16,
+    int8 (``dequantize=True``), int4-fused and int4-w4a8 (the generate
+    functions of the quantized runs), timed interleaved (every round times
+    each variant once; medians over the rounds; the process is warm from
+    the phases before, and no call compiles anything): tok/s, ms per token
+    step, served MB and MBU (served weights plus the mean valid KV cache
+    per token step over the card's memory rate)."""
+    cfg = CONFIG_125M
+
+    def to_bf16(t):
+        return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+    variants = [("bf16", {k: to_bf16(v) for k, v in params.items()}, False),
+                ("int8", quantize_tree(params), True),
+                ("int4-fused", q4, "fused"), ("int4-w4a8", q4, "fused_w4a8")]
+    fns = {"int4-fused": int4_fns["fused"], "int4-w4a8": int4_fns["fused_w4a8"]}
+    for name, _, mode in variants[:2]:
+        fns[name] = make_generate_fn(cfg, max_new_tokens=NEW, inference_dtype=torch.bfloat16,
+                                     dequantize=mode)
+    times = {name: [] for name, _, _ in variants}
+    for _ in range(LADDER_ROUNDS):
+        for name, tree, _ in variants:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name](tree, prompt)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    n_kv = cfg.num_kv_heads or cfg.num_heads
+    cache_bytes = cfg.num_layers * B * n_kv * (PROMPT + NEW / 2) * cfg.head_dim * 2 * 2
+    rows = {}
+    for name, tree, _ in variants:
+        served = quantized_bytes(map_unquantized(to_bf16, tree))
+        secs = statistics.median(times[name])
+        rows[name] = dict(tok_s=B * NEW / secs, ms_per_token_step=secs / NEW * 1e3,
+                          served_mb=served / 1e6, mbu=mbu(served + cache_bytes, secs / NEW),
+                          seconds=times[name])
+        log(f"[ladder] 125M decode, {name} (b={B}, prompt {PROMPT}, +{NEW} new): "
+            f"{rows[name]['tok_s']:,.1f} tok/s, {rows[name]['ms_per_token_step']:.3f} "
+            f"ms/token-step, served {served / 1e6:,.1f} MB, MBU={rows[name]['mbu'] or 0:.4%} "
+            f"(calls {[round(t, 4) for t in times[name]]} s) on {card}")
+    order = sorted(rows, key=lambda n: rows[n]["ms_per_token_step"])
+    log(f"[ladder] 125M decode ladder ordering (interleaved medians of {LADDER_ROUNDS}, "
+        f"fastest first): {' > '.join(order)}")
+    return rows, fns["int4-fused"]
+
+
+def time_int4(gen, card):
+    """Each int4 kernel at its 125M sites (decode M=8; the prefill M=1024
+    of the lm_head, q/k/v and FF as well), bf16: the kernel, its plain
+    version, the library yardstick (``torch.matmul`` of x with the weight
+    dequantized to bf16 beforehand; the FF: two of them and a GELU) and the
+    bound (w4a8's operations at the int8 peak, 1979 TOP/s)."""
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def record(kernel, site, m, launch, plain, library, nbytes, ops, peak):
+        ms, late = queued_time(launch)
+        plain_ms, plain_late = queued_time(plain, inner=3, repeats=5)
+        lib_ms, lib_late = queued_time(library)
+        bound_ms, by = bound(nbytes, ops, peak)
+        row = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, yardstick_ms=lib_ms * 1e3,
+                   bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
+                   late_samples=late + plain_late + lib_late)
+        rows.setdefault(kernel, {})[f"{site} m={m}"] = row
+        log(f"[time] {kernel} {site} m={m} bf16: kernel {row['ms'] * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.2f} us, bf16 "
+            f"dense yardstick {row['yardstick_ms'] * 1e3:.2f} us"
+            + (f" ({row['late_samples']} samples enqueued past the sleep)" if row["late_samples"] else ""))
+
+    int8_peak = 1979e12
+    for site, (k, n) in INT4_SITES.items():
+        node = int4_weight(gen, k, n, 128)
+        q4, s = node["q4"], node["scale"]
+        w = dequantize_leaf_int4(node, bf16)
+        wbytes = q4.numel() + s.numel() * 4
+        for m in (B, 1024) if site == "lm_head" else (B,):
+            x = randn(gen, m, k, dtype=bf16)
+            xq, sx = mm4.quantize_rows_int8(x)
+            if site in ("qkv_out", "lm_head"):
+                record("int4_matmul", site, m,
+                       lambda: mm4._launch_w4a16(x, [(q4, s)], group=128),
+                       lambda: mm4.int4_matmul_reference(x, q4, s, group=128),
+                       lambda: torch.matmul(x, w),
+                       2 * m * k + wbytes + 2 * m * n, 2 * m * k * n, None)
+            record("int4_matmul_w4a8", site, m,
+                   lambda: mm4._launch_w4a8(xq, sx, q4, s, group=128, out_dtype=bf16),
+                   lambda: mm4.int4_matmul_w4a8_reference(xq, sx, q4, s, group=128,
+                                                          out_dtype=bf16),
+                   lambda: torch.matmul(x, w),
+                   m * k + 4 * m + wbytes + 2 * m * n, 2 * m * k * n, int8_peak)
+    nodes = [int4_weight(gen, 768, 768, 128) for _ in range(3)]
+    pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
+    w_qkv = torch.cat([dequantize_leaf_int4(nd, bf16) for nd in nodes], dim=1)
+    wbytes = sum(q.numel() + sc.numel() * 4 for q, sc in pairs)
+    for m in (B, 1024):
+        x = randn(gen, m, 768, dtype=bf16)
+        record("int4_matmul3", "qkv", m, lambda: mm4._launch_w4a16(x, pairs, group=128),
+               lambda: [mm4.int4_matmul_reference(x, *p, group=128) for p in pairs],
+               lambda: torch.matmul(x, w_qkv),
+               2 * m * 768 + wbytes + 3 * 2 * m * 768, 3 * 2 * m * 768 * 768, None)
+    up, dn = int4_weight(gen, 768, 3072, 128), int4_weight(gen, 3072, 768, 128)
+    args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
+    w1, w2 = dequantize_leaf_int4(up, bf16), dequantize_leaf_int4(dn, bf16)
+    wbytes = sum(t.numel() * t.element_size() for t in args)
+    gelu = torch.nn.functional.gelu
+    for m in (B, 1024):
+        x = randn(gen, m, 768, dtype=bf16)
+        record("int4_ff", "ff", m, lambda: ff4._launch_cuda(x, *args, group=128),
+               lambda: ff4.int4_ff_reference(x, *args, group=128),
+               lambda: torch.matmul(gelu(torch.matmul(x, w1), approximate="tanh"), w2),
+               2 * m * 768 + wbytes + 2 * m * 768, 2 * 2 * m * 768 * 3072, None)
+    log(f"[time] int4 kernels measured on {card}")
+    return rows
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one ``nvcc`` each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -553,7 +891,8 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        built = list(pool.map(timed, ("decode_attention", "flash_attention")))
+        built = list(pool.map(timed, ("decode_attention", "flash_attention", "int4_matmul",
+                                      "int4_ff")))
     for lib, secs in built:
         log(f"[build] {lib.name} in {secs:.1f} s")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
@@ -567,11 +906,13 @@ def ptxas_usage(report: str):
     ``-Xptxas=-v`` report, the kernel named by its template arguments."""
     kernel = spills = None
     for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention)_kernel)"
-                          r"I(\w+?)Li(\d+)E", line)
+        entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
+                          r"|int4_matmul(?:_w4a8)?|int4_ff(?:_reduce)?)_kernel)"
+                          r"I(\w+?)(?:Li(\d+))?E", line)
         if entry:
             dtype = "bf16" if "bfloat16" in entry.group(2) else "fp32"
-            kernel = f"{entry.group(1)}<{dtype}, {entry.group(3)}>"
+            args = dtype if entry.group(3) is None else f"{dtype}, {entry.group(3)}"
+            kernel = f"{entry.group(1)}<{args}>"
         elif "spill" in line:
             spills = line.strip()
         elif kernel and (used := re.search(r"Used (\d+) registers", line)):
@@ -599,6 +940,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernel(gen)
     flash_errs = check_flash(gen)
+    int4_errs = check_int4(gen)
 
     model = Transformer(CONFIG_125M, device="cuda", seed=0)
     params = model.state_dict()
@@ -610,7 +952,18 @@ def main() -> int:
     prefill = time_shape(gen, "prefill", s=PROMPT, index=0)
     decode = time_shape(gen, "decode", s=1, index=200)
     breakdown = profile_generate(params, gen, main_path["ms_per_step"])
-    del params, tf_model
+    del tf_model
+    torch.cuda.empty_cache()
+
+    q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
+    ladder, fused_fn = run_ladder(params, q4, q_prompt, card, int4_fns)
+    del int4_fns
+    quant_breakdown = profile_summary(
+        "125M int4-fused generate token step", lambda: fused_fn(q4, q_prompt), NEW,
+        ladder["int4-fused"]["ms_per_token_step"])
+    del params, q4, fused_fn
+    torch.cuda.empty_cache()
+    int4_times = time_int4(gen, card)
     torch.cuda.empty_cache()
 
     step = step_check(train_batch(gen, CONFIG_125M.vocab_size))
@@ -639,10 +992,36 @@ def main() -> int:
             **{k: flash_times[name][k] for k in timing_keys},
             bytes=flash_times[name]["bytes"], ops=flash_times[name]["ops"],
         ))
+    # The int4 kernels: top-level numbers at the 768 x 768 decode site (q, k,
+    # v, out: most of the launches), every timed site under "shapes".
+    main_site = {"int4_matmul": "qkv_out m=8", "int4_matmul_w4a8": "qkv_out m=8",
+                 "int4_matmul3": "qkv m=8", "int4_ff": "ff m=8"}
+    main_run = {"int4_matmul": "fused", "int4_matmul_w4a8": "fused_w4a8",
+                "int4_matmul3": "fused", "int4_ff": "fused"}
+    for name in INT4_KERNELS:
+        row = int4_times[name][main_site[name]]
+        entries.append(dict(
+            name=name, route="cuda", source=INT4_FF_SOURCE if name == "int4_ff" else INT4_SOURCE,
+            replaces=INT4_REPLACES[name], launches=quant[main_run[name]]["launches"][name],
+            max_abs_err=int4_errs[name, torch.bfloat16][1],
+            max_err_bf16=int4_errs[name, torch.bfloat16][0],
+            max_err_fp32=int4_errs[name, torch.float32][0],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"],
+            # No PyTorch call computes a product on packed int4. The yardstick
+            # is torch.matmul on the weights dequantized to bf16 beforehand;
+            # the FF's takes two and a GELU, so it is no single call and
+            # stays under "shapes".
+            library_ms=None if name == "int4_ff" else row["yardstick_ms"],
+            library_call=None if name == "int4_ff" else
+            "torch.matmul(x, W dequantized to bf16 beforehand)",
+            shapes=int4_times[name],
+        ))
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
-    print(json.dumps({"kernels": entries, "generate": generate, "train": train,
-                      "train_step_check": step, "sdpa": sdpa_times}))
+    quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown)
+    print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
+                      "train": train, "train_step_check": step, "sdpa": sdpa_times}))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0

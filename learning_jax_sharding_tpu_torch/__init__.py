@@ -5,9 +5,18 @@ and public names of its JAX counterpart, and the tests hold the two against
 each other on the same inputs. This package imports ``torch`` (and numpy),
 never JAX, Flax, optax, or anything of the JAX package.
 
-Covered so far: KV-cached generation (greedy and sampled) of the
-``TransformerConfig`` models in bf16 on one GPU, with decode attention in a
-hand-written CUDA kernel (``csrc/decode_attention.cu``).
+Covered so far, on one GPU, each TPU kernel of the path as a hand-written
+CUDA kernel under ``csrc/``:
+
+* KV-cached generation (greedy and sampled) of the ``TransformerConfig``
+  models in bf16, with decode attention (``csrc/decode_attention.cu``);
+* the train step (``training/pipeline.py``: flash attention forward, dK/dV
+  and dQ in ``csrc/flash_attention.cu``, the fused chunked loss, AdamW);
+* int4 quantized serving (``make_generate_fn(dequantize="fused" |
+  "fused_w4a8")`` over ``models/quantize.py::quantize_tree(bits=4)``): the
+  dequant-matmul, q/k/v triple and w4a8 kernels (``csrc/int4_matmul.cu``)
+  and the whole-FF kernel (``csrc/int4_ff.cu``); and the int8/int4
+  dequantize-per-call mode (``dequantize=True``).
 """
 
 import torch

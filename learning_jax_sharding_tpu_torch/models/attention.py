@@ -17,9 +17,13 @@ projection is a function of ``deterministic`` and an explicit generator, as
 Flax's is of ``deterministic`` and a ``"dropout"`` key; the module's
 train/eval mode plays no part.
 
+Under ``quantization="int4"`` / ``"int4_w4a8"`` the projections consume an
+int4 state dict (``models/quantize.py::quantize_tree``) through the fused
+kernels; int4 MHA without biases runs q/k/v through one ``int4_matmul3``
+launch, as the JAX module routes it.
+
 Not ported yet: int8 caches (``kv_cache_dtype=int8``) and paged pools come
-with the continuous-engine slice; quantized projections with the
-quantized-serving slice.
+with the continuous-engine slice.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ import math
 import torch
 from torch import nn
 
+from learning_jax_sharding_tpu_torch.models.quantize import Int4Linear, projection_dense
 from learning_jax_sharding_tpu_torch.ops.attention import (
     causal_mask,
     dot_product_attention,
     sliding_window_mask,
 )
 from learning_jax_sharding_tpu_torch.ops.decode_attention import decode_attention
+from learning_jax_sharding_tpu_torch.ops.int4_matmul import int4_matmul3
 from learning_jax_sharding_tpu_torch.ops.rope import apply_rope
 
 
@@ -140,11 +146,13 @@ def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
     )
 
 
-def make_linear(in_features, out_features, *, bias, dtype, device, generator=None):
-    """``nn.Linear`` with Flax Dense's init (lecun-normal kernel, zero bias)."""
+def make_linear(in_features, out_features, *, bias, dtype, device, generator=None,
+                init=lecun_normal_):
+    """``nn.Linear`` with Flax Dense's init (lecun-normal kernel by default,
+    zero bias); ``init(weight, generator)`` draws the kernel."""
     layer = nn.Linear(in_features, out_features, bias=bias, dtype=dtype, device=device)
     with torch.no_grad():
-        lecun_normal_(layer.weight, generator)
+        init(layer.weight, generator)
         if bias:
             layer.bias.zero_()
     return layer
@@ -165,8 +173,11 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Flax Dense semantics: input and params cast to the compute dtype."""
+def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax Dense semantics: input and params cast to the compute dtype. An
+    :class:`Int4Linear` (built with this ``dtype``) runs its own product."""
+    if isinstance(layer, Int4Linear):
+        return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -199,6 +210,7 @@ class MultiHeadAttention(nn.Module):
         decode_ragged: bool = False,
         decode_paged: bool = False,
         quantization: str | None = None,
+        quantization_group: int = 128,
         device=None,
         generator: torch.Generator | None = None,
     ):
@@ -210,10 +222,6 @@ class MultiHeadAttention(nn.Module):
         if decode_paged:
             raise NotImplementedError(
                 "paged KV cache: ported with the continuous-engine slice"
-            )
-        if quantization is not None:
-            raise NotImplementedError(
-                "quantized projections: ported with the quantized-serving slice"
             )
         n_kv = num_heads if num_kv_heads is None else num_kv_heads
         if num_heads % n_kv:
@@ -228,11 +236,29 @@ class MultiHeadAttention(nn.Module):
         self.decode_attention = decode_attention
         self.decode_block_k = decode_block_k
         self.decode_ragged = decode_ragged
-        kw = dict(bias=use_bias, dtype=param_dtype, device=device, generator=generator)
-        self.query = make_linear(features, num_heads * head_dim, **kw)
-        self.key = make_linear(features, n_kv * head_dim, **kw)
-        self.value = make_linear(features, n_kv * head_dim, **kw)
-        self.out = make_linear(num_heads * head_dim, features, **kw)
+        self.quantization, self.quantization_group = quantization, quantization_group
+        self.use_bias = use_bias
+        kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
+                  param_dtype=param_dtype, group_size=quantization_group, device=device,
+                  generator=generator)
+        self.query = projection_dense(in_features=features, features=num_heads * head_dim, **kw)
+        self.key = projection_dense(in_features=features, features=n_kv * head_dim, **kw)
+        self.value = projection_dense(in_features=features, features=n_kv * head_dim, **kw)
+        self.out = projection_dense(in_features=num_heads * head_dim, features=features, **kw)
+
+    def _fused_qkv(self, m: int) -> bool:
+        """Route q/k/v through one ``int4_matmul3`` launch: int4 serving
+        (not w4a8), MHA (equal projection widths), no biases, and a group
+        layout the kernel can tile; the JAX module's rule."""
+        if (
+            self.quantization != "int4"
+            or self.use_bias
+            or self.kv_heads != self.num_heads
+            or m % 2
+        ):
+            return False
+        g = min(self.quantization_group, m)
+        return g == m or (m // 2) % g == 0
 
     def init_cache(self, batch: int, device) -> KVCache:
         """Zeroed cache for ``batch`` rows in this module's backend layout."""
@@ -260,14 +286,22 @@ class MultiHeadAttention(nn.Module):
         place. ``chunk_lengths``: ragged decode only: per-row count of valid
         tokens in this chunk (prefill passes the prompt lengths, a frozen
         row 0)."""
-        b, s, _ = x.shape
+        b, s, m = x.shape
         if chunk_lengths is not None and not self.decode_ragged:
             raise ValueError("chunk_lengths requires decode_ragged=True")
         if self.decode != (cache is not None):
             raise ValueError("decode mode takes a KVCache, and only decode mode does")
-        q = linear(self.query, x, self.dtype).reshape(b, s, self.num_heads, self.head_dim)
-        k = linear(self.key, x, self.dtype).reshape(b, s, self.kv_heads, self.head_dim)
-        v = linear(self.value, x, self.dtype).reshape(b, s, self.kv_heads, self.head_dim)
+        if self._fused_qkv(m):
+            g = min(self.quantization_group, m)
+            q, k, v = int4_matmul3(
+                x.to(self.dtype),
+                [(p.q4, p.scale) for p in (self.query, self.key, self.value)], group=g,
+            )
+        else:
+            q, k, v = (linear(p, x, self.dtype) for p in (self.query, self.key, self.value))
+        q = q.reshape(b, s, self.num_heads, self.head_dim)
+        k = k.reshape(b, s, self.kv_heads, self.head_dim)
+        v = v.reshape(b, s, self.kv_heads, self.head_dim)
 
         if self.rope:
             # Rotate before caching: cached keys carry their absolute positions.

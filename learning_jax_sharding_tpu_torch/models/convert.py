@@ -7,6 +7,10 @@ both packages compute the same function and the tests can compare them.
 
 Flax ``Dense`` kernels are ``(in, out)`` and ``nn.Linear`` weights
 ``(out, in)``: kernels are transposed. Norm ``scale`` becomes ``weight``.
+A quantized kernel (``{"q4", "scale"}`` int4 or ``{"q", "scale"}`` int8
+under ``<site>/kernel``, from ``quantize_tree`` or the fused-qkv layout) is
+carried across verbatim, with no transpose: the port's quantized state dict
+keeps the JAX layout (``models/quantize.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,11 @@ def _tensor(x: Any) -> torch.Tensor:
 
 
 def _dense(prefix: str, node: Mapping) -> dict:
-    out = {f"{prefix}.weight": _tensor(np.asarray(node["kernel"]).T)}
+    kernel = node["kernel"]
+    if isinstance(kernel, Mapping):
+        out = {f"{prefix}.{key}": _tensor(value) for key, value in kernel.items()}
+    else:
+        out = {f"{prefix}.weight": _tensor(np.asarray(kernel).T)}
     if "bias" in node:
         out[f"{prefix}.bias"] = _tensor(node["bias"])
     return out

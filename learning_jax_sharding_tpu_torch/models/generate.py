@@ -21,6 +21,7 @@ import torch
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.decoding import (
+    apply_dequantize_policy,
     check_sequence_budget,
     derive_decode_config,
     make_cached_apply,
@@ -140,6 +141,7 @@ def make_generate_fn(
     eos_id: int | None = None,
     prefill_chunk_size: int | None = None,
     inference_dtype: torch.dtype | None = None,
+    dequantize: bool | str = False,
     ragged: bool = False,
     device=None,
 ):
@@ -168,6 +170,16 @@ def make_generate_fn(
     seeded 0 when ``None``). ``vocab_limit`` masks ids ≥ it, for greedy too.
     ``repetition_penalty`` down-weights every token already in the row,
     prompt included.
+
+    ``dequantize``: ``"fused"``: ``params`` is an int4 state dict
+    (``models.quantize.quantize_tree(bits=4)``) and every projection streams
+    the packed nibbles into its product through the fused CUDA kernels
+    (``ops/int4_matmul.py``, ``ops/int4_ff.py``): no dequantized weight in
+    device memory. ``"fused_w4a8"``: the same state dict, with activations
+    quantized per row to int8 and int8 × int4 products summed in int32.
+    ``True``: an int8 (or int4) state dict that stays quantized and is
+    dequantized to the compute dtype inside every model call. Quantized
+    nodes are never cast; embeddings and norms cast to ``inference_dtype``.
     """
     if ragged and prefill_chunk_size is not None:
         raise ValueError(
@@ -180,13 +192,11 @@ def make_generate_fn(
     cfg = derive_decode_config(config, inference_dtype)
     if ragged:
         cfg = dataclasses.replace(cfg, decode_ragged=True)
+    cfg, fused = apply_dequantize_policy(cfg, dequantize)
     model = Transformer(cfg, device=device).eval()
-    maybe_cast = make_param_caster(inference_dtype, device)
-    apply = make_cached_apply(model)
-
-    def step_apply(cache, tokens, chunk_lengths=None):
-        logits, cache = apply(cache, tokens, chunk_lengths)
-        return logits[:, -1], cache
+    maybe_cast = make_param_caster(inference_dtype, device, dequantize=bool(dequantize))
+    in_apply = bool(dequantize) and not fused
+    cached_apply = make_cached_apply(model, dequantize=in_apply, dequant_dtype=cfg.param_dtype)
 
     @torch.no_grad()
     def generate(
@@ -210,7 +220,20 @@ def make_generate_fn(
         )
         if generator is None and temperature > 0:
             generator = torch.Generator(device=device).manual_seed(0)
-        model.load_state_dict(maybe_cast(params))
+        # The model serves its loaded weights, or (``dequantize=True``) each
+        # call dequantizes the quantized state dict it is given.
+        weights = maybe_cast(params)
+        if not in_apply:
+            model.load_state_dict(weights)
+            weights = None
+
+        def apply(cache, tokens, chunk_lengths=None):
+            return cached_apply(cache, tokens, chunk_lengths, params=weights)
+
+        def step_apply(cache, tokens, chunk_lengths=None):
+            logits, cache = apply(cache, tokens, chunk_lengths)
+            return logits[:, -1], cache
+
         rows = torch.arange(b, device=device)
 
         if ragged:

@@ -11,9 +11,14 @@ head), or logits with :func:`next_token_loss` /
 :func:`make_next_token_loss`; custom ``attn_fn`` backends (the flash
 kernels) in the config.
 
-Not ported yet: MoE feed-forwards, quantized projections, the fused norm
-kernel, ``scan_layers``, ``remat`` and the paged cache; each raises
-``NotImplementedError`` naming the slice that brings it.
+Quantized serving: ``quantization="int4"`` / ``"int4_w4a8"`` builds every
+projection (attention, FF, ``lm_head``) as an int4 ``Int4Linear`` that
+consumes ``models/quantize.py::quantize_tree(bits=4)`` state dicts as they
+are; an eligible int4 feed-forward runs whole through ``ops/int4_ff.py``.
+
+Not ported yet: MoE feed-forwards, the fused norm kernel, ``scan_layers``,
+``remat`` and the paged cache; each raises ``NotImplementedError`` naming
+the slice that brings it.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ from learning_jax_sharding_tpu_torch.models.attention import (
     KVCache,
     MultiHeadAttention,
     linear,
-    make_linear,
 )
+from learning_jax_sharding_tpu_torch.models.quantize import projection_dense
+from learning_jax_sharding_tpu_torch.ops.int4_ff import int4_ff, int4_ff_eligible
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,12 +72,12 @@ class TransformerConfig:
     decode_block_k: int | None = None
     decode_ragged: bool = False
     decode_paged: bool = False
-    quantization: str | None = None
+    quantization: str | None = None     # "int4" / "int4_w4a8": int4 state dicts
+    quantization_group: int = 128       # must match quantize_tree's group_size
 
     def __post_init__(self):
         later = {
             "num_experts": (self.num_experts > 0, "the MoE slice"),
-            "quantization": (self.quantization is not None, "the quantized-serving slice"),
             "fused_norm": (self.fused_norm, "the fused-norm slice"),
             "scan_layers": (self.scan_layers, "slice D (training breadth)"),
             "remat": (self.remat, "slice D (training breadth)"),
@@ -170,17 +176,37 @@ def make_norm(kind: str, features: int, dtype, param_dtype, eps: float = 1e-6, *
 
 
 class FeedForward(nn.Module):
-    """Position-wise FF: up-project → tanh GELU (Flax ``nn.gelu``) → down."""
+    """Position-wise FF: up-project → tanh GELU (Flax ``nn.gelu``) → down.
+    Under int4 quantization an eligible block runs whole through the fused
+    ``int4_ff`` kernel (:meth:`_use_fused_ff`, the JAX module's rule)."""
 
     def __init__(self, features: int, hidden: int, *, use_bias=False, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None, generator=None):
+                 param_dtype=torch.float32, quantization=None, quantization_group=128,
+                 device=None, generator=None):
         super().__init__()
+        self.features, self.hidden, self.use_bias = features, hidden, use_bias
         self.dtype = dtype
-        kw = dict(bias=use_bias, dtype=param_dtype, device=device, generator=generator)
-        self.up = make_linear(features, hidden, **kw)
-        self.down = make_linear(hidden, features, **kw)
+        self.quantization, self.quantization_group = quantization, quantization_group
+        kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
+                  param_dtype=param_dtype, group_size=quantization_group, device=device,
+                  generator=generator)
+        self.up = projection_dense(in_features=features, features=hidden, **kw)
+        self.down = projection_dense(in_features=hidden, features=features, **kw)
+
+    def _use_fused_ff(self, k: int) -> bool:
+        return (
+            self.quantization == "int4"
+            and not self.use_bias
+            and self.features == k
+            and int4_ff_eligible(k, self.hidden, self.quantization_group)
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._use_fused_ff(x.shape[-1]):
+            # Up, GELU and down in one kernel: the hidden activation never
+            # reaches device memory.
+            return int4_ff(x.to(self.dtype), self.up.q4, self.up.scale, self.down.q4,
+                           self.down.scale, group=self.quantization_group)
         h = nn.functional.gelu(linear(self.up, x, self.dtype), approximate="tanh")
         return linear(self.down, h, self.dtype)
 
@@ -202,12 +228,13 @@ class TransformerBlock(nn.Module):
             kv_cache_dtype=cfg.kv_cache_dtype, decode_attention=cfg.decode_attention,
             decode_block_k=cfg.decode_block_k, decode_ragged=cfg.decode_ragged,
             decode_paged=cfg.decode_paged, quantization=cfg.quantization,
-            device=device, generator=generator,
+            quantization_group=cfg.quantization_group, device=device, generator=generator,
         )
         self.ln_ff = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
         self.ff = FeedForward(
             cfg.features, cfg.hidden, use_bias=cfg.use_bias, dtype=cfg.dtype,
-            param_dtype=cfg.param_dtype, device=device, generator=generator,
+            param_dtype=cfg.param_dtype, quantization=cfg.quantization,
+            quantization_group=cfg.quantization_group, device=device, generator=generator,
         )
 
     def forward(self, x, *, deterministic: bool = True, generator=None,
@@ -254,18 +281,21 @@ class Transformer(nn.Module):
         self.ln_out = make_norm(
             cfg.norm, cfg.features, cfg.dtype, cfg.param_dtype, cfg.norm_eps, device=device
         )
-        self.lm_head = nn.Linear(
-            cfg.features, cfg.vocab_size, bias=False, dtype=cfg.param_dtype, device=device
-        )
         with torch.no_grad():
             nn.init.normal_(self.tok_embed.weight, 0.0, 0.02, generator=gen)
             if self.pos_embed is not None:
                 nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=gen)
-            nn.init.normal_(self.lm_head.weight, 0.0, 0.02, generator=gen)
+        self.lm_head = projection_dense(
+            quantization=cfg.quantization, in_features=cfg.features, features=cfg.vocab_size,
+            use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+            group_size=cfg.quantization_group,
+            kernel_init=lambda w, g: nn.init.normal_(w, 0.0, 0.02, generator=g),
+            device=device, generator=gen,
+        )
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.tok_embed.weight.device
 
     def init_cache(self, batch: int) -> DecodeCache:
         """Zeroed decode caches for ``batch`` rows (decode configs only)."""

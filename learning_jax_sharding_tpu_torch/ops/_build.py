@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is a ``csrc/*.cu`` file with a plain C interface. At first use it
-is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/torch_kernels/`` at the repository root, named by a hash of its
-source and flags (an edited source builds anew; an unchanged one loads the
+Each kernel is a ``csrc/*.cu`` file with a plain C interface; what several
+share sits in ``csrc/*.cuh`` headers. At first use it is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under ``build/torch_kernels/``
+at the repository root, named by a hash of its source, the headers and the
+flags (an edited source or header builds anew; an unchanged one loads the
 library already built), and loaded with ``ctypes``. Nothing here runs when
 the module is imported.
 """
@@ -50,7 +51,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/{name}.cu`` lands, keyed by its hash."""
     source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -87,12 +87,17 @@ def test_device_default_is_the_gpu():
 def test_unported_options_raise():
     for field, value in [
         ("num_experts", 4), ("fused_norm", True), ("scan_layers", True),
-        ("remat", True), ("quantization", "int4"), ("decode_paged", True),
+        ("remat", True), ("decode_paged", True),
     ]:
         with pytest.raises(NotImplementedError, match=field):
             TransformerConfig(**{field: value})
     with pytest.raises(NotImplementedError, match="int8"):
         MultiHeadAttention(64, 4, 16, kv_cache_dtype=torch.int8, device="cpu")
+    # Quantized projections are ported: int4 builds, an unknown mode raises
+    # as the JAX dispatch does.
+    TransformerConfig(quantization="int4")
+    with pytest.raises(ValueError, match="unknown quantization 'int3'"):
+        MultiHeadAttention(64, 4, 16, quantization="int3", device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["dense", "blocked"])
