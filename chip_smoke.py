@@ -5,21 +5,25 @@
 
 Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
 (into ``build/torch_kernels/``, one ``nvcc`` per source, in parallel) and
-holds each against its plain PyTorch version on the card. Then drives the
-port's main paths at the 125M model's full width and depth (seeded random
-weights): KV-cached greedy generation in bf16 through ``make_generate_fn``,
-checked against a teacher-forced dense forward; int4 quantized serving of
-the same model through ``make_generate_fn(dequantize="fused" |
-"fused_w4a8")`` over ``quantize_tree(bits=4)``, checked against the dense
-bf16 model on the dequantized weights, then the decode ladder (bf16, int8,
-int4-fused, int4-w4a8); and the train step (flash attention, fused loss,
-AdamW, b=8, s=1024, 8 steps per call) through ``make_train_step``, checked
-for descent and against the dense attention path. Each path's kernel
-launches are counted from zero around one run. Times the paths and the
-kernels, profiles the paths, and prints the ``kernels`` JSON line, the
-card's name and power limit, and last the JSON ``{"ok": true, "device":
-...}``. Every phase raises on failure. Exits non-zero, printing no result,
-without a CUDA device.
+holds each against its plain PyTorch version on the card (decode attention
+with float and int8 caches, flash attention, the int4 kernels, the fused
+residual+norm forward and backward). Then drives the port's main paths at
+the 125M model's full width and depth (seeded random weights): KV-cached
+greedy generation in bf16 through ``make_generate_fn``, checked against a
+teacher-forced dense forward, with the plain norm, with ``fused_norm=True``
+and with ``kv_cache_dtype=torch.int8`` (held to the dense backend over the
+same int8 cache); int4 quantized serving of the same model through
+``make_generate_fn(dequantize="fused" | "fused_w4a8")`` over
+``quantize_tree(bits=4)``, checked against the dense bf16 model on the
+dequantized weights, then the decode ladder (bf16, int8, int4-fused,
+int4-w4a8); and the train step (flash attention, fused loss, AdamW, b=8,
+s=1024, 8 steps per call) through ``make_train_step``, checked for descent
+and against the dense attention path, and again with ``fused_norm=True``
+against the plain-norm step. Each path's kernel launches are counted from
+zero around one run. Times the paths and the kernels, profiles the paths,
+and prints the ``kernels`` JSON line, the card's name and power limit, and
+last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
+failure. Exits non-zero, printing no result, without a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import time
 
 import torch
 
+from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
 from learning_jax_sharding_tpu_torch.models.quantize import (
     dequantize_leaf_int4,
@@ -52,6 +57,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
 )
 from learning_jax_sharding_tpu_torch.ops import _build
 from learning_jax_sharding_tpu_torch.ops import flash_attention as flash
+from learning_jax_sharding_tpu_torch.ops import fused_norm as norm_ops
 from learning_jax_sharding_tpu_torch.ops import int4_ff as ff4
 from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
 from learning_jax_sharding_tpu_torch.ops.decode_attention import (
@@ -150,6 +156,24 @@ INT4_SITES = {"qkv_out": (768, 768), "ff_up": (768, 3072), "ff_down": (3072, 768
 # coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
 QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
 LADDER_ROUNDS = 3
+NORM_SOURCE = "learning_jax_sharding_tpu_torch/csrc/fused_norm.cu"
+NORM_REPLACES = {"fwd": "learning_jax_sharding_tpu/ops/fused_norm.py:57",
+                 "bwd": "learning_jax_sharding_tpu/ops/fused_norm.py:82"}
+# Row counts at M=768: the train step (b=8 × s=1024), a prefill of 8 × 128,
+# a decode step of 8 rows, and one that is not a power of two.
+NORM_ROWS = {"train": TRAIN_B * TRAIN_S, "prefill": B * PROMPT, "decode": B, "odd": 37}
+NORM_CASES = [  # kind, residual, beta
+    ("layernorm", True, True), ("layernorm", False, True), ("layernorm", True, False),
+    ("rmsnorm", True, False), ("rmsnorm", False, False),
+]
+# Fused norm against its plain version, relative to the largest reference
+# magnitude. fp32: the row sums (mean, variance, c1, c2) and the dgamma/dbeta
+# column sums run in another order. bf16 outputs: both round the same fp32
+# value up to that order, one bf16 ulp (2^-7 of the value) at most, and the
+# share of differing outputs must stay under INT4_BF16_FLIPS (normalising the
+# rounded residual, or adding dr to an unrounded dx, flips ~20% of them).
+# The new residual is one rounding of the same fp32 sum: bit-equal.
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 
 
 def log(msg: str) -> None:
@@ -168,48 +192,78 @@ def randn(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+def int8_kv(gen, *shape):
+    """A seeded float cache (or new-token chunk) quantized as the cache
+    stores it → (int8 values, fp32 per-(token, head) scales)."""
+    scale, q = quantize_kv_chunk(torch.randn(*shape, generator=gen, device="cuda"))
+    return q.to(torch.int8), scale
+
+
 def kernel_case(name, gen, dtype, *, b, s, n, n_kv, h, length, index,
-                window=None, fold=False, write_enable=None):
-    """One kernel-vs-plain comparison on the card → max abs error."""
+                window=None, fold=False, write_enable=None, int8=False):
+    """One kernel-vs-plain comparison on the card → max abs error. ``int8``:
+    quantized caches with their scales (and new-token scales when folded)."""
     q = randn(gen, b, s, n, h, dtype=dtype)
-    kc = randn(gen, b, n_kv, length, h, dtype=dtype)
-    vc = randn(gen, b, n_kv, length, h, dtype=dtype)
     kw = dict(window=window)
+    if int8:
+        kc, ks = int8_kv(gen, b, n_kv, length, h)
+        vc, vs = int8_kv(gen, b, n_kv, length, h)
+        caches = {"k_cache": kc, "v_cache": vc, "k_scale": ks, "v_scale": vs}
+    else:
+        caches = {"k_cache": randn(gen, b, n_kv, length, h, dtype=dtype),
+                  "v_cache": randn(gen, b, n_kv, length, h, dtype=dtype)}
+    new = {}
     if fold:
-        kw.update(k_new=randn(gen, b, n_kv, 1, h, dtype=dtype),
-                  v_new=randn(gen, b, n_kv, 1, h, dtype=dtype),
-                  write_enable=write_enable)
-    k0, v0 = kc.clone(), vc.clone()
-    kr, vr = kc.clone(), vc.clone()
-    out = decode_attention(q, kc, vc, index, **kw)
-    ref = decode_attention_reference(q, kr, vr, index, **kw)
+        if int8:
+            (new["k_new"], new["ks_new"]), (new["v_new"], new["vs_new"]) = (
+                int8_kv(gen, b, n_kv, 1, h) for _ in range(2))
+        else:
+            new = {"k_new": randn(gen, b, n_kv, 1, h, dtype=dtype),
+                   "v_new": randn(gen, b, n_kv, 1, h, dtype=dtype)}
+        kw.update(new, write_enable=write_enable)
+    before = {k: v.clone() for k, v in caches.items()}
+    ref_caches = {k: v.clone() for k, v in caches.items()}
+    scales = {k: caches[k] for k in ("k_scale", "v_scale") if k in caches}
+    ref_scales = {k: ref_caches[k] for k in scales}
+    out = decode_attention(q, caches["k_cache"], caches["v_cache"], index, **scales, **kw)
+    ref = decode_attention_reference(q, ref_caches["k_cache"], ref_caches["v_cache"], index,
+                                     **ref_scales, **kw)
     torch.cuda.synchronize()
     if fold:
         out, ref = out[0], ref[0]
-        if not (torch.equal(kc, kr) and torch.equal(vc, vr)):
-            raise AssertionError(f"{name}: folded write differs from the plain version")
-        idx = index.tolist()
+        for key in caches:
+            if not torch.equal(caches[key], ref_caches[key]):
+                raise AssertionError(f"{name}: folded write of {key} differs from the plain "
+                                     f"version")
+        idx = index.expand(b).tolist()
         enabled = [True] * b if write_enable is None else [bool(e) for e in write_enable.tolist()]
+        written = {"k_cache": "k_new", "v_cache": "v_new", "k_scale": "ks_new",
+                   "v_scale": "vs_new"}
         for row in range(b):
-            if enabled[row]:
-                for cache, new in ((kc, kw["k_new"]), (vc, kw["v_new"])):
-                    if not torch.equal(cache[row, :, idx[row]], new[row, :, 0]):
-                        raise AssertionError(f"{name}: row {row} slot not written")
-            elif not (torch.equal(kc[row], k0[row]) and torch.equal(vc[row], v0[row])):
-                raise AssertionError(f"{name}: disabled row {row} cache changed")
+            for key, buf in caches.items():
+                if enabled[row]:
+                    if not torch.equal(buf[row, :, idx[row]], new[written[key]][row, :, 0]):
+                        raise AssertionError(f"{name}: row {row} slot of {key} not written")
+                elif not torch.equal(buf[row], before[key][row]):
+                    raise AssertionError(f"{name}: disabled row {row} {key} changed")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
-    log(f"[kernel] {name} {str(dtype)[6:]}: max abs err {err:.3e} (tol {TOL[dtype]:g})")
+    label = f"{name}{' int8' if int8 else ''}"
+    log(f"[kernel] {label} {str(dtype)[6:]}: max abs err {err:.3e} (tol {TOL[dtype]:g})")
     if err > TOL[dtype]:
-        raise AssertionError(f"{name} {dtype}: max abs err {err} > {TOL[dtype]}")
+        raise AssertionError(f"{label} {dtype}: max abs err {err} > {TOL[dtype]}")
     return err
 
 
-def check_kernel(gen):
+def check_kernel(gen, *, int8=False):
+    """Decode attention against its plain version at the 125M prefill
+    (S=128) and decode (S=1, index 200) shapes, a ragged folded write with
+    one row disabled, and GQA + window at H=128; float caches, or int8
+    ones with their scales."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        mha = dict(b=B, n=12, n_kv=12, h=64, length=1024)
+        mha = dict(b=B, n=12, n_kv=12, h=64, length=1024, int8=int8)
         row_index = torch.randint(0, 1000, (B,), generator=gen, device="cuda",
                                   dtype=torch.int32)
         enable = torch.ones(B, dtype=torch.int32, device="cuda")
@@ -221,10 +275,85 @@ def check_kernel(gen):
             kernel_case("ragged_fold", gen, dtype, s=1, index=row_index, fold=True,
                         write_enable=enable, **mha),
             kernel_case("gqa_window", gen, dtype, b=4, s=64, n=16, n_kv=4, h=128,
-                        length=1024, index=zero + 300, window=64),
+                        length=1024, index=zero + 300, window=64, int8=int8),
         ]
+        if int8:
+            cases.append(kernel_case("decode_fold", gen, dtype, s=1, index=zero + 200,
+                                     fold=True, **mha))
         errs[dtype] = max(cases)
     return errs
+
+
+def norm_inputs(gen, rows, dtype, param_dtype, resid, beta, m=768):
+    """Seeded fused-norm inputs and cotangents (``dr`` with a residual)."""
+    t = {"x": randn(gen, rows, m, dtype=dtype), "dy": randn(gen, rows, m, dtype=dtype)}
+    t["res"] = randn(gen, rows, m, dtype=dtype) if resid else None
+    t["dr"] = randn(gen, rows, m, dtype=dtype) if resid else None
+    t["g"] = (1 + 0.1 * torch.randn(m, generator=gen, device="cuda")).to(param_dtype)
+    t["b"] = (0.1 * torch.randn(m, generator=gen, device="cuda")).to(param_dtype) if beta else None
+    return t
+
+
+def check_fused_norm(gen):
+    """The fused-norm kernels against their plain versions on the card, in
+    fp32 and bf16, at every ``NORM_ROWS`` count and ``NORM_CASES`` kind; bf16
+    rows also with bf16 parameters (generation casts them). Forward with and
+    without the statistics; backward from the plain forward's statistics,
+    with ``dr`` when there is a residual → per kernel and dtype the largest
+    relative (checked) and absolute error and differing bf16 share."""
+    worst = {}
+
+    def note(kernel, dtype, label, name, got, want, tol):
+        errs = rel_err(f"{label} {name}", got, want)
+        old = worst.get((kernel, dtype), (0.0, 0.0, 0.0))
+        worst[kernel, dtype] = tuple(map(max, old, errs))
+        if not errs[0] <= tol:
+            raise AssertionError(f"fused_norm {label} {name}: relative error {errs[0]} > {tol}")
+        if want.dtype == torch.bfloat16 and not errs[2] <= INT4_BF16_FLIPS:
+            raise AssertionError(f"fused_norm {label} {name}: {errs[2]} of bf16 outputs differ "
+                                 f"from the plain version's > {INT4_BF16_FLIPS}")
+        return errs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows_name, rows in NORM_ROWS.items():
+            params = [torch.float32] + ([torch.bfloat16] if dtype == torch.bfloat16
+                                        and rows_name in ("prefill", "decode") else [])
+            for param_dtype in params:
+                for kind, resid, beta in NORM_CASES:
+                    t = norm_inputs(gen, rows, dtype, param_dtype, resid, beta)
+                    label = (f"{rows_name} {rows}x768 {kind}{' +resid' if resid else ''}"
+                             f"{' +beta' if beta else ''} {str(dtype)[6:]}/{str(param_dtype)[6:]}")
+                    args = (t["x"], t["res"], t["g"], t["b"])
+                    kw = dict(eps=1e-6, kind=kind)
+                    ref = norm_ops.fused_residual_norm_reference(*args, **kw, needs_stats=True)
+                    errs = []
+                    for stats in (True, False):
+                        got = norm_ops._fwd(*args, **kw, needs_stats=stats)
+                        errs.append(note("fwd", dtype, label, "y", got[0], ref[0],
+                                         NORM_TOL[dtype]))
+                        if resid and not torch.equal(got[1], ref[1]):
+                            raise AssertionError(f"fused_norm {label}: new residual differs")
+                        if stats:
+                            for name, g, w in (("mean", got[2], ref[2]), ("rstd", got[3], ref[3])):
+                                if w is not None:
+                                    note("fwd", torch.float32, label, name, g, w,
+                                         NORM_TOL[torch.float32])
+                    r_full = ref[1] if resid else t["x"]
+                    bwd_args = (t["dy"], r_full, t["g"], ref[2], ref[3], t["dr"])
+                    bkw = dict(kind=kind, has_beta=beta)
+                    got = norm_ops._bwd(*bwd_args, **bkw)
+                    want = norm_ops.fused_residual_norm_bwd_reference(*bwd_args, **bkw)
+                    errs.append(note("bwd", dtype, label, "dx", got[0], want[0], NORM_TOL[dtype]))
+                    # dgamma/dbeta: fp32 column sums, cast to gamma's dtype.
+                    for name, g, w in (("dgamma", got[1], want[1]), ("dbeta", got[2], want[2])):
+                        if w is not None:
+                            note("bwd", param_dtype, label, name, g, w, NORM_TOL[param_dtype])
+                    flips = (f"; differing bf16 outputs {max(e[2] for e in errs):.2e} "
+                             f"(limit {INT4_BF16_FLIPS:g})" if dtype == torch.bfloat16 else "")
+                    log(f"[norm] {label}: y {errs[0][0]:.2e} (no stats {errs[1][0]:.2e}), dx "
+                        f"{errs[2][0]:.2e} of the largest |ref|{flips}")
+    torch.cuda.synchronize()
+    return worst
 
 
 def fold_rows(x, group):
@@ -425,34 +554,37 @@ def train_batch(gen, vocab):
     return {"inputs": tokens[:, :-1].contiguous(), "targets": tokens[:, 1:].contiguous()}
 
 
-def step_check(batch):
-    """One bf16 loss and gradient of the 125M model through the flash
-    kernels and through the dense attention path (``attn_fn=None``), from
-    the same seeded weights → both losses, their difference, and the worst
-    relative Frobenius error of a parameter's gradient."""
+def step_check(batch, variants=None):
+    """One bf16 loss and gradient of the 125M model through two variants of
+    its config, from the same seeded weights → both losses, their
+    difference, and the worst relative Frobenius error of a parameter's
+    gradient. Default: the flash kernels against the dense attention path
+    (``attn_fn=None``)."""
+    if variants is None:
+        variants = {"flash": dict(attn_fn=flash.make_flash_attn_fn()), "dense": dict(attn_fn=None)}
+    (a, b) = variants
     losses, grads = {}, {}
-    for name, attn_fn in (("flash", flash.make_flash_attn_fn()), ("dense", None)):
-        model = Transformer(dataclasses.replace(CONFIG_125M, attn_fn=attn_fn),
-                            device="cuda", seed=0)
+    for name, fields in variants.items():
+        model = Transformer(dataclasses.replace(CONFIG_125M, **fields), device="cuda", seed=0)
         hidden = model(batch["inputs"], return_hidden=True)
         loss = fused_next_token_loss(hidden, batch, model, chunk_size=128)
         loss.backward()
         losses[name] = loss.item()
         grads[name] = {n: p.grad for n, p in model.named_parameters()}
         del model, hidden, loss
-    loss_err = abs(losses["flash"] - losses["dense"])
-    rel = {n: ((g - grads["dense"][n]).norm() / grads["dense"][n].norm()).item()
-           for n, g in grads["flash"].items()}
+    loss_err = abs(losses[a] - losses[b])
+    rel = {n: ((g - grads[b][n]).norm() / grads[b][n].norm()).item()
+           for n, g in grads[a].items()}
     worst = max(rel, key=rel.get)
-    log(f"[train] flash vs dense, one step: loss {losses['flash']:.6f} vs "
-        f"{losses['dense']:.6f} (diff {loss_err:.2e}, tol {STEP_LOSS_TOL:g}); worst grad "
-        f"rel Frobenius err {rel[worst]:.3e} ({worst}, tol {STEP_GRAD_TOL:g})")
+    log(f"[train] {a} vs {b}, one step: loss {losses[a]:.6f} vs {losses[b]:.6f} (diff "
+        f"{loss_err:.2e}, tol {STEP_LOSS_TOL:g}); worst grad rel Frobenius err "
+        f"{rel[worst]:.3e} ({worst}, tol {STEP_GRAD_TOL:g})")
     if not loss_err <= STEP_LOSS_TOL:
-        raise AssertionError(f"flash vs dense loss differ by {loss_err}")
+        raise AssertionError(f"{a} vs {b} loss differ by {loss_err}")
     if not rel[worst] <= STEP_GRAD_TOL:
-        raise AssertionError(f"flash vs dense grad of {worst} differs by {rel[worst]}")
-    return dict(loss_flash=losses["flash"], loss_dense=losses["dense"],
-                loss_diff=loss_err, worst_grad_rel_err=rel[worst], worst_grad=worst)
+        raise AssertionError(f"{a} vs {b} grad of {worst} differs by {rel[worst]}")
+    return {f"loss_{a}": losses[a], f"loss_{b}": losses[b], "loss_diff": loss_err,
+            "worst_grad_rel_err": rel[worst], "worst_grad": worst}
 
 
 def run_train_path(gen, card):
@@ -506,6 +638,215 @@ def run_train_path(gen, card):
         K_STEPS, row["ms_per_step"])
     del state
     return row
+
+
+def norm_calls(cfg) -> int:
+    """Fused-norm calls of one forward: ``ln_attn`` and ``ln_ff`` per block,
+    and ``ln_out``."""
+    return 2 * cfg.num_layers + 1
+
+
+def reset_norm_launches() -> None:
+    norm_ops.fused_residual_norm.launches = dict.fromkeys(norm_ops.fused_residual_norm.launches, 0)
+
+
+def run_fused_train_path(gen, card):
+    """The 125M train step with ``fused_norm=True`` (flash attention, fused
+    loss, AdamW) through ``make_train_step``: descent over 10 steps on one
+    batch; one step against the plain-norm step on the same weights; the
+    fused-norm and flash launches of one 8-step call; its time interleaved
+    with the plain-norm step's (every round times each once; medians of 3);
+    a profile."""
+    flash_fn = flash.make_flash_attn_fn()
+    batch = train_batch(gen, CONFIG_125M.vocab_size)
+    check = step_check(batch, {"fused_norm": dict(attn_fn=flash_fn, fused_norm=True),
+                               "plain_norm": dict(attn_fn=flash_fn)})
+    torch.cuda.empty_cache()
+    states = {name: sharded_train_state(
+        Transformer(dataclasses.replace(CONFIG_125M, attn_fn=flash_fn, fused_norm=fused),
+                    device="cuda", seed=0), adamw(3e-4))
+        for name, fused in (("plain_norm", False), ("fused_norm", True))}
+    step = make_train_step(**TRAIN_LOSS)
+    losses = torch.stack([step(states["fused_norm"], batch)[1]
+                          for _ in range(DESCENT_STEPS)]).tolist()
+    log(f"[train] fused_norm: {DESCENT_STEPS} steps on one batch, losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite fused-norm train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the fused-norm loss did not descend: {losses}")
+
+    multi = make_train_step(steps_per_call=K_STEPS, **TRAIN_LOSS)
+    stacked = {k: v.expand(K_STEPS, *v.shape) for k, v in batch.items()}
+    for state in states.values():
+        multi(state, stacked)                               # warm-up
+    torch.cuda.synchronize()
+    reset_norm_launches()
+    flash.flash_attention.launches = dict.fromkeys(flash.flash_attention.launches, 0)
+    _, call_losses = multi(states["fused_norm"], stacked)
+    torch.cuda.synchronize()
+    norm = dict(norm_ops.fused_residual_norm.launches)
+    flash_launches = dict(flash.flash_attention.launches)
+    # 25 norms a step at 125M: two per block (ln_ff with the residual) and ln_out.
+    per_call = norm_calls(CONFIG_125M) * K_STEPS
+    want_norm = {"fwd": per_call, "fwd_nostats": 0, "bwd": per_call}
+    want_flash = K_STEPS * CONFIG_125M.num_layers
+    log(f"[main] 125M train step, fused_norm, one {K_STEPS}-step call: fused-norm launches "
+        f"{norm} (want {want_norm}), flash {flash_launches} (want {want_flash} each)")
+    if norm != want_norm:
+        raise AssertionError(f"one fused-norm {K_STEPS}-step call launched {norm}, want {want_norm}")
+    if flash_launches != dict.fromkeys(flash_launches, want_flash):
+        raise AssertionError(f"one fused-norm {K_STEPS}-step call launched flash {flash_launches}")
+    if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
+        raise AssertionError(f"the fused-norm {K_STEPS}-step call returned {call_losses}")
+
+    secs = interleaved_seconds(
+        {name: functools.partial(multi, state, stacked) for name, state in states.items()})
+    flops = CONFIG_125M.train_step_flops(TRAIN_B, TRAIN_S)
+    timing = {}
+    for name, calls in secs.items():
+        step_s = statistics.median(calls) / K_STEPS
+        timing[name] = dict(ms_per_step=step_s * 1e3, tok_s=TRAIN_B * TRAIN_S / step_s,
+                            mfu=mfu(flops, step_s), call_seconds=calls)
+        log(f"[time] 125M train step b={TRAIN_B} s={TRAIN_S} bf16, flash + fused loss + AdamW, "
+            f"{name} (interleaved): {timing[name]['ms_per_step']:.3f} ms/step, "
+            f"{timing[name]['tok_s']:.1f} tok/s, MFU {timing[name]['mfu']:.4f} (median of 3 "
+            f"{K_STEPS}-step calls: {[round(x, 4) for x in calls]} s) on {card}")
+    profile = profile_summary(
+        f"125M train step, fused_norm ({K_STEPS}-step call)",
+        lambda: multi(states["fused_norm"], stacked), K_STEPS,
+        timing["fused_norm"]["ms_per_step"])
+    del states
+    return dict(launches=norm, flash_launches=flash_launches, descent_losses=losses,
+                step_check=check, timing=timing, profile=profile)
+
+
+def run_fused_generate(params, gen, tf_model, card):
+    """125M generation with ``fused_norm=True`` (b=8, prompt 128, +128,
+    bf16): every norm through the no-statistics forward, counted from zero
+    around one rectangular call; teacher-forced against the fused-norm
+    dense forward (and, reported, the plain-norm one); timed interleaved
+    with the plain-norm generate (medians of 3)."""
+    cfg = dataclasses.replace(CONFIG_125M, fused_norm=True)
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    fns = {name: make_generate_fn(c, max_new_tokens=NEW, inference_dtype=torch.bfloat16)
+           for name, c in (("plain_norm", CONFIG_125M), ("fused_norm", cfg))}
+    for fn in fns.values():
+        fn(params, prompt)                                  # warm-up
+    torch.cuda.synchronize()
+    reset_norm_launches()
+    decode_attention.launches = 0
+    out = fns["fused_norm"](params, prompt)
+    torch.cuda.synchronize()
+    norm = dict(norm_ops.fused_residual_norm.launches)
+    want = {"fwd": 0, "fwd_nostats": norm_calls(cfg) * NEW, "bwd": 0}
+    log(f"[main] 125M generate, fused_norm, b={B} prompt {PROMPT} +{NEW}: fused-norm launches "
+        f"{norm} (want {want}), decode attention {decode_attention.launches}")
+    if norm != want:
+        raise AssertionError(f"fused-norm generate launched {norm}, want {want}")
+    if decode_attention.launches != CONFIG_125M.num_layers * NEW:
+        raise AssertionError(f"fused-norm generate launched decode attention "
+                             f"{decode_attention.launches} times")
+    check_output(out, B, PROMPT + NEW, cfg.vocab_size)
+    fused_tf = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                           seed=1).eval()
+    fused_tf.load_state_dict(params)
+    span = ([PROMPT] * B, [PROMPT + NEW] * B)
+    gap = teacher_forced_gap(fused_tf, out, *span)
+    gap_plain = teacher_forced_gap(tf_model, out, *span)
+    del fused_tf
+    log(f"[main] fused_norm teacher-forced max gap {gap:.4f} (limit {TF_GAP}) against the "
+        f"fused-norm dense forward; {gap_plain:.4f} against the plain-norm one (reported)")
+    if gap > TF_GAP:
+        raise AssertionError(f"fused-norm teacher-forced gap {gap} > {TF_GAP}")
+    timing = interleaved_generate(fns, {name: params for name in fns}, prompt, card,
+                                  "125M generate bf16")
+    return dict(launches=norm, teacher_forced_max_gap=gap, plain_norm_tf_gap=gap_plain,
+                timing=timing)
+
+
+def interleaved_seconds(calls: dict, rounds: int = 3) -> dict:
+    """Host seconds of each synchronised call, every round running each call
+    once in turn (no variant always runs first after another's work)."""
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, call in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def interleaved_generate(fns, trees, prompt, card, label):
+    """Each generate function once per round, 3 rounds → per function tok/s
+    and ms per token step (medians)."""
+    times = interleaved_seconds(
+        {name: functools.partial(fn, trees[name], prompt) for name, fn in fns.items()})
+    rows = {}
+    for name, secs in times.items():
+        sec = statistics.median(secs)
+        rows[name] = dict(tok_s=B * NEW / sec, ms_per_token_step=sec / NEW * 1e3, seconds=secs)
+        log(f"[time] {label} b={B} prompt {PROMPT} +{NEW}, {name} (interleaved): "
+            f"{rows[name]['tok_s']:.1f} tok/s, {rows[name]['ms_per_token_step']:.3f} "
+            f"ms/token-step (median of 3: {[round(x, 4) for x in secs]} s) on {card}")
+    return rows
+
+
+def kv_cache_bytes(cfg, store_bytes: int, scale_bytes: int) -> int:
+    """Bytes of the decode caches ``make_generate_fn`` allocates for b=8:
+    k and v at the full ``max_seq_len`` in every layer, plus their scales."""
+    n_kv = cfg.num_kv_heads or cfg.num_heads
+    slots = cfg.num_layers * B * n_kv * cfg.max_seq_len
+    return 2 * slots * (cfg.head_dim * store_bytes + scale_bytes)
+
+
+def run_int8_generate(params, gen, card):
+    """125M generation with ``kv_cache_dtype=torch.int8`` (b=8, prompt 128,
+    +128, bf16 compute): decode attention's int8 mode, counted from zero
+    around one rectangular call; teacher-forced against the port's
+    dense-backend forward over the same int8 cache (one prefill of the
+    whole sequence: both sides quantize with ``quantize_kv_chunk``); timed
+    interleaved with the bf16-cache generate, with each run's cache bytes."""
+    cfg = dataclasses.replace(CONFIG_125M, kv_cache_dtype=torch.int8)
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    fns = {name: make_generate_fn(c, max_new_tokens=NEW, inference_dtype=torch.bfloat16)
+           for name, c in (("bf16_cache", CONFIG_125M), ("int8_cache", cfg))}
+    for fn in fns.values():
+        fn(params, prompt)                                  # warm-up
+    torch.cuda.synchronize()
+    decode_attention.launches = 0
+    out = fns["int8_cache"](params, prompt)
+    torch.cuda.synchronize()
+    launches = decode_attention.launches
+    want = cfg.num_layers * NEW
+    log(f"[main] 125M generate, int8 KV cache, b={B} prompt {PROMPT} +{NEW}: {launches} decode "
+        f"attention launches (want {want})")
+    if launches != want:
+        raise AssertionError(f"int8-cache generate launched the kernel {launches} times, want {want}")
+    check_output(out, B, PROMPT + NEW, cfg.vocab_size)
+    dense = Transformer(dataclasses.replace(cfg, decode=True, decode_attention="dense",
+                                            dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                        device="cuda", seed=1).eval()
+    dense.load_state_dict(params)
+    gap = teacher_forced_gap(lambda t: dense(t, cache=dense.init_cache(t.shape[0])), out,
+                             [PROMPT] * B, [PROMPT + NEW] * B)
+    del dense
+    log(f"[main] int8 KV cache teacher-forced max gap {gap:.4f} against the dense-backend "
+        f"forward over an int8 cache (limit {TF_GAP})")
+    if gap > TF_GAP:
+        raise AssertionError(f"int8-cache teacher-forced gap {gap} > {TF_GAP}")
+    timing = interleaved_generate(fns, {name: params for name in fns}, prompt, card,
+                                  "125M generate bf16 compute")
+    timing["bf16_cache"]["cache_bytes"] = kv_cache_bytes(cfg, 2, 0)
+    timing["int8_cache"]["cache_bytes"] = kv_cache_bytes(cfg, 1, 4)
+    log(f"[main] KV cache bytes at b={B}, {cfg.max_seq_len} slots: bf16 "
+        f"{timing['bf16_cache']['cache_bytes'] / 1e6:.2f} MB, int8 + fp32 scales "
+        f"{timing['int8_cache']['cache_bytes'] / 1e6:.2f} MB")
+    return dict(launches=launches, teacher_forced_max_gap=gap, timing=timing)
 
 
 def bound(nbytes, ops, peak=None):
@@ -622,6 +963,109 @@ def queued_time(fn, *args, inner=20, repeats=7, **kwargs):
         end.synchronize()
         samples.append(start.elapsed_time(end) / 1e3 / inner)
     return statistics.median(samples), late
+
+
+def time_fused_norm(gen, card):
+    """The fused-norm kernels at the main path's shapes, LayerNorm with
+    beta as the 125M model runs it, bf16 rows: the forward with and without
+    the residual at the train rows (statistics written, fp32 gamma) and at
+    the prefill and decode rows (no statistics, bf16 gamma, as generation
+    runs it); the backward at the train rows without and with ``dr``. Each
+    beside its plain version, its bound (bytes at the card's memory rate;
+    each input read once, each output written once) and the library
+    yardstick: ``F.layer_norm`` of ``x + resid`` (the add included), and its
+    autograd backward, with gamma and beta cast to bf16 beforehand
+    (``F.layer_norm`` takes one dtype)."""
+    bf16, m = torch.bfloat16, 768
+    ln = torch.nn.functional.layer_norm
+    fp32_rate = 67e12                 # fp32 outside the tensor cores (H100 SXM)
+    rows_out = {}
+
+    def record(key, launch, plain, library, nbytes, ops):
+        ms, late = queued_time(launch)
+        plain_ms, plain_late = queued_time(plain, inner=3, repeats=5)
+        lib_ms, lib_late = queued_time(library)
+        bound_ms, by = bound(nbytes, ops, fp32_rate)
+        row = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, library_ms=lib_ms * 1e3,
+                   bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
+                   late_samples=late + plain_late + lib_late)
+        rows_out[key] = row
+        log(f"[time] fused_norm {key} bf16: kernel {row['ms'] * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.2f} us, "
+            f"F.layer_norm {row['library_ms'] * 1e3:.2f} us"
+            + (f" ({row['late_samples']} samples enqueued past the sleep)"
+               if row["late_samples"] else ""))
+
+    for rows_name in ("train", "prefill", "decode"):
+        rows = NORM_ROWS[rows_name]
+        stats = rows_name == "train"
+        param_dtype = torch.float32 if stats else bf16
+        pbytes = 2 * m * (4 if stats else 2)
+        for resid in (True, False):
+            t = norm_inputs(gen, rows, bf16, param_dtype, resid, True)
+            x, res, g, b = t["x"], t["res"], t["g"], t["b"]
+            g16, b16 = g.to(bf16), b.to(bf16)
+            kw = dict(eps=1e-6, kind="layernorm", needs_stats=stats)
+            tensors = (4 if resid else 2) * rows * m * 2
+            record(f"fwd{' +resid' if resid else ''} {rows}x768{' stats' if stats else ''}",
+                   lambda: norm_ops._launch_fwd(x, res, g, b, **kw),
+                   lambda: norm_ops.fused_residual_norm_reference(x, res, g, b, **kw),
+                   (lambda: ln(x + res, (m,), g16, b16)) if resid else
+                   (lambda: ln(x, (m,), g16, b16)),
+                   tensors + pbytes + (8 * rows if stats else 0), 10 * rows * m)
+    rows = NORM_ROWS["train"]
+    t = norm_inputs(gen, rows, bf16, torch.float32, True, True)
+    y, r, mean, rstd = norm_ops.fused_residual_norm_reference(
+        t["x"], t["res"], t["g"], t["b"], eps=1e-6, kind="layernorm", needs_stats=True)
+    s = r.detach().clone().requires_grad_()
+    g, b = (p.detach().to(bf16).requires_grad_() for p in (t["g"], t["b"]))
+    lib_out = ln(s, (m,), g, b)
+    for dr in (None, t["dr"]):
+        args = (t["dy"], r, t["g"], mean, rstd, dr)
+        kw = dict(kind="layernorm", has_beta=True)
+        tensors = (3 if dr is None else 4) * rows * m * 2
+        record(f"bwd{' +dr' if dr is not None else ''} {rows}x768",
+               lambda: norm_ops._launch_bwd(*args, **kw),
+               lambda: norm_ops.fused_residual_norm_bwd_reference(*args, **kw),
+               lambda: torch.autograd.grad(lib_out, (s, g, b), t["dy"], retain_graph=True),
+               tensors + 8 * rows + 3 * m * 4, 14 * rows * m)
+    log(f"[time] fused_norm kernels measured on {card}")
+    return rows_out
+
+
+def time_decode_int8(gen, card):
+    """Decode attention at the 125M decode shape (b=8, 12 heads, index 200,
+    q bf16), int8 against bf16 caches, queued (device time): kernel, plain
+    version, bound (the valid prefix's bytes: int8 one byte a value plus 4
+    bytes of scale per token and head) and SDPA on the bf16 prefix as the
+    yardstick (no library call reads an int8 cache with scales)."""
+    n, h, length, index = 12, 64, 1024, 200
+    valid = index + 1
+    q = randn(gen, B, 1, n, h, dtype=torch.bfloat16)
+    idx = torch.full((), index, dtype=torch.int32, device="cuda")
+    kc, ks = int8_kv(gen, B, n, length, h)
+    vc, vs = int8_kv(gen, B, n, length, h)
+    kf, vf = (randn(gen, B, n, length, h, dtype=torch.bfloat16) for _ in range(2))
+    sdpa_args = (q.transpose(1, 2).contiguous(), kf[:, :, :valid], vf[:, :, :valid])
+    lib_ms, _ = queued_time(torch.nn.functional.scaled_dot_product_attention, *sdpa_args)
+    qbytes = 2 * q.numel() * 2
+    ops = 4 * h * valid * B * n
+    rows = {}
+    for name, args, kw, per_slot in (
+        ("int8", (q, kc, vc, idx), dict(k_scale=ks, v_scale=vs), h + 4),
+        ("bf16", (q, kf, vf, idx), {}, 2 * h),
+    ):
+        ms, late = queued_time(decode_attention, *args, **kw)
+        plain_ms, _ = queued_time(decode_attention_reference, *args, inner=3, repeats=5, **kw)
+        nbytes = qbytes + 2 * B * n * valid * per_slot
+        bound_ms, by = bound(nbytes, ops)
+        rows[name] = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, bound_ms=bound_ms, bound_by=by,
+                          library_ms=lib_ms * 1e3, bytes=nbytes, ops=ops, late_samples=late)
+        log(f"[time] decode_attention decode {name} cache (q {tuple(q.shape)}, index {index}, "
+            f"queued): kernel {ms * 1e6:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}, "
+            f"{nbytes / 1e6:.2f} MB), plain {plain_ms * 1e6:.2f} us, sdpa bf16 "
+            f"{lib_ms * 1e6:.2f} us on {card}")
+    return rows
 
 
 def int4_weight(gen, k, n, group):
@@ -784,14 +1228,9 @@ def run_ladder(params, q4, prompt, card, int4_fns):
     for name, _, mode in variants[:2]:
         fns[name] = make_generate_fn(cfg, max_new_tokens=NEW, inference_dtype=torch.bfloat16,
                                      dequantize=mode)
-    times = {name: [] for name, _, _ in variants}
-    for _ in range(LADDER_ROUNDS):
-        for name, tree, _ in variants:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fns[name](tree, prompt)
-            torch.cuda.synchronize()
-            times[name].append(time.perf_counter() - t0)
+    times = interleaved_seconds(
+        {name: functools.partial(fns[name], tree, prompt) for name, tree, _ in variants},
+        LADDER_ROUNDS)
     n_kv = cfg.num_kv_heads or cfg.num_heads
     cache_bytes = cfg.num_layers * B * n_kv * (PROMPT + NEW / 2) * cfg.head_dim * 2 * 2
     rows = {}
@@ -892,7 +1331,7 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         built = list(pool.map(timed, ("decode_attention", "flash_attention", "int4_matmul",
-                                      "int4_ff")))
+                                      "int4_ff", "fused_norm")))
     for lib, secs in built:
         log(f"[build] {lib.name} in {secs:.1f} s")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
@@ -901,18 +1340,45 @@ def build_kernels() -> None:
             log(f"[build] {name}: {kernel}: {regs} registers, {spills}")
 
 
+_MANGLED_TYPES = {"f": "fp32", "a": "int8", "__nv_bfloat16": "bf16"}
+
+
+def template_args(mangled: str) -> list[str]:
+    """The template arguments of an Itanium-mangled instantiation, from just
+    after its ``I`` to the matching ``E``: types, int and bool literals."""
+    args, i = [], 0
+    while i < len(mangled) and mangled[i] != "E":
+        lit = re.match(r"L([ib])(\d+)E", mangled[i:])
+        named = re.match(r"(\d+)", mangled[i:])
+        again = re.match(r"S\d*_", mangled[i:])
+        if again:       # a substitution: here always the type argument before
+            args.append(args[-1])
+            i += again.end()
+        elif lit:
+            args.append(lit.group(2) if lit.group(1) == "i" else
+                        ("true" if lit.group(2) == "1" else "false"))
+            i += lit.end()
+        elif named:
+            n = int(named.group(1))
+            name = mangled[i + named.end(): i + named.end() + n]
+            args.append(_MANGLED_TYPES.get(name, name))
+            i += named.end() + n
+        else:
+            args.append(_MANGLED_TYPES.get(mangled[i], mangled[i]))
+            i += 1
+    return args
+
+
 def ptxas_usage(report: str):
     """(kernel, registers, spill line) for each kernel in nvcc's
     ``-Xptxas=-v`` report, the kernel named by its template arguments."""
     kernel = spills = None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
-                          r"|int4_matmul(?:_w4a8)?|int4_ff(?:_reduce)?)_kernel)"
-                          r"I(\w+?)(?:Li(\d+))?E", line)
+                          r"|int4_matmul(?:_w4a8)?|int4_ff(?:_reduce)?"
+                          r"|fused_norm_(?:fwd|bwd|reduce))_kernel)I(\w+)", line)
         if entry:
-            dtype = "bf16" if "bfloat16" in entry.group(2) else "fp32"
-            args = dtype if entry.group(3) is None else f"{dtype}, {entry.group(3)}"
-            kernel = f"{entry.group(1)}<{args}>"
+            kernel = f"{entry.group(1)}<{', '.join(template_args(entry.group(2)))}>"
         elif "spill" in line:
             spills = line.strip()
         elif kernel and (used := re.search(r"Used (\d+) registers", line)):
@@ -939,8 +1405,10 @@ def main() -> int:
     build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernel(gen)
+    int8_errs = check_kernel(gen, int8=True)
     flash_errs = check_flash(gen)
     int4_errs = check_int4(gen)
+    norm_errs = check_fused_norm(gen)
 
     model = Transformer(CONFIG_125M, device="cuda", seed=0)
     params = model.state_dict()
@@ -952,7 +1420,11 @@ def main() -> int:
     prefill = time_shape(gen, "prefill", s=PROMPT, index=0)
     decode = time_shape(gen, "decode", s=1, index=200)
     breakdown = profile_generate(params, gen, main_path["ms_per_step"])
+    fused_gen = run_fused_generate(params, gen, tf_model, card)
     del tf_model
+    torch.cuda.empty_cache()
+    int8_gen = run_int8_generate(params, gen, card)
+    decode_int8 = time_decode_int8(gen, card)
     torch.cuda.empty_cache()
 
     q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
@@ -970,7 +1442,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = run_train_path(gen, card)
     torch.cuda.empty_cache()
+    fused_train = run_fused_train_path(gen, card)
+    torch.cuda.empty_cache()
     flash_times, sdpa_times = time_flash(gen, card)
+    norm_times = time_fused_norm(gen, card)
     log(f"[time] measured on {card}")
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -981,6 +1456,12 @@ def main() -> int:
         max_err_bf16=errs[torch.bfloat16], max_err_fp32=errs[torch.float32],
         **{k: decode[k] for k in timing_keys},
         shapes={"prefill": prefill, "decode": decode},
+        # The int8 cache mode: its checks, its launches in the int8-cache
+        # generate, and its queued time beside the bf16 cache's at decode.
+        int8=dict(max_abs_err=int8_errs[torch.bfloat16], max_err_bf16=int8_errs[torch.bfloat16],
+                  max_err_fp32=int8_errs[torch.float32], launches=int8_gen["launches"],
+                  **{k: decode_int8["int8"][k] for k in timing_keys},
+                  bf16_cache_queued=decode_int8["bf16"]),
     )]
     for name in ("fwd", "bwd_dkv", "bwd_dq"):
         entries.append(dict(
@@ -1017,11 +1498,34 @@ def main() -> int:
             "torch.matmul(x, W dequantized to bf16 beforehand)",
             shapes=int4_times[name],
         ))
+    # The fused-norm kernels: launches of the fused-norm train call (and the
+    # no-statistics forwards of the fused-norm generate), errors over every
+    # checked shape, top-level times at the train rows (forward with the
+    # residual; backward without dr), every timed shape under "shapes".
+    train_rows = NORM_ROWS["train"]
+    for name, key in (("fwd", f"fwd +resid {train_rows}x768 stats"),
+                      ("bwd", f"bwd {train_rows}x768")):
+        row = norm_times[key]
+        entries.append(dict(
+            name=f"fused_norm_{name}", route="cuda", source=NORM_SOURCE,
+            replaces=NORM_REPLACES[name], launches=fused_train["launches"][name],
+            generate_launches=fused_gen["launches"]["fwd_nostats" if name == "fwd" else name],
+            max_abs_err=norm_errs[name, torch.bfloat16][1],
+            max_err_bf16=norm_errs[name, torch.bfloat16][0],
+            max_err_fp32=norm_errs[name, torch.float32][0],
+            bf16_differing_share=norm_errs[name, torch.bfloat16][2],
+            **{k: row[k] for k in timing_keys},
+            library_call="torch.nn.functional.layer_norm(x + resid)" if name == "fwd" else
+            "autograd backward of torch.nn.functional.layer_norm",
+            shapes={k: v for k, v in norm_times.items() if k.startswith(name)},
+        ))
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown)
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
-                      "train": train, "train_step_check": step, "sdpa": sdpa_times}))
+                      "train": train, "train_step_check": step, "sdpa": sdpa_times,
+                      "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
+                      "int8_cache_generate": int8_gen}))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0

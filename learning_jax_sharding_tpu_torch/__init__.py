@@ -16,7 +16,15 @@ CUDA kernel under ``csrc/``:
   "fused_w4a8")`` over ``models/quantize.py::quantize_tree(bits=4)``): the
   dequant-matmul, q/k/v triple and w4a8 kernels (``csrc/int4_matmul.cu``)
   and the whole-FF kernel (``csrc/int4_ff.cu``); and the int8/int4
-  dequantize-per-call mode (``dequantize=True``).
+  dequantize-per-call mode (``dequantize=True``);
+* the fused residual+norm (``TransformerConfig(fused_norm=True)``, in the
+  train step and generation): forward and backward in
+  ``csrc/fused_norm.cu`` (``ops/fused_norm.py``);
+* int8 KV caches (``TransformerConfig(kv_cache_dtype=torch.int8)``): decode
+  attention's int8 mode, with per-(token, head) scales.
+
+Not ported yet: the paged KV cache (with the continuous engine), meshes,
+MoE, ``scan_layers`` and ``remat``.
 """
 
 import torch

@@ -2,10 +2,15 @@
 //
 // Replaces the TPU kernel learning_jax_sharding_tpu/ops/decode_attention.py
 // ::_kernel (launched by decode_attention there). It computes what that
-// kernel computes, for float caches: the queries of a chunk attend to the
-// valid prefix of a (B, N_kv, L, H) cache, per row, with the GQA group folded
-// into the query rows, an optional causal sliding window, and an optional
-// folded write of the new token's k/v (S = 1) gated per row by write_enable.
+// kernel computes, for float and int8 caches: the queries of a chunk attend
+// to the valid prefix of a (B, N_kv, L, H) cache, per row, with the GQA group
+// folded into the query rows, an optional causal sliding window, and an
+// optional folded write of the new token's k/v (S = 1) gated per row by
+// write_enable. An int8 cache carries fp32 per-(token, head) scales
+// (B, N_kv, L): each score column is multiplied by its k scale after the q.k
+// contraction, and each probability column by its v scale after the row
+// sum l has taken it unscaled; the folded write merges the new token's scales
+// too. (The paged block table is not ported yet.)
 //
 // Design. One thread block per (q tile, kv head, batch row). The TPU kernel's
 // sequential k grid axis is a loop inside the block, from the row's first
@@ -19,8 +24,9 @@
 // layout of q. The folded write lands in global memory before the first read
 // of the block's own (b, kv head) cache row; __syncthreads makes it visible.
 //
-// Bound on this card: the bytes of the valid K/V prefix plus q and out at
-// 3.35 TB/s (H100 SXM); the arithmetic is far below the tensor-core line.
+// Bound on this card: the bytes of the valid K/V prefix (int8: one byte a
+// value plus 4 bytes of scale per token and head) plus q and out at 3.35 TB/s
+// (H100 SXM); the arithmetic is far below the tensor-core line.
 // What the simple design leaves for later: no tensor cores (scores and P.V
 // run on the CUDA cores), no TMA or cp.async pipelining of the tiles, and only
 // B * N_kv * (q tiles) blocks -- 96 at the 125M decode shape (b = 8, 12 heads)
@@ -40,6 +46,10 @@ constexpr float kNegInf = -1e30f; // as the TPU kernel: keeps exp/max NaN-free
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+template <typename C> struct Int8Cache { static constexpr bool value = false; };
+template <> struct Int8Cache<int8_t> { static constexpr bool value = true; };
 
 __device__ __forceinline__ void from_float(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void from_float(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
@@ -68,13 +78,24 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-template <typename T, int H>
+// Scales of cache slots [row0, row0 + kTileK) of one (b, kv head) row, 0 past
+// `length` (those columns are masked).
+__device__ __forceinline__ void load_scales(float* dst, const float* row, int row0, int length) {
+  for (int c = threadIdx.x; c < kTileK; c += kThreads)
+    dst[c] = row0 + c < length ? row[row0 + c] : 0.f;
+}
+
+// T: q and out (fp32 or bf16). C: the caches and the new token's k/v, T or
+// int8_t; int8 caches come with the scale pointers.
+template <typename T, typename C, int H>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const T* __restrict__ q, T* k_cache, T* v_cache,
-    const int* __restrict__ index, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, const int* __restrict__ write_enable,
-    T* __restrict__ out, int S, int N, int n_kv, int length, int window,
-    float scale, int tile_rows) {
+    const T* __restrict__ q, C* k_cache, C* v_cache,
+    const int* __restrict__ index, const C* __restrict__ k_new,
+    const C* __restrict__ v_new, const int* __restrict__ write_enable,
+    float* k_scale, float* v_scale, const float* __restrict__ ks_new,
+    const float* __restrict__ vs_new, T* __restrict__ out, int S, int N, int n_kv,
+    int length, int window, float scale, int tile_rows) {
+  constexpr bool kInt8 = Int8Cache<C>::value;
   constexpr int kLdK = H + 1;                        // pad: conflict-free score reads
   constexpr int kRowStep = kThreads / H;             // rows apart in one thread's acc
   constexpr int kAccPerThread = kMaxRows / kRowStep;
@@ -96,19 +117,27 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   float* m_s = p_s + tile_rows * kTileK;             // rows
   float* l_s = m_s + tile_rows;                      // rows
   float* corr_s = l_s + tile_rows;                   // rows
+  float* ks_s = corr_s + tile_rows;                  // kTileK (int8 only)
+  float* vs_s = ks_s + kTileK;                       // kTileK (int8 only)
 
-  const size_t slab = ((size_t)b * n_kv + kvh) * (size_t)length * H;
-  T* k_slab = k_cache + slab;
-  T* v_slab = v_cache + slab;
+  const size_t head = (size_t)b * n_kv + kvh;
+  const size_t slab = head * (size_t)length * H;
+  C* k_slab = k_cache + slab;
+  C* v_slab = v_cache + slab;
 
-  // Folded write: the new token's k/v into slot idx of this block's own cache
-  // row, before anything reads it. S == 1, so one block per (b, kv head).
+  // Folded write: the new token's k/v (and scales) into slot idx of this
+  // block's own cache row, before anything reads it. S == 1, so one block per
+  // (b, kv head).
   if (k_new != nullptr && (write_enable == nullptr || write_enable[b] != 0) &&
       idx >= 0 && idx < length) {
-    const size_t src = ((size_t)b * n_kv + kvh) * H;
+    const size_t src = head * H;
     for (int d = threadIdx.x; d < H; d += kThreads) {
       k_slab[(size_t)idx * H + d] = k_new[src + d];
       v_slab[(size_t)idx * H + d] = v_new[src + d];
+    }
+    if (kInt8 && threadIdx.x == 0) {
+      k_scale[head * length + idx] = ks_new[head];
+      v_scale[head * length + idx] = vs_new[head];
     }
   }
 
@@ -140,8 +169,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
   for (int kt = first_col / kTileK; kt <= last_col / kTileK; ++kt) {
     const int col0 = kt * kTileK;
-    load_tile<T, H, kLdK>(k_s, k_slab, col0, length);
-    load_tile<T, H, H>(v_s, v_slab, col0, length);
+    load_tile<C, H, kLdK>(k_s, k_slab, col0, length);
+    load_tile<C, H, H>(v_s, v_slab, col0, length);
+    if (kInt8) {
+      load_scales(ks_s, k_scale + head * length, col0, length);
+      load_scales(vs_s, v_scale + head * length, col0, length);
+    }
     __syncthreads();
 
     // Scores: thread owns column c of rows r, r + kThreads / kTileK, ...
@@ -152,6 +185,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < H; ++d) s += qr[d] * kc[d];
+      if (kInt8) s *= ks_s[c];                       // k scale: the score column
       const int qpos = idx + (row0 + r) / group;
       const int col = col0 + c;
       bool keep = col <= qpos && col < length;
@@ -174,8 +208,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       float sum = p0 + p1;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
+      // l (below) sums the unscaled p; the v scales weight P.V only.
+      pr[lane] = kInt8 ? p0 * vs_s[lane] : p0;
+      pr[lane + 32] = kInt8 ? p1 * vs_s[lane + 32] : p1;
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
         corr_s[r] = corr;
@@ -217,15 +252,16 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 size_t smem_bytes(int tile_rows, int h) {
   return sizeof(float) * ((size_t)tile_rows * h + (size_t)kTileK * (h + 1) +
                           (size_t)kTileK * h + (size_t)tile_rows * kTileK +
-                          3 * (size_t)tile_rows);
+                          3 * (size_t)tile_rows + 2 * (size_t)kTileK);
 }
 
-template <typename T, int H>
+template <typename T, typename C, int H>
 int launch(const void* q, void* k_cache, void* v_cache, const int* index,
            const void* k_new, const void* v_new, const int* write_enable,
+           float* k_scale, float* v_scale, const float* ks_new, const float* vs_new,
            void* out, int B, int S, int N, int n_kv, int length, int window,
            float scale, int tile_rows, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, H>;
+  auto kernel = decode_attention_kernel<T, C, H>;
   static bool attribute_set = false;
   const size_t smem = smem_bytes(kMaxRows, H);
   if (!attribute_set) {
@@ -237,10 +273,10 @@ int launch(const void* q, void* k_cache, void* v_cache, const int* index,
   const int tiles = (S * (N / n_kv) + tile_rows - 1) / tile_rows;
   dim3 grid(tiles, n_kv, B);
   kernel<<<grid, kThreads, smem_bytes(tile_rows, H), stream>>>(
-      static_cast<const T*>(q), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), index, static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), write_enable, static_cast<T*>(out), S, N,
-      n_kv, length, window, scale, tile_rows);
+      static_cast<const T*>(q), static_cast<C*>(k_cache),
+      static_cast<C*>(v_cache), index, static_cast<const C*>(k_new),
+      static_cast<const C*>(v_new), write_enable, k_scale, v_scale, ks_new,
+      vs_new, static_cast<T*>(out), S, N, n_kv, length, window, scale, tile_rows);
   return (int)cudaGetLastError();
 }
 
@@ -248,24 +284,35 @@ int launch(const void* q, void* k_cache, void* v_cache, const int* index,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0: no window. k_new / v_new /
-// write_enable may be null. Returns cudaGetLastError() after the launch;
-// -1 for a head_dim, dtype or tile size this kernel does not take.
+// dtype (q, out): 0 = float32, 1 = bfloat16. quantized: the caches and k_new
+// / v_new are int8 and the four scale pointers are given (ks_new / vs_new with
+// the folded write); otherwise the caches are in dtype and the scales null.
+// window <= 0: no window. k_new / v_new / write_enable may be null. Returns
+// cudaGetLastError() after the launch; -1 for a head_dim, dtype or tile size
+// this kernel does not take.
 int decode_attention_launch(
     const void* q, void* k_cache, void* v_cache, const int* index,
-    const void* k_new, const void* v_new, const int* write_enable, void* out,
-    int dtype, int B, int S, int N, int n_kv, int length, int H, int window,
-    float scale, int tile_rows, void* stream) {
+    const void* k_new, const void* v_new, const int* write_enable, float* k_scale,
+    float* v_scale, const float* ks_new, const float* vs_new, void* out,
+    int dtype, int quantized, int B, int S, int N, int n_kv, int length, int H,
+    int window, float scale, int tile_rows, void* stream) {
   if (tile_rows < 1 || tile_rows > kMaxRows) return -1;
+  if (quantized && (k_scale == nullptr || v_scale == nullptr ||
+               (k_new != nullptr && (ks_new == nullptr || vs_new == nullptr))))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(T, HD)                                                        \
-  return launch<T, HD>(q, k_cache, v_cache, index, k_new, v_new,             \
-                       write_enable, out, B, S, N, n_kv, length, window,     \
-                       scale, tile_rows, st)
-  if (dtype == 0 && H == 64) LAUNCH(float, 64);
-  if (dtype == 0 && H == 128) LAUNCH(float, 128);
-  if (dtype == 1 && H == 64) LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && H == 128) LAUNCH(__nv_bfloat16, 128);
+#define LAUNCH(T, C, HD)                                                         \
+  return launch<T, C, HD>(q, k_cache, v_cache, index, k_new, v_new,              \
+                          write_enable, k_scale, v_scale, ks_new, vs_new, out,   \
+                          B, S, N, n_kv, length, window, scale, tile_rows, st)
+  if (dtype == 0 && !quantized && H == 64) LAUNCH(float, float, 64);
+  if (dtype == 0 && !quantized && H == 128) LAUNCH(float, float, 128);
+  if (dtype == 1 && !quantized && H == 64) LAUNCH(__nv_bfloat16, __nv_bfloat16, 64);
+  if (dtype == 1 && !quantized && H == 128) LAUNCH(__nv_bfloat16, __nv_bfloat16, 128);
+  if (dtype == 0 && quantized && H == 64) LAUNCH(float, int8_t, 64);
+  if (dtype == 0 && quantized && H == 128) LAUNCH(float, int8_t, 128);
+  if (dtype == 1 && quantized && H == 64) LAUNCH(__nv_bfloat16, int8_t, 64);
+  if (dtype == 1 && quantized && H == 128) LAUNCH(__nv_bfloat16, int8_t, 128);
 #undef LAUNCH
   return -1;
 }

@@ -22,8 +22,13 @@ int4 state dict (``models/quantize.py::quantize_tree``) through the fused
 kernels; int4 MHA without biases runs q/k/v through one ``int4_matmul3``
 launch, as the JAX module routes it.
 
-Not ported yet: int8 caches (``kv_cache_dtype=int8``) and paged pools come
-with the continuous-engine slice.
+``kv_cache_dtype=torch.int8`` stores the caches as int8 with a fp32 scale
+per (token, kv head), both backends writing through the one
+:func:`quantize_kv_chunk`: the dense backend dequantizes the whole buffer
+on read, the blocked one hands the scales to the kernel, which dequantizes
+only the valid prefix it reads.
+
+Not ported yet: paged pools come with the continuous-engine slice.
 """
 
 from __future__ import annotations
@@ -77,6 +82,20 @@ def _seq_index(pos: torch.Tensor, like: torch.Tensor, seq_dim: int) -> torch.Ten
     return pos.reshape(shape).expand(like.shape)
 
 
+def quantize_kv_chunk(chunk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of a K/V chunk along its last (head-dim)
+    axis → ``(scale, q)``: per-(token, head) fp32 scales ``absmax / 127`` (1
+    where the absmax is 0) and the values divided by them, rounded half to
+    even and clipped to ±127 (fp32; the caller casts to int8). The one
+    definition both cache backends write with, byte-equal to the eager JAX
+    function."""
+    c = chunk.float()
+    absmax = c.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(c / scale[..., None]), -127, 127)
+    return scale, q
+
+
 def row_update(
     buf: torch.Tensor, chunk: torch.Tensor, idx: torch.Tensor, *, seq_dim: int
 ) -> torch.Tensor:
@@ -119,21 +138,33 @@ class KVCache:
 
     ``key``/``value`` are ``(B, L, N_kv, H)`` for the dense backend and
     ``(B, N_kv, L, H)`` for the blocked one. ``index`` is the int32 write
-    position on the device: a scalar, or ``(B,)`` when ragged."""
+    position on the device: a scalar, or ``(B,)`` when ragged. int8 caches
+    carry fp32 ``key_scale``/``value_scale`` (ones at first), ``(B, L,
+    N_kv)`` dense and ``(B, N_kv, L)`` blocked; float caches carry none."""
 
     key: torch.Tensor
     value: torch.Tensor
     index: torch.Tensor
+    key_scale: torch.Tensor | None = None
+    value_scale: torch.Tensor | None = None
 
     @classmethod
     def create(cls, shape, dtype, *, ragged: bool, device) -> "KVCache":
         batch = shape[0]
+        scales = {}
+        if dtype == torch.int8:
+            sc_shape = shape[:-1]
+            scales = dict(
+                key_scale=torch.ones(sc_shape, dtype=torch.float32, device=device),
+                value_scale=torch.ones(sc_shape, dtype=torch.float32, device=device),
+            )
         return cls(
             key=torch.zeros(shape, dtype=dtype, device=device),
             value=torch.zeros(shape, dtype=dtype, device=device),
             index=torch.zeros(
                 (batch,) if ragged else (), dtype=torch.int32, device=device
             ),
+            **scales,
         )
 
 
@@ -215,10 +246,6 @@ class MultiHeadAttention(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if kv_cache_dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 KV cache: ported with the continuous-engine slice"
-            )
         if decode_paged:
             raise NotImplementedError(
                 "paged KV cache: ported with the continuous-engine slice"
@@ -353,6 +380,15 @@ class MultiHeadAttention(nn.Module):
         cache.index += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
         return idx
 
+    @staticmethod
+    def _store(chunk: torch.Tensor, store: torch.dtype):
+        """A chunk as the cache stores it → ``(values, scales or None)``:
+        int8 through :func:`quantize_kv_chunk`, otherwise a cast."""
+        if store != torch.int8:
+            return chunk.to(store), None
+        sc, q = quantize_kv_chunk(chunk)
+        return q.to(torch.int8), sc
+
     def _write(self, buf, chunk, idx, chunk_lengths, *, seq_dim: int) -> None:
         """Write a chunk into a cache buffer in place at the write position:
         one scalar offset, or per row (length-aware when ``chunk_lengths``
@@ -377,10 +413,19 @@ class MultiHeadAttention(nn.Module):
         _, s, n, _ = q.shape
         length = cache.key.shape[1]
         idx = self._advance(cache, s, chunk_lengths)
-        self._write(cache.key, k.to(cache.key.dtype), idx, chunk_lengths, seq_dim=1)
-        self._write(cache.value, v.to(cache.value.dtype), idx, chunk_lengths, seq_dim=1)
-        k_full = repeat_kv(cache.key.to(self.dtype), n)
-        v_full = repeat_kv(cache.value.to(self.dtype), n)
+        for buf, sc_buf, chunk in ((cache.key, cache.key_scale, k),
+                                   (cache.value, cache.value_scale, v)):
+            chunk, sc = self._store(chunk, buf.dtype)
+            if sc is not None:
+                self._write(sc_buf, sc, idx, chunk_lengths, seq_dim=1)
+            self._write(buf, chunk, idx, chunk_lengths, seq_dim=1)
+
+        def read(buf, sc_buf):
+            full = buf if sc_buf is None else buf.float() * sc_buf[..., None]
+            return repeat_kv(full.to(self.dtype), n)
+
+        k_full = read(cache.key, cache.key_scale)
+        v_full = read(cache.value, cache.value_scale)
         # Query i sits at absolute position idx + i: attend every slot at or
         # before it (which also hides the zeroed tail).
         steps = torch.arange(s, device=q.device)
@@ -402,15 +447,24 @@ class MultiHeadAttention(nn.Module):
         written first."""
         s = q.shape[1]
         idx = self._advance(cache, s, chunk_lengths)
-        k_sm = k.to(cache.key.dtype).transpose(1, 2).contiguous()   # (B, N_kv, S, H)
-        v_sm = v.to(cache.value.dtype).transpose(1, 2).contiguous()
-        kwargs = dict(window=self.window, block_k=self.decode_block_k)
+
+        def seq_major(chunk):                       # (B, N_kv, S, H), (B, N_kv, S)
+            chunk, sc = self._store(chunk, cache.key.dtype)
+            sc = None if sc is None else sc.transpose(1, 2).contiguous()
+            return chunk.transpose(1, 2).contiguous(), sc
+
+        (k_sm, ks_sm), (v_sm, vs_sm) = seq_major(k), seq_major(v)
+        kwargs = dict(window=self.window, block_k=self.decode_block_k,
+                      k_scale=cache.key_scale, v_scale=cache.value_scale)
         if self.decode_ragged and s == 1:
-            out, _, _ = decode_attention(
-                q, cache.key, cache.value, idx, k_new=k_sm, v_new=v_sm,
-                write_enable=chunk_lengths, **kwargs,
+            out = decode_attention(
+                q, cache.key, cache.value, idx, k_new=k_sm, v_new=v_sm, ks_new=ks_sm,
+                vs_new=vs_sm, write_enable=chunk_lengths, **kwargs,
             )
-            return out
-        self._write(cache.key, k_sm, idx, chunk_lengths, seq_dim=2)
-        self._write(cache.value, v_sm, idx, chunk_lengths, seq_dim=2)
+            return out[0]
+        for buf, sc_buf, chunk, sc in ((cache.key, cache.key_scale, k_sm, ks_sm),
+                                       (cache.value, cache.value_scale, v_sm, vs_sm)):
+            if sc is not None:
+                self._write(sc_buf, sc, idx, chunk_lengths, seq_dim=2)
+            self._write(buf, chunk, idx, chunk_lengths, seq_dim=2)
         return decode_attention(q, cache.key, cache.value, idx, **kwargs)

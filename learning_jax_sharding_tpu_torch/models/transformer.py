@@ -16,9 +16,14 @@ projection (attention, FF, ``lm_head``) as an int4 ``Int4Linear`` that
 consumes ``models/quantize.py::quantize_tree(bits=4)`` state dicts as they
 are; an eligible int4 feed-forward runs whole through ``ops/int4_ff.py``.
 
-Not ported yet: MoE feed-forwards, the fused norm kernel, ``scan_layers``,
-``remat`` and the paged cache; each raises ``NotImplementedError`` naming
-the slice that brings it.
+``fused_norm=True`` runs every block boundary and the final norm through
+the fused residual+norm kernels (``ops/fused_norm.py``) in
+:class:`FusedNorm`, whose parameters are those of :class:`Norm`, so a state
+dict loads across the flag. ``kv_cache_dtype=torch.int8`` passes to the
+blocks' caches (``models/attention.py``).
+
+Not ported yet: MoE feed-forwards, ``scan_layers``, ``remat`` and the paged
+cache; each raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from learning_jax_sharding_tpu_torch.models.attention import (
     linear,
 )
 from learning_jax_sharding_tpu_torch.models.quantize import projection_dense
+from learning_jax_sharding_tpu_torch.ops.fused_norm import fused_residual_norm
 from learning_jax_sharding_tpu_torch.ops.int4_ff import int4_ff, int4_ff_eligible
 
 
@@ -78,7 +84,6 @@ class TransformerConfig:
     def __post_init__(self):
         later = {
             "num_experts": (self.num_experts > 0, "the MoE slice"),
-            "fused_norm": (self.fused_norm, "the fused-norm slice"),
             "scan_layers": (self.scan_layers, "slice D (training breadth)"),
             "remat": (self.remat, "slice D (training breadth)"),
             "decode_paged": (self.decode_paged, "the continuous-engine slice"),
@@ -170,9 +175,27 @@ class Norm(nn.Module):
         return y.to(self.dtype)
 
 
-def make_norm(kind: str, features: int, dtype, param_dtype, eps: float = 1e-6, *, device=None) -> Norm:
-    """``"layernorm"`` (scale + bias) or ``"rmsnorm"`` (scale only)."""
-    return Norm(kind, features, eps=eps, dtype=dtype, param_dtype=param_dtype, device=device)
+class FusedNorm(Norm):
+    """:class:`Norm`'s parameters (``weight``, ``bias``: a state dict loads
+    across the ``fused_norm`` flag) through the fused residual+norm kernels.
+    Called as ``module(x, resid)`` → ``(normed, x + resid)``, the whole
+    block boundary in one pass; ``module(x)`` → ``(normed, x)``. Unlike
+    :class:`Norm` it takes LayerNorm's centred variance, and it normalises
+    the unrounded fp32 sum, so the two agree to rounding only."""
+
+    def forward(self, x: torch.Tensor, resid: torch.Tensor | None = None):
+        x = x.to(self.dtype)
+        if resid is not None:
+            resid = resid.to(self.dtype)
+        return fused_residual_norm(x, resid, self.weight, self.bias, eps=self.eps, kind=self.kind)
+
+
+def make_norm(kind: str, features: int, dtype, param_dtype, eps: float = 1e-6, *, device=None,
+              fused: bool = False) -> Norm:
+    """``"layernorm"`` (scale + bias) or ``"rmsnorm"`` (scale only); with
+    ``fused`` the :class:`FusedNorm` of the same parameters."""
+    cls = FusedNorm if fused else Norm
+    return cls(kind, features, eps=eps, dtype=dtype, param_dtype=param_dtype, device=device)
 
 
 class FeedForward(nn.Module):
@@ -212,11 +235,15 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + Attn(LN(x)); x + FF(LN(x))."""
+    """Pre-LN block: x + Attn(LN(x)); x + FF(LN(x)). Under ``fused_norm``
+    the boundary between the two (the attention residual add and ``ln_ff``)
+    is one fused call; the FF residual stays a plain add."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, generator=None):
         super().__init__()
-        norm = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+        self.fused_norm = cfg.fused_norm
+        norm = dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                    fused=cfg.fused_norm)
         self.ln_attn = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
         self.attn = MultiHeadAttention(
             cfg.features, cfg.num_heads, cfg.head_dim,
@@ -239,11 +266,15 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, *, deterministic: bool = True, generator=None,
                 cache: KVCache | None = None, chunk_lengths=None):
-        x = x + self.attn(
-            self.ln_attn(x), deterministic=deterministic, generator=generator,
-            cache=cache, chunk_lengths=chunk_lengths,
-        )
-        return x + self.ff(self.ln_ff(x))
+        attend = dict(deterministic=deterministic, generator=generator, cache=cache,
+                      chunk_lengths=chunk_lengths)
+        if self.fused_norm:
+            h, _ = self.ln_attn(x)
+            h, x = self.ln_ff(self.attn(h, **attend), x)
+        else:
+            x = x + self.attn(self.ln_attn(x), **attend)
+            h = self.ln_ff(x)
+        return x + self.ff(h)
 
 
 @dataclasses.dataclass
@@ -279,7 +310,8 @@ class Transformer(nn.Module):
             for _ in range(cfg.num_layers)
         )
         self.ln_out = make_norm(
-            cfg.norm, cfg.features, cfg.dtype, cfg.param_dtype, cfg.norm_eps, device=device
+            cfg.norm, cfg.features, cfg.dtype, cfg.param_dtype, cfg.norm_eps, device=device,
+            fused=cfg.fused_norm,
         )
         with torch.no_grad():
             nn.init.normal_(self.tok_embed.weight, 0.0, 0.02, generator=gen)
@@ -353,7 +385,7 @@ class Transformer(nn.Module):
                 cache=None if cache is None else cache.layers[i],
                 chunk_lengths=chunk_lengths,
             )
-        x = self.ln_out(x)
+        x = self.ln_out(x)[0] if cfg.fused_norm else self.ln_out(x)
         if return_hidden:
             return x
         return linear(self.lm_head, x, cfg.dtype)

@@ -7,13 +7,18 @@ prefix of a ``(B, N_kv, L, H)`` cache; the frontier is per row, so a ragged
 batch pays per-row traffic. The GQA group folds into the query rows (q head
 ``n`` reads kv head ``n // group``), so the cache is never expanded.
 
+int8 caches carry fp32 per-(token, head) scales: the score columns are
+scaled by ``k_scale`` after the q·k contraction, the probabilities by
+``v_scale`` after the softmax sum ``l`` took them unscaled, and the folded
+write merges the new token's scales as well.
+
 For CUDA tensors :func:`decode_attention` launches the hand-written kernel
 in ``csrc/decode_attention.cu`` (built at first use, see ``_build``); for CPU
 tensors it runs :func:`decode_attention_reference`, the plain version the
 tests hold against the JAX kernel. Nothing falls back from one to the other.
 
-Not ported yet (they come with the continuous-engine slice): int8 caches
-with per-(token, head) scales, and the paged block table.
+Not ported yet (it comes with the continuous-engine slice): the paged block
+table.
 """
 
 from __future__ import annotations
@@ -53,34 +58,48 @@ def decode_attention_reference(
     v_cache: torch.Tensor,
     index,
     *,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     k_new: torch.Tensor | None = None,
     v_new: torch.Tensor | None = None,
+    ks_new: torch.Tensor | None = None,
+    vs_new: torch.Tensor | None = None,
     write_enable: torch.Tensor | None = None,
     window: int | None = None,
     scale: float | None = None,
 ):
     """The plain version of the kernel: dense masked fp32 attention over the
     whole cache, with the kernel's fold, ``write_enable``, ``-1e30`` mask and
-    ``l == 0`` guard. The folded write updates the caches IN PLACE. Takes
-    validated arguments (see :func:`decode_attention`)."""
+    ``l == 0`` guard, and its int8 scaling (score columns by ``k_scale``,
+    probabilities by ``v_scale`` after ``l``). The folded write updates the
+    caches (and scales) IN PLACE. Takes validated arguments (see
+    :func:`decode_attention`)."""
     b, s, n, h = q.shape
     n_kv, length = k_cache.shape[1], k_cache.shape[2]
     group = n // n_kv
     scale = h**-0.5 if scale is None else scale
     idx = _row_index(index, b, q.device)
+    quantized = k_scale is not None
     if k_new is not None:
-        slot = idx.long().clamp(0, length - 1)[:, None, None, None]
-        slot = slot.expand(b, n_kv, 1, h)
+        slot = idx.long().clamp(0, length - 1)
         keep = (idx >= 0) & (idx < length)
         if write_enable is not None:
             keep = keep & (_row_index(write_enable, b, q.device) != 0)
-        keep = keep[:, None, None, None]
-        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-            merged = torch.where(keep, new.to(cache.dtype), cache.gather(2, slot))
-            cache.scatter_(2, slot, merged)
+        merges = [(k_cache, k_new), (v_cache, v_new)]
+        if quantized:
+            merges += [(k_scale, ks_new), (v_scale, vs_new)]
+        for cache, new in merges:
+            lead = (b,) + (1,) * (cache.ndim - 1)          # per row, at dim 2
+            at = slot.view(lead).expand(*new.shape)
+            merged = torch.where(keep.view(lead), new.to(cache.dtype), cache.gather(2, at))
+            cache.scatter_(2, at, merged)
     k = k_cache.float().repeat_interleave(group, dim=1)       # (B, N, L, H)
     v = v_cache.float().repeat_interleave(group, dim=1)
     scores = torch.einsum("bsnh,bnlh->bnsl", q.float() * scale, k)
+    if quantized:
+        # Per-(token, head) scales are constant over H: they scale the
+        # score columns after the contraction.
+        scores = scores * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
     qpos = idx[:, None].long() + torch.arange(s, device=q.device)   # (B, S)
     cols = torch.arange(length, device=q.device)
     mask = cols[None, None, :] <= qpos[:, :, None]                   # (B, S, L)
@@ -90,9 +109,14 @@ def decode_attention_reference(
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
+    if quantized:
+        # l sums the unscaled p; the v scales weight the probability columns.
+        p = p * v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
     out = torch.einsum("bnsl,bnlh->bsnh", p / torch.where(l == 0, 1.0, l), v)
     out = out.to(q.dtype)
     if k_new is not None:
+        if quantized:
+            return out, k_cache, v_cache, k_scale, v_scale
         return out, k_cache, v_cache
     return out
 
@@ -102,25 +126,32 @@ def _kernel_entry():
     """The C entry point of ``csrc/decode_attention.cu``, typed for ctypes."""
     fn = load_library("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
 
 def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
-                 window, scale, tile_rows):
-    """Check what the kernel takes, then launch it on the current stream."""
+                 window, scale, tile_rows, scales):
+    """Check what the kernel takes, then launch it on the current stream.
+    ``scales``: ``(k_scale, v_scale, ks_new, vs_new)`` of an int8 cache, or
+    Nones."""
     b, s, n, h = q.shape
     n_kv, length = k_cache.shape[1], k_cache.shape[2]
+    quantized = scales[0] is not None
+    store = torch.int8 if quantized else q.dtype
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache}
     if k_new is not None:
         tensors.update(k_new=k_new, v_new=v_new)
+    named = dict(zip(("k_scale", "v_scale", "ks_new", "vs_new"), scales))
+    tensors.update({k: t for k, t in named.items() if t is not None})
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        want = q.dtype if name == "q" else torch.float32 if name in named else store
+        if t.dtype != want:
+            raise ValueError(f"{name} is {t.dtype}, want {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODES:
@@ -134,15 +165,14 @@ def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
             raise ValueError(f"{name} must be 16-byte aligned")
     fn = _kernel_entry()
     out = torch.empty_like(q)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), idx.data_ptr(),
-            k_new.data_ptr() if k_new is not None else None,
-            v_new.data_ptr() if v_new is not None else None,
-            write_enable.data_ptr() if write_enable is not None else None,
-            out.data_ptr(), _DTYPE_CODES[q.dtype], b, s, n, n_kv, length, h,
-            0 if window is None else window, scale, tile_rows, stream,
+            ptr(k_new), ptr(v_new), ptr(write_enable), *map(ptr, scales),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], int(quantized), b, s, n, n_kv, length,
+            h, 0 if window is None else window, scale, tile_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: error {err}")
@@ -173,7 +203,8 @@ def decode_attention(
 
     Args:
         q: ``(B, S, N, H)`` chunk queries; N may exceed the cache's heads (GQA).
-        k_cache / v_cache: ``(B, N_kv, L, H)`` float caches.
+        k_cache / v_cache: ``(B, N_kv, L, H)`` caches: float, or int8 with
+            ``k_scale``/``v_scale``.
         index: int32 scalar, or ``(B,)`` for ragged batches: the absolute
             position of each row's first chunk query. Without the folded
             write the chunk's own k/v must already be at
@@ -183,18 +214,23 @@ def decode_attention(
             k/v, written at slot ``index_b`` of each row before attention.
             The caches are updated IN PLACE and returned as the same tensors.
         write_enable: folded write only: ``(B,)``, 0 leaves that row's cache
-            bit-unchanged.
+            (and scales) bit-unchanged.
+        k_scale / v_scale: ``(B, N_kv, L)`` fp32 per-(token, head) scales of
+            int8 caches (both or neither).
+        ks_new / vs_new: the int8 folded write's ``(B, N_kv, 1)`` scales of
+            the new token.
         window: causal sliding window; query at ``p`` attends ``(p - window, p]``.
         block_k: the JAX kernel's cache block; validated as there (it must
             divide L). The CUDA kernel tiles the cache in its own 64-slot
             tiles, and the result does not depend on either.
         block_q: query rows per tile (``block_q // group`` whole queries).
-        k_scale / v_scale / ks_new / vs_new / block_table: int8 caches and
-            the paged table, not ported yet (``NotImplementedError``).
+        block_table: the paged table, not ported yet
+            (``NotImplementedError``).
 
     Returns:
         ``(B, S, N, H)`` in ``q.dtype``, or ``(out, k_cache, v_cache)`` with
-        the folded write.
+        the folded write (``(out, k_cache, v_cache, k_scale, v_scale)`` with
+        int8 caches).
     """
     b, s, n, h = q.shape
     if block_table is not None:
@@ -211,10 +247,7 @@ def decode_attention(
         raise ValueError(f"num_heads {n} not a multiple of kv heads {n_kv}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
-    if k_scale is not None or ks_new is not None or vs_new is not None:
-        raise NotImplementedError(
-            "int8 KV cache (k_scale/v_scale): ported with the continuous-engine slice"
-        )
+    quantized = k_scale is not None
     group = n // n_kv
     scale = h**-0.5 if scale is None else scale
     block_k = auto_block_k(length) if block_k is None else block_k
@@ -230,13 +263,25 @@ def decode_attention(
             raise ValueError(
                 f"k_new/v_new must be (B, N_kv, 1, H) = {(b, n_kv, 1, h)}"
             )
+        if quantized and (ks_new is None or vs_new is None):
+            raise ValueError("int8 folded write needs ks_new and vs_new")
     elif write_enable is not None:
         raise ValueError("write_enable requires the folded write (k_new)")
+    if quantized:
+        for name, t, want in (("k_scale", k_scale, (b, n_kv, length)),
+                              ("v_scale", v_scale, (b, n_kv, length)),
+                              ("ks_new", ks_new if fold else None, (b, n_kv, 1)),
+                              ("vs_new", vs_new if fold else None, (b, n_kv, 1))):
+            if t is not None and tuple(t.shape) != want:
+                raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    else:
+        ks_new = vs_new = None
+    scales = dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks_new, vs_new=vs_new)
 
     if q.device.type == "cpu":
         return decode_attention_reference(
             q, k_cache, v_cache, index, k_new=k_new, v_new=v_new,
-            write_enable=write_enable, window=window, scale=scale,
+            write_enable=write_enable, window=window, scale=scale, **scales,
         )
     if q.device.type != "cuda":
         raise ValueError(
@@ -248,10 +293,11 @@ def decode_attention(
     qb = min(s, max(1, block_q // group))
     tile_rows = min(qb * group, _MAX_TILE_ROWS)
     out = _launch_cuda(
-        q, k_cache, v_cache, idx, k_new, v_new, enable, window, scale, tile_rows
+        q, k_cache, v_cache, idx, k_new, v_new, enable, window, scale, tile_rows,
+        (k_scale, v_scale, ks_new, vs_new),
     )
     if fold:
-        return out, k_cache, v_cache
+        return (out, k_cache, v_cache) + ((k_scale, v_scale) if quantized else ())
     return out
 
 

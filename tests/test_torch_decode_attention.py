@@ -117,9 +117,14 @@ def test_validation_errors():
         decode_attention(t["q"], t["kc"], t["vc"], 0, k_scale=torch.ones(B, NKV, L))
     with pytest.raises(ValueError, match="write_enable"):
         decode_attention(t["q"], t["kc"], t["vc"], 0, write_enable=torch.ones(B))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ones = torch.ones(B, NKV, L)
-        decode_attention(t["q"], t["kc"], t["vc"], 0, k_scale=ones, v_scale=ones)
+    # int8 caches are ported: the folded write without the new scales is a
+    # JAX ValueError; only the paged table still raises.
+    ones = torch.ones(B, NKV, L)
+    kc8 = torch.zeros(B, NKV, L, H, dtype=torch.int8)
+    new8 = torch.zeros(B, NKV, 1, H, dtype=torch.int8)
+    with pytest.raises(ValueError, match="ks_new and vs_new"):
+        decode_attention(t["q"], kc8, kc8, 0, k_scale=ones, v_scale=ones, k_new=new8,
+                         v_new=new8)
     with pytest.raises(NotImplementedError, match="paged"):
         decode_attention(
             t["q"], t["kc"], t["vc"], 0, block_table=torch.zeros(B, 4, dtype=torch.int32)
