@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
 (into ``build/torch_kernels/``, one ``nvcc`` per source, in parallel) and
 holds each against its plain PyTorch version on the card (decode attention
-with float and int8 caches, flash attention, the int4 kernels, the fused
-residual+norm forward and backward). Then drives the port's main paths at
+with float and int8 caches, and over page pools through a block table, where
+it must also give the contiguous kernel's bits; flash attention, the int4
+kernels, the fused residual+norm forward and backward). Then drives the
+port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
 teacher-forced dense forward, with the plain norm, with ``fused_norm=True``
@@ -16,7 +18,11 @@ same int8 cache); int4 quantized serving of the same model through
 ``make_generate_fn(dequantize="fused" | "fused_w4a8")`` over
 ``quantize_tree(bits=4)``, checked against the dense bf16 model on the
 dequantized weights, then the decode ladder (bf16, int8, int4-fused,
-int4-w4a8); and the train step (flash attention, fused loss, AdamW, b=8,
+int4-w4a8); the continuous engine (``models/serving.py``) on
+``bench.py::bench_serving_125m``'s workload, unpaged, paged, with the prefix
+cache cold and warm, and int4-fused + paged + prefix, every paged variant's
+tokens held equal to the unpaged engine's and teacher-forced against the
+dense forward; and the train step (flash attention, fused loss, AdamW, b=8,
 s=1024, 8 steps per call) through ``make_train_step``, checked for descent
 and against the dense attention path, and again with ``fused_norm=True``
 against the plain-norm step. Each path's kernel launches are counted from
@@ -38,6 +44,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
@@ -50,6 +57,7 @@ from learning_jax_sharding_tpu_torch.models.quantize import (
     quantize_tree,
     quantized_bytes,
 )
+from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
 from learning_jax_sharding_tpu_torch.models.transformer import (
     CONFIG_125M,
     Transformer,
@@ -90,6 +98,15 @@ FLASH_TOL = {
 }
 B, PROMPT, NEW = 8, 128, 128
 TF_GAP = 0.1   # teacher-forced: generated token's logit vs the position's max
+PAGED_CHUNK = 64   # the engine's refill chunk
+# The engine phase: bench.py::bench_serving_125m's workload (24 requests, a
+# shared 512-token system prompt + 32 own tokens, 8 slots, +32 new, refill
+# chunk 64, decode blocks of 32 chained 9 deep, 93 pages of 64 tokens).
+ENGINE_REQUESTS, ENGINE_SYSTEM, ENGINE_OWN, ENGINE_NEW = 24, 512, 32, 32
+ENGINE_PAGE, ENGINE_PAGES = 64, 8 * 10 + 1 + 12
+ENGINE_COMMON = dict(batch_size=B, max_new_tokens=ENGINE_NEW, refill_chunk=PAGED_CHUNK,
+                     inference_dtype=torch.bfloat16, decode_block_steps=ENGINE_NEW,
+                     decode_chain=9)
 KERNEL_SOURCE = "learning_jax_sharding_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "learning_jax_sharding_tpu/ops/decode_attention.py:83"
 FLASH_SOURCE = "learning_jax_sharding_tpu_torch/csrc/flash_attention.cu"
@@ -282,6 +299,124 @@ def check_kernel(gen, *, int8=False):
                                      fold=True, **mha))
         errs[dtype] = max(cases)
     return errs
+
+
+def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, shared,
+               fold=False, window=None, int8=False):
+    """The paged kernel against its plain version, and against the
+    contiguous kernel on the same values permuted into pages → max abs
+    error against the plain version. Row indices are drawn from [lo, hi).
+    Rows 0 and 1 share their first ``shared`` pages (a prefix cache); every
+    other mapped page is private, in a shuffled order; table entries past a
+    row's frontier name the scratch page 0, and unmapped pool pages hold
+    seeded noise. The paged output (and, folded, the written values) must be
+    bit-equal to the contiguous kernel's, and a folded write must change no
+    pool slot but the enabled rows' mapped write slots."""
+    length = t_cap * page
+    idx = torch.randint(lo, hi, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    q = randn(gen, b, s, n, h, dtype=dtype)
+    if int8:
+        (kc, ks), (vc, vs) = (int8_kv(gen, b, n_kv, length, h) for _ in range(2))
+        contig = {"k_cache": kc, "v_cache": vc, "k_scale": ks, "v_scale": vs}
+    else:
+        contig = {"k_cache": randn(gen, b, n_kv, length, h, dtype=dtype),
+                  "v_cache": randn(gen, b, n_kv, length, h, dtype=dtype)}
+    for t in contig.values():
+        t[1, :, : shared * page] = t[0, :, : shared * page]
+    n_pages = 1 + b * t_cap + 3
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[: b * t_cap] + 1
+    table = perm.view(b, t_cap).to(torch.int32)
+    table[1, :shared] = table[0, :shared]
+    frontier = (idx + s - 1) // page
+    table[torch.arange(t_cap, device="cuda")[None, :] > frontier[:, None]] = 0
+    mapped = table > 0
+    pools = {}
+    for key, t in contig.items():
+        if t.dtype == torch.int8:
+            pool = torch.randint(-127, 128, (n_pages, n_kv, page, h), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        elif key.endswith("scale"):
+            pool = torch.rand(n_pages, n_kv, page, generator=gen, device="cuda") / 64
+        else:
+            pool = randn(gen, n_pages, n_kv, page, h, dtype=dtype)
+        paged = t.view(b, n_kv, t_cap, page, *t.shape[3:]).transpose(1, 2)
+        pool[table[mapped].long()] = paged[mapped]
+        pools[key] = pool
+    kw = dict(window=window)
+    new = {}
+    if fold:
+        if int8:
+            (new["k_new"], new["ks_new"]), (new["v_new"], new["vs_new"]) = (
+                int8_kv(gen, b, n_kv, 1, h) for _ in range(2))
+        else:
+            new = {"k_new": randn(gen, b, n_kv, 1, h, dtype=dtype),
+                   "v_new": randn(gen, b, n_kv, 1, h, dtype=dtype)}
+        enable = torch.ones(b, dtype=torch.int32, device="cuda")
+        enable[b // 2] = 0
+        kw.update(new, write_enable=enable)
+    before = {k: v.clone() for k, v in pools.items()}
+    ref_pools = {k: v.clone() for k, v in pools.items()}
+
+    def run(fn, caches, **extra):
+        scales = {k: caches[k] for k in ("k_scale", "v_scale") if k in caches}
+        out = fn(q, caches["k_cache"], caches["v_cache"], idx, **scales, **kw, **extra)
+        return out[0] if fold else out
+
+    out = run(decode_attention, pools, block_table=table, block_k=page)
+    out_c = run(decode_attention, contig)
+    ref = run(decode_attention_reference, ref_pools, block_table=table)
+    torch.cuda.synchronize()
+    label = f"paged {name}{' int8' if int8 else ''} {str(dtype)[6:]}"
+    if not torch.equal(out, out_c):
+        raise AssertionError(f"{label}: output differs from the contiguous kernel's")
+    for key, pool in pools.items():
+        paged = contig[key].view(b, n_kv, t_cap, page, *contig[key].shape[3:]).transpose(1, 2)
+        if not torch.equal(pool[table[mapped].long()], paged[mapped]):
+            raise AssertionError(f"{label}: {key} pages differ from the contiguous kernel's cache")
+        if fold:
+            if not torch.equal(pool, ref_pools[key]):
+                raise AssertionError(f"{label}: folded write of {key} differs from the plain version")
+            allowed = torch.zeros(n_pages, page, dtype=torch.bool, device="cuda")
+            rows = enable.nonzero()[:, 0]
+            at = idx[rows].long()
+            allowed[table[rows, at // page].long(), at % page] = True
+            changed = (pool != before[key]).transpose(1, 2).reshape(n_pages, page, -1).any(-1)
+            if (changed & ~allowed).any():
+                raise AssertionError(f"{label}: {key} changed outside the enabled write slots")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"[kernel] {label}: bit-equal to the contiguous kernel; max abs err {err:.3e} against "
+        f"the plain version (tol {TOL[dtype]:g})")
+    if err > TOL[dtype]:
+        raise AssertionError(f"{label}: max abs err {err} > {TOL[dtype]}")
+    return err
+
+
+# The paged kernel checks: the engine's decode (ragged fold, page 64, rows at
+# 544-575 sharing an 8-page prefix) and prefill (S=64 at 512) shapes, GQA +
+# window at H=128 with 16-slot pages, 128-slot pages at H=128, and a
+# windowed GQA chunk over 8-slot pages.
+PAGED_CASES = {
+    "engine_decode p64": dict(b=8, s=1, n=12, n_kv=12, h=64, page=64, t_cap=16, lo=544,
+                              hi=576, shared=8, fold=True),
+    "engine_prefill p64": dict(b=8, s=64, n=12, n_kv=12, h=64, page=64, t_cap=16, lo=512,
+                               hi=513, shared=8),
+    "gqa_window p16 h128": dict(b=4, s=1, n=16, n_kv=8, h=128, page=16, t_cap=32, lo=100,
+                                hi=400, shared=2, fold=True, window=64),
+    "prefill p128 h128": dict(b=2, s=64, n=4, n_kv=4, h=128, page=128, t_cap=4, lo=200,
+                              hi=300, shared=1),
+    "gqa_chunk_window p8": dict(b=3, s=64, n=8, n_kv=4, h=64, page=8, t_cap=32, lo=40,
+                                hi=150, shared=2, window=48),
+}
+
+
+def check_paged(gen):
+    """Every ``PAGED_CASES`` shape in fp32 and bf16, float and int8 caches
+    → the largest error against the plain version per (dtype, int8)."""
+    return {(dtype, int8): max(paged_case(name, gen, dtype, int8=int8, **kw)
+                               for name, kw in PAGED_CASES.items())
+            for dtype in (torch.float32, torch.bfloat16) for int8 in (False, True)}
 
 
 def norm_inputs(gen, rows, dtype, param_dtype, resid, beta, m=768):
@@ -1068,6 +1203,225 @@ def time_decode_int8(gen, card):
     return rows
 
 
+def time_paged(gen, card):
+    """Decode attention over page pools against the contiguous kernel on the
+    same values, at the engine's decode shape (b=8, S=1, rows at 544-575,
+    64-slot pages) and refill shape (S=64 at 512), bf16, queued (device
+    time): both kernels, the plain paged version, the bound (bytes: each
+    row's valid K/V prefix read once, q, out, the index and the table) and
+    SDPA on the same bf16 values (each row's valid prefix as a boolean
+    mask) as the yardstick."""
+    n, h, page, t_cap = 12, 64, 64, 16
+    length = page * t_cap
+    n_pages = 1 + B * t_cap
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, s, lo, hi in (("decode", 1, 544, 576), ("prefill", PAGED_CHUNK, 512, 513)):
+        idx = torch.randint(lo, hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+        q = randn(gen, B, s, n, h, dtype=torch.bfloat16)
+        kc, vc = (randn(gen, B, n, length, h, dtype=torch.bfloat16) for _ in range(2))
+        table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).view(
+            B, t_cap).to(torch.int32)
+        pools = []
+        for c in (kc, vc):
+            pool = torch.zeros(n_pages, n, page, h, dtype=torch.bfloat16, device="cuda")
+            pool[table.long()] = c.view(B, n, t_cap, page, h).transpose(1, 2)
+            pools.append(pool)
+        ms, late = queued_time(decode_attention, q, *pools, idx, block_table=table,
+                               block_k=page)
+        contig_ms, contig_late = queued_time(decode_attention, q, kc, vc, idx)
+        plain_ms, _ = queued_time(decode_attention_reference, q, *pools, idx,
+                                  block_table=table, inner=3, repeats=5)
+        valid = int((idx + s).max())
+        qpos = idx[:, None].long() + torch.arange(s, device="cuda")
+        mask = (torch.arange(valid, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+        lib_ms, _ = queued_time(sdpa, q.transpose(1, 2).contiguous(), kc[:, :, :valid],
+                                vc[:, :, :valid], attn_mask=mask)
+        prefix = int((idx + s).sum())                    # valid slots over the rows
+        nbytes = 2 * q.numel() * 2 + 2 * n * h * 2 * prefix + table.numel() * 4 + B * 4
+        pairs = int((s * idx.long() + s * (s + 1) // 2).sum())
+        ops = 4 * h * pairs * n
+        bound_ms, by = bound(nbytes, ops)
+        rows[name] = dict(ms=ms * 1e3, contiguous_ms=contig_ms * 1e3, plain_ms=plain_ms * 1e3,
+                          library_ms=lib_ms * 1e3, bound_ms=bound_ms, bound_by=by,
+                          bytes=nbytes, ops=ops, late_samples=late + contig_late,
+                          index=idx.tolist())
+        log(f"[time] decode_attention paged {name} (q {tuple(q.shape)}, index "
+            f"{min(idx.tolist())}-{max(idx.tolist())}, page {page}, bf16, queued): kernel "
+            f"{ms * 1e6:.2f} us, contiguous kernel {contig_ms * 1e6:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB), plain "
+            f"{plain_ms * 1e6:.2f} us, sdpa {lib_ms * 1e6:.2f} us on {card}"
+            + (f" ({late + contig_late} samples enqueued past the sleep)"
+               if late + contig_late else ""))
+    return rows
+
+
+def engine_prompts():
+    """``bench.py::bench_serving_125m``'s queue: 24 requests, each a shared
+    512-token system prompt plus 32 tokens of its own, from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    vocab = CONFIG_125M.vocab_size
+    system = rng.integers(1, vocab, size=(ENGINE_SYSTEM,)).astype(np.int32)
+    return [np.concatenate([system, rng.integers(1, vocab, size=(ENGINE_OWN,)).astype(np.int32)])
+            for _ in range(ENGINE_REQUESTS)]
+
+
+def engine_gap(model, outs):
+    """Teacher-forced gap of every request's generated tokens under a dense
+    forward, eight requests at a time."""
+    start = ENGINE_SYSTEM + ENGINE_OWN
+    gap = 0.0
+    for i in range(0, len(outs), B):
+        batch = torch.as_tensor(np.stack(outs[i:i + B]), device="cuda")
+        rows = batch.shape[0]
+        gap = max(gap, teacher_forced_gap(model, batch, [start] * rows, [batch.shape[1]] * rows))
+    return gap
+
+
+def run_engine_path(params, q4, card):
+    """``bench.py::bench_serving_125m`` on the port's continuous engine: the
+    125M model at full width and depth (seeded random weights), bf16, 24
+    requests of 544 tokens through 8 slots, +32 greedy tokens, refill chunk
+    64, decode blocks of 32, chains of 9. Variants: unpaged; paged (93 pages
+    of 64); paged with the prefix cache, cold (registry flushed) and warm;
+    int4-fused + paged + prefix warm. Gates: every paged variant's tokens
+    equal the unpaged engine's (the int4 one: the unpaged int4-fused
+    engine's) request for request; every request's teacher-forced gap within
+    0.1 of a dense forward; warm prefix hits 24 of 24 with 8 pages reused
+    each; decode attention launched exactly once a layer per model call
+    (paged launches only in the paged engines). Then every variant's serve
+    timed interleaved (medians of 3) and one warm paged serve profiled."""
+    cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
+    prompts = engine_prompts()
+    paged = dict(paged_pages=ENGINE_PAGES, page_size=ENGINE_PAGE)
+    engines = {
+        "unpaged": (make_continuous_engine(cfg, **ENGINE_COMMON), params),
+        "paged": (make_continuous_engine(cfg, **ENGINE_COMMON, **paged), params),
+        "paged+prefix": (make_continuous_engine(cfg, **ENGINE_COMMON, **paged,
+                                                prefix_cache=True), params),
+        "int4+paged+prefix": (make_continuous_engine(cfg, **ENGINE_COMMON, **paged,
+                                                     prefix_cache=True, dequantize="fused"), q4),
+    }
+    int4_unpaged = make_continuous_engine(cfg, **ENGINE_COMMON, dequantize="fused")
+    for serve, tree in engines.values():
+        serve(tree, prompts[:B])                            # warm-up
+    torch.cuda.synchronize()
+    runs = {}
+
+    def run(label, serve, tree, *, cold=False):
+        """One counted serve → its outputs, stats and launch counts."""
+        if cold:
+            serve.engine.flush_prefix_cache()
+        forwards = serve.engine.model_forwards
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = serve(tree, prompts)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        calls = serve.engine.model_forwards - forwards
+        runs[label] = dict(outs=outs, stats=serve.last_stats, latency=serve.last_latency,
+                           launches=launches, model_forwards=calls)
+        want = cfg.num_layers * calls
+        is_paged = serve.engine.last_stats is not None
+        log(f"[engine] {label}: {calls} model calls, decode attention {launches['decode_attention']} "
+            f"launches ({launches['decode_attention_paged']} paged; want {want}), stats "
+            f"{serve.last_stats}")
+        if launches["decode_attention"] != want or launches["decode_attention_paged"] != (
+                want if is_paged else 0):
+            raise AssertionError(f"engine {label}: launches {launches}, want {want}")
+        for out, p in zip(outs, prompts):
+            if out.shape != (len(p) + ENGINE_NEW,) or not np.array_equal(out[: len(p)], p):
+                raise AssertionError(f"engine {label}: output {out.shape} is not the prompt "
+                                     f"+ {ENGINE_NEW} tokens")
+            if out.min() < 0 or out.max() >= cfg.vocab_size:
+                raise AssertionError(f"engine {label}: token ids out of range")
+
+    run("unpaged", *engines["unpaged"])
+    run("paged", *engines["paged"])
+    run("paged+prefix cold", *engines["paged+prefix"], cold=True)
+    run("paged+prefix warm", *engines["paged+prefix"])
+    run("int4 unpaged", int4_unpaged, q4)
+    run("int4+paged+prefix warm", *engines["int4+paged+prefix"])
+    del int4_unpaged
+    for label, ref in (("paged", "unpaged"), ("paged+prefix cold", "unpaged"),
+                       ("paged+prefix warm", "unpaged"),
+                       ("int4+paged+prefix warm", "int4 unpaged")):
+        same = [np.array_equal(a, b) for a, b in zip(runs[label]["outs"], runs[ref]["outs"])]
+        log(f"[engine] {label} tokens equal to {ref}'s: {sum(same)} of {len(same)} requests")
+        if not all(same):
+            raise AssertionError(f"engine {label}: requests {[i for i, x in enumerate(same) if not x]}"
+                                 f" differ from the {ref} engine's")
+    for label in ("paged+prefix warm", "int4+paged+prefix warm"):
+        st = runs[label]["stats"]
+        want_reused = ENGINE_REQUESTS * (ENGINE_SYSTEM // ENGINE_PAGE)
+        if st["prefix_hits"] != ENGINE_REQUESTS or st["prefix_pages_reused"] != want_reused:
+            raise AssertionError(f"engine {label}: prefix hits {st['prefix_hits']}, pages reused "
+                                 f"{st['prefix_pages_reused']}, want {ENGINE_REQUESTS} and "
+                                 f"{want_reused}")
+    dense = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                        seed=1).eval()
+    dense.load_state_dict(params)
+    gaps = {label: engine_gap(dense, runs[label]["outs"])
+            for label in ("unpaged", "paged", "paged+prefix cold", "paged+prefix warm")}
+    dense.load_state_dict(dequantize_tree(q4, torch.bfloat16))
+    for label in ("int4 unpaged", "int4+paged+prefix warm"):
+        gaps[label] = engine_gap(dense, runs[label]["outs"])
+    del dense
+    log(f"[engine] teacher-forced max gaps against the dense bf16 forward (int4: on the "
+        f"dequantized weights): {gaps} (limit {TF_GAP})")
+    bad = {k: v for k, v in gaps.items() if not v <= TF_GAP}
+    if bad:
+        raise AssertionError(f"engine teacher-forced gaps {bad} > {TF_GAP}")
+
+    latencies = {}
+
+    def call(label, name, cold=False):
+        """One timed serve of engine ``name``, keeping its latency stats."""
+        serve, tree = engines[name]
+
+        def run_once():
+            if cold:
+                serve.engine.flush_prefix_cache()
+            serve(tree, prompts)
+            latencies.setdefault(label, []).append(serve.last_latency)
+        return run_once
+
+    secs = interleaved_seconds({
+        label: call(label, name, cold=label.endswith("cold"))
+        for label, name in (("unpaged", "unpaged"), ("paged", "paged"),
+                            ("paged+prefix cold", "paged+prefix"),
+                            ("paged+prefix warm", "paged+prefix"),
+                            ("int4+paged+prefix warm", "int4+paged+prefix"))
+    })
+    timing = {}
+    for label, times in secs.items():
+        sec = statistics.median(times)
+        lats = latencies[label]
+        st = runs[label]["stats"]
+        timing[label] = dict(
+            tok_s=ENGINE_REQUESTS * ENGINE_NEW / sec, seconds=times, median_s=sec,
+            ttft_p50=statistics.median(x["ttft_p50"] for x in lats),
+            refill_frac=statistics.median(x["refill_frac"] for x in lats),
+            page_high_water=None if st is None else st["page_high_water"])
+        log(f"[time] 125M engine serve, {label} (interleaved): {timing[label]['tok_s']:.1f} "
+            f"generated tok/s, {sec:.3f} s per serve (median of 3: "
+            f"{[round(t, 4) for t in times]}); TTFT p50 {timing[label]['ttft_p50'] * 1e3:.1f} "
+            f"ms, refill {timing[label]['refill_frac']:.3f} of dispatch time (medians over the "
+            f"3 serves), page high-water {timing[label]['page_high_water']} on {card}")
+    serve, tree = engines["paged+prefix"]
+    calls = runs["paged+prefix warm"]["model_forwards"]
+    profile = profile_summary(
+        f"125M engine serve, paged + prefix warm, per model call ({calls} a serve)",
+        lambda: serve(tree, prompts), calls,
+        timing["paged+prefix warm"]["median_s"] * 1e3 / calls)
+    summary = {label: dict(stats=r["stats"], launches=r["launches"],
+                           model_forwards=r["model_forwards"], latency=r["latency"])
+               for label, r in runs.items()}
+    del engines
+    return dict(runs=summary, teacher_forced_max_gap=gaps, timing=timing, profile=profile,
+                paged_launches=runs["paged+prefix warm"]["launches"]["decode_attention_paged"])
+
+
 def int4_weight(gen, k, n, group):
     """A seeded (K, N) kernel of the 125M init's scale, int4-quantized."""
     w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
@@ -1152,6 +1506,7 @@ INT4_KERNELS = ("int4_matmul", "int4_matmul_w4a8", "int4_matmul3", "int4_ff")
 
 def reset_launches() -> None:
     decode_attention.launches = 0
+    decode_attention.paged_launches = 0
     mm4.int4_matmul.launches = dict.fromkeys(mm4.int4_matmul.launches, 0)
     mm4.int4_matmul3.launches = 0
     ff4.int4_ff.launches = 0
@@ -1161,7 +1516,8 @@ def read_launches() -> dict:
     return {"int4_matmul": mm4.int4_matmul.launches["w4a16"],
             "int4_matmul_w4a8": mm4.int4_matmul.launches["w4a8"],
             "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
-            "decode_attention": decode_attention.launches}
+            "decode_attention": decode_attention.launches,
+            "decode_attention_paged": decode_attention.paged_launches}
 
 
 def run_quantized_path(params, gen):
@@ -1180,9 +1536,10 @@ def run_quantized_path(params, gen):
     want = {
         "fused": {"int4_matmul": (layers + 1) * NEW, "int4_matmul_w4a8": 0,
                   "int4_matmul3": layers * NEW, "int4_ff": layers * NEW,
-                  "decode_attention": layers * NEW},
+                  "decode_attention": layers * NEW, "decode_attention_paged": 0},
         "fused_w4a8": {"int4_matmul": 0, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
-                       "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW},
+                       "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW,
+                       "decode_attention_paged": 0},
     }
     rows, fns = {}, {}
     for mode in ("fused", "fused_w4a8"):
@@ -1406,6 +1763,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernel(gen)
     int8_errs = check_kernel(gen, int8=True)
+    paged_errs = check_paged(gen)
     flash_errs = check_flash(gen)
     int4_errs = check_int4(gen)
     norm_errs = check_fused_norm(gen)
@@ -1433,7 +1791,11 @@ def main() -> int:
     quant_breakdown = profile_summary(
         "125M int4-fused generate token step", lambda: fused_fn(q4, q_prompt), NEW,
         ladder["int4-fused"]["ms_per_token_step"])
-    del params, q4, fused_fn
+    del fused_fn
+    torch.cuda.empty_cache()
+    engine = run_engine_path(params, q4, card)
+    paged_times = time_paged(gen, card)
+    del params, q4
     torch.cuda.empty_cache()
     int4_times = time_int4(gen, card)
     torch.cuda.empty_cache()
@@ -1463,6 +1825,18 @@ def main() -> int:
                   **{k: decode_int8["int8"][k] for k in timing_keys},
                   bf16_cache_queued=decode_int8["bf16"]),
     )]
+    # The paged mode: its checks over every PAGED_CASES shape, its launches in
+    # the warm paged + prefix serve, its queued time at the engine's decode
+    # shape beside the contiguous kernel's on the same values.
+    entries.append(dict(
+        name="decode_attention_paged", route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
+        launches=engine["paged_launches"],
+        max_abs_err=max(paged_errs[torch.bfloat16, q] for q in (False, True)),
+        max_err_bf16=max(paged_errs[torch.bfloat16, q] for q in (False, True)),
+        max_err_fp32=max(paged_errs[torch.float32, q] for q in (False, True)),
+        **{k: paged_times["decode"][k] for k in timing_keys},
+        contiguous_ms=paged_times["decode"]["contiguous_ms"], shapes=paged_times,
+    ))
     for name in ("fwd", "bwd_dkv", "bwd_dq"):
         entries.append(dict(
             name=f"flash_{name}", route="cuda", source=FLASH_SOURCE,
@@ -1525,7 +1899,7 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
-                      "int8_cache_generate": int8_gen}))
+                      "int8_cache_generate": int8_gen, "engine": engine}))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0

@@ -21,10 +21,15 @@ CUDA kernel under ``csrc/``:
   train step and generation): forward and backward in
   ``csrc/fused_norm.cu`` (``ops/fused_norm.py``);
 * int8 KV caches (``TransformerConfig(kv_cache_dtype=torch.int8)``): decode
-  attention's int8 mode, with per-(token, head) scales.
+  attention's int8 mode, with per-(token, head) scales;
+* the continuous-batching engine (``models/serving.py``:
+  ``ContinuousEngine``, ``make_continuous_engine``) with greedy decoding,
+  and its paged KV cache and prefix cache: decode attention's paged mode,
+  the block table read by the same kernel.
 
-Not ported yet: the paged KV cache (with the continuous engine), meshes,
-MoE, ``scan_layers`` and ``remat``.
+Not ported yet: meshes, MoE, ``scan_layers``, ``remat``, and the engine's
+sampling, mixed and multi-step schedulers, speculative decoding, recovery
+policies, fleet handoff and tenancy (each raises ``NotImplementedError``).
 """
 
 import torch

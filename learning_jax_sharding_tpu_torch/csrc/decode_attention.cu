@@ -10,7 +10,22 @@
 // (B, N_kv, L): each score column is multiplied by its k scale after the q.k
 // contraction, and each probability column by its v scale after the row
 // sum l has taken it unscaled; the folded write merges the new token's scales
-// too. (The paged block table is not ported yet.)
+// too.
+//
+// Paged mode (block_table non-null): the caches are (P, N_kv, page, H) pools
+// shared by every row, scales (P, N_kv, page), and row b's logical cache slot
+// r lives at pool row (table[b * T + r / page] * N_kv + kv head) * page +
+// r % page. The TPU kernel sends each logical block through the table in its
+// index maps; here each logical row is translated on its own (RowMap), once
+// per tile into shared memory, so any page size works: a page smaller than
+// the 64-slot tile spans several pages in one tile, a larger one holds
+// several tiles. Everything else -- tiling,
+// masks, frontier, arithmetic -- is logical and unchanged, so a paged launch
+// gives the bits of a contiguous launch over the same values. The folded
+// write lands at the row's mapped page and slot; table entries past a row's
+// frontier are never read (the frontier clamp below). Pages may be shared
+// read-only between rows (a prefix cache): a block writes only its own row's
+// write slot, which the caller keeps on a private page.
 //
 // Design. One thread block per (q tile, kv head, batch row). The TPU kernel's
 // sequential k grid axis is a loop inside the block, from the row's first
@@ -54,11 +69,25 @@ template <> struct Int8Cache<int8_t> { static constexpr bool value = true; };
 __device__ __forceinline__ void from_float(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void from_float(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
-// Copy rows [row0, row0 + kTileK) of one (b, kv head) cache slab into shared
-// memory as fp32, zero-filling rows at or past `length`. 16-byte loads.
+// Where the logical cache slots of one (b, kv head) live: the index of slot
+// r's row of H values in the cache (or pool) array, which is also the index
+// of its scale in the scale array.
+struct RowMap {
+  const int* table;  // this row's T block-table entries; null: contiguous
+  unsigned base;     // contiguous: (b * n_kv + kvh) * length; paged: kvh
+  int n_kv, page;
+  __device__ __forceinline__ unsigned operator()(int r) const {
+    if (table == nullptr) return base + r;
+    return ((unsigned)table[r / page] * n_kv + base) * page + r % page;
+  }
+};
+
+// Copy logical slots [row0, row0 + kTileK) of one (b, kv head) cache into
+// shared memory as fp32, zero-filling slots at or past `length`; `rows` holds
+// the tile's row indices (RowMap). 16-byte loads.
 template <typename T, int H, int LD>
 __device__ __forceinline__ void load_tile(
-    float* dst, const T* slab, int row0, int length) {
+    float* dst, const T* cache, const unsigned* rows, int row0, int length) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecsPerRow = H / kVec;
   for (int i = threadIdx.x; i < kTileK * kVecsPerRow; i += kThreads) {
@@ -67,7 +96,7 @@ __device__ __forceinline__ void load_tile(
     float* out = dst + r * LD + c;
     if (row0 + r < length) {
       const uint4 raw =
-          *reinterpret_cast<const uint4*>(slab + (size_t)(row0 + r) * H + c);
+          *reinterpret_cast<const uint4*>(cache + (size_t)rows[r] * H + c);
       const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) out[e] = to_float(vals[e]);
@@ -78,11 +107,12 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-// Scales of cache slots [row0, row0 + kTileK) of one (b, kv head) row, 0 past
+// Scales of cache slots [row0, row0 + kTileK) of one (b, kv head), 0 past
 // `length` (those columns are masked).
-__device__ __forceinline__ void load_scales(float* dst, const float* row, int row0, int length) {
+__device__ __forceinline__ void load_scales(float* dst, const float* scales,
+                                            const unsigned* rows, int row0, int length) {
   for (int c = threadIdx.x; c < kTileK; c += kThreads)
-    dst[c] = row0 + c < length ? row[row0 + c] : 0.f;
+    dst[c] = row0 + c < length ? scales[rows[c]] : 0.f;
 }
 
 // T: q and out (fp32 or bf16). C: the caches and the new token's k/v, T or
@@ -93,8 +123,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const int* __restrict__ index, const C* __restrict__ k_new,
     const C* __restrict__ v_new, const int* __restrict__ write_enable,
     float* k_scale, float* v_scale, const float* __restrict__ ks_new,
-    const float* __restrict__ vs_new, T* __restrict__ out, int S, int N, int n_kv,
-    int length, int window, float scale, int tile_rows) {
+    const float* __restrict__ vs_new, T* __restrict__ out,
+    const int* __restrict__ block_table, int S, int N, int n_kv, int length,
+    int window, float scale, int tile_rows, int T_blocks, int page) {
   constexpr bool kInt8 = Int8Cache<C>::value;
   constexpr int kLdK = H + 1;                        // pad: conflict-free score reads
   constexpr int kRowStep = kThreads / H;             // rows apart in one thread's acc
@@ -110,7 +141,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int idx = index[b];
 
   extern __shared__ float smem[];
-  float* q_s = smem;                                 // rows x H
+  unsigned* row_s = reinterpret_cast<unsigned*>(smem);  // kTileK cache rows
+  float* q_s = smem + kTileK;                        // rows x H
   float* k_s = q_s + tile_rows * H;                  // kTileK x (H + 1)
   float* v_s = k_s + kTileK * kLdK;                  // kTileK x H
   float* p_s = v_s + kTileK * H;                     // rows x kTileK
@@ -121,23 +153,25 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   float* vs_s = ks_s + kTileK;                       // kTileK (int8 only)
 
   const size_t head = (size_t)b * n_kv + kvh;
-  const size_t slab = head * (size_t)length * H;
-  C* k_slab = k_cache + slab;
-  C* v_slab = v_cache + slab;
+  const RowMap slots =
+      block_table == nullptr
+          ? RowMap{nullptr, (unsigned)(head * length), n_kv, page}
+          : RowMap{block_table + (size_t)b * T_blocks, (unsigned)kvh, n_kv, page};
 
   // Folded write: the new token's k/v (and scales) into slot idx of this
-  // block's own cache row, before anything reads it. S == 1, so one block per
-  // (b, kv head).
+  // block's own cache row (paged: its mapped page), before anything reads it.
+  // S == 1, so one block per (b, kv head).
   if (k_new != nullptr && (write_enable == nullptr || write_enable[b] != 0) &&
       idx >= 0 && idx < length) {
     const size_t src = head * H;
+    const size_t dst = slots(idx);   // a row index: its values start at dst * H
     for (int d = threadIdx.x; d < H; d += kThreads) {
-      k_slab[(size_t)idx * H + d] = k_new[src + d];
-      v_slab[(size_t)idx * H + d] = v_new[src + d];
+      k_cache[dst * H + d] = k_new[src + d];
+      v_cache[dst * H + d] = v_new[src + d];
     }
     if (kInt8 && threadIdx.x == 0) {
-      k_scale[head * length + idx] = ks_new[head];
-      v_scale[head * length + idx] = vs_new[head];
+      k_scale[dst] = ks_new[head];
+      v_scale[dst] = vs_new[head];
     }
   }
 
@@ -169,11 +203,16 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
   for (int kt = first_col / kTileK; kt <= last_col / kTileK; ++kt) {
     const int col0 = kt * kTileK;
-    load_tile<C, H, kLdK>(k_s, k_slab, col0, length);
-    load_tile<C, H, H>(v_s, v_slab, col0, length);
+    // The tile's cache rows, translated once (the previous iteration's last
+    // __syncthreads has retired every read of row_s).
+    for (int r = threadIdx.x; r < kTileK; r += kThreads)
+      row_s[r] = col0 + r < length ? slots(col0 + r) : 0u;
+    __syncthreads();
+    load_tile<C, H, kLdK>(k_s, k_cache, row_s, col0, length);
+    load_tile<C, H, H>(v_s, v_cache, row_s, col0, length);
     if (kInt8) {
-      load_scales(ks_s, k_scale + head * length, col0, length);
-      load_scales(vs_s, v_scale + head * length, col0, length);
+      load_scales(ks_s, k_scale, row_s, col0, length);
+      load_scales(vs_s, v_scale, row_s, col0, length);
     }
     __syncthreads();
 
@@ -250,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 }
 
 size_t smem_bytes(int tile_rows, int h) {
-  return sizeof(float) * ((size_t)tile_rows * h + (size_t)kTileK * (h + 1) +
+  return sizeof(float) * ((size_t)kTileK + (size_t)tile_rows * h + (size_t)kTileK * (h + 1) +
                           (size_t)kTileK * h + (size_t)tile_rows * kTileK +
                           3 * (size_t)tile_rows + 2 * (size_t)kTileK);
 }
@@ -259,8 +298,9 @@ template <typename T, typename C, int H>
 int launch(const void* q, void* k_cache, void* v_cache, const int* index,
            const void* k_new, const void* v_new, const int* write_enable,
            float* k_scale, float* v_scale, const float* ks_new, const float* vs_new,
-           void* out, int B, int S, int N, int n_kv, int length, int window,
-           float scale, int tile_rows, cudaStream_t stream) {
+           void* out, const int* block_table, int B, int S, int N, int n_kv, int length,
+           int window, float scale, int tile_rows, int T_blocks, int page,
+           cudaStream_t stream) {
   auto kernel = decode_attention_kernel<T, C, H>;
   static bool attribute_set = false;
   const size_t smem = smem_bytes(kMaxRows, H);
@@ -276,7 +316,8 @@ int launch(const void* q, void* k_cache, void* v_cache, const int* index,
       static_cast<const T*>(q), static_cast<C*>(k_cache),
       static_cast<C*>(v_cache), index, static_cast<const C*>(k_new),
       static_cast<const C*>(v_new), write_enable, k_scale, v_scale, ks_new,
-      vs_new, static_cast<T*>(out), S, N, n_kv, length, window, scale, tile_rows);
+      vs_new, static_cast<T*>(out), block_table, S, N, n_kv, length, window, scale,
+      tile_rows, T_blocks, page);
   return (int)cudaGetLastError();
 }
 
@@ -287,16 +328,22 @@ extern "C" {
 // dtype (q, out): 0 = float32, 1 = bfloat16. quantized: the caches and k_new
 // / v_new are int8 and the four scale pointers are given (ks_new / vs_new with
 // the folded write); otherwise the caches are in dtype and the scales null.
-// window <= 0: no window. k_new / v_new / write_enable may be null. Returns
-// cudaGetLastError() after the launch; -1 for a head_dim, dtype or tile size
-// this kernel does not take.
+// window <= 0: no window. k_new / v_new / write_enable may be null.
+// block_table: null for per-row (B, N_kv, length, H) caches; otherwise the
+// (B, T_blocks) int32 table over (P, N_kv, page, H) pools, with length =
+// T_blocks * page the logical capacity. Returns cudaGetLastError() after the
+// launch; -1 for a head_dim, dtype, tile size or table this kernel does not
+// take.
 int decode_attention_launch(
     const void* q, void* k_cache, void* v_cache, const int* index,
     const void* k_new, const void* v_new, const int* write_enable, float* k_scale,
     float* v_scale, const float* ks_new, const float* vs_new, void* out,
-    int dtype, int quantized, int B, int S, int N, int n_kv, int length, int H,
-    int window, float scale, int tile_rows, void* stream) {
+    const int* block_table, int dtype, int quantized, int B, int S, int N, int n_kv,
+    int length, int H, int window, float scale, int tile_rows, int T_blocks, int page,
+    void* stream) {
   if (tile_rows < 1 || tile_rows > kMaxRows) return -1;
+  if (block_table != nullptr && (page < 1 || T_blocks < 1 || length != T_blocks * page))
+    return -1;
   if (quantized && (k_scale == nullptr || v_scale == nullptr ||
                (k_new != nullptr && (ks_new == nullptr || vs_new == nullptr))))
     return -1;
@@ -304,7 +351,8 @@ int decode_attention_launch(
 #define LAUNCH(T, C, HD)                                                         \
   return launch<T, C, HD>(q, k_cache, v_cache, index, k_new, v_new,              \
                           write_enable, k_scale, v_scale, ks_new, vs_new, out,   \
-                          B, S, N, n_kv, length, window, scale, tile_rows, st)
+                          block_table, B, S, N, n_kv, length, window, scale,     \
+                          tile_rows, T_blocks, page, st)
   if (dtype == 0 && !quantized && H == 64) LAUNCH(float, float, 64);
   if (dtype == 0 && !quantized && H == 128) LAUNCH(float, float, 128);
   if (dtype == 1 && !quantized && H == 64) LAUNCH(__nv_bfloat16, __nv_bfloat16, 64);

@@ -8,7 +8,12 @@ of two backends:
 * ``"dense"``: attend the whole ``(B, L, N_kv, H)`` buffer with a mask;
 * ``"blocked"``: the length-aware kernel (``ops/decode_attention.py``) over a
   ``(B, N_kv, L, H)`` buffer, reading only each row's valid prefix; ragged
-  single-token steps fold the cache write into the kernel.
+  single-token steps fold the cache write into the kernel. With
+  ``decode_paged`` the buffers are ``(P, N_kv, page, H)`` page pools
+  (``decode_page_count`` pages of ``decode_block_k`` tokens) reached through
+  a ``(B, T)`` block table that the continuous engine
+  (``models/serving.py``) owns; page 0 is the scratch target of masked
+  writes, and this module never changes the table.
 
 Outside decode mode attention runs through the dense op with a mask, or
 through a custom ``attn_fn`` backend (the flash kernels,
@@ -27,8 +32,6 @@ per (token, kv head), both backends writing through the one
 :func:`quantize_kv_chunk`: the dense backend dequantizes the whole buffer
 on read, the blocked one hands the scales to the kernel, which dequantizes
 only the valid prefix it reads.
-
-Not ported yet: paged pools come with the continuous-engine slice.
 """
 
 from __future__ import annotations
@@ -131,26 +134,54 @@ def row_update_masked(
     return buf.scatter_(seq_dim, index, merged)
 
 
+def paged_write(pool: torch.Tensor, chunk: torch.Tensor, idx: torch.Tensor,
+                block_table: torch.Tensor, chunk_lengths: torch.Tensor | None) -> torch.Tensor:
+    """Write a sequence-major chunk ``(B, N_kv, S, ...)`` into a page pool
+    ``(P, N_kv, page, ...)`` IN PLACE through the block table: position
+    ``idx_b + t`` lives at ``(block_table[b, pos // page], :, pos % page)``.
+    Positions past a row's ``chunk_lengths`` (or, without them, past the
+    logical capacity) go to the scratch page 0, so masked writes never touch
+    live pages; the JAX module's ``paged_write``."""
+    page, s = pool.shape[2], chunk.shape[2]
+    t_cap = block_table.shape[1]
+    steps = torch.arange(s, device=pool.device)
+    pos = idx.long()[:, None] + steps                             # (B, S)
+    pages = block_table.long().gather(1, (pos // page).clamp(max=t_cap - 1))
+    if chunk_lengths is not None:
+        valid = steps[None, :] < chunk_lengths.long()[:, None]
+    else:
+        valid = pos < t_cap * page
+    pages = torch.where(valid, pages, 0)
+    pool[pages, :, pos % page] = chunk.movedim(2, 1).to(pool.dtype)
+    return pool
+
+
 @dataclasses.dataclass
 class KVCache:
     """One layer's decode cache: preallocated buffers, updated IN PLACE by
     every decode call (the JAX module threads a functional cache instead).
 
     ``key``/``value`` are ``(B, L, N_kv, H)`` for the dense backend and
-    ``(B, N_kv, L, H)`` for the blocked one. ``index`` is the int32 write
-    position on the device: a scalar, or ``(B,)`` when ragged. int8 caches
-    carry fp32 ``key_scale``/``value_scale`` (ones at first), ``(B, L,
-    N_kv)`` dense and ``(B, N_kv, L)`` blocked; float caches carry none."""
+    ``(B, N_kv, L, H)`` for the blocked one; paged, ``(P, N_kv, page, H)``
+    pools with the ``(B, T)`` int32 ``block_table``. ``index`` is the int32
+    write position on the device: a scalar, or ``(B,)`` when ragged. int8
+    caches carry fp32 ``key_scale``/``value_scale`` (ones at first), ``(B,
+    L, N_kv)`` dense, ``(B, N_kv, L)`` blocked and ``(P, N_kv, page)``
+    paged; float caches carry none."""
 
     key: torch.Tensor
     value: torch.Tensor
     index: torch.Tensor
     key_scale: torch.Tensor | None = None
     value_scale: torch.Tensor | None = None
+    block_table: torch.Tensor | None = None
 
     @classmethod
-    def create(cls, shape, dtype, *, ragged: bool, device) -> "KVCache":
-        batch = shape[0]
+    def create(cls, shape, dtype, *, ragged: bool, device, batch: int | None = None,
+               block_table: torch.Tensor | None = None) -> "KVCache":
+        """Zeroed buffers of ``shape``; ``batch`` rows of index (default
+        ``shape[0]``; a page pool's leading axis counts pages)."""
+        batch = shape[0] if batch is None else batch
         scales = {}
         if dtype == torch.int8:
             sc_shape = shape[:-1]
@@ -164,6 +195,7 @@ class KVCache:
             index=torch.zeros(
                 (batch,) if ragged else (), dtype=torch.int32, device=device
             ),
+            block_table=block_table,
             **scales,
         )
 
@@ -240,16 +272,13 @@ class MultiHeadAttention(nn.Module):
         decode_block_k: int | None = None,
         decode_ragged: bool = False,
         decode_paged: bool = False,
+        decode_page_count: int = 0,
         quantization: str | None = None,
         quantization_group: int = 128,
         device=None,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if decode_paged:
-            raise NotImplementedError(
-                "paged KV cache: ported with the continuous-engine slice"
-            )
         n_kv = num_heads if num_kv_heads is None else num_kv_heads
         if num_heads % n_kv:
             raise ValueError(f"num_kv_heads {n_kv} must divide num_heads {num_heads}")
@@ -263,6 +292,7 @@ class MultiHeadAttention(nn.Module):
         self.decode_attention = decode_attention
         self.decode_block_k = decode_block_k
         self.decode_ragged = decode_ragged
+        self.decode_paged, self.decode_page_count = decode_paged, decode_page_count
         self.quantization, self.quantization_group = quantization, quantization_group
         self.use_bias = use_bias
         kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
@@ -287,17 +317,46 @@ class MultiHeadAttention(nn.Module):
         g = min(self.quantization_group, m)
         return g == m or (m // 2) % g == 0
 
-    def init_cache(self, batch: int, device) -> KVCache:
-        """Zeroed cache for ``batch`` rows in this module's backend layout."""
+    def init_cache(self, batch: int, device, block_table: torch.Tensor | None = None) -> KVCache:
+        """Zeroed cache for ``batch`` rows in this module's backend layout.
+        Paged: ``decode_page_count`` pages and a zeroed ``(batch,
+        max_decode_len // page)`` table, or the ``block_table`` given (the
+        model hands every layer the one table)."""
         if self.max_decode_len <= 0:
             raise ValueError("decode=True requires max_decode_len > 0")
         store = self.kv_cache_dtype if self.kv_cache_dtype is not None else self.dtype
         n_kv, h, length = self.kv_heads, self.head_dim, self.max_decode_len
-        if resolve_decode_backend(self.decode_attention, device) == "blocked":
-            shape = (batch, n_kv, length, h)
-        else:
-            shape = (batch, length, n_kv, h)
+        blocked = resolve_decode_backend(self.decode_attention, device) == "blocked"
+        if self.decode_paged:
+            page = self._check_paged(blocked)
+            if block_table is None:
+                block_table = torch.zeros(
+                    (batch, length // page), dtype=torch.int32, device=device
+                )
+            return KVCache.create(
+                (self.decode_page_count, n_kv, page, h), store, ragged=True,
+                device=device, batch=batch, block_table=block_table,
+            )
+        shape = (batch, n_kv, length, h) if blocked else (batch, length, n_kv, h)
         return KVCache.create(shape, store, ragged=self.decode_ragged, device=device)
+
+    def _check_paged(self, blocked: bool) -> int:
+        """The paged mode's preconditions (the JAX module's errors) → the
+        page size."""
+        if not blocked:
+            raise ValueError(
+                "decode_paged requires the blocked decode backend (the "
+                "dense path attends per-row buffers, not page pools)"
+            )
+        if not self.decode_ragged:
+            raise ValueError("decode_paged requires decode_ragged")
+        page = self.decode_block_k
+        if not page or self.max_decode_len % page:
+            raise ValueError(
+                f"decode_paged needs decode_block_k (page size) dividing "
+                f"max_decode_len ({self.max_decode_len}); got {page}"
+            )
+        return page
 
     def forward(
         self,
@@ -408,7 +467,10 @@ class MultiHeadAttention(nn.Module):
                 "attn_fn backends (flash/ring) are for training-length "
                 "sequences"
             )
-        if resolve_decode_backend(self.decode_attention, q.device) == "blocked":
+        blocked = resolve_decode_backend(self.decode_attention, q.device) == "blocked"
+        if self.decode_paged:
+            self._check_paged(blocked)
+        if blocked:
             return self._blocked_cached_attention(q, k, v, cache, chunk_lengths)
         _, s, n, _ = q.shape
         length = cache.key.shape[1]
@@ -442,9 +504,9 @@ class MultiHeadAttention(nn.Module):
         return dot_product_attention(q, k_full, v_full, mask=mask)
 
     def _blocked_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
-        """The length-aware kernel over the ``(B, N_kv, L, H)`` cache. Ragged
-        single-token steps fold the write into the kernel; other chunks are
-        written first."""
+        """The length-aware kernel over the ``(B, N_kv, L, H)`` cache (or the
+        page pools through the block table). Ragged single-token steps fold
+        the write into the kernel; other chunks are written first."""
         s = q.shape[1]
         idx = self._advance(cache, s, chunk_lengths)
 
@@ -455,7 +517,8 @@ class MultiHeadAttention(nn.Module):
 
         (k_sm, ks_sm), (v_sm, vs_sm) = seq_major(k), seq_major(v)
         kwargs = dict(window=self.window, block_k=self.decode_block_k,
-                      k_scale=cache.key_scale, v_scale=cache.value_scale)
+                      k_scale=cache.key_scale, v_scale=cache.value_scale,
+                      block_table=cache.block_table)
         if self.decode_ragged and s == 1:
             out = decode_attention(
                 q, cache.key, cache.value, idx, k_new=k_sm, v_new=v_sm, ks_new=ks_sm,
@@ -464,7 +527,11 @@ class MultiHeadAttention(nn.Module):
             return out[0]
         for buf, sc_buf, chunk, sc in ((cache.key, cache.key_scale, k_sm, ks_sm),
                                        (cache.value, cache.value_scale, v_sm, vs_sm)):
-            if sc is not None:
-                self._write(sc_buf, sc, idx, chunk_lengths, seq_dim=2)
-            self._write(buf, chunk, idx, chunk_lengths, seq_dim=2)
+            for target, values in ((sc_buf, sc), (buf, chunk)):
+                if values is None:
+                    continue
+                if cache.block_table is not None:
+                    paged_write(target, values, idx, cache.block_table, chunk_lengths)
+                else:
+                    self._write(target, values, idx, chunk_lengths, seq_dim=2)
         return decode_attention(q, cache.key, cache.value, idx, **kwargs)

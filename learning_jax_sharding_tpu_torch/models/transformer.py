@@ -22,8 +22,13 @@ the fused residual+norm kernels (``ops/fused_norm.py``) in
 dict loads across the flag. ``kv_cache_dtype=torch.int8`` passes to the
 blocks' caches (``models/attention.py``).
 
-Not ported yet: MoE feed-forwards, ``scan_layers``, ``remat`` and the paged
-cache; each raises ``NotImplementedError`` naming the slice that brings it.
+``decode_paged=True`` (with ``decode_page_count`` pages of ``decode_block_k``
+tokens, the blocked backend and ``decode_ragged``) keeps every layer's K/V in
+page pools behind one ``(B, max_seq_len // page)`` block table, which the
+continuous engine (``models/serving.py``) owns.
+
+Not ported yet: MoE feed-forwards, ``scan_layers`` and ``remat``; each raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ class TransformerConfig:
     decode_block_k: int | None = None
     decode_ragged: bool = False
     decode_paged: bool = False
+    decode_page_count: int = 0          # paged: pages in each layer's pools
     quantization: str | None = None     # "int4" / "int4_w4a8": int4 state dicts
     quantization_group: int = 128       # must match quantize_tree's group_size
 
@@ -86,7 +92,6 @@ class TransformerConfig:
             "num_experts": (self.num_experts > 0, "the MoE slice"),
             "scan_layers": (self.scan_layers, "slice D (training breadth)"),
             "remat": (self.remat, "slice D (training breadth)"),
-            "decode_paged": (self.decode_paged, "the continuous-engine slice"),
         }
         for name, (used, where) in later.items():
             if used:
@@ -254,7 +259,8 @@ class TransformerBlock(nn.Module):
             max_decode_len=cfg.max_seq_len if cfg.decode else 0,
             kv_cache_dtype=cfg.kv_cache_dtype, decode_attention=cfg.decode_attention,
             decode_block_k=cfg.decode_block_k, decode_ragged=cfg.decode_ragged,
-            decode_paged=cfg.decode_paged, quantization=cfg.quantization,
+            decode_paged=cfg.decode_paged, decode_page_count=cfg.decode_page_count,
+            quantization=cfg.quantization,
             quantization_group=cfg.quantization_group, device=device, generator=generator,
         )
         self.ln_ff = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
@@ -281,10 +287,16 @@ class TransformerBlock(nn.Module):
 class DecodeCache:
     """The model's decode state: one :class:`KVCache` per block plus the
     position counter of the learned position table (a scalar, or ``(B,)``
-    when ragged). Updated IN PLACE by every decode forward."""
+    when ragged). Updated IN PLACE by every decode forward.
+
+    Paged: ``block_table`` is the ONE ``(B, max_seq_len // page)`` int32
+    table that every layer's cache reads (each ``KVCache.block_table`` is
+    this same tensor; the JAX model keeps one leaf per layer, all equal).
+    The forward never writes it; its owner updates it in place."""
 
     layers: list[KVCache]
     position: torch.Tensor
+    block_table: torch.Tensor | None = None
 
 
 class Transformer(nn.Module):
@@ -334,11 +346,16 @@ class Transformer(nn.Module):
         cfg = self.config
         if not cfg.decode:
             raise ValueError("init_cache requires a decode config (decode=True)")
+        layers: list[KVCache] = []
+        for blk in self.blocks:
+            table = layers[0].block_table if layers else None
+            layers.append(blk.attn.init_cache(batch, self.device, block_table=table))
         return DecodeCache(
-            layers=[blk.attn.init_cache(batch, self.device) for blk in self.blocks],
+            layers=layers,
             position=torch.zeros(
                 (batch,) if cfg.decode_ragged else (), dtype=torch.int32, device=self.device
             ),
+            block_table=layers[0].block_table if layers else None,
         )
 
     def forward(

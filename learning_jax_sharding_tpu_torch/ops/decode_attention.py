@@ -17,8 +17,12 @@ in ``csrc/decode_attention.cu`` (built at first use, see ``_build``); for CPU
 tensors it runs :func:`decode_attention_reference`, the plain version the
 tests hold against the JAX kernel. Nothing falls back from one to the other.
 
-Not ported yet (it comes with the continuous-engine slice): the paged block
-table.
+Paged mode (``block_table``): the caches are ``(P, N_kv, page, H)`` pools
+shared by every row (scales ``(P, N_kv, page)``), and row ``b``'s logical
+cache position ``i`` lives at ``(block_table[b, i // page], :, i % page)``;
+the logical capacity is ``T·page``. Both versions translate each logical row
+through the table and compute what the contiguous layout computes; the
+continuous engine (``models/serving.py``) owns the table.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ def decode_attention_reference(
     ks_new: torch.Tensor | None = None,
     vs_new: torch.Tensor | None = None,
     write_enable: torch.Tensor | None = None,
+    block_table: torch.Tensor | None = None,
     window: int | None = None,
     scale: float | None = None,
 ):
@@ -72,8 +77,16 @@ def decode_attention_reference(
     whole cache, with the kernel's fold, ``write_enable``, ``-1e30`` mask and
     ``l == 0`` guard, and its int8 scaling (score columns by ``k_scale``,
     probabilities by ``v_scale`` after ``l``). The folded write updates the
-    caches (and scales) IN PLACE. Takes validated arguments (see
-    :func:`decode_attention`)."""
+    caches (and scales) IN PLACE. Paged pools go through the table: the
+    folded write lands at each row's mapped page and slot, then every row's
+    logical view is gathered and attended as a contiguous cache. Takes
+    validated arguments (see :func:`decode_attention`)."""
+    if block_table is not None:
+        return _paged_reference(
+            q, k_cache, v_cache, index, block_table, k_scale=k_scale, v_scale=v_scale,
+            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new,
+            write_enable=write_enable, window=window, scale=scale,
+        )
     b, s, n, h = q.shape
     n_kv, length = k_cache.shape[1], k_cache.shape[2]
     group = n // n_kv
@@ -82,9 +95,7 @@ def decode_attention_reference(
     quantized = k_scale is not None
     if k_new is not None:
         slot = idx.long().clamp(0, length - 1)
-        keep = (idx >= 0) & (idx < length)
-        if write_enable is not None:
-            keep = keep & (_row_index(write_enable, b, q.device) != 0)
+        keep = _fold_keep(idx, write_enable, b, length, q.device)
         merges = [(k_cache, k_new), (v_cache, v_new)]
         if quantized:
             merges += [(k_scale, ks_new), (v_scale, vs_new)]
@@ -121,24 +132,80 @@ def decode_attention_reference(
     return out
 
 
+def _fold_keep(index, write_enable, b: int, length: int, device) -> torch.Tensor:
+    """``(B,)`` bool: the rows whose folded write lands (a slot inside the
+    cache, and ``write_enable`` on)."""
+    idx = _row_index(index, b, device)
+    keep = (idx >= 0) & (idx < length)
+    if write_enable is not None:
+        keep = keep & (_row_index(write_enable, b, device) != 0)
+    return keep
+
+
+def _paged_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Each row's logical cache from a page pool: ``(P, N_kv, page, ...)``
+    through the ``(B, T)`` table → ``(B, N_kv, T·page, ...)`` (a copy)."""
+    view = pool[block_table.long()].transpose(1, 2)        # (B, N_kv, T, page, ...)
+    return view.reshape(*view.shape[:2], -1, *view.shape[4:])
+
+
+def _paged_reference(q, k_cache, v_cache, index, block_table, *, k_scale, v_scale,
+                     k_new, v_new, ks_new, vs_new, write_enable, window, scale):
+    """:func:`decode_attention_reference` over page pools."""
+    b = q.shape[0]
+    page = k_cache.shape[2]
+    length = block_table.shape[1] * page
+    quantized = k_scale is not None
+    if k_new is not None:
+        rows = _fold_keep(index, write_enable, b, length, q.device).nonzero()[:, 0]
+        at = _row_index(index, b, q.device)[rows].long()
+        pages = block_table[rows, at // page].long()
+        slots = at % page
+        merges = [(k_cache, k_new), (v_cache, v_new)]
+        if quantized:
+            merges += [(k_scale, ks_new), (v_scale, vs_new)]
+        for pool, new in merges:
+            pool[pages, :, slots] = new[rows, :, 0].to(pool.dtype)
+    scales = {}
+    if quantized:
+        scales = dict(k_scale=_paged_view(k_scale, block_table),
+                      v_scale=_paged_view(v_scale, block_table))
+    out = decode_attention_reference(
+        q, _paged_view(k_cache, block_table), _paged_view(v_cache, block_table), index,
+        window=window, scale=scale, **scales,
+    )
+    if k_new is not None:
+        return (out, k_cache, v_cache) + ((k_scale, v_scale) if quantized else ())
+    return out
+
+
 @functools.cache
 def _kernel_entry():
     """The C entry point of ``csrc/decode_attention.cu``, typed for ctypes."""
     fn = load_library("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn
 
 
 def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
-                 window, scale, tile_rows, scales):
+                 window, scale, tile_rows, scales, block_table=None):
     """Check what the kernel takes, then launch it on the current stream.
     ``scales``: ``(k_scale, v_scale, ks_new, vs_new)`` of an int8 cache, or
-    Nones."""
+    Nones. ``block_table``: the paged table (the caches are then pools)."""
     b, s, n, h = q.shape
-    n_kv, length = k_cache.shape[1], k_cache.shape[2]
+    n_kv = k_cache.shape[1]
+    if block_table is None:
+        t_cap, page, length = 0, 0, k_cache.shape[2]
+    else:
+        if block_table.dtype != torch.int32 or not block_table.is_contiguous():
+            raise ValueError("block_table must be contiguous int32")
+        if block_table.device != q.device:
+            raise ValueError(f"block_table is on {block_table.device}, q on {q.device}")
+        t_cap, page = block_table.shape[1], k_cache.shape[2]
+        length = t_cap * page
     quantized = scales[0] is not None
     store = torch.int8 if quantized else q.dtype
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache}
@@ -171,12 +238,15 @@ def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), idx.data_ptr(),
             ptr(k_new), ptr(v_new), ptr(write_enable), *map(ptr, scales),
-            out.data_ptr(), _DTYPE_CODES[q.dtype], int(quantized), b, s, n, n_kv, length,
-            h, 0 if window is None else window, scale, tile_rows, stream,
+            out.data_ptr(), ptr(block_table), _DTYPE_CODES[q.dtype], int(quantized), b, s, n,
+            n_kv, length, h, 0 if window is None else window, scale, tile_rows, t_cap, page,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: error {err}")
     decode_attention.launches += 1
+    if block_table is not None:
+        decode_attention.paged_launches += 1
     return out
 
 
@@ -203,8 +273,8 @@ def decode_attention(
 
     Args:
         q: ``(B, S, N, H)`` chunk queries; N may exceed the cache's heads (GQA).
-        k_cache / v_cache: ``(B, N_kv, L, H)`` caches: float, or int8 with
-            ``k_scale``/``v_scale``.
+        k_cache / v_cache: ``(B, N_kv, L, H)`` caches (paged: pools, see
+            ``block_table``): float, or int8 with ``k_scale``/``v_scale``.
         index: int32 scalar, or ``(B,)`` for ragged batches: the absolute
             position of each row's first chunk query. Without the folded
             write the chunk's own k/v must already be at
@@ -224,8 +294,14 @@ def decode_attention(
             divide L). The CUDA kernel tiles the cache in its own 64-slot
             tiles, and the result does not depend on either.
         block_q: query rows per tile (``block_q // group`` whole queries).
-        block_table: the paged table, not ported yet
-            (``NotImplementedError``).
+        block_table: PAGED cache: ``(B, T)`` int32 mapping row ``b``'s
+            logical block ``t`` (positions ``[t·page, (t+1)·page)``) to a
+            page of the pools; the caches are then ``(P, N_kv, page, H)``
+            pools (scales ``(P, N_kv, page)``), the logical capacity is
+            ``T·page`` and ``block_k`` must equal the page size. The folded
+            write lands at the row's mapped page and slot. Entries past a
+            row's frontier are never read; they should name a scratch page
+            (the engine's page 0) for the masked writes of chunk prefill.
 
     Returns:
         ``(B, S, N, H)`` in ``q.dtype``, or ``(out, k_cache, v_cache)`` with
@@ -233,15 +309,27 @@ def decode_attention(
         int8 caches).
     """
     b, s, n, h = q.shape
-    if block_table is not None:
-        raise NotImplementedError(
-            "paged KV cache (block_table): ported with the continuous-engine slice"
-        )
-    bk, n_kv, length, hk = k_cache.shape
+    paged = block_table is not None
+    if paged:
+        _, n_kv, page, hk = k_cache.shape
+        if block_table.ndim != 2 or block_table.shape[0] != b:
+            raise ValueError(
+                f"block_table {tuple(block_table.shape)} must be (B, T) = ({b}, *)"
+            )
+        if block_k is not None and block_k != page:
+            raise ValueError(
+                f"paged cache: block_k ({block_k}) must equal the page size ({page})"
+            )
+        block_k = page
+        length = block_table.shape[1] * page               # logical per-row capacity
+        bk = b
+    else:
+        bk, n_kv, length, hk = k_cache.shape
     if (bk, hk) != (b, h) or v_cache.shape != k_cache.shape:
+        layout = "(P, N_kv, page, H)" if paged else "(B, N_kv, L, H)"
         raise ValueError(
             f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} do not "
-            f"match queries {tuple(q.shape)} (want (B, N_kv, L, H) with H = {h})"
+            f"match queries {tuple(q.shape)} (want {layout} with H = {h})"
         )
     if n % n_kv:
         raise ValueError(f"num_heads {n} not a multiple of kv heads {n_kv}")
@@ -268,8 +356,8 @@ def decode_attention(
     elif write_enable is not None:
         raise ValueError("write_enable requires the folded write (k_new)")
     if quantized:
-        for name, t, want in (("k_scale", k_scale, (b, n_kv, length)),
-                              ("v_scale", v_scale, (b, n_kv, length)),
+        for name, t, want in (("k_scale", k_scale, tuple(k_cache.shape[:3])),
+                              ("v_scale", v_scale, tuple(k_cache.shape[:3])),
                               ("ks_new", ks_new if fold else None, (b, n_kv, 1)),
                               ("vs_new", vs_new if fold else None, (b, n_kv, 1))):
             if t is not None and tuple(t.shape) != want:
@@ -281,7 +369,8 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_reference(
             q, k_cache, v_cache, index, k_new=k_new, v_new=v_new,
-            write_enable=write_enable, window=window, scale=scale, **scales,
+            write_enable=write_enable, block_table=block_table, window=window,
+            scale=scale, **scales,
         )
     if q.device.type != "cuda":
         raise ValueError(
@@ -294,12 +383,14 @@ def decode_attention(
     tile_rows = min(qb * group, _MAX_TILE_ROWS)
     out = _launch_cuda(
         q, k_cache, v_cache, idx, k_new, v_new, enable, window, scale, tile_rows,
-        (k_scale, v_scale, ks_new, vs_new),
+        (k_scale, v_scale, ks_new, vs_new), block_table,
     )
     if fold:
         return (out, k_cache, v_cache) + ((k_scale, v_scale) if quantized else ())
     return out
 
 
-#: Kernel launches since the last reset; the wrapper adds one per launch.
+#: Kernel launches since the last reset; the wrapper adds one per launch,
+#: and one to ``paged_launches`` too when the launch reads a block table.
 decode_attention.launches = 0
+decode_attention.paged_launches = 0

@@ -118,17 +118,19 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="write_enable"):
         decode_attention(t["q"], t["kc"], t["vc"], 0, write_enable=torch.ones(B))
     # int8 caches are ported: the folded write without the new scales is a
-    # JAX ValueError; only the paged table still raises.
+    # JAX ValueError. So is the paged table, with the JAX paged mode's errors:
+    # a (B, L) cache read as a pool has L-slot pages, which block_k must equal.
     ones = torch.ones(B, NKV, L)
     kc8 = torch.zeros(B, NKV, L, H, dtype=torch.int8)
     new8 = torch.zeros(B, NKV, 1, H, dtype=torch.int8)
     with pytest.raises(ValueError, match="ks_new and vs_new"):
         decode_attention(t["q"], kc8, kc8, 0, k_scale=ones, v_scale=ones, k_new=new8,
                          v_new=new8)
-    with pytest.raises(NotImplementedError, match="paged"):
-        decode_attention(
-            t["q"], t["kc"], t["vc"], 0, block_table=torch.zeros(B, 4, dtype=torch.int32)
-        )
+    table = torch.zeros(B, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must equal the page size"):
+        decode_attention(t["q"], t["kc"], t["vc"], 0, block_table=table, block_k=16)
+    with pytest.raises(ValueError, match=r"must be \(B, T\)"):
+        decode_attention(t["q"], t["kc"], t["vc"], 0, block_table=table[:1])
 
 
 def test_auto_block_k_matches_jax():

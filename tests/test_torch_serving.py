@@ -1,0 +1,343 @@
+"""The port's continuous engine (``models/serving.py``) against the JAX engine.
+
+Both engines serve the same queues with the same weights (``CONFIG_TINY``
+in fp32, a JAX init carried across by ``from_flax_params``) through two
+slots: greedy tokens must be EQUAL request for request, and the paged
+engines' ``last_stats`` (page high-water, prefix hits and reuse,
+preemptions) equal to JAX's. The JAX engine runs on a one-device mesh with
+``RULES_TP_SERVING``, its blocked backend through the Pallas kernel in
+interpret mode; each JAX reference is computed once per module. The port
+runs on the CPU, where decode attention takes its plain version.
+"""
+
+import dataclasses
+import functools
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learning_jax_sharding_tpu.models.serving import make_continuous_engine as jax_engine
+from learning_jax_sharding_tpu.models.transformer import (
+    CONFIG_TINY as JAX_TINY,
+    Transformer as JaxTransformer,
+)
+from learning_jax_sharding_tpu.parallel import build_mesh
+from learning_jax_sharding_tpu.parallel.logical import RULES_TP_SERVING
+from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
+from learning_jax_sharding_tpu_torch.models.serving import (
+    ContinuousEngine,
+    RequestFailure,
+    make_continuous_engine,
+)
+from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+
+torch.set_num_threads(1)
+
+NEW = 6
+PAGE = 16
+COMMON = dict(batch_size=2, max_new_tokens=NEW, refill_chunk=4)
+STAT_KEYS = ("page_high_water", "pages_total", "page_size", "preemptions", "prefix_hits",
+             "prefix_pages_reused", "prefix_pages_retained")
+
+
+@functools.cache
+def _jax_params():
+    cfg = dataclasses.replace(JAX_TINY, dtype=jnp.float32)
+    model = JaxTransformer(cfg)
+    probe = np.zeros((2, 8), np.int32)
+    variables = jax.jit(lambda r, t: model.init({"params": r}, t))(jax.random.key(3), probe)
+    return jax.tree.map(np.asarray, nn.meta.unbox(variables["params"]))
+
+
+@functools.cache
+def _params():
+    return from_flax_params(_jax_params(), CONFIG_TINY)
+
+
+def _prompts(seed, sizes):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, CONFIG_TINY.vocab_size, size=(n,)).astype(np.int32) for n in sizes]
+
+
+def _queue(name):
+    """The test queues, by name."""
+    if name == "mixed":                    # test_serving.py's seven prompts
+        return _prompts(11, (3, 9, 5, 1, 12, 7, 4))
+    if name == "prefix":                   # repeats and a same-first-page variant
+        base = _prompts(9, (20,))[0]
+        variant = base.copy()
+        variant[PAGE + 1] += 1
+        return [base, variant, base, base.copy(), variant.copy()]
+    if name == "distinct":                 # eviction under a tight pool
+        return _prompts(10, (20,) * 6)
+    if name == "pressure":                 # two 2-page requests, 3 pages
+        return _prompts(23, (14, 14))
+    if name == "long":                     # 44 tokens through 8-token chunks
+        return _prompts(26, (44,))
+    raise KeyError(name)
+
+
+@functools.cache
+def _jax_run(queue, backend="blocked", kv_int8=False, **kw):
+    """The JAX engine's outputs and last_stats for a queue (cached: each
+    costs seconds in interpret mode)."""
+    cfg = dataclasses.replace(JAX_TINY, dtype=jnp.float32, decode_attention=backend)
+    if kv_int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=jnp.int8)
+    mesh = build_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    serve = jax_engine(cfg, mesh, RULES_TP_SERVING, **{**COMMON, **kw})
+    outs = serve(_jax_params(), _queue(queue))
+    return [np.asarray(o) for o in outs], serve.last_stats
+
+
+def _jax_case(name):
+    """The JAX engine's outputs and stats for one of ``CASES``."""
+    queue, kw = CASES[name]
+    return _jax_run(queue, **kw)
+
+
+def _port(backend="blocked", kv_int8=False, **kw):
+    cfg = dataclasses.replace(CONFIG_TINY, decode_attention=backend)
+    if kv_int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=torch.int8)
+    return make_continuous_engine(cfg, device="cpu", **{**COMMON, **kw})
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+
+
+def _assert_stats(got, want):
+    assert {k: got[k] for k in STAT_KEYS if k in want} == {
+        k: want[k] for k in STAT_KEYS if k in want}
+
+
+# (queue, JAX/port engine arguments): every case serves its queue through
+# both engines and compares tokens and stats.
+CASES = {
+    "unpaged_dense": ("mixed", dict(backend="dense")),
+    "unpaged_blocked": ("mixed", dict()),
+    "paged_p16": ("mixed", dict(paged_pages=9, page_size=16)),
+    "paged_p8": ("mixed", dict(paged_pages=17, page_size=8)),
+    "paged_int8_kv": ("mixed", dict(kv_int8=True, paged_pages=9, page_size=16)),
+    "prefix_repeat_variant": ("prefix", dict(paged_pages=9, page_size=16, prefix_cache=True)),
+    "prefix_eviction": ("distinct", dict(paged_pages=5, page_size=16, prefix_cache=True)),
+    "preemption": ("pressure", dict(paged_pages=4, page_size=16)),
+    "long_prompt_chunked": ("long", dict(paged_pages=11, page_size=16, refill_chunk=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_matches_jax_engine(case):
+    queue, kw = CASES[case]
+    want, want_stats = _jax_run(queue, **kw)
+    serve = _port(**kw)
+    _assert_same(serve(_params(), _queue(queue)), want)
+    if want_stats is None:
+        assert serve.last_stats is None
+    else:
+        _assert_stats(serve.last_stats, want_stats)
+    if case == "preemption":
+        assert serve.last_stats["preemptions"] >= 1
+    if case == "prefix_repeat_variant":
+        assert serve.last_stats["prefix_hits"] >= 2
+
+
+def test_eos_retires_and_refills():
+    """An EOS that one request emits early: its slot retires there and
+    serves the rest of the queue, as the JAX engine's does."""
+    eos = int(_jax_case("unpaged_dense")[0][0][len(_queue("mixed")[0]) + 1])
+    want, _ = _jax_run("mixed", backend="dense", eos_id=eos)
+    got = _port(eos_id=eos, paged_pages=9, page_size=PAGE)(_params(), _queue("mixed"))
+    _assert_same(got, want)
+    assert any(len(g) < len(p) + NEW and g[-1] == eos for g, p in zip(got, _queue("mixed")))
+
+
+@pytest.mark.parametrize("steps,chain", [(1, 1), (4, 3), (6, 2)])
+def test_decode_blocks_and_chains(steps, chain):
+    """Decode-block length and chaining change dispatches, never tokens."""
+    want, _ = _jax_case("unpaged_dense")
+    for kw in (dict(), dict(paged_pages=9, page_size=PAGE)):
+        got = _port(decode_block_steps=steps, decode_chain=chain, **kw)(_params(),
+                                                                        _queue("mixed"))
+        _assert_same(got, want)
+
+
+def test_prefix_hit_spans_serve_calls():
+    """A second call with the same prompt reuses the pages the first call
+    retired: no hit in call 1, one in call 2, both outputs equal to JAX's."""
+    base = _queue("prefix")[0]
+    want, _ = _jax_case("prefix_repeat_variant")
+    eng = _port(paged_pages=9, page_size=PAGE, prefix_cache=True).engine
+    got1 = eng.serve(_params(), [base])
+    assert eng.last_stats["prefix_hits"] == 0
+    assert eng.last_stats["prefix_pages_retained"] >= 1
+    got2 = eng.serve(_params(), [base.copy()])
+    assert eng.last_stats["prefix_hits"] == 1
+    assert eng.last_stats["prefix_pages_reused"] >= 1
+    np.testing.assert_array_equal(got1[0], want[0])
+    np.testing.assert_array_equal(got2[0], want[0])
+
+
+def test_flush_prefix_cache():
+    base = _queue("prefix")[0]
+    eng = _port(paged_pages=9, page_size=PAGE, prefix_cache=True).engine
+    got1 = eng.serve(_params(), [base])
+    eng.flush_prefix_cache()
+    assert len(eng._cached_lru) == 0 and len(eng._free_pages) == 8
+    got2 = eng.serve(_params(), [base.copy()])
+    assert eng.last_stats["prefix_hits"] == 0
+    np.testing.assert_array_equal(got2[0], got1[0])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_streaming_matches_serve(paged):
+    """add_request / step / pop_finished, with arrivals while serving: the
+    same tokens per request as the one-shot serve (and JAX's)."""
+    want, _ = _jax_case("unpaged_dense")
+    prompts = _queue("mixed")
+    kw = dict(paged_pages=9, page_size=PAGE) if paged else {}
+    eng = _port(**kw).engine
+    rids = {eng.add_request(p): i for i, p in enumerate(prompts[:2])}
+    late = list(enumerate(prompts))[2:]
+    results, steps = {}, 0
+    while eng.has_work() or late:
+        eng.step(_params())
+        results.update(eng.pop_finished())
+        steps += 1
+        if late and steps >= 2:
+            i, p = late.pop(0)
+            rids[eng.add_request(p)] = i
+    assert set(results) == set(rids)
+    for rid, i in rids.items():
+        np.testing.assert_array_equal(results[rid], want[i])
+
+
+def test_cache_created_once_across_calls():
+    for kw in (dict(), dict(paged_pages=9, page_size=PAGE)):
+        eng = _port(**kw).engine
+        eng.serve(_params(), _queue("mixed")[:2])
+        eng.serve(_params(), _queue("mixed")[2:4])
+        assert eng.cache_creations == 1
+
+
+def test_close_releases_and_recreates():
+    eng = _port(paged_pages=9, page_size=PAGE).engine
+    a = eng.serve(_params(), _queue("mixed")[:1])
+    eng.add_request(_queue("mixed")[1], rid=5)
+    eng.step(_params())
+    eng.close()
+    assert eng._cache is None and not eng.has_work()
+    failed = eng.pop_finished()[5]
+    assert isinstance(failed, RequestFailure) and failed.status == "shutdown"
+    b = eng.serve(_params(), _queue("mixed")[:1])
+    assert eng.cache_creations == 2
+    np.testing.assert_array_equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_model_forwards_count_every_call(paged, monkeypatch):
+    """One model call per refill chunk and per decode step, each calling
+    decode attention once per layer: the count the chip run holds the
+    kernel's launches to."""
+    from learning_jax_sharding_tpu_torch.models import attention
+
+    calls = []
+    inner = attention.decode_attention
+    monkeypatch.setattr(attention, "decode_attention",
+                        lambda *a, **k: calls.append(1) or inner(*a, **k))
+    kw = dict(paged_pages=9, page_size=PAGE) if paged else {}
+    serve = _port(decode_block_steps=4, **kw)
+    serve(_params(), _queue("mixed"))
+    eng, lat = serve.engine, serve.last_latency
+    assert eng.model_forwards == lat["refill_dispatches"] + 4 * lat["decode_dispatches"]
+    assert len(calls) == CONFIG_TINY.num_layers * eng.model_forwards
+
+
+def test_latency_telemetry():
+    serve = _port()
+    serve(_params(), _queue("mixed"))
+    lat = serve.last_latency
+    assert lat["requests"] == len(_queue("mixed"))
+    for k in ("ttft_p50", "ttft_p99", "tpot_p50", "queue_wait_p50", "e2e_p50", "itl_p50"):
+        assert k in lat, k
+    assert 0 < lat["ttft_p50"] <= lat["ttft_p99"]
+    assert lat["ttft_p50"] <= lat["e2e_p50"]
+    assert 0 < lat["refill_frac"] < 1
+
+
+def test_pool_exhaustion_raises_and_engine_recovers():
+    prompts = _queue("mixed")
+    eng = _port(paged_pages=2, page_size=PAGE).engine
+    with pytest.raises(RuntimeError, match="page pool exhausted"):
+        eng.serve(_params(), [prompts[4], prompts[1]])
+    want, _ = _jax_case("unpaged_dense")
+    np.testing.assert_array_equal(eng.serve(_params(), [prompts[3]])[0], want[3])
+
+
+def test_busy_guards_and_duplicate_rid():
+    prompts = _queue("mixed")
+    eng = _port(paged_pages=9, page_size=PAGE, prefix_cache=True).engine
+    eng.add_request(prompts[0], rid=7)
+    with pytest.raises(ValueError, match="already in use"):
+        eng.add_request(prompts[1], rid=7)
+    with pytest.raises(RuntimeError, match="idle"):
+        eng.flush_prefix_cache()
+    with pytest.raises(RuntimeError, match="idle"):
+        eng.serve(_params(), prompts[:1])
+    while eng.has_work():
+        eng.step(_params())
+    assert set(eng.pop_finished()) == {7}
+
+
+def test_construction_errors():
+    """The JAX engine's ValueErrors, with its words."""
+    cfg = dataclasses.replace(CONFIG_TINY, decode_attention="blocked")
+    bad = [
+        (dict(batch_size=0), "batch_size"),
+        (dict(max_new_tokens=0), "max_new_tokens"),
+        (dict(refill_chunk=cfg.max_seq_len + 1), "refill_chunk"),
+        (dict(decode_chain=0), "decode_chain"),
+        (dict(vocab_limit=0), "vocab_limit"),
+        (dict(dequantize="int3"), "dequantize must be"),
+        (dict(prefix_cache=True), "prefix_cache requires the paged KV cache"),
+        (dict(paged_pages=1), "page 0 is the scratch page"),
+        (dict(paged_pages=8, page_size=48), "multiple of page_size"),
+    ]
+    for kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            ContinuousEngine(cfg, **{**COMMON, "device": "cpu", **kw})
+    with pytest.raises(ValueError, match="blocked decode backend"):
+        ContinuousEngine(dataclasses.replace(cfg, decode_attention="dense"), paged_pages=8,
+                         page_size=PAGE, device="cpu", **COMMON)
+    serve = make_continuous_engine(cfg, batch_size=2, max_new_tokens=cfg.max_seq_len,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="max_seq_len"):
+        serve(_params(), [np.ones((8,), np.int32)])
+    with pytest.raises(ValueError, match="draft_params requires draft_config"):
+        serve(_params(), [np.ones((2,), np.int32)], draft_params={})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(temperature=1.0), dict(mixed=True), dict(token_budget=8), dict(horizon=2),
+    dict(draft_config=CONFIG_TINY), dict(deadline_s=1.0), dict(max_queue=4),
+    dict(degradation=object()), dict(adapter_pool=object()), dict(comm_compression=True),
+    dict(registry=object()), dict(tracer=object()),
+], ids=lambda kw: next(iter(kw)))
+def test_unported_arguments_raise(kw):
+    name = next(iter(kw))
+    with pytest.raises(NotImplementedError, match=name):
+        ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousEngine(CONFIG_TINY, **COMMON)

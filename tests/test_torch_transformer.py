@@ -85,16 +85,30 @@ def test_device_default_is_the_gpu():
 
 
 def test_unported_options_raise():
-    for field, value in [
-        ("num_experts", 4), ("scan_layers", True), ("remat", True), ("decode_paged", True),
-    ]:
+    for field, value in [("num_experts", 4), ("scan_layers", True), ("remat", True)]:
         with pytest.raises(NotImplementedError, match=field):
             TransformerConfig(**{field: value})
-    # The fused norm and int8 caches are ported; only the paged cache raises.
-    TransformerConfig(fused_norm=True)
+    # The fused norm, int8 caches and the paged cache are ported; the paged
+    # cache's preconditions raise the JAX module's errors when the cache is
+    # made.
+    TransformerConfig(fused_norm=True, decode_paged=True)
     MultiHeadAttention(64, 4, 16, kv_cache_dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        MultiHeadAttention(64, 4, 16, decode_paged=True, device="cpu")
+    paged = dict(decode=True, max_decode_len=32, decode_paged=True, decode_page_count=5,
+                 device="cpu")
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="blocked decode backend"):
+        MultiHeadAttention(64, 4, 16, decode_ragged=True, decode_block_k=8,
+                           **paged).init_cache(2, cpu)
+    with pytest.raises(ValueError, match="requires decode_ragged"):
+        MultiHeadAttention(64, 4, 16, decode_attention="blocked", decode_block_k=8,
+                           **paged).init_cache(2, cpu)
+    with pytest.raises(ValueError, match="dividing max_decode_len"):
+        MultiHeadAttention(64, 4, 16, decode_attention="blocked", decode_ragged=True,
+                           decode_block_k=12, **paged).init_cache(2, cpu)
+    cache = MultiHeadAttention(64, 4, 16, decode_attention="blocked", decode_ragged=True,
+                               decode_block_k=8, **paged).init_cache(2, cpu)
+    assert cache.key.shape == (5, 4, 8, 16) and cache.block_table.shape == (2, 4)
+    assert cache.index.shape == (2,)
     # Quantized projections are ported: int4 builds, an unknown mode raises
     # as the JAX dispatch does.
     TransformerConfig(quantization="int4")
