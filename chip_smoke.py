@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
 holds each against its plain PyTorch version on the card (decode attention
 with float and int8 caches, and over page pools through a block table, where
 it must also give the contiguous kernel's bits; flash attention, the int4
-kernels, the fused residual+norm forward and backward). Then drives the
+kernels in both designs (tensor cores for prefill rows, CUDA cores for
+decode), the fused residual+norm forward and backward). Then drives the
 port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
@@ -17,8 +18,10 @@ and with ``kv_cache_dtype=torch.int8`` (held to the dense backend over the
 same int8 cache); int4 quantized serving of the same model through
 ``make_generate_fn(dequantize="fused" | "fused_w4a8")`` over
 ``quantize_tree(bits=4)``, checked against the dense bf16 model on the
-dequantized weights, then the decode ladder (bf16, int8, int4-fused,
-int4-w4a8); the continuous engine (``models/serving.py``) on
+dequantized weights, its prefill's int4 matmuls held to the tensor-core
+design and its decode steps' to the CUDA-core one, then the decode ladder
+(bf16, int8, int4-fused, int4-w4a8) and the int4 prefill alone; the
+continuous engine (``models/serving.py``) on
 ``bench.py::bench_serving_125m``'s workload, unpaged, paged, with the prefix
 cache cold and warm, and int4-fused + paged + prefix, every paged variant's
 tokens held equal to the unpaged engine's and teacher-forced against the
@@ -48,6 +51,12 @@ import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
+from learning_jax_sharding_tpu_torch.models.decoding import (
+    apply_dequantize_policy,
+    derive_decode_config,
+    make_cached_apply,
+    make_param_caster,
+)
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
 from learning_jax_sharding_tpu_torch.models.quantize import (
     dequantize_leaf_int4,
@@ -163,6 +172,18 @@ W4A8_TOL = 1e-6
 # Per-projection int4 sites of the 125M model: (K, N); the FF is (K, H).
 INT4_SITES = {"qkv_out": (768, 768), "ff_up": (768, 3072), "ff_down": (3072, 768),
               "lm_head": (768, 50304)}
+# The checks of w4a16, the triple and w4a8: every site and one whose N is no
+# multiple of the tensor-core tile's 128 columns nor of 16 (4-byte copies),
+# at decode (8), small, odd and prefill row counts (generate's prefill 1024,
+# the engine's refill chunk 512), with groups of 64 and 128 packed rows and
+# one whole-K group (None).
+INT4_CHECK_SITES = {**INT4_SITES, "partial_n": (768, 772)}
+INT4_CHECK_ROWS = (B, 9, 16, 37, 512, 1000, 1024)
+INT4_CHECK_GROUPS = (64, 128, None)
+# The timed row counts: decode; 16, 32 and 64 rows, where the two designs
+# cross over (a decode batch of that many slots); the engine's refill chunk;
+# generate's prefill.
+INT4_TIME_ROWS = (B, 16, 32, 64, B * PAGED_CHUNK, B * PROMPT)
 # Teacher-forced gap of the quantized runs against the dense bf16 model on the
 # dequantized weights. int4-fused: the same bf16 weights except the whole-FF
 # kernel, which keeps the hidden activation and down weights in fp32 where
@@ -1329,6 +1350,16 @@ def run_engine_path(params, q4, card):
         if launches["decode_attention"] != want or launches["decode_attention_paged"] != (
                 want if is_paged else 0):
             raise AssertionError(f"engine {label}: launches {launches}, want {want}")
+        if launches["int4_matmul3"]:
+            # Refill chunks (8 x 64 rows) take the tensor-core design, decode
+            # steps (8 rows) the CUDA-core one: both counts whole layers.
+            tc = launches["int4_matmul3_tensor_core"]
+            log(f"[engine] {label}: int4 triple {launches['int4_matmul3']} launches ({tc} "
+                f"tensor-core, the refill chunks), w4a16 {launches['int4_matmul']} "
+                f"({launches['int4_matmul_tensor_core']} tensor-core)")
+            if launches["int4_matmul3"] != want or not 0 < tc < want or tc % cfg.num_layers:
+                raise AssertionError(f"engine {label}: int4 launches {launches}, want {want} "
+                                     f"triples, whole layers of them on the tensor cores")
         for out, p in zip(outs, prompts):
             if out.shape != (len(p) + ENGINE_NEW,) or not np.array_equal(out[: len(p)], p):
                 raise AssertionError(f"engine {label}: output {out.shape} is not the prompt "
@@ -1438,67 +1469,131 @@ def rel_err(name, got, want):
     return abs_err / want.float().abs().max().item(), abs_err, flips
 
 
+def int4_designs(m, k, n, ng, group, dtype, w4a8, nw=1):
+    """At a shape: the wrapper's choice as ``(design, tile rows or None)``,
+    and each other design (w4a16: and tensor-core tile) the layout takes,
+    launched directly beside it."""
+    sms = mm4._sm_count(0)
+    chosen = mm4._variant(m, k, n * nw, ng, group, dtype, w4a8, sms)
+    tiles = [None] if w4a8 else [mm4.TILE_ROWS, mm4.SMALL_TILE_ROWS]
+    rule_tile = None if w4a8 or chosen == "cuda_core" else mm4._tile_rows(m, n, nw, sms)
+    every = [("cuda_core", None)]
+    if mm4._tensor_core_layout(k, ng, group, dtype, w4a8):
+        every += [("tensor_core", t) for t in tiles]
+    return (chosen, rule_tile), [d for d in every if d != (chosen, rule_tile)]
+
+
+def design_name(design, tile=None):
+    return f"{design} {tile}-row" if tile else design
+
+
+def counted(kernel, chosen, call):
+    """``call()`` through a wrapper, asserting that it counted one launch of
+    ``kernel`` and, beside it, one tensor-core launch exactly when the
+    wrapper's rule chose that design."""
+    def counts():
+        if kernel == "int4_matmul3":
+            return mm4.int4_matmul3.launches, mm4.int4_matmul3.tensor_core_launches
+        key = "w4a8" if kernel == "int4_matmul_w4a8" else "w4a16"
+        return mm4.int4_matmul.launches[key], mm4.int4_matmul.launches[f"{key}_tensor_core"]
+
+    before = counts()
+    out = call()
+    want = (before[0] + 1, before[1] + (chosen == "tensor_core"))
+    if counts() != want:
+        raise AssertionError(f"{kernel} ({chosen}) counted {counts()}, want {want}")
+    return out
+
+
 def check_int4(gen):
-    """The four int4 kernels against their plain versions in fp32 and bf16
-    activations: the 125M decode (M=8) and prefill (M=1024) shapes of every
-    site, an odd M (37), a whole-K group and group 64 → per kernel and dtype
-    the largest relative (checked) and absolute error."""
-    mat_cases = [(f"{site} {ph}", m, *INT4_SITES[site], 128)
-                 for site in ("qkv_out", "lm_head") for ph, m in (("decode", B), ("prefill", 1024))]
-    extra = [("m37", 37, 768, 768, 128), ("whole-K group", B, 768, 768, 768),
-             ("group 64", B, 768, 768, 64)]
-    w4a8_cases = [(f"{site} {ph}", m, k, n, 128) for site, (k, n) in INT4_SITES.items()
-                  for ph, m in (("decode", B), ("prefill", 1024))] + extra
-    triple_cases = [(f"qkv {ph}", m, 768, 768, 128) for ph, m in (("decode", B), ("prefill", 1024))]
+    """The four int4 kernels against their plain versions. w4a16, the q/k/v
+    triple and w4a8 in fp32 and bf16 activations at every
+    ``INT4_CHECK_SITES`` site, ``INT4_CHECK_ROWS`` row count and
+    ``INT4_CHECK_GROUPS`` layout: through the public wrappers
+    (``int4_matmul``, ``int4_matmul3``, ``int4_matmul(w4a8=True)``), whose
+    counts must move as ``_variant`` says, and each other design (and
+    tile) the layout takes launched directly; the FF at its decode and
+    prefill shapes, an odd M, a whole-K/H group and group 64 → per kernel
+    and dtype the largest relative (checked) and absolute error over every
+    design, per design the same, and w4a8's count of outputs that are not
+    bit-equal."""
+    worst, by_design = {}, {}
+    unequal = {"w4a8 outputs": 0, "not bit-equal": 0}
     ff_cases = [("ff decode", B, 128), ("ff prefill", 1024, 128), ("ff m37", 37, 128),
                 ("ff whole-K/H group", B, 4096), ("ff group 64", B, 64)]
-    worst = {}
 
-    def note(kernel, dtype, name, errs, tol):
-        log(f"[int4] {kernel} {name} {str(dtype)[6:]}: max err {errs[0]:.3e} of the largest "
-            f"|ref| (abs {errs[1]:.3e}, tol {tol:.3g}), {errs[2]:.2e} of outputs differ")
+    def note(kernel, design, dtype, name, errs, tol):
         if not errs[0] <= tol:
-            raise AssertionError(f"{kernel} {name} {dtype}: relative error {errs[0]} > {tol}")
+            raise AssertionError(f"{kernel} {design} {name} {dtype}: relative error {errs[0]} "
+                                 f"> {tol}")
         if dtype == torch.bfloat16 and not errs[2] <= INT4_BF16_FLIPS:
-            raise AssertionError(f"{kernel} {name}: {errs[2]} of bf16 outputs differ from the "
-                                 f"plain version's > {INT4_BF16_FLIPS}")
-        old = worst.get((kernel, dtype), (0.0, 0.0))
-        worst[kernel, dtype] = (max(old[0], errs[0]), max(old[1], errs[1]))
+            raise AssertionError(f"{kernel} {design} {name}: {errs[2]} of bf16 outputs differ "
+                                 f"from the plain version's > {INT4_BF16_FLIPS}")
+        for table, key in ((worst, (kernel, dtype)), (by_design, (kernel, design, dtype))):
+            old = table.get(key, (0.0, 0.0, 0.0, 0))
+            table[key] = (max(old[0], errs[0]), max(old[1], errs[1]), max(old[2], errs[2]),
+                          old[3] + 1)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = INT4_TOL[dtype]
-        for name, m, k, n, g in mat_cases + extra:
-            node = int4_weight(gen, k, n, g)
-            x = randn(gen, m, k, dtype=dtype)
-            got = mm4.int4_matmul(x, node["q4"], node["scale"], group=min(g, k))
-            want = mm4.int4_matmul_reference(x, node["q4"], node["scale"], group=min(g, k))
-            note("int4_matmul", dtype, name, rel_err(name, got, want), tol)
-        for name, m, k, n, g in triple_cases + extra:
-            nodes = [int4_weight(gen, k, n, g) for _ in range(3)]
-            x = randn(gen, m, k, dtype=dtype)
+    for site, (k, n) in INT4_CHECK_SITES.items():
+        for g in INT4_CHECK_GROUPS:
+            group = g or k
+            nodes = [int4_weight(gen, k, n, group) for _ in range(3)]
             pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
-            outs = mm4.int4_matmul3(x, pairs, group=min(g, k))
-            errs = [rel_err(name, o, mm4.int4_matmul_reference(x, *pair, group=min(g, k)))
-                    for o, pair in zip(outs, pairs)]
-            note("int4_matmul3", dtype, name, tuple(map(max, zip(*errs))), tol)
-        for name, m, k, n, g in w4a8_cases:
-            node = int4_weight(gen, k, n, g)
-            x = randn(gen, m, k, dtype=dtype)
-            got = mm4.int4_matmul(x, node["q4"], node["scale"], group=min(g, k), w4a8=True)
-            xq, sx = mm4.quantize_rows_int8(x)
-            want = mm4.int4_matmul_w4a8_reference(xq, sx, node["q4"], node["scale"],
-                                                  group=min(g, k), out_dtype=dtype)
-            note("int4_matmul_w4a8", dtype, name, rel_err(name, got, want),
-                 W4A8_TOL if dtype == torch.float32 else tol)
+            ng = pairs[0][1].shape[0]
+            for m in INT4_CHECK_ROWS:
+                name = f"{site} m={m} group {g or 'whole-K'}"
+                for dtype in (torch.float32, torch.bfloat16):
+                    tol = INT4_TOL[dtype]
+                    x = randn(gen, m, k, dtype=dtype)
+                    wants = [mm4.int4_matmul_reference(x, *pair, group=group) for pair in pairs]
+                    for kernel, nw, wrapper in (
+                            ("int4_matmul", 1,
+                             lambda: [mm4.int4_matmul(x, *pairs[0], group=group)]),
+                            ("int4_matmul3", 3, lambda: mm4.int4_matmul3(x, pairs, group=group))):
+                        chosen, others = int4_designs(m, k, n, ng, group, dtype, False, nw)
+                        launched = [(chosen, counted(kernel, chosen[0], wrapper))]
+                        launched += [(design, mm4._launch_w4a16(
+                            x, pairs[:nw], group=group, variant=design[0], tile_rows=design[1]))
+                            for design in others]
+                        for design, outs in launched:
+                            errs = [rel_err(name, o, w) for o, w in zip(outs, wants)]
+                            note(kernel, design_name(*design), dtype, name,
+                                 tuple(map(max, zip(*errs))), tol)
+                    xq, sx = mm4.quantize_rows_int8(x)
+                    want = mm4.int4_matmul_w4a8_reference(xq, sx, *pairs[0], group=group,
+                                                          out_dtype=dtype)
+                    (chosen, _), others = int4_designs(m, k, n, ng, group, dtype, True)
+                    launched = [(chosen, counted(
+                        "int4_matmul_w4a8", chosen,
+                        lambda: mm4.int4_matmul(x, *pairs[0], group=group, w4a8=True)))]
+                    launched += [(design, mm4._launch_w4a8(xq, sx, *pairs[0], group=group,
+                                                           out_dtype=dtype, variant=design))
+                                 for design, _ in others]
+                    for design, got in launched:
+                        unequal["w4a8 outputs"] += got.numel()
+                        unequal["not bit-equal"] += int((got != want).sum().item())
+                        note("int4_matmul_w4a8", design, dtype, name, rel_err(name, got, want),
+                             W4A8_TOL if dtype == torch.float32 else tol)
+    for dtype in (torch.float32, torch.bfloat16):
         for name, m, g in ff_cases:
             up, dn = int4_weight(gen, 768, 3072, g), int4_weight(gen, 3072, 768, g)
             x = randn(gen, m, 768, dtype=dtype)
             args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
             got = ff4.int4_ff(x, *args, group=g)
             want = ff4.int4_ff_reference(x, *args, group=g)
-            note("int4_ff", dtype, name, rel_err(name, got, want), tol)
+            note("int4_ff", "cuda_core", dtype, name, rel_err(name, got, want), INT4_TOL[dtype])
     torch.cuda.synchronize()
-    return worst
+    for (kernel, design, dtype), (rel, abs_err, flips, cases) in sorted(
+            by_design.items(), key=lambda kv: (kv[0][0], kv[0][1], str(kv[0][2]))):
+        log(f"[int4] {kernel} {design} {str(dtype)[6:]}: {cases} cases, max err {rel:.3e} of "
+            f"the largest |ref| (abs {abs_err:.3e}, tol "
+            f"{W4A8_TOL if kernel.endswith('w4a8') and dtype == torch.float32 else INT4_TOL[dtype]:.3g}), "
+            f"at most {flips:.2e} of outputs differ")
+    log(f"[int4] w4a8: {unequal['not bit-equal']} of {unequal['w4a8 outputs']} outputs not "
+        f"bit-equal to the plain version's (both designs, fp32 and bf16)")
+    log("[int4] every w4a16, triple and w4a8 case ran through its public wrapper, whose "
+        "launch and tensor-core counts moved as _variant says")
+    return worst, by_design, unequal
 
 
 INT4_KERNELS = ("int4_matmul", "int4_matmul_w4a8", "int4_matmul3", "int4_ff")
@@ -1509,15 +1604,21 @@ def reset_launches() -> None:
     decode_attention.paged_launches = 0
     mm4.int4_matmul.launches = dict.fromkeys(mm4.int4_matmul.launches, 0)
     mm4.int4_matmul3.launches = 0
+    mm4.int4_matmul3.tensor_core_launches = 0
     ff4.int4_ff.launches = 0
 
 
 def read_launches() -> dict:
+    """Each kernel's launches (both designs of the int4 matmuls), and the
+    tensor-core design's among them."""
     return {"int4_matmul": mm4.int4_matmul.launches["w4a16"],
             "int4_matmul_w4a8": mm4.int4_matmul.launches["w4a8"],
             "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
             "decode_attention": decode_attention.launches,
-            "decode_attention_paged": decode_attention.paged_launches}
+            "decode_attention_paged": decode_attention.paged_launches,
+            "int4_matmul_tensor_core": mm4.int4_matmul.launches["w4a16_tensor_core"],
+            "int4_matmul_w4a8_tensor_core": mm4.int4_matmul.launches["w4a8_tensor_core"],
+            "int4_matmul3_tensor_core": mm4.int4_matmul3.tensor_core_launches}
 
 
 def run_quantized_path(params, gen):
@@ -1533,13 +1634,20 @@ def run_quantized_path(params, gen):
     prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
                            dtype=torch.int32)
     layers = cfg.num_layers
+    # One prefill (M = B × PROMPT rows) and NEW - 1 decode steps (M = B):
+    # the prefill's int4 matmuls take the tensor-core design, every decode
+    # step's the CUDA-core design (ops/int4_matmul.py::_variant).
     want = {
         "fused": {"int4_matmul": (layers + 1) * NEW, "int4_matmul_w4a8": 0,
                   "int4_matmul3": layers * NEW, "int4_ff": layers * NEW,
-                  "decode_attention": layers * NEW, "decode_attention_paged": 0},
+                  "decode_attention": layers * NEW, "decode_attention_paged": 0,
+                  "int4_matmul_tensor_core": layers + 1, "int4_matmul_w4a8_tensor_core": 0,
+                  "int4_matmul3_tensor_core": layers},
         "fused_w4a8": {"int4_matmul": 0, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
                        "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW,
-                       "decode_attention_paged": 0},
+                       "decode_attention_paged": 0, "int4_matmul_tensor_core": 0,
+                       "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
+                       "int4_matmul3_tensor_core": 0},
     }
     rows, fns = {}, {}
     for mode in ("fused", "fused_w4a8"):
@@ -1607,60 +1715,155 @@ def run_ladder(params, q4, prompt, card, int4_fns):
     return rows, fns["int4-fused"]
 
 
+def on_design(fn, design):
+    """``fn`` with every int4 matmul launched on one design: the wrapper's
+    rule is patched for the call (a yardstick; the port never does this)."""
+    def call():
+        chosen = mm4._variant
+        mm4._variant = lambda *args: design
+        try:
+            return fn()
+        finally:
+            mm4._variant = chosen
+    return call
+
+
+def time_int4_prefill(q4, prompt, card):
+    """The int4 generate's prefill call alone (b=8, prompt 128: the decode
+    model's cached apply from an empty cache, full-width lm_head and fp32
+    logits, as ``make_generate_fn`` runs it) under ``"fused"`` and
+    ``"fused_w4a8"``, host clock around a synchronised call, medians of 3
+    interleaved; beside each, the same call with every int4 matmul forced
+    onto the CUDA-core design (``_variant`` patched for the yardstick only),
+    the launches of one prefill with each kernel's tensor-core share, and a
+    profile of each call (device busy against the host clock)."""
+    prefills, launches = {}, {}
+    for mode in ("fused", "fused_w4a8"):
+        cfg, _ = apply_dequantize_policy(derive_decode_config(CONFIG_125M, torch.bfloat16), mode)
+        model = Transformer(cfg, device="cuda").eval()
+        model.load_state_dict(make_param_caster(torch.bfloat16, "cuda", dequantize=True)(q4))
+        apply = make_cached_apply(model)
+        prefills[mode] = functools.partial(torch.no_grad()(apply), None, prompt)
+        torch.cuda.synchronize()
+        reset_launches()
+        prefills[mode]()
+        torch.cuda.synchronize()
+        launches[mode] = {k: v for k, v in read_launches().items() if v}
+    cuda_core = {f"{mode} cuda-core": on_design(fn, "cuda_core") for mode, fn in prefills.items()}
+    times = interleaved_seconds({**prefills, **cuda_core})
+    rows = {}
+    for mode in prefills:
+        ms = statistics.median(times[mode]) * 1e3
+        cc_ms = statistics.median(times[f"{mode} cuda-core"]) * 1e3
+        log(f"[time] 125M int4 prefill dequantize={mode!r} b={B} prompt {PROMPT}: {ms:.3f} ms "
+            f"(int4 matmuls by the wrapper's rule: launches {launches[mode]}); all on the "
+            f"CUDA-core design {cc_ms:.3f} ms ({cc_ms / ms:.2f}x; calls "
+            f"{[round(t * 1e3, 3) for t in times[mode]]} / "
+            f"{[round(t * 1e3, 3) for t in times[f'{mode} cuda-core']]} ms) on {card}")
+        rows[mode] = dict(
+            ms=ms, cuda_core_ms=cc_ms, seconds=times[mode],
+            cuda_core_seconds=times[f"{mode} cuda-core"], launches=launches[mode],
+            profile=profile_summary(f"125M int4 prefill {mode}", prefills[mode], 1, ms),
+            cuda_core_profile=profile_summary(f"125M int4 prefill {mode}, all on the CUDA-core "
+                                              f"design", cuda_core[f"{mode} cuda-core"], 1, cc_ms))
+    return rows
+
+
 def time_int4(gen, card):
-    """Each int4 kernel at its 125M sites (decode M=8; the prefill M=1024
-    of the lm_head, q/k/v and FF as well), bf16: the kernel, its plain
-    version, the library yardstick (``torch.matmul`` of x with the weight
-    dequantized to bf16 beforehand; the FF: two of them and a GELU) and the
-    bound (w4a8's operations at the int8 peak, 1979 TOP/s)."""
+    """Each int4 kernel at its 125M sites, bf16: w4a16 and w4a8 at every
+    site and the q/k/v triple, at ``INT4_TIME_ROWS`` rows; the FF at decode
+    and prefill. Each matmul row times every design on the same inputs,
+    launched directly: the tensor-core one (w4a16 and the triple: with 128-
+    and with 96-row tiles) and the CUDA-core one; ``ms`` is the one the
+    wrapper's rule takes. Beside them the plain version, the library
+    yardstick (``torch.matmul`` of x with the weight dequantized to bf16
+    beforehand; the FF: two of them and a GELU) and the bound (w4a8's
+    operations at the int8 peak, 1979 TOP/s)."""
     bf16 = torch.bfloat16
     rows = {}
+    sms = mm4._sm_count(0)
 
-    def record(kernel, site, m, launch, plain, library, nbytes, ops, peak):
-        ms, late = queued_time(launch)
+    def record(kernel, site, m, launch, plain, library, nbytes, ops, peak, variant=None,
+               tile=None):
+        """``launch(design, tile)`` launches one design; the FF has one.
+        ``variant`` and ``tile`` are the wrapper's choice."""
+        if not variant:
+            designs = [(None, None)]
+        elif kernel == "int4_matmul_w4a8":
+            designs = [("tensor_core", None), ("cuda_core", None)]
+        else:
+            designs = [("tensor_core", mm4.TILE_ROWS), ("tensor_core", mm4.SMALL_TILE_ROWS),
+                       ("cuda_core", None)]
+        times, late = {}, 0
+        for design in designs:
+            times[design], n_late = queued_time(launch, *design)
+            late += n_late
         plain_ms, plain_late = queued_time(plain, inner=3, repeats=5)
         lib_ms, lib_late = queued_time(library)
         bound_ms, by = bound(nbytes, ops, peak)
-        row = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, yardstick_ms=lib_ms * 1e3,
+        tc_tile = tile if kernel != "int4_matmul_w4a8" else None
+        chosen = (variant, tc_tile if variant == "tensor_core" else None)
+        row = dict(ms=times[chosen] * 1e3, plain_ms=plain_ms * 1e3, yardstick_ms=lib_ms * 1e3,
                    bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
                    late_samples=late + plain_late + lib_late)
+        if variant:
+            row.update(variant=variant, tensor_core_ms=times["tensor_core", tc_tile] * 1e3,
+                       cuda_core_ms=times["cuda_core", None] * 1e3)
+            if tc_tile:
+                row.update(tile_rows=tile, tile_ms={str(t): times["tensor_core", t] * 1e3
+                                                    for _, t in designs if t})
         rows.setdefault(kernel, {})[f"{site} m={m}"] = row
-        log(f"[time] {kernel} {site} m={m} bf16: kernel {row['ms'] * 1e3:.2f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.2f} us, bf16 "
-            f"dense yardstick {row['yardstick_ms'] * 1e3:.2f} us"
+        tiles = (" (" + ", ".join(f"{t}-row tiles {ms * 1e3:.2f} us" for t, ms in
+                                  row["tile_ms"].items()) + f"; the wrapper takes {tile})"
+                 if variant and tc_tile else "")
+        designs_us = (f"tensor-core {row['tensor_core_ms'] * 1e3:.2f} us{tiles}, CUDA-core "
+                      f"{row['cuda_core_ms'] * 1e3:.2f} us (the wrapper takes {variant}; "
+                      f"{row['cuda_core_ms'] / row['tensor_core_ms']:.2f}x)" if variant else
+                      f"kernel {row['ms'] * 1e3:.2f} us")
+        log(f"[time] {kernel} {site} m={m} bf16: {designs_us}, bound {bound_ms * 1e3:.2f} us "
+            f"({by}), plain {row['plain_ms'] * 1e3:.2f} us, bf16 dense yardstick "
+            f"{row['yardstick_ms'] * 1e3:.2f} us"
             + (f" ({row['late_samples']} samples enqueued past the sleep)" if row["late_samples"] else ""))
 
     int8_peak = 1979e12
     for site, (k, n) in INT4_SITES.items():
         node = int4_weight(gen, k, n, 128)
         q4, s = node["q4"], node["scale"]
+        ng = s.shape[0]
         w = dequantize_leaf_int4(node, bf16)
         wbytes = q4.numel() + s.numel() * 4
-        for m in (B, 1024) if site == "lm_head" else (B,):
+        for m in INT4_TIME_ROWS:
             x = randn(gen, m, k, dtype=bf16)
             xq, sx = mm4.quantize_rows_int8(x)
-            if site in ("qkv_out", "lm_head"):
-                record("int4_matmul", site, m,
-                       lambda: mm4._launch_w4a16(x, [(q4, s)], group=128),
-                       lambda: mm4.int4_matmul_reference(x, q4, s, group=128),
-                       lambda: torch.matmul(x, w),
-                       2 * m * k + wbytes + 2 * m * n, 2 * m * k * n, None)
+            record("int4_matmul", site, m,
+                   lambda d, t: mm4._launch_w4a16(x, [(q4, s)], group=128, variant=d,
+                                                  tile_rows=t),
+                   lambda: mm4.int4_matmul_reference(x, q4, s, group=128),
+                   lambda: torch.matmul(x, w),
+                   2 * m * k + wbytes + 2 * m * n, 2 * m * k * n, None,
+                   mm4._variant(m, k, n, ng, 128, bf16, False, sms), mm4._tile_rows(m, n, 1, sms))
             record("int4_matmul_w4a8", site, m,
-                   lambda: mm4._launch_w4a8(xq, sx, q4, s, group=128, out_dtype=bf16),
+                   lambda d, _: mm4._launch_w4a8(xq, sx, q4, s, group=128, out_dtype=bf16,
+                                                 variant=d),
                    lambda: mm4.int4_matmul_w4a8_reference(xq, sx, q4, s, group=128,
                                                           out_dtype=bf16),
                    lambda: torch.matmul(x, w),
-                   m * k + 4 * m + wbytes + 2 * m * n, 2 * m * k * n, int8_peak)
+                   m * k + 4 * m + wbytes + 2 * m * n, 2 * m * k * n, int8_peak,
+                   mm4._variant(m, k, n, ng, 128, bf16, True, sms))
+        del node, q4, s, w
     nodes = [int4_weight(gen, 768, 768, 128) for _ in range(3)]
     pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
     w_qkv = torch.cat([dequantize_leaf_int4(nd, bf16) for nd in nodes], dim=1)
     wbytes = sum(q.numel() + sc.numel() * 4 for q, sc in pairs)
-    for m in (B, 1024):
+    for m in INT4_TIME_ROWS:
         x = randn(gen, m, 768, dtype=bf16)
-        record("int4_matmul3", "qkv", m, lambda: mm4._launch_w4a16(x, pairs, group=128),
+        record("int4_matmul3", "qkv", m,
+               lambda d, t: mm4._launch_w4a16(x, pairs, group=128, variant=d, tile_rows=t),
                lambda: [mm4.int4_matmul_reference(x, *p, group=128) for p in pairs],
                lambda: torch.matmul(x, w_qkv),
-               2 * m * 768 + wbytes + 3 * 2 * m * 768, 3 * 2 * m * 768 * 768, None)
+               2 * m * 768 + wbytes + 3 * 2 * m * 768, 3 * 2 * m * 768 * 768, None,
+               mm4._variant(m, 768, 3 * 768, pairs[0][1].shape[0], 128, bf16, False, sms),
+               mm4._tile_rows(m, 768, 3, sms))
     up, dn = int4_weight(gen, 768, 3072, 128), int4_weight(gen, 3072, 768, 128)
     args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
     w1, w2 = dequantize_leaf_int4(up, bf16), dequantize_leaf_int4(dn, bf16)
@@ -1668,7 +1871,7 @@ def time_int4(gen, card):
     gelu = torch.nn.functional.gelu
     for m in (B, 1024):
         x = randn(gen, m, 768, dtype=bf16)
-        record("int4_ff", "ff", m, lambda: ff4._launch_cuda(x, *args, group=128),
+        record("int4_ff", "ff", m, lambda *_: ff4._launch_cuda(x, *args, group=128),
                lambda: ff4.int4_ff_reference(x, *args, group=128),
                lambda: torch.matmul(gelu(torch.matmul(x, w1), approximate="tanh"), w2),
                2 * m * 768 + wbytes + 2 * m * 768, 2 * 2 * m * 768 * 3072, None)
@@ -1732,7 +1935,7 @@ def ptxas_usage(report: str):
     kernel = spills = None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
-                          r"|int4_matmul(?:_w4a8)?|int4_ff(?:_reduce)?"
+                          r"|int4_matmul(?:_w4a8)?(?:_tc)?|int4_ff(?:_reduce)?"
                           r"|fused_norm_(?:fwd|bwd|reduce))_kernel)I(\w+)", line)
         if entry:
             kernel = f"{entry.group(1)}<{', '.join(template_args(entry.group(2)))}>"
@@ -1765,7 +1968,7 @@ def main() -> int:
     int8_errs = check_kernel(gen, int8=True)
     paged_errs = check_paged(gen)
     flash_errs = check_flash(gen)
-    int4_errs = check_int4(gen)
+    int4_errs, int4_design_errs, w4a8_unequal = check_int4(gen)
     norm_errs = check_fused_norm(gen)
 
     model = Transformer(CONFIG_125M, device="cuda", seed=0)
@@ -1788,6 +1991,7 @@ def main() -> int:
     q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
     ladder, fused_fn = run_ladder(params, q4, q_prompt, card, int4_fns)
     del int4_fns
+    int4_prefill = time_int4_prefill(q4, q_prompt, card)
     quant_breakdown = profile_summary(
         "125M int4-fused generate token step", lambda: fused_fn(q4, q_prompt), NEW,
         ladder["int4-fused"]["ms_per_token_step"])
@@ -1848,16 +2052,21 @@ def main() -> int:
             bytes=flash_times[name]["bytes"], ops=flash_times[name]["ops"],
         ))
     # The int4 kernels: top-level numbers at the 768 x 768 decode site (q, k,
-    # v, out: most of the launches), every timed site under "shapes".
+    # v, out: most of the launches; the CUDA-core design), the prefill site
+    # (M=1024; the tensor-core design) under "prefill", every timed site and
+    # both designs under "shapes".
     main_site = {"int4_matmul": "qkv_out m=8", "int4_matmul_w4a8": "qkv_out m=8",
                  "int4_matmul3": "qkv m=8", "int4_ff": "ff m=8"}
+    prefill_site = {"int4_matmul": "lm_head m=1024", "int4_matmul_w4a8": "lm_head m=1024",
+                    "int4_matmul3": "qkv m=1024"}
     main_run = {"int4_matmul": "fused", "int4_matmul_w4a8": "fused_w4a8",
                 "int4_matmul3": "fused", "int4_ff": "fused"}
     for name in INT4_KERNELS:
         row = int4_times[name][main_site[name]]
-        entries.append(dict(
+        launches = quant[main_run[name]]["launches"]
+        entry = dict(
             name=name, route="cuda", source=INT4_FF_SOURCE if name == "int4_ff" else INT4_SOURCE,
-            replaces=INT4_REPLACES[name], launches=quant[main_run[name]]["launches"][name],
+            replaces=INT4_REPLACES[name], launches=launches[name],
             max_abs_err=int4_errs[name, torch.bfloat16][1],
             max_err_bf16=int4_errs[name, torch.bfloat16][0],
             max_err_fp32=int4_errs[name, torch.float32][0],
@@ -1871,7 +2080,26 @@ def main() -> int:
             library_call=None if name == "int4_ff" else
             "torch.matmul(x, W dequantized to bf16 beforehand)",
             shapes=int4_times[name],
-        ))
+        )
+        if name in prefill_site:
+            entry.update(
+                variant={"decode (M=8)": row["variant"],
+                         "prefill (M=1024)": int4_times[name][prefill_site[name]]["variant"]},
+                tensor_core_launches=launches[f"{name}_tensor_core"],
+                variants=f"tensor_core for more than {mm4.DECODE_ROWS} rows of bf16 "
+                         "(w4a16) or int8 (w4a8) whose K/2 and (w4a8) groups are multiples of "
+                         "32 packed rows, once the CUDA-core grid (N/32 x M/8 blocks) exceeds "
+                         f"{mm4.CUDA_CORE_BLOCKS_PER_SM[False]} (w4a16) or "
+                         f"{mm4.CUDA_CORE_BLOCKS_PER_SM[True]} (w4a8) an SM, else cuda_core "
+                         "(ops/int4_matmul.py::_variant); w4a16 tiles of 128 or 96 rows, "
+                         "whichever leaves the busiest SM the fewest rows (_tile_rows)",
+                prefill=int4_times[name][prefill_site[name]],
+                errors_by_design={f"{design} {str(dtype)[6:]}": dict(
+                    zip(("max_rel", "max_abs", "differing_share", "cases"), v))
+                    for (kernel, design, dtype), v in int4_design_errs.items() if kernel == name})
+        if name == "int4_matmul_w4a8":
+            entry["not_bit_equal"] = w4a8_unequal
+        entries.append(entry)
     # The fused-norm kernels: launches of the fused-norm train call (and the
     # no-statistics forwards of the fused-norm generate), errors over every
     # checked shape, top-level times at the train rows (forward with the
@@ -1895,7 +2123,8 @@ def main() -> int:
         ))
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
-    quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown)
+    quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
+                     int4_prefill=int4_prefill)
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,

@@ -7,32 +7,67 @@
 // They compute what those kernels compute, on the split-half packed layout
 // described in int4_common.cuh.
 //
-// w4a16 (int4_matmul_kernel<T, NW>): each dequantized weight (q - 8) * s is
-// rounded to x's dtype T, products accumulate in fp32, the output is T. NW
-// weights (1, or 3 for q/k/v) share one x: blockIdx.z picks the weight.
-// w4a8 (int4_matmul_w4a8_kernel<T>): x arrives as per-row int8 (the wrapper's
-// quantize_rows_int8) with fp32 row scales; each scale group's products are
-// summed exactly in int32 (__dp4a over 4 contraction rows), converted to fp32,
-// multiplied by the group scale, summed over the groups in order (low group g,
-// then high group g), multiplied by the row scale and written in T.
+// Numerics. w4a16: each dequantized weight (q - 8) * s is computed in fp32
+// and rounded to x's dtype T, products accumulate in fp32, the output is T.
+// NW weights (1, or 3 for q/k/v) share one x: blockIdx.z picks the weight.
+// w4a8: x arrives as per-row int8 (the wrapper's quantize_rows_int8) with
+// fp32 row scales; each scale group's products are summed exactly in int32,
+// converted to fp32, multiplied by the group scale, summed over the groups in
+// order (low group g, then high group g), multiplied by the row scale and
+// written in T. Both designs below compute exactly this; the wrapper
+// (ops/int4_matmul.py::_variant) picks one by shape.
 //
-// Design. A block owns 32 output columns and up to 8 rows of x, staged in
-// shared memory. Its 256 threads are 8 column threads x 32 row slices: a
-// thread reads one 32-bit word (4 neighbouring columns) of q4 per packed row,
-// so 8 threads read 128 contiguous bytes of a row, and it walks the packed
-// rows of its slice (int4_common.cuh, shared with int4_ff.cu). The TPU
-// kernel's whole (K/2, block_n) tile in VMEM becomes 32 slices reduced in
-// the block, by warp shuffles and then over the 8 warps in a fixed order
-// (w4a8 reduces its int32 group partials, which is exact). Prefill tiles
-// rows (8 per block) and masks a partial last tile.
-//
-// Bound on this card: at decode (8 rows) the packed weights and scales over
+// Design 1, CUDA cores (int4_matmul_kernel<T, NW>, int4_matmul_w4a8_kernel<T>;
+// decode, M <= 8; small M while its grid of N/32 x M/8 blocks fits the card
+// (two blocks an SM for w4a16, one for w4a8); fp32 activations, and layouts
+// design 2 does not take). A
+// block owns 32 output columns and up to 8 rows of x, staged in shared
+// memory. Its 256 threads are 8 column threads x 32 row slices: a thread
+// reads one 32-bit word (4 neighbouring columns) of q4 per packed row, so 8
+// threads read 128 contiguous bytes of a row, and it walks the packed rows of
+// its slice (int4_common.cuh, shared with int4_ff.cu). The TPU kernel's whole
+// (K/2, block_n) tile in VMEM becomes 32 slices reduced in the block, by warp
+// shuffles and then over the 8 warps in a fixed order (w4a8 reduces its
+// int32 group partials, which is exact). Products run as fp32 FMA or
+// __dp4a. Bound at decode (8 rows): the packed weights and scales over
 // 3.35 TB/s (0.31 MB for a 768 x 768 projection, 20.5 MB for the 125M
-// lm_head); at prefill (1024 rows) the products, 2*M*K*N operations, over the
-// bf16 (w4a16) or int8 (w4a8) tensor-core peak. What the simple design leaves
-// for later: no tensor cores (the products run on the CUDA cores, fp32 FMA or
-// dp4a), no TMA or cp.async pipelining, and every row tile re-reads and
-// re-dequantizes its weights.
+// lm_head), which this design streams once per row tile.
+//
+// Design 2, tensor cores (int4_matmul_tc_kernel<NW, BM> for bf16 x,
+// int4_matmul_w4a8_tc_kernel<T> for int8 x; prefill and the larger M past
+// design 1's grid limit, K/2 a multiple of 32 and, for w4a8, groups a
+// multiple of 32 packed rows). A block owns a 128 x 128 or 96 x 128 (w4a16:
+// whichever leaves the busiest SM fewer rows, ops/int4_matmul.py::
+// _tile_rows) or 64 x 128 (w4a8) output tile; 8 warps in 2 x 4 each hold a
+// 64 x 32 (48 x 32) or 32 x 32 piece in registers. The K loop walks 32 packed
+// rows a stage through a 3-stage cp.async ring in shared memory. A stage
+// has the packed tile and two x tiles, since packed rows [r0, r0+32) meet x
+// columns [r0, r0+32) through their low nibbles and [K/2+r0, K/2+r0+32)
+// through their high nibbles. Each packed tile is dequantized ONCE per
+// block into two weight tiles, double-buffered, while the tensor cores
+// multiply the previous stage: bf16 (q - 8) * s for w4a16, stored (k, n)
+// and read transposed by ldmatrix.trans, with the scale of the row's own
+// group (any group that divides K/2, or one whole-K group); the exact int8
+// (q - 8) for w4a8, stored (n, k). Products run on mma.sync.m16n8k16 bf16
+// -> fp32, or m16n8k32 s8 -> s32 with two int32 accumulators per output
+// (low and high nibble rows), folded into an fp32 total (kept in shared
+// memory) at each group's end in design 1's order. At M = 1024 each weight
+// is read and dequantized M/128 = 8 times (16 for w4a8) instead of M/8 =
+// 128. Bound at prefill (1024 rows): the products, 2*M*K*N operations, over
+// the bf16 (989 TFLOP/s) or int8 (1979 TOP/s) tensor-core peak.
+//
+// What the designs leave for later: wgmma (warpgroup MMA from shared memory,
+// the only way to Hopper's full tensor-core rate; mma.sync reaches a part of
+// it), TMA with mbarriers in place of cp.async, a persistent grid that
+// overlaps one tile's epilogue with the next tile's loads and evens out
+// grids of a few blocks an SM (the 96-row tile only narrows that
+// imbalance), a producer warp that dequantizes while
+// consumer warpgroups multiply (here every warp does both, with one
+// block-wide sync a stage), larger warp tiles (fewer fragment loads a
+// product; registers cap them at 64 x 32), and a small-M tensor-core tile
+// for decode and small M (one padded 16-row MMA tile, split-K where N is
+// small): at 8 rows design 2 as it is beats design 1 only on the 125M
+// lm_head, so decode stays on design 1, which streams the weights once.
 
 #include "int4_common.cuh"
 
@@ -173,6 +208,512 @@ __global__ void __launch_bounds__(kThreads) int4_matmul_w4a8_kernel(
   if (epilogue) out[(size_t)erow * N + ecol] = Num<T>::store(__fmul_rn(total, sx[erow]));
 }
 
+// ---------------------------------------------------------------------------
+// Design 2: tensor cores.
+
+namespace tc {
+
+constexpr int kBK = 32;        // packed rows per stage (32 x columns per half)
+constexpr int kBN = 128;       // output columns per block
+constexpr int kStages = 3;     // cp.async ring depth
+constexpr int kQBytes = kBK * kBN;   // one stage's packed tile, row-major (k, n)
+// w4a16 rows per block: 128 (warps 2 x 4 of 64 x 32), or 96 (48 x 32),
+// whichever leaves the busiest SM fewer rows (the wrapper picks): more,
+// smaller blocks even out the SMs' load (the q/k/v triple at M = 1024: 144
+// blocks of 128 rows leave 12 SMs with two and 120 with one; 198 of 96
+// rows, 66 and 66), and 96 rows pad less at small M.
+constexpr int kBM16 = 128;
+constexpr int kBM16Small = 96;
+constexpr int kBM8 = 64;       // w4a8 rows per block: warps 2 x 4 of 32 x 32
+
+// Shared-memory tiles are rows of 16-byte chunks padded by one chunk, so the
+// 8 row addresses of an ldmatrix phase fall on 8 different bank groups.
+// x tiles: (m, k) rows of kBK elements of ES bytes.
+template <int ES>
+struct XTile {
+  static constexpr int kRowBytes = kBK * ES;          // 64 (bf16) or 32 (int8)
+  static constexpr int kStride = kRowBytes + 16;
+  static constexpr int kChunks = kRowBytes / 16;      // 16-byte chunks per row
+};
+// Weight tiles. bf16: (k, n) rows of kBN values, read by ldmatrix.trans.
+// int8: (n, k) rows of kBK values (ldmatrix cannot transpose 8-bit values).
+constexpr int kW16Stride = kBN * 2 + 16;
+constexpr int kW16Bytes = kBK * kW16Stride;
+constexpr int kW8Stride = kBK + 16;
+constexpr int kW8Bytes = kBN * kW8Stride;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes, zero-filling what lies past src_bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One stage's copies into ring slot (qs, xl, xh): packed rows [r0, r0+kBK)
+// x columns [n0, n0+kBN) of q4, and rows [m0, m0+BM) of x at columns
+// [r0, r0+kBK) (xl) and [K/2+r0, K/2+r0+kBK) (xh). Rows past M and columns
+// past N read as zeros. n_vec: N and q4 allow 16-byte copies, else 4-byte.
+template <int BM, int ES>
+__device__ __forceinline__ void load_stage(uint8_t* qs, uint8_t* xl, uint8_t* xh,
+                                           const uint8_t* __restrict__ q4,
+                                           const uint8_t* __restrict__ x, int M, int K, int N,
+                                           int m0, int n0, int r0, bool n_vec) {
+  using X = XTile<ES>;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 2 * BM * X::kChunks; i += kThreads) {
+    const int half = i / (BM * X::kChunks), j = i % (BM * X::kChunks);
+    const int m = j / X::kChunks, c = j % X::kChunks;
+    const int row = m0 + m < M ? m0 + m : M - 1;
+    const uint8_t* src = x + ((size_t)row * K + (half ? K / 2 : 0) + r0) * ES + c * 16;
+    cp_async16((half ? xh : xl) + m * X::kStride + c * 16, src, m0 + m < M ? 16 : 0);
+  }
+  if (n_vec) {
+    for (int i = tid; i < kQBytes / 16; i += kThreads) {
+      const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
+      const bool in = n0 + c < N;
+      cp_async16(qs + r * kBN + c, q4 + (size_t)(r0 + r) * N + (in ? n0 + c : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < kQBytes / 4; i += kThreads) {
+      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+      const bool in = n0 + c < N;
+      cp_async4(qs + r * kBN + c, q4 + (size_t)(r0 + r) * N + (in ? n0 + c : 0), in ? 4 : 0);
+    }
+  }
+}
+
+// Exactly (float)(v - 8) for a nibble v held as 0x4B00000v: 2^23 + v - (2^23 + 8).
+__device__ __forceinline__ float nibble_value(uint32_t magic_v) {
+  return __fsub_rn(__uint_as_float(magic_v), 8388616.f);
+}
+
+// w4a16: the thread dequantizes packed rows 4w .. 4w+3 (w its warp) of a
+// stage at columns 4*lane .. 4*lane+3 into wl/wh[k][n] = bf16((q - 8) * s)
+// of the low/high nibbles, s the scale of the packed row's own group (low
+// g, high ng/2 + g; one whole-K group: row 0 for both). A warp reads and
+// writes whole rows: one 32-bit word and one 8-byte store per row and half.
+// One row per row(i) call, so the kernel can interleave the rows with its
+// products; the constructor starts the scale loads (none when !active).
+struct DequantBf16 {
+  const uint8_t* qs;
+  uint8_t* wl;
+  uint8_t* wh;
+  const float* __restrict__ scale;
+  int N, ng, col, row0, gsize, g, rem;
+  float4 sl, sh;
+
+  __device__ __forceinline__ DequantBf16(const uint8_t* qs_, uint8_t* wl_, uint8_t* wh_,
+                                         const float* __restrict__ scale_, int N_, int n0,
+                                         int r0, int ng_, int group, bool active)
+      : qs(qs_), wl(wl_), wh(wh_), scale(scale_), N(N_), ng(ng_) {
+    const int c = 4 * (threadIdx.x % 32);
+    row0 = (threadIdx.x / 32) * 4;
+    // Columns past N hold zero nibbles and are masked at the store; their
+    // scales are read at a column inside N.
+    col = n0 + c < N ? n0 + c : N - 4;
+    gsize = ng == 1 ? 1 << 30 : group;
+    const int base = r0 + row0;
+    g = base / gsize;
+    rem = base - g * gsize;
+    if (active) load_scales();
+  }
+
+  __device__ __forceinline__ void load_scales() {
+    sl = __ldg(reinterpret_cast<const float4*>(scale + (size_t)g * N + col));
+    sh = __ldg(reinterpret_cast<const float4*>(scale + (size_t)(ng == 1 ? 0 : ng / 2 + g) * N + col));
+  }
+
+  __device__ __forceinline__ void row(int i) {
+    if (rem == gsize) {       // the next group starts inside this thread's rows
+      ++g;
+      rem = 0;
+      load_scales();
+    }
+    ++rem;
+    const int c = 4 * (threadIdx.x % 32);
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(qs + (row0 + i) * kBN + c);
+    const float s_lo[4] = {sl.x, sl.y, sl.z, sl.w}, s_hi[4] = {sh.x, sh.y, sh.z, sh.w};
+    float lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo[j] = __fmul_rn(nibble_value(((word >> (8 * j)) & 0xFu) | 0x4B000000u), s_lo[j]);
+      hi[j] = __fmul_rn(nibble_value(((word >> (8 * j + 4)) & 0xFu) | 0x4B000000u), s_hi[j]);
+    }
+    const __nv_bfloat162 l01 = __floats2bfloat162_rn(lo[0], lo[1]);
+    const __nv_bfloat162 l23 = __floats2bfloat162_rn(lo[2], lo[3]);
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(hi[0], hi[1]);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(hi[2], hi[3]);
+    *reinterpret_cast<uint2*>(wl + (row0 + i) * kW16Stride + 2 * c) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&l01), *reinterpret_cast<const uint32_t*>(&l23));
+    *reinterpret_cast<uint2*>(wh + (row0 + i) * kW16Stride + 2 * c) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&h01), *reinterpret_cast<const uint32_t*>(&h23));
+  }
+};
+
+// The int8 values v - 8 of four nibbles v held one a byte: the high bit
+// of each byte keeps the subtraction from borrowing across bytes.
+__device__ __forceinline__ uint32_t centered4(uint32_t nibbles) {
+  return ((nibbles | 0x80808080u) - 0x08080808u) ^ 0x80808080u;
+}
+
+// w4a8: the thread takes column c = tid % kBN of the tile and its 16 packed
+// rows h*16 .. h*16+15 (h = tid / kBN), and writes wl/wh[c][k] = (q - 8) of
+// the low/high nibbles as int8, exact: 16 contiguous k values a half. One
+// group of 4 rows per rows(i) call (the stores follow the last).
+struct DequantS8 {
+  const uint8_t* qs;
+  uint8_t* wl;
+  uint8_t* wh;
+  uint32_t lo[4], hi[4];
+
+  __device__ __forceinline__ DequantS8(const uint8_t* qs_, uint8_t* wl_, uint8_t* wh_)
+      : qs(qs_), wl(wl_), wh(wh_) {}
+
+  __device__ __forceinline__ void rows(int i) {
+    const int c = threadIdx.x % kBN, h = threadIdx.x / kBN;
+    const uint8_t* p = qs + (h * 16 + 4 * i) * kBN + c;
+    // Bytes of rows 4i .. 4i+3 into one word, row 4i in byte 0.
+    const uint32_t word = __byte_perm(__byte_perm(p[0], p[kBN], 0x0040),
+                                      __byte_perm(p[2 * kBN], p[3 * kBN], 0x0040), 0x5410);
+    lo[i] = centered4(word & 0x0F0F0F0Fu);
+    hi[i] = centered4((word >> 4) & 0x0F0F0F0Fu);
+    if (i == 3) {
+      *reinterpret_cast<uint4*>(wl + c * kW8Stride + h * 16) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(wh + c * kW8Stride + h * 16) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+};
+
+// A fragment of the 16-row tile at row m of an x tile, k-byte offset kb
+// (16 bf16 or 32 int8 of depth: 32 bytes).
+template <int ES>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* xs, int m, int kb) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, xs + (m + lane % 16) * XTile<ES>::kStride + kb + (lane / 16) * 16);
+}
+
+// B fragments of the 4 8-column tiles at columns wn0 .. wn0+31: bf16 from
+// the (k, n) tile at depth k0 .. k0+15 (transposed by ldmatrix), int8 from
+// the (n, k) tile at depth 0 .. 31.
+__device__ __forceinline__ void load_b_bf16(uint32_t (&b)[4][2], const uint8_t* ws, int wn0,
+                                            int k0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, ws + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * kW16Stride +
+                             (wn0 + np * 16 + (lane / 16) * 8) * 2);
+    b[2 * np][0] = r[0];
+    b[2 * np][1] = r[1];
+    b[2 * np + 1][0] = r[2];
+    b[2 * np + 1][1] = r[3];
+  }
+}
+__device__ __forceinline__ void load_b_s8(uint32_t (&b)[4][2], const uint8_t* ws, int wn0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    uint32_t r[4];
+    ldmatrix_x4(r, ws + (wn0 + np * 16 + lane % 8 + (lane / 16) * 8) * kW8Stride +
+                       ((lane / 8) % 2) * 16);
+    b[2 * np][0] = r[0];
+    b[2 * np][1] = r[1];
+    b[2 * np + 1][0] = r[2];
+    b[2 * np + 1][1] = r[3];
+  }
+}
+
+// Shared memory of a kernel with BM-row x tiles of ES-byte elements: the
+// ring of stages, then two buffers of the low and high weight tiles.
+template <int BM, int ES, int WBytes>
+struct Layout {
+  static constexpr int kX = BM * XTile<ES>::kStride;   // one x tile
+  static constexpr int kStage = kQBytes + 2 * kX;
+  static constexpr int kBytes = kStages * kStage + 4 * WBytes;
+  __device__ static uint8_t* q(uint8_t* s, int stage) { return s + stage % kStages * kStage; }
+  __device__ static uint8_t* xl(uint8_t* s, int stage) { return q(s, stage) + kQBytes; }
+  __device__ static uint8_t* xh(uint8_t* s, int stage) { return xl(s, stage) + kX; }
+  __device__ static uint8_t* wl(uint8_t* s, int stage) {
+    return s + kStages * kStage + stage % 2 * 2 * WBytes;
+  }
+  __device__ static uint8_t* wh(uint8_t* s, int stage) { return wl(s, stage) + WBytes; }
+};
+
+// The K loop both tensor-core kernels share. Iteration kt multiplies stage
+// kt's x tiles by its weight tiles, dequantizes stage kt+1's packed tile
+// into the other weight buffer, and starts the copies of stage kt+2: one
+// block-wide sync a stage orders the buffers. dequant(s) dequantizes stage
+// s whole (the first stage, before the loop); stage(kt, next, fetch) runs
+// iteration kt's products with stage kt+1's dequantization (when next)
+// and the copies (fetch()) interleaved between them, so the ALU work and
+// the copies issue while the tensor cores execute the products.
+template <typename L, int BM, int ES, typename Dequant, typename Stage>
+__device__ __forceinline__ void k_loop(uint8_t* smem, const uint8_t* __restrict__ q4,
+                                       const uint8_t* __restrict__ x, int M, int K, int N,
+                                       int m0, int n0, bool n_vec, Dequant dequant,
+                                       Stage stage) {
+  const int stages = K / 2 / kBK;
+  auto load = [&](int s) {
+    if (s < stages)
+      load_stage<BM, ES>(L::q(smem, s), L::xl(smem, s), L::xh(smem, s), q4, x, M, K, N, m0,
+                         n0, s * kBK, n_vec);
+    cp_async_commit();
+  };
+  load(0);
+  load(1);
+  cp_async_wait<1>();
+  __syncthreads();
+  dequant(0);
+  for (int kt = 0; kt < stages; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage kt+1 landed, stage kt's weights whole, stage kt-1 done
+    stage(kt, kt + 1 < stages, [&] { load(kt + 2); });
+  }
+}
+
+}  // namespace tc
+
+template <int NW, int BM>
+__global__ void __launch_bounds__(kThreads, 2) int4_matmul_tc_kernel(
+    const __nv_bfloat16* __restrict__ x, Weights w, int M, int K, int N, int ng, int group,
+    int n_vec) {
+  using namespace tc;
+  using L = Layout<BM, 2, kW16Bytes>;
+  constexpr int MT = BM / 32;   // 16-row MMA tiles a warp: its rows are BM / 2
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int which = NW == 1 ? 0 : blockIdx.z;
+  const uint8_t* __restrict__ q4 = which == 0 ? w.q4[0] : which == 1 ? w.q4[1] : w.q4[2];
+  const float* __restrict__ scale =
+      which == 0 ? w.scale[0] : which == 1 ? w.scale[1] : w.scale[2];
+  __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(
+      which == 0 ? w.out[0] : which == 1 ? w.out[1] : w.out[2]);
+
+  // blockIdx.x walks M fastest: the row tiles that share a weight tile run
+  // together and find it in L2.
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / 4) * (BM / 2), wn0 = (warp % 4) * 32;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  auto dequant = [&](int s, bool active) {
+    return DequantBf16(L::q(smem, s), L::wl(smem, s), L::wh(smem, s), scale, N, n0, s * kBK,
+                       ng, group, active);
+  };
+  auto stage = [&](int kt, bool next, auto fetch) {
+    DequantBf16 d = dequant(kt + 1, next);
+    // Four groups of 16 products (low and high half, two k16 steps each),
+    // one row of the next stage's dequantization after each.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int half = j / 2, k0 = (j % 2) * 16;
+      const uint8_t* xs = half ? L::xh(smem, kt) : L::xl(smem, kt);
+      uint32_t b[4][2];
+      load_b_bf16(b, half ? L::wh(smem, kt) : L::wl(smem, kt), wn0, k0);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        load_a<2>(a, xs, wm0 + mt * 16, 2 * k0);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
+      if (j == 0) fetch();
+      if (next) d.row(j);
+    }
+  };
+  k_loop<L, BM, 2>(smem, q4, reinterpret_cast<const uint8_t*>(x), M, K, N, m0, n0, n_vec,
+                      [&](int s) {
+                        DequantBf16 d = dequant(s, true);
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) d.row(i);
+                      },
+                      stage);
+
+  // Accumulator (mt, nt): rows lane/4 (+8), columns 2*(lane%4) + {0, 1}.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = n0 + wn0 + nt * 8 + 2 * (lane % 4);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + wm0 + mt * 16 + lane / 4 + 8 * hr;
+        if (row < M && col < N)   // N is even: col < N covers col + 1
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
+              __floats2bfloat162_rn(acc[mt][nt][2 * hr], acc[mt][nt][2 * hr + 1]);
+      }
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// w4a8 keeps each thread's 32 fp32 totals in shared memory, [slot][thread]
+// (one word per thread a slot: no bank conflicts), touched once a group:
+// the registers go to the two int32 accumulators, and two blocks fit an SM.
+constexpr int kTotals = 2 * 4 * 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) int4_matmul_w4a8_tc_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx, const uint8_t* __restrict__ q4,
+    const float* __restrict__ scale, T* __restrict__ out, int M, int K, int N, int ng,
+    int group, int n_vec) {
+  using namespace tc;
+  using L = Layout<kBM8, 1, kW8Bytes>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int m0 = blockIdx.x * kBM8, n0 = blockIdx.y * kBN;
+  // One whole-K group: all packed rows, low and high summed in int32 before
+  // the single scale, as design 1 does.
+  const int group_stages = (ng == 1 ? K / 2 : group) / kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / 4) * 32, wn0 = (warp % 4) * 32;
+  int acc_lo[2][4][4], acc_hi[2][4][4];
+  float* totals = reinterpret_cast<float*>(smem + L::kBytes) + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_lo[i][j][e] = acc_hi[i][j][e] = 0;
+#pragma unroll
+  for (int i = 0; i < kTotals; ++i) totals[i * kThreads] = 0.f;
+
+  // Two groups of 8 products (the low half, then the high half), two
+  // word rows of the next stage's dequantization after each.
+  auto products = [&](int (&acc)[2][4][4], const uint8_t* xs, const uint8_t* ws) {
+    uint32_t b[4][2];
+    load_b_s8(b, ws, wn0);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      uint32_t a[4];
+      load_a<1>(a, xs, wm0 + mt * 16, 0);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a, b[nt][0], b[nt][1]);
+    }
+  };
+  // At a group's end, fold its exact int32 partials into the fp32 total.
+  auto fold = [&](int kt) {
+    if ((kt + 1) % group_stages) return;
+    const int g = (kt + 1) / group_stages - 1;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + wn0 + nt * 8 + 2 * (lane % 4) + e;
+        const int cc = col < N ? col : N - 1;
+        const float sl = __ldg(scale + (size_t)g * N + cc);
+        const float sh = ng == 1 ? 0.f : __ldg(scale + (size_t)(ng / 2 + g) * N + cc);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 2 * hr + e;
+            float& t = totals[((mt * 4 + nt) * 4 + i) * kThreads];
+            if (ng == 1) {
+              t = __fmul_rn((float)(acc_lo[mt][nt][i] + acc_hi[mt][nt][i]), sl);
+            } else {
+              t = __fadd_rn(t, __fmul_rn((float)acc_lo[mt][nt][i], sl));
+              t = __fadd_rn(t, __fmul_rn((float)acc_hi[mt][nt][i], sh));
+            }
+            acc_lo[mt][nt][i] = acc_hi[mt][nt][i] = 0;
+          }
+      }
+  };
+  auto stage = [&](int kt, bool next, auto fetch) {
+    DequantS8 d(L::q(smem, kt + 1), L::wl(smem, kt + 1), L::wh(smem, kt + 1));
+    products(acc_lo, L::xl(smem, kt), L::wl(smem, kt));
+    fetch();
+    if (next) {
+      d.rows(0);
+      d.rows(1);
+    }
+    products(acc_hi, L::xh(smem, kt), L::wh(smem, kt));
+    if (next) {
+      d.rows(2);
+      d.rows(3);
+    }
+    fold(kt);
+  };
+  k_loop<L, kBM8, 1>(smem, q4, reinterpret_cast<const uint8_t*>(xq), M, K, N, m0, n0, n_vec,
+                     [&](int s) {
+                       DequantS8 d(L::q(smem, s), L::wl(smem, s), L::wh(smem, s));
+#pragma unroll
+                       for (int i = 0; i < 4; ++i) d.rows(i);
+                     },
+                     stage);
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + wm0 + mt * 16 + lane / 4 + 8 * hr;
+      if (row >= M) continue;
+      const float s = sx[row];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn0 + nt * 8 + 2 * (lane % 4);
+        if (col < N)
+          store2<T>(out + (size_t)row * N + col,
+                    __fmul_rn(totals[((mt * 4 + nt) * 4 + 2 * hr) * kThreads], s),
+                    __fmul_rn(totals[((mt * 4 + nt) * 4 + 2 * hr + 1) * kThreads], s));
+      }
+    }
+}
+
 // Rows of x per block: up to 8, fewer when a tile of x would not fit.
 int pick_tile_m(int M, int K, int itemsize) {
   int tile = kMaxTileM;
@@ -203,6 +744,37 @@ int launch_w4a16(const void* x, const Weights& w, int M, int K, int N, int ng, i
   return (int)cudaGetLastError();
 }
 
+// Design 2 for bf16 x with BM-row tiles.
+template <int NW, int BM>
+int launch_w4a16_tc_tiles(const void* x, const Weights& w, int M, int K, int N, int ng,
+                          int group, bool n_vec, cudaStream_t stream) {
+  using L = tc::Layout<BM, 2, tc::kW16Bytes>;
+  auto kernel = int4_matmul_tc_kernel<NW, BM>;
+  cudaError_t err = set_smem(kernel, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + BM - 1) / BM, (N + tc::kBN - 1) / tc::kBN, NW);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(static_cast<const __nv_bfloat16*>(x), w, M, K, N,
+                                                ng, group, n_vec);
+  return (int)cudaGetLastError();
+}
+
+// Design 2 for bf16 x: K/2 a multiple of 32 (whole stages); x 16-byte
+// aligned; tile_rows rows of x a block, tc::kBM16 or tc::kBM16Small (the
+// wrapper's choice, ops/int4_matmul.py::_tile_rows).
+template <int NW>
+int launch_w4a16_tc(const void* x, const Weights& w, int M, int K, int N, int ng, int group,
+                    int tile_rows, cudaStream_t stream) {
+  if (M == 0) return (int)cudaSuccess;
+  if ((K / 2) % tc::kBK || reinterpret_cast<uintptr_t>(x) % 16) return -1;
+  bool n_vec = N % 16 == 0;
+  for (int i = 0; i < NW; ++i) n_vec = n_vec && reinterpret_cast<uintptr_t>(w.q4[i]) % 16 == 0;
+  if (tile_rows == tc::kBM16)
+    return launch_w4a16_tc_tiles<NW, tc::kBM16>(x, w, M, K, N, ng, group, n_vec, stream);
+  if (tile_rows == tc::kBM16Small)
+    return launch_w4a16_tc_tiles<NW, tc::kBM16Small>(x, w, M, K, N, ng, group, n_vec, stream);
+  return -1;
+}
+
 template <typename T>
 int launch_w4a8(const int8_t* xq, const float* sx, const uint8_t* q4, const float* scale,
                 void* out, int M, int K, int N, int ng, int group, cudaStream_t stream) {
@@ -219,17 +791,39 @@ int launch_w4a8(const int8_t* xq, const float* sx, const uint8_t* q4, const floa
   return (int)cudaGetLastError();
 }
 
+// Design 2 for int8 x: K/2 and every group (or K/2 for one whole-K group)
+// a multiple of 32 packed rows, the MMA's depth; xq 16-byte aligned.
+template <typename T>
+int launch_w4a8_tc(const int8_t* xq, const float* sx, const uint8_t* q4, const float* scale,
+                   void* out, int M, int K, int N, int ng, int group, cudaStream_t stream) {
+  using L = tc::Layout<tc::kBM8, 1, tc::kW8Bytes>;
+  constexpr int kBytes = L::kBytes + kTotals * kThreads * sizeof(float);
+  if (M == 0) return (int)cudaSuccess;
+  const int rows = ng == 1 ? K / 2 : group;
+  if ((K / 2) % tc::kBK || rows % tc::kBK || reinterpret_cast<uintptr_t>(xq) % 16) return -1;
+  const bool n_vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(q4) % 16 == 0;
+  auto kernel = int4_matmul_w4a8_tc_kernel<T>;
+  cudaError_t err = set_smem(kernel, kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + tc::kBM8 - 1) / tc::kBM8, (N + tc::kBN - 1) / tc::kBN);
+  kernel<<<grid, kThreads, kBytes, stream>>>(xq, sx, q4, scale, static_cast<T*>(out), M, K,
+                                                N, ng, group, n_vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x @ dequant(q4_i, s_i) -> out_i for i < nw (1 or 3), all (K/2, N) weights of
-// one layout; dtype 0 = fp32, 1 = bf16 (x and outputs). Returns
-// cudaGetLastError() after the launch, or -1 for an unsupported dtype or nw.
+// one layout; dtype 0 = fp32, 1 = bf16 (x and outputs); tile_rows 0 runs
+// design 1, 128 or 96 design 2 (bf16 only) with that many rows of x a
+// block. Returns cudaGetLastError() after the launch, or -1 for an
+// unsupported dtype, nw, design, tile or layout.
 int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
                        const void* q1, const void* s1, void* o1, const void* q2,
                        const void* s2, void* o2, int dtype, int nw, int M, int K, int N,
-                       int ng, int group, void* stream) {
+                       int ng, int group, int tile_rows, void* stream) {
   Weights w;
   const void* qs[3] = {q0, q1, q2};
   const void* ss[3] = {s0, s1, s2};
@@ -240,6 +834,11 @@ int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
     w.out[i] = os[i];
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile_rows) {
+    if (dtype == 1 && nw == 1) return launch_w4a16_tc<1>(x, w, M, K, N, ng, group, tile_rows, st);
+    if (dtype == 1 && nw == 3) return launch_w4a16_tc<3>(x, w, M, K, N, ng, group, tile_rows, st);
+    return -1;
+  }
   if (dtype == 0 && nw == 1) return launch_w4a16<float, 1>(x, w, M, K, N, ng, group, st);
   if (dtype == 0 && nw == 3) return launch_w4a16<float, 3>(x, w, M, K, N, ng, group, st);
   if (dtype == 1 && nw == 1) return launch_w4a16<__nv_bfloat16, 1>(x, w, M, K, N, ng, group, st);
@@ -248,17 +847,24 @@ int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
 }
 
 // Per-row int8 xq (M, K) with fp32 row scales sx (M, 1) against q4/s ->
-// out (M, N) in dtype (0 = fp32, 1 = bf16). K % 8 == 0, and a group (or K/2
-// for one whole-K group) a multiple of 4 packed rows. Returns
-// cudaGetLastError() after the launch, or -1 for an unsupported dtype.
+// out (M, N) in dtype (0 = fp32, 1 = bf16). Design 1 (tensor_core 0): K % 8
+// == 0, and a group (or K/2 for one whole-K group) a multiple of 4 packed
+// rows; design 2 (tensor_core 1): both multiples of 32 packed rows. Returns
+// cudaGetLastError() after the launch, or -1 for an unsupported dtype or
+// layout.
 int int4_matmul_w4a8_launch(const void* xq, const void* sx, const void* q4, const void* s,
                             void* out, int dtype, int M, int K, int N, int ng, int group,
-                            void* stream) {
+                            int tensor_core, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* x = static_cast<const int8_t*>(xq);
   const float* rs = static_cast<const float*>(sx);
   const uint8_t* q = static_cast<const uint8_t*>(q4);
   const float* sc = static_cast<const float*>(s);
+  if (tensor_core) {
+    if (dtype == 0) return launch_w4a8_tc<float>(x, rs, q, sc, out, M, K, N, ng, group, st);
+    if (dtype == 1) return launch_w4a8_tc<__nv_bfloat16>(x, rs, q, sc, out, M, K, N, ng, group, st);
+    return -1;
+  }
   if (dtype == 0) return launch_w4a8<float>(x, rs, q, sc, out, M, K, N, ng, group, st);
   if (dtype == 1) return launch_w4a8<__nv_bfloat16>(x, rs, q, sc, out, M, K, N, ng, group, st);
   return -1;

@@ -105,6 +105,20 @@ def _reset_rows(cache: DecodeCache, mask: torch.Tensor,
     return cache
 
 
+def _tensor_state(t: torch.Tensor):
+    """A tensor's in-place version, or None for an inference tensor, which
+    tracks none (it can change only inside ``torch.inference_mode()``, and
+    keys on its identity alone)."""
+    return None if t.is_inference() else t._version
+
+
+def _same_tensors(key, cached) -> bool:
+    """Whether two ``[(tensor, in-place version)]`` lists name the same
+    tensor objects at the same versions."""
+    return cached is not None and len(key) == len(cached) and all(
+        t is c and v == cv for (t, v), (c, cv) in zip(key, cached))
+
+
 @dataclasses.dataclass
 class _Request:
     """Host bookkeeping for one request, from arrival to retirement."""
@@ -291,6 +305,7 @@ class ContinuousEngine:
         self._finished: dict[int, _Request] = {}
         self._next_rid = 0
         self._cast_src: Mapping | None = None
+        self._cast_key: list | None = None
         self._cast_out: dict | None = None
         self._page_high = 0
         self._init_slots()
@@ -370,7 +385,7 @@ class ContinuousEngine:
         while self._queue:
             self._fail_request(self._queue.popleft(), "shutdown", "engine closed", now=now)
         self._cache = None
-        self._cast_src = self._cast_out = None
+        self._cast_src = self._cast_key = self._cast_out = None
         if self._paged:
             self._init_pool()
 
@@ -514,15 +529,20 @@ class ContinuousEngine:
 
     def _cast_params(self, params):
         # The inference cast (and the load into the model) runs once per
-        # params OBJECT, not once per step; the dequantize-per-call mode
-        # keeps the cast tree and hands it to every model call.
-        if self._cast_src is params:
+        # params object and tensor state, not once per step; the
+        # dequantize-per-call mode keeps the cast tree and hands it to every
+        # model call. Torch updates parameters in place, and a state_dict()
+        # aliases them, so the same dict can hold new weights: each tensor's
+        # identity and in-place version counter key the cast (host reads
+        # only, no device work).
+        key = [(t, _tensor_state(t)) for t in params.values()]
+        if self._cast_src is params and _same_tensors(key, self._cast_key):
             return self._cast_out
         weights = self._maybe_cast(params)
         if not self._in_apply:
             self._model.load_state_dict(weights)
             weights = None
-        self._cast_src, self._cast_out = params, weights
+        self._cast_src, self._cast_key, self._cast_out = params, key, weights
         return weights
 
     def add_request(self, prompt, *, rid: int | None = None, arrival_t: float | None = None,

@@ -20,6 +20,15 @@ For CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/int4_matmul.cu`` (built at first use, see ``_build``); for CPU tensors
 they run the plain versions, which the tests hold against the JAX kernels.
 Nothing falls back from one to the other. Inference only: no gradient.
+
+The source has two designs of each kernel, and :func:`_variant` picks one
+by shape before the launch: the tensor-core design (``mma.sync``; tiles of
+128 or 96 rows (:func:`_tile_rows`) for w4a16, 64 for w4a8, each
+dequantizing its weight tile once per block) for prefill rows in bf16
+(w4a16) or int8 (w4a8) once the CUDA-core grid outgrows the card, the
+CUDA-core design (up to 8 rows a block, fp32 FMA or ``dp4a``) for decode,
+small row counts, fp32 activations and the layouts the tensor cores do not
+take. Both compute the same function.
 """
 
 from __future__ import annotations
@@ -32,6 +41,69 @@ import torch
 from learning_jax_sharding_tpu_torch.ops._build import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODES = {"cuda_core": 0, "tensor_core": 1}
+#: Rows of a decode step: they stay on the CUDA-core design.
+DECODE_ROWS = 8
+#: Packed rows a tensor-core stage covers, and the int8 MMA's depth.
+TENSOR_CORE_DEPTH = 32
+#: Rows of x a tensor-core w4a16 block takes, and its columns.
+TILE_ROWS, SMALL_TILE_ROWS, TILE_COLS = 128, 96, 128
+#: Output columns and rows of x a CUDA-core block takes.
+CUDA_CORE_COLS, CUDA_CORE_ROWS = 32, 8
+#: CUDA-core blocks an SM up to which that design keeps its decode time,
+#: by w4a8. Past it the design slows with M while the tensor-core one stays
+#: flat up to hundreds of rows. Fitted to H100 timings of every 125M site at
+#: M = 16, 32 and 64. The w4a16 kernel (64 registers a thread) holds twice
+#: the blocks an SM that the w4a8 one (128) does.
+CUDA_CORE_BLOCKS_PER_SM = {False: 2, True: 1}
+
+
+def _tensor_core_layout(k: int, ng: int, group: int, dtype: torch.dtype, w4a8: bool) -> bool:
+    """Whether the tensor-core design takes this layout: bf16 (w4a16) or
+    int8 (w4a8) activations whose K/2 is a multiple of 32 packed rows
+    (whole stages) and, for w4a8, whose groups (or the one whole-K group)
+    are too, since a group's int32 partial must end on an MMA's 32 of
+    depth."""
+    k_half = k // 2
+    if k_half % TENSOR_CORE_DEPTH:
+        return False
+    if w4a8:
+        return (k_half if ng == 1 else group) % TENSOR_CORE_DEPTH == 0
+    return dtype == torch.bfloat16
+
+
+def _variant(m: int, k: int, n: int, ng: int, group: int, dtype: torch.dtype, w4a8: bool,
+             sms: int) -> str:
+    """Which kernel design takes an ``(m, k) × (k, n)`` launch (``n`` over
+    all its weights: 3N for the triple) with ``ng`` scale rows of ``group``
+    contraction rows on a card of ``sms`` SMs: ``"tensor_core"`` where
+    :func:`_tensor_core_layout` holds, there are more than
+    ``DECODE_ROWS`` rows, and the CUDA-core grid (N/32 × M/8 blocks)
+    exceeds ``CUDA_CORE_BLOCKS_PER_SM`` an SM; else ``"cuda_core"``. A
+    choice between two kernels by shape, made before the launch: nothing
+    falls back."""
+    if m <= DECODE_ROWS or not _tensor_core_layout(k, ng, group, dtype, w4a8):
+        return "cuda_core"
+    blocks = -(-n // CUDA_CORE_COLS) * -(-m // CUDA_CORE_ROWS)
+    return "tensor_core" if blocks > CUDA_CORE_BLOCKS_PER_SM[w4a8] * sms else "cuda_core"
+
+
+def _tile_rows(m: int, n: int, nw: int, sms: int) -> int:
+    """Rows of x a tensor-core w4a16 block takes for ``nw`` ``(m, ·) ×
+    (·, n)`` products on a card of ``sms`` SMs: of 128 and 96, the tile
+    whose busiest SM multiplies the fewest rows (its ceil(blocks / sms)
+    blocks of that many rows; 128 on a tie). 96 evens out grids of a few
+    blocks an SM and pads fewer rows at small M."""
+    def load(rows):
+        blocks = -(-m // rows) * -(-n // TILE_COLS) * nw
+        return -(-blocks // sms) * rows
+    return SMALL_TILE_ROWS if load(SMALL_TILE_ROWS) < load(TILE_ROWS) else TILE_ROWS
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _dequant_halves(q4: torch.Tensor, scale: torch.Tensor, group: int, dtype):
@@ -161,16 +233,25 @@ def _kernel_entries():
     lib = load_library("int4_matmul")
     w4a16 = lib.int4_matmul_launch
     w4a16.restype = ctypes.c_int
-    w4a16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    w4a16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     w4a8 = lib.int4_matmul_w4a8_launch
     w4a8.restype = ctypes.c_int
-    w4a8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    w4a8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return {"w4a16": w4a16, "w4a8": w4a8}
 
 
-def _launch_w4a16(x2, weights, *, group: int) -> list[torch.Tensor]:
-    """One launch of the w4a16 kernel over one (``int4_matmul``) or three
-    (``int4_matmul3``) same-shape packed weights."""
+def _aligned(x2: torch.Tensor) -> torch.Tensor:
+    """``x2``, or a fresh copy when it starts off a 16-byte boundary (a view
+    at an offset): the tensor-core design copies x in 16-byte pieces."""
+    return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
+
+
+def _launch_w4a16(x2, weights, *, group: int, variant: str,
+                  tile_rows: int | None = None) -> list[torch.Tensor]:
+    """One launch of the w4a16 kernel's ``variant`` design over one
+    (``int4_matmul``) or three (``int4_matmul3``) same-shape packed
+    weights; the tensor-core design with ``tile_rows`` rows a block, by
+    default :func:`_tile_rows`'s."""
     what = "int4_matmul3" if len(weights) == 3 else "int4_matmul"
     if x2.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what} kernel takes float32 or bfloat16 x, got {x2.dtype}")
@@ -178,8 +259,14 @@ def _launch_w4a16(x2, weights, *, group: int) -> list[torch.Tensor]:
     for i, (q4, scale) in enumerate(weights):
         tensors.update({f"q4_{i}": q4, f"scale_{i}": scale})
     _check_cuda(what, x2, **tensors)
+    if variant == "tensor_core":
+        x2 = _aligned(x2)
     m, k = x2.shape
     n, ng = weights[0][0].shape[1], weights[0][1].shape[0]
+    if variant == "cuda_core":
+        tile_rows = 0
+    elif tile_rows is None:
+        tile_rows = _tile_rows(m, n, len(weights), _sm_count(x2.device.index))
     outs = [torch.empty(m, n, dtype=x2.dtype, device=x2.device) for _ in weights]
     pointers = []   # three (q4, scale, out) slots; one weight fills all three
     for (q4, scale), out in (list(zip(weights, outs)) * 3)[:3]:
@@ -188,15 +275,16 @@ def _launch_w4a16(x2, weights, *, group: int) -> list[torch.Tensor]:
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = _kernel_entries()["w4a16"](
             x2.data_ptr(), *pointers, _DTYPE_CODES[x2.dtype], len(weights),
-            m, k, n, ng, group, stream,
+            m, k, n, ng, group, tile_rows, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: error {err}")
+        raise RuntimeError(f"{what} {variant} kernel launch failed: error {err}")
     return outs
 
 
-def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype) -> torch.Tensor:
-    """One launch of the w4a8 kernel; its layout limits raise here."""
+def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype, variant: str) -> torch.Tensor:
+    """One launch of the w4a8 kernel's ``variant`` design; its layout
+    limits raise here."""
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int4_matmul w4a8 kernel writes float32 or bfloat16, got {out_dtype}")
     _check_cuda("int4_matmul w4a8", xq, q4=q4, scale=scale, sx=sx)
@@ -209,15 +297,18 @@ def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype) -> torch.Tensor:
             f"multiple of 4 packed rows (4-row int8 dot products), got K={k}, "
             f"group {group}"
         )
+    if variant == "tensor_core":
+        xq = _aligned(xq)
     out = torch.empty(m, n, dtype=out_dtype, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         err = _kernel_entries()["w4a8"](
             xq.data_ptr(), sx.data_ptr(), q4.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[out_dtype], m, k, n, ng, group, stream,
+            out.data_ptr(), _DTYPE_CODES[out_dtype], m, k, n, ng, group,
+            _DESIGN_CODES[variant], stream,
         )
     if err != 0:
-        raise RuntimeError(f"int4_matmul w4a8 kernel launch failed: error {err}")
+        raise RuntimeError(f"int4_matmul w4a8 {variant} kernel launch failed: error {err}")
     return out
 
 
@@ -251,23 +342,36 @@ def int4_matmul(
     ng = scale.shape[0]
     lead, x2 = _validate(x, k_half, n, ng, group, block_n)
     cuda = _on_cuda(x, "int4_matmul")
+    if cuda:
+        variant = _variant(x2.shape[0], 2 * k_half, n, ng, group, x.dtype, w4a8,
+                           _sm_count(x.device.index))
     if w4a8:
         xq, sx = quantize_rows_int8(x2)
         if cuda:
-            out = _launch_w4a8(xq, sx, q4, scale, group=group, out_dtype=x.dtype)
-            int4_matmul.launches["w4a8"] += 1
+            out = _launch_w4a8(xq, sx, q4, scale, group=group, out_dtype=x.dtype,
+                               variant=variant)
+            _count(int4_matmul.launches, "w4a8", variant)
         else:
             out = int4_matmul_w4a8_reference(xq, sx, q4, scale, group=group, out_dtype=x.dtype)
     elif cuda:
-        (out,) = _launch_w4a16(x2, [(q4, scale)], group=group)
-        int4_matmul.launches["w4a16"] += 1
+        (out,) = _launch_w4a16(x2, [(q4, scale)], group=group, variant=variant)
+        _count(int4_matmul.launches, "w4a16", variant)
     else:
         out = int4_matmul_reference(x2, q4, scale, group=group)
     return out.reshape(*lead, n)
 
 
-#: Kernel launches since the last reset, by kernel; the wrapper adds one per launch.
-int4_matmul.launches = {"w4a16": 0, "w4a8": 0}
+def _count(launches: dict, kernel: str, variant: str) -> None:
+    """One launch of ``kernel``: its total, and its tensor-core count."""
+    launches[kernel] += 1
+    if variant == "tensor_core":
+        launches[f"{kernel}_tensor_core"] += 1
+
+
+#: Kernel launches since the last reset, by kernel; the wrapper adds one per
+#: launch. ``w4a16``/``w4a8`` count both designs, ``*_tensor_core`` the
+#: launches of the tensor-core design among them.
+int4_matmul.launches = {"w4a16": 0, "w4a8": 0, "w4a16_tensor_core": 0, "w4a8_tensor_core": 0}
 
 
 def int4_matmul3(
@@ -303,15 +407,20 @@ def int4_matmul3(
             raise ValueError("all three scales must share one group layout")
     lead, x2 = _validate(x, k_half, n, ng, group, block_n)
     if _on_cuda(x, "int4_matmul3"):
-        outs = _launch_w4a16(x2, list(weights), group=group)
+        variant = _variant(x2.shape[0], 2 * k_half, 3 * n, ng, group, x.dtype, False,
+                           _sm_count(x.device.index))
+        outs = _launch_w4a16(x2, list(weights), group=group, variant=variant)
         int4_matmul3.launches += 1
+        int4_matmul3.tensor_core_launches += variant == "tensor_core"
     else:
         outs = [int4_matmul_reference(x2, q4, s, group=group) for q4, s in weights]
     return tuple(o.reshape(*lead, n) for o in outs)
 
 
-#: Kernel launches since the last reset; the wrapper adds one per launch.
+#: Kernel launches since the last reset (both designs), and the tensor-core
+#: design's among them; the wrapper adds one per launch.
 int4_matmul3.launches = 0
+int4_matmul3.tensor_core_launches = 0
 
 
 def make_int4_matmul_fn(mesh, rules, *, w4a8: bool = False):

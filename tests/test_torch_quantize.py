@@ -179,7 +179,10 @@ def test_caster_keeps_quantized_nodes(tiny_params, jax_trees):
     assert plain["lm_head.scale"].dtype == torch.bfloat16
 
 
-MATMUL_SHAPES = [(4, 64, 48, 16), (4, 256, 128, 128), (4, 64, 48, 64), (37, 64, 96, 16)]
+# The last is a prefill's row count (M = 1024, the tensor-core design's
+# shape on the card) at group 64.
+MATMUL_SHAPES = [(4, 64, 48, 16), (4, 256, 128, 128), (4, 64, 48, 64), (37, 64, 96, 16),
+                 (1024, 256, 128, 64)]
 
 
 @pytest.mark.parametrize("m,k,n,g", MATMUL_SHAPES)

@@ -341,3 +341,92 @@ def test_default_device_is_cuda():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousEngine(CONFIG_TINY, **COMMON)
+
+
+# Engine modes that cache a cast of the served dict: (quantized tree bits,
+# engine arguments). The float mode loads the dict into the model; the
+# inference_dtype mode casts first; dequantize=True keeps the cast int8
+# tree (bf16 embeddings and norms) for every model call; the int4 fused
+# mode loads the packed tree into the model's int4 projections.
+CAST_MODES = {
+    "float": (None, dict()),
+    "inference_dtype": (None, dict(inference_dtype=torch.bfloat16)),
+    "dequantize": (8, dict(dequantize=True, inference_dtype=torch.bfloat16)),
+    "int4_fused": (4, dict(dequantize="fused")),
+}
+
+
+def _mode_params(bits):
+    """A private copy of the served dict (the tests mutate it in place)."""
+    from learning_jax_sharding_tpu_torch.models.quantize import quantize_tree
+
+    params = {k: v.clone() for k, v in _params().items()}
+    return params if bits is None else quantize_tree(params, bits=bits, group_size=16)
+
+
+def _update_in_place(params, seed):
+    """Change every tensor of the dict in place, as an optimizer step does
+    to a ``state_dict()``'s aliases; quantized codes stay in range."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in params.items():
+            if t.is_floating_point():
+                noise = rng.standard_normal(tuple(t.shape)) * 0.5 * float(t.float().std() + 0.1)
+                t.add_(torch.from_numpy(noise).to(t.dtype))
+            elif t.dtype == torch.uint8:
+                t.bitwise_xor_(0x11)          # flip the low bit of both nibbles
+            else:
+                t.neg_()
+
+
+@pytest.mark.parametrize("mode", list(CAST_MODES))
+def test_second_serve_sees_in_place_updates(mode, monkeypatch):
+    """Serve, update every tensor of the same dict in place, serve the same
+    dict again: the tokens are a fresh engine's on the updated weights. An
+    unchanged dict is still cast (and loaded) once."""
+    bits, kw = CAST_MODES[mode]
+    cfg = dataclasses.replace(CONFIG_TINY, decode_attention="blocked", quantization_group=16)
+    params = _mode_params(bits)
+    prompts = _queue("mixed")[:3]
+    eng = make_continuous_engine(cfg, device="cpu", **COMMON, **kw).engine
+    casts, loads = [], []
+    cast, load = eng._maybe_cast, eng._model.load_state_dict
+    monkeypatch.setattr(eng, "_maybe_cast", lambda p: casts.append(1) or cast(p))
+    monkeypatch.setattr(eng._model, "load_state_dict", lambda w: loads.append(1) or load(w))
+
+    before = eng.serve(params, prompts)
+    again = eng.serve(params, prompts)
+    assert len(casts) == 1 and len(loads) == (0 if kw.get("dequantize") is True else 1)
+    _assert_same(again, before)
+
+    _update_in_place(params, seed=4)
+    after = eng.serve(params, prompts)
+    fresh = make_continuous_engine(cfg, device="cpu", **COMMON, **kw)(params, prompts)
+    _assert_same(after, fresh)
+    assert len(casts) == 2
+    assert any(not np.array_equal(a, b) for a, b in zip(after, before)), \
+        "the update must change the tokens, or the test shows nothing"
+
+
+@pytest.mark.parametrize("mode", list(CAST_MODES))
+def test_serves_inference_mode_params(mode, monkeypatch):
+    """A dict built under ``torch.inference_mode()`` (its tensors track no
+    in-place version) serves as the same dict built outside it, twice, with
+    one cast."""
+    bits, kw = CAST_MODES[mode]
+    cfg = dataclasses.replace(CONFIG_TINY, decode_attention="blocked", quantization_group=16)
+    params = _mode_params(bits)
+    with torch.inference_mode():
+        frozen = {k: v.clone() for k, v in params.items()}
+    assert all(t.is_inference() for t in frozen.values())
+    prompts = _queue("mixed")[:3]
+    eng = make_continuous_engine(cfg, device="cpu", **COMMON, **kw).engine
+    casts = []
+    cast = eng._maybe_cast
+    monkeypatch.setattr(eng, "_maybe_cast", lambda p: casts.append(1) or cast(p))
+
+    first = eng.serve(frozen, prompts)
+    again = eng.serve(frozen, prompts)
+    assert len(casts) == 1
+    _assert_same(first, make_continuous_engine(cfg, device="cpu", **COMMON, **kw)(params, prompts))
+    _assert_same(again, first)
