@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``learning_jax_sharding_tpu_torch/csrc``
 (into ``build/torch_kernels/``, one ``nvcc`` per source, in parallel) and
 holds each against its plain PyTorch version on the card (decode attention
 with float and int8 caches, and over page pools through a block table, where
-it must also give the contiguous kernel's bits; flash attention, the int4
+it must also give the contiguous kernel's bits; flash attention, its
+backward in both designs (tensor cores, which bf16 takes, and CUDA cores,
+which fp32 takes); the int4
 kernels in both designs (tensor cores for prefill rows, CUDA cores for
 decode), the fused residual+norm forward and backward). Then drives the
 port's main paths at
@@ -27,8 +29,10 @@ cache cold and warm, and int4-fused + paged + prefix, every paged variant's
 tokens held equal to the unpaged engine's and teacher-forced against the
 dense forward; and the train step (flash attention, fused loss, AdamW, b=8,
 s=1024, 8 steps per call) through ``make_train_step``, checked for descent
-and against the dense attention path, and again with ``fused_norm=True``
-against the plain-norm step. Each path's kernel launches are counted from
+and against the dense attention path, its flash backward held to the
+tensor-core design, and again with ``fused_norm=True`` against the
+plain-norm step, both timed against the same steps with the flash backward
+forced onto the CUDA-core design. Each path's kernel launches are counted from
 zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
 last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
@@ -140,7 +144,21 @@ FLASH_SHAPES = {
     "partial_tile_s200": dict(b=2, s=200, n=4, n_kv=4, h=64, causal=True),
     # S_q < S_kv: keys past the last query get zero dk/dv from empty sweeps.
     "unequal_lengths": dict(b=2, s=192, s_kv=320, n=4, n_kv=4, h=64, causal=True),
+    # The tensor-core tiles' edges: a partial last tile of keys and of the 8000
+    # folded rows, GQA group 8, a window shorter than a tile (rows see part of
+    # one or two key tiles).
+    "gqa8_window48_s1000": dict(b=1, s=1000, n=16, n_kv=2, h=64, causal=True, window=48),
+    # H = 128 causal at the train step's length: the tensor-core design's H =
+    # 128 instantiations (every operand read from shared memory; dQ's 64-key
+    # tiles).
+    "h128_causal_s1024": dict(b=2, s=1024, n=8, n_kv=8, h=128, causal=True),
 }
+# The backward designs each dtype is held in: the public path (bf16 on the
+# tensor cores, fp32 on the CUDA cores) and, in bf16, the CUDA-core design on
+# the same inputs.
+FLASH_BWD_DESIGNS = {torch.float32: ("cuda_core",), torch.bfloat16: ("tensor_core", "cuda_core")}
+# The flash counters of a bf16 train call: every key moves by the same count.
+FLASH_LAUNCH_KEYS = ("fwd", "bwd_dkv", "bwd_dq", "bwd_dkv_tensor_core", "bwd_dq_tensor_core")
 INT4_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_matmul.cu"
 INT4_FF_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_ff.cu"
 INT4_REPLACES = {
@@ -521,9 +539,11 @@ def fold_rows(x, group):
 
 def flash_case(name, gen, dtype, *, b, s, n, n_kv, h, causal, window=None, s_kv=None):
     """The three flash kernels against their plain versions on one shape →
-    errors: fwd ``out``/``lse`` absolute, bwd grads relative to the largest
-    reference magnitude. The backward pair gets the plain forward's
-    ``out``/``lse``, so each kernel is held on the same inputs."""
+    errors by backward design: fwd ``out``/``lse`` absolute, bwd grads
+    relative to the largest reference magnitude, and each absolute. The
+    backward pair gets the plain forward's ``out``/``lse``, so each kernel is
+    held on the same inputs. The public ``_bwd`` must launch the design
+    ``_bwd_design`` names; the other design runs through ``design=``."""
     group, s_kv = n // n_kv, s if s_kv is None else s_kv
     q = fold_rows(randn(gen, b, s, n, h, dtype=dtype), group)
     k = fold_rows(randn(gen, b, s_kv, n_kv, h, dtype=dtype), 1)
@@ -532,42 +552,57 @@ def flash_case(name, gen, dtype, *, b, s, n, n_kv, h, causal, window=None, s_kv=
     kw = dict(scale=h**-0.5, causal=causal, window=window, group=group)
     out, lse = flash._fwd(q, k, v, kw["scale"], causal, window, group)
     ref_out, ref_lse = flash.flash_attention_fwd_reference(q, k, v, **kw)
-    grads = flash._bwd(q, k, v, ref_out, ref_lse, do, kw["scale"], causal, window, group)
     ref_grads = flash.flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do, **kw)
-    torch.cuda.synchronize()
-    errs = {
-        "out": (out.float() - ref_out.float()).abs().max().item(),
-        "lse": (lse - ref_lse).abs().max().item(),
-    }
-    abs_errs = dict(errs)
-    for gname, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"flash {name} {dtype}: non-finite {gname}")
-        abs_errs[gname] = (got.float() - want.float()).abs().max().item()
-        errs[gname] = abs_errs[gname] / want.float().abs().max().item()
+    bwd_args = (q, k, v, ref_out, ref_lse, do, kw["scale"], causal, window, group)
+    public = flash._bwd_design(dtype, h)
     tol = FLASH_TOL[dtype]
-    log(f"[flash] {name} {str(dtype)[6:]}: " + ", ".join(
-        f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
-    bad = {k: v for k, v in errs.items() if not v <= tol[k]}
-    if bad:
-        raise AssertionError(f"flash {name} {dtype}: errors {bad} over {tol}")
-    return errs, abs_errs
+    results = {}
+    for design in FLASH_BWD_DESIGNS[dtype]:
+        before = dict(flash.flash_attention.launches)
+        grads = flash._bwd(*bwd_args) if design == public else flash._bwd(*bwd_args,
+                                                                           design=design)
+        torch.cuda.synchronize()
+        moved = {key: flash.flash_attention.launches[key] - before[key] for key in before}
+        want_tc = int(design == "tensor_core")
+        if (moved["bwd_dkv_tensor_core"], moved["bwd_dq_tensor_core"]) != (want_tc, want_tc):
+            raise AssertionError(f"flash {name} {dtype} {design}: launches moved {moved}")
+        errs = {
+            "out": (out.float() - ref_out.float()).abs().max().item(),
+            "lse": (lse - ref_lse).abs().max().item(),
+        }
+        abs_errs = dict(errs)
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"flash {name} {dtype} {design}: non-finite {gname}")
+            abs_errs[gname] = (got.float() - want.float()).abs().max().item()
+            errs[gname] = abs_errs[gname] / want.float().abs().max().item()
+        log(f"[flash] {name} {str(dtype)[6:]} bwd {design}"
+            f"{' (public)' if design == public else ''}: " + ", ".join(
+                f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+        bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"flash {name} {dtype} {design}: errors {bad} over {tol}")
+        results[design] = errs, abs_errs
+    return results
 
 
 def check_flash(gen):
-    """``FLASH_SHAPES`` in fp32 and bf16: (a) the 125M train step, (b)
-    non-causal (case6), (c) GQA + window at H=128 (fully masked rows at tile
-    edges), (d) a partial tile, (e) unequal q/kv lengths → the largest error
-    of each kernel per dtype, as checked and absolute."""
+    """``FLASH_SHAPES`` in fp32 and bf16, the backward in every design of
+    ``FLASH_BWD_DESIGNS``: (a) the 125M train step, (b) non-causal (case6),
+    (c) GQA + window at H=128 (fully masked rows at tile edges), (d) a
+    partial tile, (e) unequal q/kv lengths, (f) GQA 8 with a 48-key window
+    and partial tiles, (g) H=128 causal → the largest error of each kernel
+    per (dtype, design), as checked and absolute."""
     outputs = {"fwd": ("out", "lse"), "bwd_dkv": ("dk", "dv"), "bwd_dq": ("dq",)}
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, designs in FLASH_BWD_DESIGNS.items():
         cases = [flash_case(name, gen, dtype, **kw) for name, kw in FLASH_SHAPES.items()]
-        for which, idx in (("checked", 0), ("abs", 1)):
-            worst[dtype, which] = {
-                kernel: max(c[idx][o] for c in cases for o in outs)
-                for kernel, outs in outputs.items()
-            }
+        for design in designs:
+            for which, idx in (("checked", 0), ("abs", 1)):
+                worst[dtype, design, which] = {
+                    kernel: max(c[design][idx][o] for c in cases for o in outs)
+                    for kernel, outs in outputs.items()
+                }
     return worst
 
 
@@ -767,8 +802,9 @@ def run_train_path(gen, card):
     torch.cuda.synchronize()
     launches = dict(flash.flash_attention.launches)
     want = K_STEPS * cfg.num_layers
-    log(f"[main] 125M train step, one {K_STEPS}-step call: launches {launches} (want {want} each)")
-    if launches != dict.fromkeys(launches, want):
+    log(f"[main] 125M train step, one {K_STEPS}-step call: launches {launches} (want {want} "
+        f"each, every backward launch on the tensor-core design)")
+    if launches != dict.fromkeys(FLASH_LAUNCH_KEYS, want):
         raise AssertionError(f"one {K_STEPS}-step call launched {launches}, want {want} each")
     if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
         raise AssertionError(f"the {K_STEPS}-step call returned {call_losses}")
@@ -811,7 +847,8 @@ def run_fused_train_path(gen, card):
     loss, AdamW) through ``make_train_step``: descent over 10 steps on one
     batch; one step against the plain-norm step on the same weights; the
     fused-norm and flash launches of one 8-step call; its time interleaved
-    with the plain-norm step's (every round times each once; medians of 3);
+    with the plain-norm step's and with both steps' flash backward forced
+    onto the CUDA-core design (every round times each once; medians of 3);
     a profile."""
     flash_fn = flash.make_flash_attn_fn()
     batch = train_batch(gen, CONFIG_125M.vocab_size)
@@ -848,16 +885,22 @@ def run_fused_train_path(gen, card):
     want_norm = {"fwd": per_call, "fwd_nostats": 0, "bwd": per_call}
     want_flash = K_STEPS * CONFIG_125M.num_layers
     log(f"[main] 125M train step, fused_norm, one {K_STEPS}-step call: fused-norm launches "
-        f"{norm} (want {want_norm}), flash {flash_launches} (want {want_flash} each)")
+        f"{norm} (want {want_norm}), flash {flash_launches} (want {want_flash} each, every "
+        f"backward launch on the tensor-core design)")
     if norm != want_norm:
         raise AssertionError(f"one fused-norm {K_STEPS}-step call launched {norm}, want {want_norm}")
-    if flash_launches != dict.fromkeys(flash_launches, want_flash):
+    if flash_launches != dict.fromkeys(FLASH_LAUNCH_KEYS, want_flash):
         raise AssertionError(f"one fused-norm {K_STEPS}-step call launched flash {flash_launches}")
     if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
         raise AssertionError(f"the fused-norm {K_STEPS}-step call returned {call_losses}")
 
+    # Each norm's step again with the flash backward forced onto the CUDA-core
+    # design: the in-run end-to-end comparison of the two backward designs.
+    calls = {name: functools.partial(multi, state, stacked) for name, state in states.items()}
     secs = interleaved_seconds(
-        {name: functools.partial(multi, state, stacked) for name, state in states.items()})
+        {**calls, **{f"{name}, cuda-core flash bwd": on_design(call, "cuda_core", flash,
+                                                               "_bwd_design")
+                     for name, call in calls.items()}})
     flops = CONFIG_125M.train_step_flops(TRAIN_B, TRAIN_S)
     timing = {}
     for name, calls in secs.items():
@@ -1015,8 +1058,10 @@ def bound(nbytes, ops, peak=None):
 
 
 def time_flash(gen, card):
-    """Each flash kernel, the plain versions and SDPA at the train step's
-    attention shape: folded q (96, 1024, 64) bf16, causal."""
+    """Each flash kernel at the train step's attention shape (folded q (96,
+    1024, 64) bf16, causal), queued (``queued_time``), the two backward
+    kernels in both designs on the same inputs, beside the bound, the plain
+    versions and SDPA (queued too), with each kernel's TFLOP/s."""
     b, s, n, h, scale = TRAIN_B, TRAIN_S, 12, 64, 64**-0.5
     q, k, v, do = (fold_rows(randn(gen, b, s, n, h, dtype=torch.bfloat16), 1)
                    for _ in range(4))
@@ -1025,10 +1070,13 @@ def time_flash(gen, card):
     dq, dk, dv, out2, lse2 = map(torch.empty_like, (q, k, v, out, lse))
     common = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
     args = (q, k, scale, True, None, 1)
-    kernels = {
-        "fwd": lambda: flash._launch("fwd", [t.data_ptr() for t in (q, k, v, out2, lse2)], *args),
-        "bwd_dkv": lambda: flash._launch("bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], *args),
-        "bwd_dq": lambda: flash._launch("bwd_dq", common + [dq.data_ptr()], *args),
+    launch = {
+        "fwd": lambda design: flash._launch(
+            "fwd", [t.data_ptr() for t in (q, k, v, out2, lse2)], *args),
+        "bwd_dkv": lambda design: flash._launch(
+            "bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], *args, design),
+        "bwd_dq": lambda design: flash._launch(
+            "bwd_dq", common + [dq.data_ptr()], *args, design),
     }
     kw = dict(scale=scale, causal=True)
     plain_fwd = time_fn(flash.flash_attention_fwd_reference, q, k, v, repeats=5, inner=3, **kw)
@@ -1036,12 +1084,12 @@ def time_flash(gen, card):
                         repeats=5, inner=3, **kw)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = (x.view(b, n, s, h).detach().requires_grad_() for x in (q, k, v))
-    lib_fwd = time_fn(sdpa, qs, ks, vs, is_causal=True)
+    lib_fwd, _ = queued_time(sdpa, qs, ks, vs, is_causal=True, inner=10)
     lib_out = sdpa(qs, ks, vs, is_causal=True)
-    lib_bwd = time_fn(torch.autograd.grad, lib_out, (qs, ks, vs), do.view(b, n, s, h),
-                      retain_graph=True)
-    lib_fwd_bwd = time_fn(lambda: torch.autograd.grad(
-        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do.view(b, n, s, h)))
+    lib_bwd, _ = queued_time(torch.autograd.grad, lib_out, (qs, ks, vs), do.view(b, n, s, h),
+                             retain_graph=True, inner=10)
+    lib_fwd_bwd, _ = queued_time(lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do.view(b, n, s, h)), inner=10)
 
     pairs = int(flash._keep_mask(s, s, 1, True, None, q.device).sum()) * b * n
     tensor, rowvec = q.numel() * q.element_size(), lse.numel() * 4
@@ -1050,20 +1098,28 @@ def time_flash(gen, card):
         "bwd_dkv": (6 * tensor + 2 * rowvec, 8 * h * pairs),
         "bwd_dq": (5 * tensor + 2 * rowvec, 6 * h * pairs),
     }
+    public = flash._bwd_design(torch.bfloat16, h)
     rows = {}
-    for name, launch in kernels.items():
+    for name, run in launch.items():
         bound_ms, by = bound(*work[name])
+        designs = ("cuda_core",) if name == "fwd" else (public, "cuda_core")
+        ms = {d: queued_time(run, d, inner=10)[0] * 1e3 for d in designs}
         rows[name] = dict(
-            ms=time_fn(launch) * 1e3, bound_ms=bound_ms, bound_by=by,
+            ms=ms[designs[0]], bound_ms=bound_ms, bound_by=by,
             plain_ms=(plain_fwd if name == "fwd" else plain_bwd) * 1e3,
             library_ms=(lib_fwd if name == "fwd" else lib_bwd) * 1e3,
             bytes=work[name][0], ops=work[name][1],
+            tflop_s=work[name][1] / ms[designs[0]] / 1e9,
         )
-        log(f"[time] flash {name} (folded q {tuple(q.shape)}, causal, bf16): kernel "
-            f"{rows[name]['ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}), "
-            f"plain {rows[name]['plain_ms'] * 1e3:.2f} us, sdpa "
-            f"{rows[name]['library_ms'] * 1e3:.2f} us")
-    log(f"[time] sdpa {tuple(qs.shape)} bf16 causal: fwd {lib_fwd * 1e6:.2f} us, bwd "
+        if name != "fwd":
+            rows[name].update(design=public, cuda_core_ms=ms["cuda_core"],
+                              cuda_core_tflop_s=work[name][1] / ms["cuda_core"] / 1e9)
+        log(f"[time] flash {name} (folded q {tuple(q.shape)}, causal, bf16, queued): "
+            + ", ".join(f"{d} {ms[d] * 1e3:.2f} us ({work[name][1] / ms[d] / 1e9:.1f} TFLOP/s)"
+                        for d in designs)
+            + f"; bound {bound_ms * 1e3:.2f} us ({by}), plain {rows[name]['plain_ms'] * 1e3:.2f}"
+            f" us, sdpa {rows[name]['library_ms'] * 1e3:.2f} us")
+    log(f"[time] sdpa {tuple(qs.shape)} bf16 causal, queued: fwd {lib_fwd * 1e6:.2f} us, bwd "
         f"{lib_bwd * 1e6:.2f} us, fwd+bwd {lib_fwd_bwd * 1e6:.2f} us; the plain backward "
         f"computes dq, dk and dv together ({plain_bwd * 1e6:.2f} us) on {card}")
     return rows, dict(sdpa_fwd_ms=lib_fwd * 1e3, sdpa_bwd_ms=lib_bwd * 1e3,
@@ -1715,16 +1771,18 @@ def run_ladder(params, q4, prompt, card, int4_fns):
     return rows, fns["int4-fused"]
 
 
-def on_design(fn, design):
-    """``fn`` with every int4 matmul launched on one design: the wrapper's
-    rule is patched for the call (a yardstick; the port never does this)."""
+def on_design(fn, design, module=mm4, rule="_variant"):
+    """``fn`` with every kernel that ``module.rule`` routes launched on one
+    design (the int4 matmuls by default; ``flash, "_bwd_design"`` the flash
+    backward): the wrapper's rule is patched for the call (a yardstick; the
+    port never does this)."""
     def call():
-        chosen = mm4._variant
-        mm4._variant = lambda *args: design
+        chosen = getattr(module, rule)
+        setattr(module, rule, lambda *args: design)
         try:
             return fn()
         finally:
-            mm4._variant = chosen
+            setattr(module, rule, chosen)
     return call
 
 
@@ -2042,15 +2100,29 @@ def main() -> int:
         contiguous_ms=paged_times["decode"]["contiguous_ms"], shapes=paged_times,
     ))
     for name in ("fwd", "bwd_dkv", "bwd_dq"):
-        entries.append(dict(
+        public = "cuda_core" if name == "fwd" else flash._bwd_design(torch.bfloat16, 64)
+        entry = dict(
             name=f"flash_{name}", route="cuda", source=FLASH_SOURCE,
             replaces=FLASH_REPLACES[name], launches=train["launches"][name],
-            max_abs_err=flash_errs[torch.bfloat16, "abs"][name],
-            max_err_bf16=flash_errs[torch.bfloat16, "checked"][name],
-            max_err_fp32=flash_errs[torch.float32, "checked"][name],
+            max_abs_err=flash_errs[torch.bfloat16, public, "abs"][name],
+            max_err_bf16=flash_errs[torch.bfloat16, public, "checked"][name],
+            max_err_fp32=flash_errs[torch.float32, "cuda_core", "checked"][name],
             **{k: flash_times[name][k] for k in timing_keys},
             bytes=flash_times[name]["bytes"], ops=flash_times[name]["ops"],
-        ))
+            tflop_s=flash_times[name]["tflop_s"],
+        )
+        if name != "fwd":
+            # The backward pair: the design bf16 takes (fp32 stays on the CUDA
+            # cores), its launches in the 8-step call, and the CUDA-core
+            # design's time and errors on the same inputs.
+            entry.update(
+                design=f"{public} (bf16); cuda_core (fp32)",
+                tensor_core_launches=train["launches"][f"{name}_tensor_core"],
+                cuda_core_ms=flash_times[name]["cuda_core_ms"],
+                cuda_core_tflop_s=flash_times[name]["cuda_core_tflop_s"],
+                cuda_core_max_err_bf16=flash_errs[torch.bfloat16, "cuda_core", "checked"][name],
+            )
+        entries.append(entry)
     # The int4 kernels: top-level numbers at the 768 x 768 decode site (q, k,
     # v, out: most of the launches; the CUDA-core design), the prefill site
     # (M=1024; the tensor-core design) under "prefill", every timed site and

@@ -27,7 +27,17 @@
 // input-dtype values and accumulate in fp32; p (before p.V and p^T.dO) and ds
 // (before ds^T.Q and ds.K) are rounded to the input dtype.
 //
-// Design. The TPU kernels' sequential innermost grid axis and VMEM scratch
+// Two designs. fp32 runs all three kernels on the CUDA cores; bf16 runs the
+// forward there too, and the backward on the tensor cores. The wrapper
+// (ops/flash_attention.py::_bwd_design) picks the backward's design by dtype
+// alone: tensor cores take fp32 only as TF32 (a 10-bit mantissa), which
+// would break the fp32 semantics of the JAX kernels. Both designs replace
+// the same two TPU kernels, _bwd_dkv_kernel and _bwd_dq_kernel.
+//
+// Design 1, CUDA cores (flash_fwd_kernel<T, H>, flash_bwd_dkv_kernel<T, H>,
+// flash_bwd_dq_kernel<T, H>; the bf16 backward instantiations stay
+// reachable for holding one design against the other). The TPU kernels'
+// sequential innermost grid axis and VMEM scratch
 // become a loop inside one thread block of 256 threads, with the running
 // max, sum and output rows in registers. Tiles are staged in shared memory
 // as fp32, row-major with a leading dimension of H + 4 (or 64 + 4 for tiles
@@ -41,21 +51,46 @@
 // transposed. Keys past S_kv and rows past S*group (a partial last tile) are
 // loaded as zeros, masked, and never written.
 //
+// Design 2, tensor cores (flash_bwd_dkv_tc_kernel<H>,
+// flash_bwd_dq_tc_kernel<H, BK, held>; bf16, H 64 or 128). Blocks of 4
+// warps, each warp owning 16 keys (dK/dV) or 16 q rows (dQ) of the block's
+// 64; every product is mma.sync.m16n8k16 bf16 -> fp32 (tensor_core.cuh).
+// The block's own K and V (dK/dV) or Q and dO (dQ) are loaded once; the
+// other operands stream through a 2-stage cp.async ring in shared memory,
+// rows padded by 16 bytes so that ldmatrix is conflict-free, partial tiles
+// zero-filled by the copy and masked by keep(). dK/dV computes S^T = K Q^T
+// and dP^T = V dO^T, dQ computes S = Q K^T and dP = dO V^T, with B read
+// from the streamed tiles as they lie; p and ds then go from the fp32
+// accumulators to bf16 A fragments in registers (two 8-column C tiles make
+// one 16-deep A fragment, FlashAttention-2's register reuse, no trip
+// through shared memory), which is exactly the bf16 rounding of p and ds
+// above; dV += P^T dO, dK += dS^T Q and dQ += dS K read B from the same
+// tiles through ldmatrix.trans. Tiles wholly inside the mask skip keep().
+// Causal sweeps differ in length by up to 16x: block i takes tile i / bn of
+// slab i % bn, dK/dV from the first key tile and dQ from the last q tile,
+// so the longest sweeps start first and the tail is short. The tiles keep
+// three blocks an SM at H = 64 (see dkv_tc below).
+//
 // Bound on this card at the 125M training shape (folded q (96, 1024, 64)
 // bf16, causal: 524,800 (q, k) pairs per slab), from the H100 SXM data-sheet
 // peaks (3.35 TB/s; 989 TFLOP/s dense bf16):
 //   fwd      12.9 GFLOP (13.0 us) and 50.7 MB (15.1 us): 15.1 us, bytes;
-//   dK/dV    25.8 GFLOP: 26.1 us, operations;
-//   dQ       19.3 GFLOP: 19.6 us, operations.
-// What the simple design leaves for later: it runs on the CUDA cores (no
-// wgmma, so at most the 67 TFLOP/s of fp32 FMA), stages tiles with plain
-// loads (no TMA, no cp.async double buffering), has no warp specialisation,
-// and splits the work into 96 x 16 = 1536 blocks of 64 rows, whose causal
-// loops differ in length by up to 16x.
+//   dK/dV    25.8 GFLOP: 26.08 us, operations;
+//   dQ       19.3 GFLOP: 19.56 us, operations.
+// The CUDA-core design reaches at most the 67 TFLOP/s of fp32 FMA (about
+// 18-21 TFLOP/s here); the tensor-core design moves the backward's products
+// to the bf16 tensor cores. What it leaves for a later redesign: wgmma
+// (warpgroup MMA from shared memory, the only way to the full bf16 rate;
+// mma.sync reaches a part of it), TMA with mbarriers in place of cp.async,
+// warp specialisation (a producer warp keeping loads in flight while
+// consumer warpgroups multiply), a persistent grid, and the forward, still
+// on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -469,6 +504,390 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   }
 }
 
+// ---------------------------------------------------------------- tensor cores
+
+namespace tcb {
+
+using namespace tc_prims;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // keys of a dK/dV block, q rows of a dQ block
+constexpr int kBQ = 32;              // q rows of a dK/dV stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory tiles hold bf16 rows of H values padded by 16 bytes, so the 8
+// row addresses of an ldmatrix phase fall on 8 different bank groups.
+template <int H>
+struct Tile {
+  static constexpr int kStride = H * 2 + 16;   // bytes per row
+  static constexpr int kChunks = H / 8;        // 16-byte copies per row
+};
+
+// cp.async of rows [row0, row0 + n) of a (rows, H) bf16 slab into dst; rows
+// past `rows` read as zeros.
+template <int H>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* slab, int row0,
+                                          int n, int rows) {
+  for (int i = threadIdx.x; i < n * Tile<H>::kChunks; i += kThreads) {
+    const int r = i / Tile<H>::kChunks, c = i % Tile<H>::kChunks;
+    const bool in = row0 + r < rows;
+    cp_async16(dst + r * Tile<H>::kStride + c * 16,
+               slab + (size_t)(in ? row0 + r : 0) * H + c * 8, in ? 16 : 0);
+  }
+}
+
+// cp.async of floats [row0, row0 + n) of a row vector; zeros past `rows`.
+__device__ __forceinline__ void load_vec(float* dst, const float* vec, int row0, int n,
+                                         int rows) {
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    const bool in = row0 + r < rows;
+    cp_async4(dst + r, vec + (in ? row0 + r : 0), in ? 4 : 0);
+  }
+}
+
+// The A fragment of rows [m0, m0 + 16) x columns [k0, k0 + 16) of a tile.
+template <int H>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* tile, int m0, int k0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, tile + (m0 + lane % 16) * Tile<H>::kStride + (k0 + (lane / 16) * 8) * 2);
+}
+
+// B fragments of the two 8-column tiles n0 .. n0 + 15 at depth k0 .. k0 + 15.
+// "nk": the tile's rows are the product's columns (S = Q K^T takes K's rows
+// as columns), read as they lie. "kn": the tile's rows are its depth (dQ +=
+// dS K), read transposed by ldmatrix.trans.
+template <int H>
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const uint8_t* tile, int n0,
+                                          int k0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * Tile<H>::kStride +
+                     (k0 + ((lane / 8) % 2) * 8) * 2);
+}
+template <int H>
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const uint8_t* tile, int n0,
+                                          int k0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * Tile<H>::kStride +
+                           (n0 + (lane / 16) * 8) * 2);
+}
+
+// acc (16 x 8 NT) += A B^T at depth ks * 16 .. + 15: `a` the A fragment, B
+// rows 0 .. 8 NT - 1 of b_tile ("nk").
+template <int H, int NT>
+__device__ __forceinline__ void mma_nk(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                       const uint8_t* b_tile, int ks) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t b[4];
+    load_b_nk<H>(b, b_tile, np * 16, ks * 16);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// acc (16 x 8 NT) += A B^T over the whole depth H: A (16 x H) held as
+// fragments, or rows m0 .. m0 + 15 of a_tile.
+template <int H, int NT>
+__device__ __forceinline__ void product_nk(float (&acc)[NT][4], const uint32_t (&a)[H / 16][4],
+                                           const uint8_t* b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < H / 16; ++ks) mma_nk<H, NT>(acc, a[ks], b_tile, ks);
+}
+template <int H, int NT>
+__device__ __forceinline__ void product_nk(float (&acc)[NT][4], const uint8_t* a_tile, int m0,
+                                           const uint8_t* b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < H / 16; ++ks) {
+    uint32_t a[4];
+    load_a<H>(a, a_tile, m0, ks * 16);
+    mma_nk<H, NT>(acc, a, b_tile, ks);
+  }
+}
+
+// acc (16 x H) += X B: X is 16 x 8 NT as fp32 C fragments, rounded to bf16
+// (two C tiles make one A fragment); B is rows 0 .. 8 NT - 1 of b_tile ("kn").
+template <int H, int NT>
+__device__ __forceinline__ void product_kn(float (&acc)[H / 8][4], const float (&x)[NT][4],
+                                           const uint8_t* b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int nh = 0; nh < H / 16; ++nh) {
+      uint32_t b[4];
+      load_b_kn<H>(b, b_tile, nh * 16, kk * 16);
+      mma_bf16(acc[2 * nh], a, b[0], b[1]);
+      mma_bf16(acc[2 * nh + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Does every (row, col) of [r0, r1] x [c0, c1] pass keep()? Then the tile
+// needs no mask.
+__device__ __forceinline__ bool all_kept(const Shape& sh, int r0, int r1, int c0, int c1) {
+  if (r1 >= sh.rows_q || c1 >= sh.s_kv) return false;
+  if (sh.causal && c1 > r0 / sh.group) return false;
+  if (sh.window > 0 && c0 <= r1 / sh.group - sh.window) return false;
+  return true;
+}
+
+// p = exp(s * scale - lse), exactly 0 where masked (scale2 and lse2 carry a
+// factor log2(e)); leaves p in s and returns ds = p (dp - delta).
+__device__ __forceinline__ float grad_score(float& s, float dp, float lse2, float delta,
+                                            float scale2, bool kept) {
+  const float p = kept ? exp2f(fmaf(s, scale2, -lse2)) : 0.f;
+  s = p;
+  return p * (dp - delta);
+}
+
+template <int H>
+constexpr size_t dkv_smem() {
+  return 2 * kRows * Tile<H>::kStride + 2 * (2 * kBQ * Tile<H>::kStride + 2 * kBQ * sizeof(float));
+}
+
+// dK/dV: one block per (slab, 64-key tile); warp w owns keys col0 + 16 w ..
+// + 15 and loops over the 32-row q tiles that attend into the block's keys,
+// streamed through a 2-stage cp.async ring. S^T = K Q^T and dP^T = V dO^T
+// take A from the block's K and V tiles in shared memory and B from the q
+// and dO tiles as they lie; P^T and dS^T stay in registers as the A
+// fragments of dV += P^T dO and dK += dS^T Q, which take B from the same
+// tiles through ldmatrix.trans.
+template <int H>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
+  constexpr int S = Tile<H>::kStride;
+  constexpr int BQ = kBQ;
+  constexpr int NT = BQ / 8;
+  constexpr int kStage = 2 * BQ * S + 2 * BQ * sizeof(float);
+  // Causal sweeps are longest for the first key tiles: blocks take the tiles
+  // in order, every slab's tile 0 first, so the long sweeps start first.
+  const int bn = gridDim.x / sh.tiles;
+  const int slab = blockIdx.x % bn;
+  const int col0 = (blockIdx.x / bn) * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  uint8_t* k_s = smem_tc;              // [64 keys][S]
+  uint8_t* v_s = k_s + kRows * S;
+  uint8_t* ring = v_s + kRows * S;     // 2 stages of q, dO [BQ][S], lse, delta [BQ]
+
+  const size_t q_off = (size_t)slab * sh.rows_q;
+  const __nv_bfloat16* q_slab = q + q_off * H;
+  const __nv_bfloat16* do_slab = dout + q_off * H;
+
+  // The q rows attending into keys [col0, last_col]: from the first key's
+  // causal start to the last key's window end.
+  const int last_col = min(col0 + kRows, sh.s_kv) - 1;
+  const int first_row = sh.causal ? col0 * sh.group : 0;
+  const int last_row = sh.window > 0
+      ? min(sh.rows_q - 1, (last_col + sh.window - 1) * sh.group + sh.group - 1)
+      : sh.rows_q - 1;
+  const int first_qt = first_row / BQ;
+  const int n_tiles = first_row < sh.rows_q ? last_row / BQ - first_qt + 1 : 0;
+
+  auto fetch = [&](int i) {
+    uint8_t* st = ring + (i % 2) * kStage;
+    const int row0 = (first_qt + i) * BQ;
+    load_tile<H>(st, q_slab, row0, BQ, sh.rows_q);
+    load_tile<H>(st + BQ * S, do_slab, row0, BQ, sh.rows_q);
+    float* vec = reinterpret_cast<float*>(st + 2 * BQ * S);
+    load_vec(vec, lse + q_off, row0, BQ, sh.rows_q);
+    load_vec(vec + BQ, delta + q_off, row0, BQ, sh.rows_q);
+  };
+  load_tile<H>(k_s, k + (size_t)slab * sh.s_kv * H, col0, kRows, sh.s_kv);
+  load_tile<H>(v_s, v + (size_t)slab * sh.s_kv * H, col0, kRows, sh.s_kv);
+  cp_async_commit();
+  if (n_tiles > 0) fetch(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  float dk_acc[H / 8][4] = {}, dv_acc[H / 8][4] = {};
+  const float scale2 = sh.scale * kLog2e;
+  const int key_lo = col0 + warp * 16 + g;   // this thread's keys: key_lo, key_lo + 8
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) fetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint8_t* q_t = ring + (i % 2) * kStage;
+    const uint8_t* do_t = q_t + BQ * S;
+    const float* lse_t = reinterpret_cast<const float*>(do_t + BQ * S);
+    const float* delta_t = lse_t + BQ;
+    const int row0 = (first_qt + i) * BQ;
+
+    // Transposed scores: rows are this warp's 16 keys, columns the q rows.
+    float s[NT][4] = {}, dp[NT][4] = {};
+    product_nk<H, NT>(s, k_s, warp * 16, q_t);
+    product_nk<H, NT>(dp, v_s, warp * 16, do_t);
+    const bool full = all_kept(sh, row0, row0 + BQ - 1, col0 + warp * 16,
+                               col0 + warp * 16 + 15);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t + (e & 1);
+        const bool kept = full || keep(sh, row0 + r, key_lo + 8 * (e >> 1));
+        dp[j][e] = grad_score(s[j][e], dp[j][e], lse_t[r] * kLog2e, delta_t[r], scale2, kept);
+      }
+    }
+    product_kn<H, NT>(dv_acc, s, do_t);
+    product_kn<H, NT>(dk_acc, dp, q_t);
+    __syncthreads();   // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key < sh.s_kv) {
+      const size_t base = ((size_t)slab * sh.s_kv + key) * H;
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n) {
+        const int c = 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + base + c) =
+            pack_bf16(dk_acc[n][2 * half] * sh.scale, dk_acc[n][2 * half + 1] * sh.scale);
+        *reinterpret_cast<uint32_t*>(dv + base + c) =
+            pack_bf16(dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <int H, int BK>
+constexpr size_t dq_smem() {
+  return 2 * kRows * Tile<H>::kStride + 2 * (2 * BK * Tile<H>::kStride);
+}
+
+// dQ: one block per (slab, 64-row q tile); warp w owns rows row0 + 16 w ..
+// + 15 and loops over the BK-key tiles its block's rows attend, K and V
+// streamed through a 2-stage cp.async ring. S = Q K^T and dP = dO V^T take B
+// from the K and V tiles as they lie; dS stays in registers as the A
+// fragment of dQ += dS K, which takes B from the K tile through
+// ldmatrix.trans. kHeld: Q and dO stay in registers as A fragments.
+template <int H, int BK, bool kHeld>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, Shape sh) {
+  constexpr int S = Tile<H>::kStride;
+  constexpr int NT = BK / 8;
+  constexpr int kStage = 2 * BK * S;
+  // Causal sweeps are longest for the last q tiles: blocks take the tiles
+  // from the last, every slab's at once, so the long sweeps start first.
+  const int bn = gridDim.x / sh.tiles;
+  const int slab = blockIdx.x % bn;
+  const int tile = sh.causal ? sh.tiles - 1 - blockIdx.x / bn : blockIdx.x / bn;
+  const int row0 = tile * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  uint8_t* q_s = smem_tc;              // [64 rows][S]
+  uint8_t* do_s = q_s + kRows * S;
+  uint8_t* ring = do_s + kRows * S;    // 2 stages of k, v [BK][S]
+
+  const size_t q_off = (size_t)slab * sh.rows_q;
+  const __nv_bfloat16* k_slab = k + (size_t)slab * sh.s_kv * H;
+  const __nv_bfloat16* v_slab = v + (size_t)slab * sh.s_kv * H;
+
+  // The keys this block's rows attend: from its first position's window
+  // start to its last position's causal frontier.
+  const int last_row = min(row0 + kRows, sh.rows_q) - 1;
+  const int last_col = sh.causal ? min(last_row / sh.group, sh.s_kv - 1) : sh.s_kv - 1;
+  const int first_col = sh.window > 0 ? max(0, row0 / sh.group - (sh.window - 1)) : 0;
+  const int first_kt = first_col / BK;
+  const int n_tiles = last_col / BK - first_kt + 1;
+
+  auto fetch = [&](int i) {
+    uint8_t* st = ring + (i % 2) * kStage;
+    const int c0 = (first_kt + i) * BK;
+    load_tile<H>(st, k_slab, c0, BK, sh.s_kv);
+    load_tile<H>(st + BK * S, v_slab, c0, BK, sh.s_kv);
+  };
+  load_tile<H>(q_s, q + q_off * H, row0, kRows, sh.rows_q);
+  load_tile<H>(do_s, dout + q_off * H, row0, kRows, sh.rows_q);
+  cp_async_commit();
+  if (n_tiles > 0) fetch(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t qf[kHeld ? H / 16 : 1][4], dof[kHeld ? H / 16 : 1][4];
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int ks = 0; ks < H / 16; ++ks) {
+      load_a<H>(qf[ks], q_s, warp * 16, ks * 16);
+      load_a<H>(dof[ks], do_s, warp * 16, ks * 16);
+    }
+  }
+  const int row_lo = row0 + warp * 16 + g;   // this thread's rows: row_lo, row_lo + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row_lo + 8 * h < sh.rows_q;
+    lse2[h] = in ? lse[q_off + row_lo + 8 * h] * kLog2e : 0.f;
+    dlt[h] = in ? delta[q_off + row_lo + 8 * h] : 0.f;
+  }
+
+  float dq_acc[H / 8][4] = {};
+  const float scale2 = sh.scale * kLog2e;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) fetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint8_t* k_t = ring + (i % 2) * kStage;
+    const uint8_t* v_t = k_t + BK * S;
+    const int c0 = (first_kt + i) * BK;
+
+    float s[NT][4] = {}, dp[NT][4] = {};
+    if constexpr (kHeld) {
+      product_nk<H, NT>(s, qf, k_t);
+      product_nk<H, NT>(dp, dof, v_t);
+    } else {
+      product_nk<H, NT>(s, q_s, warp * 16, k_t);
+      product_nk<H, NT>(dp, do_s, warp * 16, v_t);
+    }
+    const bool full = all_kept(sh, row0 + warp * 16, row0 + warp * 16 + 15, c0, c0 + BK - 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool kept = full || keep(sh, row_lo + 8 * h, c0 + 8 * j + 2 * t + (e & 1));
+        s[j][e] = grad_score(s[j][e], dp[j][e], lse2[h], dlt[h], scale2, kept);
+      }
+    }
+    product_kn<H, NT>(dq_acc, s, k_t);
+    __syncthreads();   // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row < sh.rows_q) {
+      const size_t base = (q_off + row) * H;
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dq + base + 8 * n + 2 * t) =
+            pack_bf16(dq_acc[n][2 * h] * sh.scale, dq_acc[n][2 * h + 1] * sh.scale);
+    }
+  }
+}
+
+}  // namespace tcb
+
 // ---------------------------------------------------------------- launches
 
 template <typename Kernel>
@@ -512,6 +931,41 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const floa
   cudaError_t err = prepare(kernel, dq_smem<H>());
   if (err != cudaSuccess) return (int)err;
   kernel<<<bn * sh.tiles, kThreads, dq_smem<H>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq_out), sh);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core design (bf16). Its tiles keep H = 64 at or under 168
+// registers a thread, so that three blocks of 128 threads share an SM
+// (65,536 registers): dK/dV streams 32-row q tiles and reads K and V from
+// shared memory (held in registers, as FlashAttention-2 holds them, they
+// take it past 168); dQ streams 32-key tiles and holds Q and dO in
+// registers. H = 128, whose accumulators alone take 128 (dK/dV) or 64 (dQ)
+// registers, reads every operand from shared memory.
+template <int H>
+int dkv_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dk, void* dv, int bn, Shape sh, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  auto kernel = tcb::flash_bwd_dkv_tc_kernel<H>;
+  constexpr size_t smem = tcb::dkv_smem<H>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<bn * sh.tiles, tcb::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+  return (int)cudaGetLastError();
+}
+
+template <int H, int BK, bool kHeld>
+int dq_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+          const float* delta, void* dq_out, int bn, Shape sh, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  auto kernel = tcb::flash_bwd_dq_tc_kernel<H, BK, kHeld>;
+  constexpr size_t smem = tcb::dq_smem<H, BK>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<bn * sh.tiles, tcb::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq_out), sh);
   return (int)cudaGetLastError();
@@ -561,6 +1015,34 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void*
 #define CALL(T, HD) dq<T, HD>(q, k, v, dout, lse, delta, dq_out, bn, sh, st)
   DISPATCH(CALL);
 #undef CALL
+}
+
+// The tensor-core design of the two backward kernels: bf16 only (dtype 1),
+// H 64 or 128; -1 for anything else.
+int flash_bwd_dkv_tc_launch(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv,
+                            int dtype, int bn, int rows_q, int s_kv, int H, int group,
+                            int causal, int window, float scale, void* stream) {
+  const Shape sh = make_shape(s_kv, rows_q, s_kv, group, causal, window, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && H == 64)
+    return dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, bn, sh, st);
+  if (dtype == 1 && H == 128)
+    return dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, bn, sh, st);
+  return -1;
+}
+
+int flash_bwd_dq_tc_launch(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq_out, int dtype,
+                           int bn, int rows_q, int s_kv, int H, int group, int causal,
+                           int window, float scale, void* stream) {
+  const Shape sh = make_shape(rows_q, rows_q, s_kv, group, causal, window, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && H == 64)
+    return dq_tc<64, 32, true>(q, k, v, dout, lse, delta, dq_out, bn, sh, st);
+  if (dtype == 1 && H == 128)
+    return dq_tc<128, 64, false>(q, k, v, dout, lse, delta, dq_out, bn, sh, st);
+  return -1;
 }
 
 }  // extern "C"

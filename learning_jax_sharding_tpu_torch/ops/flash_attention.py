@@ -15,10 +15,12 @@ H)`` for k/v: under GQA the group's query heads fold into the rows (row
 ``r`` is position ``r // group``), so k/v are never repeated.
 
 For CUDA tensors the three kernels of ``csrc/flash_attention.cu`` run
-(built at first use, see ``_build``); for CPU tensors the plain versions
-:func:`flash_attention_fwd_reference` and :func:`flash_attention_bwd_reference`
-run, which the tests hold against the JAX kernels. Nothing falls back from
-one to the other.
+(built at first use, see ``_build``), the two backward ones on tensor cores
+in bf16 and on CUDA cores in fp32 (``_bwd_design``); for CPU tensors the
+plain versions :func:`flash_attention_fwd_reference` and
+:func:`flash_attention_bwd_reference` run, which the tests hold against
+the JAX kernels. Nothing falls back from one to the other, nor from one
+design to the other.
 """
 
 from __future__ import annotations
@@ -119,11 +121,13 @@ def flash_attention_bwd_reference(
 
 @functools.cache
 def _kernel_entries():
-    """The three C entry points of ``csrc/flash_attention.cu``, typed."""
+    """The C entry points of ``csrc/flash_attention.cu``, typed: the three
+    kernels, and the tensor-core design of the two backward ones (``_tc``)."""
     lib = load_library("flash_attention")
     tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     entries = {}
-    for name, n_ptrs in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7)):
+    for name, n_ptrs in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7), ("bwd_dkv_tc", 8),
+                         ("bwd_dq_tc", 7)):
         fn = getattr(lib, f"flash_{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
@@ -152,18 +156,34 @@ def _check_cuda(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(name: str, pointers, q, k, scale, causal, window, group) -> None:
-    """Launch one kernel on the current stream; raise on a refused launch."""
+def _bwd_design(dtype: torch.dtype, head_dim: int) -> str:
+    """The design of the two backward kernels for a dtype: ``"tensor_core"``
+    (bf16 ``mma.sync`` products into fp32) for bf16, ``"cuda_core"`` (fp32
+    FMAs) for fp32, whose products tensor cores would take only as TF32.
+    Both designs take head_dim 64 and 128."""
+    del head_dim
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def _launch(name: str, pointers, q, k, scale, causal, window, group,
+            design: str = "cuda_core") -> None:
+    """Launch one kernel of ``design`` on the current stream; raise on a
+    refused launch (the tensor-core design refuses anything but bf16)."""
     bn, rows_q, h = q.shape
+    entry = f"{name}_tc" if design == "tensor_core" else name
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_entries()[name](
+        err = _kernel_entries()[entry](
             *pointers, _DTYPE_CODES[q.dtype], bn, rows_q, k.shape[1], h, group,
             int(causal), 0 if window is None else window, scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: error {err}")
+        raise RuntimeError(
+            f"flash_attention {name} ({design}) kernel launch failed: error {err}"
+        )
     flash_attention.launches[name] += 1
+    if design == "tensor_core":
+        flash_attention.launches[f"{name}_tensor_core"] += 1
 
 
 def _fwd(q, k, v, scale, causal, window, group):
@@ -186,22 +206,24 @@ def _fwd(q, k, v, scale, causal, window, group):
     return out, lse
 
 
-def _bwd(q, k, v, out, lse, do, scale, causal, window, group):
+def _bwd(q, k, v, out, lse, do, scale, causal, window, group, design=None):
     """Folded backward → ``(dq, dk, dv)``: ``delta`` in torch, then the
-    dK/dV kernel and the dQ kernel for CUDA tensors; the plain version for
-    CPU tensors."""
+    dK/dV kernel and the dQ kernel for CUDA tensors, of the design
+    :func:`_bwd_design` picks (``design`` overrides it, to hold one design
+    against the other); the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, do, scale=scale, causal=causal, window=window,
             group=group,
         )
+    design = design or _bwd_design(q.dtype, q.shape[-1])
     delta = _delta(out, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _check_cuda(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv)
     common = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    _launch("bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], q, k, scale,
-            causal, window, group)
-    _launch("bwd_dq", common + [dq.data_ptr()], q, k, scale, causal, window, group)
+    args = (q, k, scale, causal, window, group, design)
+    _launch("bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], *args)
+    _launch("bwd_dq", common + [dq.data_ptr()], *args)
     return dq, dk, dv
 
 
@@ -303,7 +325,10 @@ def flash_attention(
 
 
 #: Kernel launches since the last reset; each wrapper adds one per launch.
-flash_attention.launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
+#: ``bwd_dkv``/``bwd_dq`` count both designs, ``*_tensor_core`` the launches
+#: of the tensor-core design among them.
+flash_attention.launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0, "bwd_dkv_tensor_core": 0,
+                            "bwd_dq_tensor_core": 0}
 
 
 def make_flash_attn_fn(mesh=None, rules=None, **kwargs):

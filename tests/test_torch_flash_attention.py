@@ -5,8 +5,10 @@ precision, as the JAX package's own tests run them on the CPU; the port's
 wrappers take their plain PyTorch versions for CPU tensors. The same
 numpy-seeded inputs go to both; forward ``out`` and ``lse`` and the
 gradients ``dq``/``dk``/``dv`` (torch autograd against ``jax.grad``, with a
-fixed random cotangent) agree within atol 1e-5 in fp32. The CUDA kernels
-are held against the plain versions on the card by ``chip_smoke.py``.
+fixed random cotangent) agree within atol 1e-5 in fp32, and in bf16 within
+1e-2 of the largest reference magnitude. The CUDA kernels (in bf16 the
+backward's tensor-core design, and the CUDA-core one) are held against the
+plain versions on the card by ``chip_smoke.py``.
 """
 
 import os
@@ -29,6 +31,7 @@ from learning_jax_sharding_tpu_torch.ops.attention import (
 )
 from learning_jax_sharding_tpu_torch.ops.flash_attention import (
     _auto_block,
+    _bwd_design,
     flash_attention,
     flash_attention_fwd_reference,
     make_flash_attn_fn,
@@ -38,6 +41,11 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 1e-5
+# bf16: both sides round out, p, ds and the grads to bf16 (2^-8 relative),
+# at other points of the sum (the JAX kernels tile by tile, the plain
+# version over the dense score matrix), so an element can differ by a few
+# bf16 steps of the largest magnitude. Relative to the largest |ref|.
+BF16_RTOL = 1e-2
 
 # (n_kv, group, causal, window, S, blocks): blocks are (block_q, block_k,
 # bwd_block_q, bwd_block_k), None for auto / inherited.
@@ -57,15 +65,33 @@ CASES = {
 }
 
 
-def _inputs(seed, b, s, n_kv, group, h=16):
-    """q, k, v and a cotangent; ``s`` is S or ``(S_q, S_kv)``."""
+def _inputs(seed, b, s, n_kv, group, h=16, dtype=np.float32):
+    """q, k, v and a cotangent; ``s`` is S or ``(S_q, S_kv)``. ``dtype``
+    ``"bfloat16"``: the fp32 draws rounded to bf16 (as ml_dtypes arrays)."""
     s_q, s_kv = (s, s) if isinstance(s, int) else s
     rng = np.random.default_rng(seed)
     n = n_kv * group
     return [
-        rng.normal(size=shape).astype(np.float32)
+        rng.normal(size=shape).astype(np.float32).astype(jnp.dtype(dtype))
         for shape in ((b, s_q, n, h), (b, s_kv, n_kv, h), (b, s_kv, n_kv, h), (b, s_q, n, h))
     ]
+
+
+def _to_torch(x):
+    """A numpy array (fp32, or bf16 from ml_dtypes) as a torch tensor."""
+    if x.dtype == np.float32:
+        return torch.from_numpy(x)
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+
+def _assert_close(got, ref, dtype, name):
+    """fp32: within ATOL; bf16: within BF16_RTOL of the largest |ref|."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0, err_msg=name)
+    else:
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+        assert err <= BF16_RTOL, f"{name}: {err:.3e} of the largest |ref| > {BF16_RTOL}"
 
 
 def _jax_side(q, k, v, cot, *, causal, window, blocks):
@@ -95,31 +121,61 @@ def _jax_side(q, k, v, cot, *, causal, window, blocks):
     return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_plain_matches_jax_kernels(case):
+# Every case in fp32 (ids as the case names) and in bf16 (``<case>-bf16``).
+DTYPE_CASES = [pytest.param(c, "float32", id=c) for c in CASES] + [
+    pytest.param(c, "bfloat16", id=f"{c}-bf16") for c in CASES
+]
+
+
+@pytest.mark.parametrize("case,dtype", DTYPE_CASES)
+def test_plain_matches_jax_kernels(case, dtype):
     n_kv, group, causal, window, s, blocks = CASES[case]
-    q, k, v, cot = _inputs(len(case), 2, s, n_kv, group)
+    q, k, v, cot = _inputs(len(case), 2, s, n_kv, group, dtype=dtype)
     ref_out, ref_lse, ref_grads = _jax_side(q, k, v, cot, causal=causal,
                                             window=window, blocks=blocks)
 
-    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tq, tk, tv = (_to_torch(x).requires_grad_() for x in (q, k, v))
     bq, bk, bbq, bbk = blocks
     out = flash_attention(tq, tk, tv, causal=causal, window=window, block_q=bq,
                           block_k=bk, bwd_block_q=bbq, bwd_block_k=bbk)
-    (out * torch.from_numpy(cot)).sum().backward()
-    np.testing.assert_allclose(out.detach().numpy(), ref_out, atol=ATOL, rtol=0)
+    assert out.dtype == tq.dtype
+    (out * _to_torch(cot)).sum().backward()
+    _assert_close(out.detach().float(), ref_out, dtype, "out")
     for name, t, ref in zip("qkv", (tq, tk, tv), ref_grads):
-        np.testing.assert_allclose(t.grad.numpy(), ref, atol=ATOL, rtol=0,
-                                   err_msg=f"d{name}")
+        assert t.grad.dtype == tq.dtype
+        _assert_close(t.grad.float(), ref, dtype, f"d{name}")
 
     b, _, n, h = q.shape
-    fold = lambda x, g: (torch.from_numpy(x).reshape(b, x.shape[1], x.shape[2] // g, g, h)
+    fold = lambda x, g: (_to_torch(x).reshape(b, x.shape[1], x.shape[2] // g, g, h)
                          .permute(0, 2, 1, 3, 4).reshape(-1, x.shape[1] * g, h))
     _, lse = flash_attention_fwd_reference(
         fold(q, group), fold(k, 1), fold(v, 1), scale=h**-0.5, causal=causal,
         window=window, group=group,
     )
-    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=ATOL, rtol=0)
+    _assert_close(lse, ref_lse, dtype, "lse")
+
+
+@pytest.mark.parametrize("h", [64, 128])
+def test_bwd_design_by_dtype(h):
+    """bf16 takes the backward's tensor-core design, fp32 the CUDA-core one
+    (tensor cores take fp32 only as TF32), at both head dims."""
+    assert _bwd_design(torch.bfloat16, h) == "tensor_core"
+    assert _bwd_design(torch.float32, h) == "cuda_core"
+
+
+def test_cpu_backward_moves_no_launch_counter():
+    """The counters ``chip_smoke.py`` reads exist, the tensor-core ones
+    beside the totals, and a CPU forward and backward (the plain versions)
+    launch nothing, in either dtype."""
+    assert set(flash_attention.launches) == {
+        "fwd", "bwd_dkv", "bwd_dq", "bwd_dkv_tensor_core", "bwd_dq_tensor_core"}
+    before = dict(flash_attention.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, cot = (_to_torch(x).to(dtype).requires_grad_()
+                        for x in _inputs(3, 1, 32, 2, 2, h=64))
+        (flash_attention(q, k, v, causal=True) * cot).sum().backward()
+        assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert flash_attention.launches == before
 
 
 BAD_CALLS = {
