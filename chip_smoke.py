@@ -123,6 +123,8 @@ ENGINE_COMMON = dict(batch_size=B, max_new_tokens=ENGINE_NEW, refill_chunk=PAGED
 KERNEL_SOURCE = "learning_jax_sharding_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "learning_jax_sharding_tpu/ops/decode_attention.py:83"
 FLASH_SOURCE = "learning_jax_sharding_tpu_torch/csrc/flash_attention.cu"
+# The port's kernels by name, with their template arguments, in a profile.
+PORT_KERNELS = r"(?:flash_|decode_attention|int4_|fused_norm_)\w*(?:<[^>]*>)?"
 FLASH_REPLACES = {
     "fwd": "learning_jax_sharding_tpu/ops/flash_attention.py:175",
     "bwd_dkv": "learning_jax_sharding_tpu/ops/flash_attention.py:314",
@@ -153,12 +155,13 @@ FLASH_SHAPES = {
     # tiles).
     "h128_causal_s1024": dict(b=2, s=1024, n=8, n_kv=8, h=128, causal=True),
 }
-# The backward designs each dtype is held in: the public path (bf16 on the
-# tensor cores, fp32 on the CUDA cores) and, in bf16, the CUDA-core design on
-# the same inputs.
-FLASH_BWD_DESIGNS = {torch.float32: ("cuda_core",), torch.bfloat16: ("tensor_core", "cuda_core")}
+# The designs each dtype holds the three kernels in: the public path (bf16 on
+# the tensor cores, fp32 on the CUDA cores) and, in bf16, the CUDA-core design
+# on the same inputs.
+FLASH_DESIGNS = {torch.float32: ("cuda_core",), torch.bfloat16: ("tensor_core", "cuda_core")}
 # The flash counters of a bf16 train call: every key moves by the same count.
-FLASH_LAUNCH_KEYS = ("fwd", "bwd_dkv", "bwd_dq", "bwd_dkv_tensor_core", "bwd_dq_tensor_core")
+FLASH_LAUNCH_KEYS = ("fwd", "bwd_dkv", "bwd_dq", "fwd_tensor_core", "bwd_dkv_tensor_core",
+                     "bwd_dq_tensor_core")
 INT4_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_matmul.cu"
 INT4_FF_SOURCE = "learning_jax_sharding_tpu_torch/csrc/int4_ff.cu"
 INT4_REPLACES = {
@@ -538,71 +541,94 @@ def fold_rows(x, group):
 
 
 def flash_case(name, gen, dtype, *, b, s, n, n_kv, h, causal, window=None, s_kv=None):
-    """The three flash kernels against their plain versions on one shape →
-    errors by backward design: fwd ``out``/``lse`` absolute, bwd grads
-    relative to the largest reference magnitude, and each absolute. The
-    backward pair gets the plain forward's ``out``/``lse``, so each kernel is
-    held on the same inputs. The public ``_bwd`` must launch the design
-    ``_bwd_design`` names; the other design runs through ``design=``."""
+    """The three flash kernels against their plain versions on one shape, in
+    every design of ``FLASH_DESIGNS[dtype]`` → errors by design: fwd
+    ``out``/``lse`` absolute, bwd grads relative to the largest reference
+    magnitude, and each absolute. The backward pair gets the plain forward's
+    ``out``/``lse``, so each kernel is held on the same inputs; the public
+    backward runs once more on the public forward's ``out``/``lse``, as the
+    train step chains them (``"chained"``). The public ``_fwd``/``_bwd``
+    must launch the design ``_fwd_design``/``_bwd_design`` names; the other
+    design runs through ``design=``."""
     group, s_kv = n // n_kv, s if s_kv is None else s_kv
     q = fold_rows(randn(gen, b, s, n, h, dtype=dtype), group)
     k = fold_rows(randn(gen, b, s_kv, n_kv, h, dtype=dtype), 1)
     v = fold_rows(randn(gen, b, s_kv, n_kv, h, dtype=dtype), 1)
     do = randn(gen, *q.shape, dtype=dtype)
     kw = dict(scale=h**-0.5, causal=causal, window=window, group=group)
-    out, lse = flash._fwd(q, k, v, kw["scale"], causal, window, group)
     ref_out, ref_lse = flash.flash_attention_fwd_reference(q, k, v, **kw)
     ref_grads = flash.flash_attention_bwd_reference(q, k, v, ref_out, ref_lse, do, **kw)
-    bwd_args = (q, k, v, ref_out, ref_lse, do, kw["scale"], causal, window, group)
-    public = flash._bwd_design(dtype, h)
+    fwd_args = (q, k, v, kw["scale"], causal, window, group)
+    bwd_tail = (do, kw["scale"], causal, window, group)
+    public = {"fwd": flash._fwd_design(dtype, h), "bwd": flash._bwd_design(dtype, h)}
     tol = FLASH_TOL[dtype]
-    results = {}
-    for design in FLASH_BWD_DESIGNS[dtype]:
+
+    def counted(kind, design, *args):
+        """``flash._fwd`` or ``flash._bwd`` (``kind``) through the public path
+        when ``design`` is the one its rule picks, else forced onto it; each
+        of its kernels must launch once, on ``design``."""
+        run, kernels = (flash._fwd, ("fwd",)) if kind == "fwd" else (flash._bwd,
+                                                                     ("bwd_dkv", "bwd_dq"))
+        forced = {} if design == public[kind] else {"design": design}
         before = dict(flash.flash_attention.launches)
-        grads = flash._bwd(*bwd_args) if design == public else flash._bwd(*bwd_args,
-                                                                           design=design)
+        result = run(*args, **forced)
         torch.cuda.synchronize()
         moved = {key: flash.flash_attention.launches[key] - before[key] for key in before}
-        want_tc = int(design == "tensor_core")
-        if (moved["bwd_dkv_tensor_core"], moved["bwd_dq_tensor_core"]) != (want_tc, want_tc):
-            raise AssertionError(f"flash {name} {dtype} {design}: launches moved {moved}")
-        errs = {
-            "out": (out.float() - ref_out.float()).abs().max().item(),
-            "lse": (lse - ref_lse).abs().max().item(),
-        }
-        abs_errs = dict(errs)
+        for kernel in kernels:
+            if (moved[kernel], moved[f"{kernel}_tensor_core"]) != (1, int(design == "tensor_core")):
+                raise AssertionError(f"flash {name} {dtype} {design}: launches moved {moved}")
+        return result
+
+    def grad_errs(label, grads, errs, abs_errs):
         for gname, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
             if not torch.isfinite(got).all():
-                raise AssertionError(f"flash {name} {dtype} {design}: non-finite {gname}")
+                raise AssertionError(f"flash {name} {dtype} {label}: non-finite {gname}")
             abs_errs[gname] = (got.float() - want.float()).abs().max().item()
             errs[gname] = abs_errs[gname] / want.float().abs().max().item()
-        log(f"[flash] {name} {str(dtype)[6:]} bwd {design}"
-            f"{' (public)' if design == public else ''}: " + ", ".join(
-                f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+        log(f"[flash] {name} {str(dtype)[6:]} {label}: " + ", ".join(
+            f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
         bad = {k: v for k, v in errs.items() if not v <= tol[k]}
         if bad:
-            raise AssertionError(f"flash {name} {dtype} {design}: errors {bad} over {tol}")
-        results[design] = errs, abs_errs
+            raise AssertionError(f"flash {name} {dtype} {label}: errors {bad} over {tol}")
+        return errs, abs_errs
+
+    results = {}
+    for design in FLASH_DESIGNS[dtype]:
+        out, lse = counted("fwd", design, *fwd_args)
+        grads = counted("bwd", design, q, k, v, ref_out, ref_lse, *bwd_tail)
+        fwd_errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                    "lse": (lse - ref_lse).abs().max().item()}
+        label = f"fwd+bwd {design}{' (public)' if design == public['bwd'] else ''}"
+        results[design] = grad_errs(label, grads, dict(fwd_errs), dict(fwd_errs))
+        if design == public["fwd"]:
+            chained = flash._bwd(q, k, v, out, lse, *bwd_tail)
+            results["chained"] = grad_errs(f"bwd {public['bwd']} on this forward's out/lse",
+                                           chained, dict(fwd_errs), dict(fwd_errs))
     return results
 
 
 def check_flash(gen):
-    """``FLASH_SHAPES`` in fp32 and bf16, the backward in every design of
-    ``FLASH_BWD_DESIGNS``: (a) the 125M train step, (b) non-causal (case6),
-    (c) GQA + window at H=128 (fully masked rows at tile edges), (d) a
-    partial tile, (e) unequal q/kv lengths, (f) GQA 8 with a 48-key window
-    and partial tiles, (g) H=128 causal → the largest error of each kernel
-    per (dtype, design), as checked and absolute."""
+    """``FLASH_SHAPES`` in fp32 and bf16, the three kernels in every design of
+    ``FLASH_DESIGNS``: (a) the 125M train step, (b) non-causal (case6), (c)
+    GQA + window at H=128 (fully masked rows at tile edges), (d) a partial
+    tile, (e) unequal q/kv lengths, (f) GQA 8 with a 48-key window and
+    partial tiles, (g) H=128 causal → the largest error of each kernel per
+    (dtype, design), as checked and absolute (``"chained"``: the public
+    backward on the public forward's out/lse)."""
     outputs = {"fwd": ("out", "lse"), "bwd_dkv": ("dk", "dv"), "bwd_dq": ("dq",)}
     worst = {}
-    for dtype, designs in FLASH_BWD_DESIGNS.items():
+    for dtype, designs in FLASH_DESIGNS.items():
         cases = [flash_case(name, gen, dtype, **kw) for name, kw in FLASH_SHAPES.items()]
-        for design in designs:
+        for design in (*designs, "chained"):
             for which, idx in (("checked", 0), ("abs", 1)):
                 worst[dtype, design, which] = {
                     kernel: max(c[design][idx][o] for c in cases for o in outs)
                     for kernel, outs in outputs.items()
                 }
+        log(f"[flash] {str(dtype)[6:]} forward, worst |error| of out and lse over "
+            f"{len(cases)} shapes: " + "; ".join(f"{d} {worst[dtype, d, 'abs']['fwd']:.3e}"
+                                                 for d in designs)
+            + f" (tol {FLASH_TOL[dtype]['out']:g})")
     return worst
 
 
@@ -698,7 +724,8 @@ def run_main_path(params, gen, tf_model, card):
 def profile_summary(label, run, steps, ms_per_step):
     """Where a step's time goes: ``run()`` (``steps`` steps) once under
     torch.profiler → device kernels per step, device-busy time per step, the
-    idle share against the unprofiled ms/step, and the top 6 kernels."""
+    idle share against the unprofiled ms/step, the top 6 kernels, and the
+    port's own kernels (``PORT_KERNELS``), each per step."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -720,11 +747,14 @@ def profile_summary(label, run, steps, ms_per_step):
         by_name[e.name] += dur
     busy_ms = busy_us / 1e3 / steps
     top = [(name[:60], round(us / 1e3 / steps, 4)) for name, us in by_name.most_common(6)]
+    ported = {re.search(PORT_KERNELS, name).group(0): round(us / 1e3 / steps, 4)
+              for name, us in by_name.items() if re.search(PORT_KERNELS, name)}
     row = dict(kernels_per_step=len(kernels) / steps, busy_ms_per_step=busy_ms,
-               idle_share=1 - busy_ms / ms_per_step, top_ms_per_step=top)
+               idle_share=1 - busy_ms / ms_per_step, top_ms_per_step=top,
+               port_kernels_ms_per_step=ported)
     log(f"[profile] {label}, per step: {row['kernels_per_step']:.1f} device kernels, "
         f"device busy {busy_ms:.3f} ms of {ms_per_step:.3f} ms unprofiled "
-        f"(idle share {row['idle_share']:.3f}); top: {top}")
+        f"(idle share {row['idle_share']:.3f}); top: {top}; the port's kernels: {ported}")
     return row
 
 
@@ -803,7 +833,7 @@ def run_train_path(gen, card):
     launches = dict(flash.flash_attention.launches)
     want = K_STEPS * cfg.num_layers
     log(f"[main] 125M train step, one {K_STEPS}-step call: launches {launches} (want {want} "
-        f"each, every backward launch on the tensor-core design)")
+        f"each, every launch on the tensor-core design)")
     if launches != dict.fromkeys(FLASH_LAUNCH_KEYS, want):
         raise AssertionError(f"one {K_STEPS}-step call launched {launches}, want {want} each")
     if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
@@ -847,9 +877,9 @@ def run_fused_train_path(gen, card):
     loss, AdamW) through ``make_train_step``: descent over 10 steps on one
     batch; one step against the plain-norm step on the same weights; the
     fused-norm and flash launches of one 8-step call; its time interleaved
-    with the plain-norm step's and with both steps' flash backward forced
-    onto the CUDA-core design (every round times each once; medians of 3);
-    a profile."""
+    with the plain-norm step's and with both steps' flash backward, and
+    then their flash forward, forced onto the CUDA-core design (every round
+    times each once; medians of 3); a profile."""
     flash_fn = flash.make_flash_attn_fn()
     batch = train_batch(gen, CONFIG_125M.vocab_size)
     check = step_check(batch, {"fused_norm": dict(attn_fn=flash_fn, fused_norm=True),
@@ -886,7 +916,7 @@ def run_fused_train_path(gen, card):
     want_flash = K_STEPS * CONFIG_125M.num_layers
     log(f"[main] 125M train step, fused_norm, one {K_STEPS}-step call: fused-norm launches "
         f"{norm} (want {want_norm}), flash {flash_launches} (want {want_flash} each, every "
-        f"backward launch on the tensor-core design)")
+        f"launch on the tensor-core design)")
     if norm != want_norm:
         raise AssertionError(f"one fused-norm {K_STEPS}-step call launched {norm}, want {want_norm}")
     if flash_launches != dict.fromkeys(FLASH_LAUNCH_KEYS, want_flash):
@@ -894,13 +924,14 @@ def run_fused_train_path(gen, card):
     if call_losses.shape != (K_STEPS,) or not torch.isfinite(call_losses).all():
         raise AssertionError(f"the fused-norm {K_STEPS}-step call returned {call_losses}")
 
-    # Each norm's step again with the flash backward forced onto the CUDA-core
-    # design: the in-run end-to-end comparison of the two backward designs.
+    # Each norm's step again with the flash backward, and with the flash
+    # forward, forced onto the CUDA-core design: the in-run end-to-end
+    # comparison of each kernel's two designs.
     calls = {name: functools.partial(multi, state, stacked) for name, state in states.items()}
     secs = interleaved_seconds(
-        {**calls, **{f"{name}, cuda-core flash bwd": on_design(call, "cuda_core", flash,
-                                                               "_bwd_design")
-                     for name, call in calls.items()}})
+        {**calls, **{f"{name}, cuda-core flash {kind}": on_design(call, "cuda_core", flash,
+                                                                  f"_{kind}_design")
+                     for kind in ("bwd", "fwd") for name, call in calls.items()}})
     flops = CONFIG_125M.train_step_flops(TRAIN_B, TRAIN_S)
     timing = {}
     for name, calls in secs.items():
@@ -1059,9 +1090,9 @@ def bound(nbytes, ops, peak=None):
 
 def time_flash(gen, card):
     """Each flash kernel at the train step's attention shape (folded q (96,
-    1024, 64) bf16, causal), queued (``queued_time``), the two backward
-    kernels in both designs on the same inputs, beside the bound, the plain
-    versions and SDPA (queued too), with each kernel's TFLOP/s."""
+    1024, 64) bf16, causal), queued (``queued_time``), in both designs on
+    the same inputs, beside the bound, the plain versions and SDPA (queued
+    too), with each kernel's TFLOP/s."""
     b, s, n, h, scale = TRAIN_B, TRAIN_S, 12, 64, 64**-0.5
     q, k, v, do = (fold_rows(randn(gen, b, s, n, h, dtype=torch.bfloat16), 1)
                    for _ in range(4))
@@ -1072,7 +1103,7 @@ def time_flash(gen, card):
     args = (q, k, scale, True, None, 1)
     launch = {
         "fwd": lambda design: flash._launch(
-            "fwd", [t.data_ptr() for t in (q, k, v, out2, lse2)], *args),
+            "fwd", [t.data_ptr() for t in (q, k, v, out2, lse2)], *args, design),
         "bwd_dkv": lambda design: flash._launch(
             "bwd_dkv", common + [dk.data_ptr(), dv.data_ptr()], *args, design),
         "bwd_dq": lambda design: flash._launch(
@@ -1098,22 +1129,20 @@ def time_flash(gen, card):
         "bwd_dkv": (6 * tensor + 2 * rowvec, 8 * h * pairs),
         "bwd_dq": (5 * tensor + 2 * rowvec, 6 * h * pairs),
     }
-    public = flash._bwd_design(torch.bfloat16, h)
     rows = {}
     for name, run in launch.items():
         bound_ms, by = bound(*work[name])
-        designs = ("cuda_core",) if name == "fwd" else (public, "cuda_core")
+        public = (flash._fwd_design if name == "fwd" else flash._bwd_design)(torch.bfloat16, h)
+        designs = (public, "cuda_core")
         ms = {d: queued_time(run, d, inner=10)[0] * 1e3 for d in designs}
         rows[name] = dict(
             ms=ms[designs[0]], bound_ms=bound_ms, bound_by=by,
             plain_ms=(plain_fwd if name == "fwd" else plain_bwd) * 1e3,
             library_ms=(lib_fwd if name == "fwd" else lib_bwd) * 1e3,
             bytes=work[name][0], ops=work[name][1],
-            tflop_s=work[name][1] / ms[designs[0]] / 1e9,
+            tflop_s=work[name][1] / ms[designs[0]] / 1e9, design=public,
+            cuda_core_ms=ms["cuda_core"], cuda_core_tflop_s=work[name][1] / ms["cuda_core"] / 1e9,
         )
-        if name != "fwd":
-            rows[name].update(design=public, cuda_core_ms=ms["cuda_core"],
-                              cuda_core_tflop_s=work[name][1] / ms["cuda_core"] / 1e9)
         log(f"[time] flash {name} (folded q {tuple(q.shape)}, causal, bf16, queued): "
             + ", ".join(f"{d} {ms[d] * 1e3:.2f} us ({work[name][1] / ms[d] / 1e9:.1f} TFLOP/s)"
                         for d in designs)
@@ -1773,9 +1802,9 @@ def run_ladder(params, q4, prompt, card, int4_fns):
 
 def on_design(fn, design, module=mm4, rule="_variant"):
     """``fn`` with every kernel that ``module.rule`` routes launched on one
-    design (the int4 matmuls by default; ``flash, "_bwd_design"`` the flash
-    backward): the wrapper's rule is patched for the call (a yardstick; the
-    port never does this)."""
+    design (the int4 matmuls by default; ``flash, "_bwd_design"`` or
+    ``"_fwd_design"`` the flash backward or forward): the wrapper's rule is
+    patched for the call (a yardstick; the port never does this)."""
     def call():
         chosen = getattr(module, rule)
         setattr(module, rule, lambda *args: design)
@@ -2100,7 +2129,7 @@ def main() -> int:
         contiguous_ms=paged_times["decode"]["contiguous_ms"], shapes=paged_times,
     ))
     for name in ("fwd", "bwd_dkv", "bwd_dq"):
-        public = "cuda_core" if name == "fwd" else flash._bwd_design(torch.bfloat16, 64)
+        public = (flash._fwd_design if name == "fwd" else flash._bwd_design)(torch.bfloat16, 64)
         entry = dict(
             name=f"flash_{name}", route="cuda", source=FLASH_SOURCE,
             replaces=FLASH_REPLACES[name], launches=train["launches"][name],
@@ -2110,18 +2139,18 @@ def main() -> int:
             **{k: flash_times[name][k] for k in timing_keys},
             bytes=flash_times[name]["bytes"], ops=flash_times[name]["ops"],
             tflop_s=flash_times[name]["tflop_s"],
+            # The design bf16 takes (fp32 stays on the CUDA cores), its
+            # launches in the 8-step call, and the CUDA-core design's time and
+            # errors on the same inputs.
+            design=f"{public} (bf16); cuda_core (fp32)",
+            tensor_core_launches=train["launches"][f"{name}_tensor_core"],
+            cuda_core_ms=flash_times[name]["cuda_core_ms"],
+            cuda_core_tflop_s=flash_times[name]["cuda_core_tflop_s"],
+            cuda_core_max_err_bf16=flash_errs[torch.bfloat16, "cuda_core", "checked"][name],
         )
         if name != "fwd":
-            # The backward pair: the design bf16 takes (fp32 stays on the CUDA
-            # cores), its launches in the 8-step call, and the CUDA-core
-            # design's time and errors on the same inputs.
-            entry.update(
-                design=f"{public} (bf16); cuda_core (fp32)",
-                tensor_core_launches=train["launches"][f"{name}_tensor_core"],
-                cuda_core_ms=flash_times[name]["cuda_core_ms"],
-                cuda_core_tflop_s=flash_times[name]["cuda_core_tflop_s"],
-                cuda_core_max_err_bf16=flash_errs[torch.bfloat16, "cuda_core", "checked"][name],
-            )
+            # The backward pair once more on the public forward's out/lse.
+            entry["chained_max_err_bf16"] = flash_errs[torch.bfloat16, "chained", "checked"][name]
         entries.append(entry)
     # The int4 kernels: top-level numbers at the 768 x 768 decode site (q, k,
     # v, out: most of the launches; the CUDA-core design), the prefill site

@@ -27,16 +27,16 @@
 // input-dtype values and accumulate in fp32; p (before p.V and p^T.dO) and ds
 // (before ds^T.Q and ds.K) are rounded to the input dtype.
 //
-// Two designs. fp32 runs all three kernels on the CUDA cores; bf16 runs the
-// forward there too, and the backward on the tensor cores. The wrapper
-// (ops/flash_attention.py::_bwd_design) picks the backward's design by dtype
-// alone: tensor cores take fp32 only as TF32 (a 10-bit mantissa), which
-// would break the fp32 semantics of the JAX kernels. Both designs replace
-// the same two TPU kernels, _bwd_dkv_kernel and _bwd_dq_kernel.
+// Two designs. fp32 runs all three kernels on the CUDA cores, bf16 all three
+// on the tensor cores. The wrapper (ops/flash_attention.py::_fwd_design,
+// _bwd_design) picks each kernel's design by dtype alone: tensor cores take
+// fp32 only as TF32 (a 10-bit mantissa), which would break the fp32
+// semantics of the JAX kernels. Both designs replace the same three TPU
+// kernels.
 //
 // Design 1, CUDA cores (flash_fwd_kernel<T, H>, flash_bwd_dkv_kernel<T, H>,
-// flash_bwd_dq_kernel<T, H>; the bf16 backward instantiations stay
-// reachable for holding one design against the other). The TPU kernels'
+// flash_bwd_dq_kernel<T, H>; the bf16 instantiations stay reachable for
+// holding one design against the other). The TPU kernels'
 // sequential innermost grid axis and VMEM scratch
 // become a loop inside one thread block of 256 threads, with the running
 // max, sum and output rows in registers. Tiles are staged in shared memory
@@ -51,25 +51,29 @@
 // transposed. Keys past S_kv and rows past S*group (a partial last tile) are
 // loaded as zeros, masked, and never written.
 //
-// Design 2, tensor cores (flash_bwd_dkv_tc_kernel<H>,
-// flash_bwd_dq_tc_kernel<H, BK, held>; bf16, H 64 or 128). Blocks of 4
-// warps, each warp owning 16 keys (dK/dV) or 16 q rows (dQ) of the block's
-// 64; every product is mma.sync.m16n8k16 bf16 -> fp32 (tensor_core.cuh).
-// The block's own K and V (dK/dV) or Q and dO (dQ) are loaded once; the
-// other operands stream through a 2-stage cp.async ring in shared memory,
-// rows padded by 16 bytes so that ldmatrix is conflict-free, partial tiles
-// zero-filled by the copy and masked by keep(). dK/dV computes S^T = K Q^T
-// and dP^T = V dO^T, dQ computes S = Q K^T and dP = dO V^T, with B read
+// Design 2, tensor cores (flash_fwd_tc_kernel<H, BK, min_blocks>,
+// flash_bwd_dkv_tc_kernel<H>, flash_bwd_dq_tc_kernel<H, BK, held>; bf16, H
+// 64 or 128). Blocks of 4 warps, each warp owning 16 q rows (forward, dQ)
+// or 16 keys (dK/dV) of the block's 64; every product is
+// mma.sync.m16n8k16 bf16 -> fp32 (tensor_core.cuh). The block's own Q
+// (forward), Q and dO (dQ) or K and V (dK/dV) are loaded once; the other
+// operands stream through a 2-stage cp.async ring in shared memory, rows
+// padded by 16 bytes so that ldmatrix is conflict-free, partial tiles
+// zero-filled by the copy and masked. The forward and dQ compute S = Q K^T
+// (dQ also dP = dO V^T), dK/dV S^T = K Q^T and dP^T = V dO^T, with B read
 // from the streamed tiles as they lie; p and ds then go from the fp32
 // accumulators to bf16 A fragments in registers (two 8-column C tiles make
 // one 16-deep A fragment, FlashAttention-2's register reuse, no trip
 // through shared memory), which is exactly the bf16 rounding of p and ds
-// above; dV += P^T dO, dK += dS^T Q and dQ += dS K read B from the same
-// tiles through ldmatrix.trans. Tiles wholly inside the mask skip keep().
-// Causal sweeps differ in length by up to 16x: block i takes tile i / bn of
-// slab i % bn, dK/dV from the first key tile and dQ from the last q tile,
+// above; O += P V, dV += P^T dO, dK += dS^T Q and dQ += dS K read B from
+// the same tiles through ldmatrix.trans. The forward keeps its online
+// softmax on the C fragments (the row max and sum reduce over the 4 lanes
+// that share a row). Tiles wholly inside the mask skip it. Causal sweeps
+// differ in length by up to 16x: block i takes tile i / bn of slab i % bn,
+// dK/dV from the first key tile, the forward and dQ from the last q tile,
 // so the longest sweeps start first and the tail is short. The tiles keep
-// three blocks an SM at H = 64 (see dkv_tc below).
+// three blocks an SM (four for the forward) at H = 64 (see fwd_tc and
+// dkv_tc below).
 //
 // Bound on this card at the 125M training shape (folded q (96, 1024, 64)
 // bf16, causal: 524,800 (q, k) pairs per slab), from the H100 SXM data-sheet
@@ -77,18 +81,24 @@
 //   fwd      12.9 GFLOP (13.0 us) and 50.7 MB (15.1 us): 15.1 us, bytes;
 //   dK/dV    25.8 GFLOP: 26.08 us, operations;
 //   dQ       19.3 GFLOP: 19.56 us, operations.
-// The CUDA-core design reaches at most the 67 TFLOP/s of fp32 FMA (about
-// 18-21 TFLOP/s here); the tensor-core design moves the backward's products
-// to the bf16 tensor cores. What it leaves for a later redesign: wgmma
-// (warpgroup MMA from shared memory, the only way to the full bf16 rate;
-// mma.sync reaches a part of it), TMA with mbarriers in place of cp.async,
-// warp specialisation (a producer warp keeping loads in flight while
-// consumer warpgroups multiply), a persistent grid, and the forward, still
-// on the CUDA cores.
+// The forward's tensor-core grid there is 96 slabs x 16 q tiles = 1536
+// blocks of 128 threads, four resident an SM (3 waves on 132 SMs), each
+// sweeping 1-16 64-key tiles. The CUDA-core design reaches at most the 67
+// TFLOP/s of fp32 FMA (about 18-21 TFLOP/s here); the tensor-core design
+// moves the products to the bf16 tensor cores, where the forward's online
+// softmax (exponentials, row max and sum, the accumulator's rescaling) is
+// the larger share of its instructions. What it leaves for a later
+// redesign: wgmma (warpgroup MMA from shared memory, the only way to the
+// full bf16 rate; mma.sync reaches a part of it), TMA with mbarriers in
+// place of cp.async, warp specialisation (a producer warp keeping loads in
+// flight while consumer warpgroups multiply, and two consumer warpgroups
+// taking turns between products and softmax), and a persistent grid.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -886,6 +896,193 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(
   }
 }
 
+// Does no (row, col) of [r0, r1] x [c0, c1] pass keep()? Then the tile
+// leaves the forward's m, l and acc exactly as they were.
+__device__ __forceinline__ bool none_kept(const Shape& sh, int r0, int r1, int c0, int c1) {
+  if (r0 >= sh.rows_q || c0 >= sh.s_kv) return true;
+  if (sh.causal && c0 > min(r1, sh.rows_q - 1) / sh.group) return true;
+  if (sh.window > 0 && c1 <= r0 / sh.group - sh.window) return true;
+  return false;
+}
+
+// The keys row `row` attends, as keep() decides: lo <= col <= hi (none when
+// hi < lo). One division per row, where keep() divides at every call.
+__device__ __forceinline__ void key_bounds(const Shape& sh, int row, int& lo, int& hi) {
+  const int pos = row / sh.group;
+  hi = row < sh.rows_q ? (sh.causal ? min(pos, sh.s_kv - 1) : sh.s_kv - 1) : -1;
+  lo = sh.window > 0 ? pos - sh.window + 1 : 0;
+}
+
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int H, int BK>
+constexpr size_t fwd_smem() {
+  return kRows * Tile<H>::kStride + 2 * (2 * BK * Tile<H>::kStride);
+}
+
+// Forward: one block per (slab, 64-row q tile); warp w owns rows row0 + 16 w
+// .. + 15, with Q held in registers as A fragments, and loops over the
+// BK-key tiles its block's rows attend, K and V streamed through a 2-stage
+// cp.async ring. S = Q K^T takes B from the K tile as it lies. The online
+// softmax runs on the C fragments in log2 units: a row's columns lie in the
+// 4 lanes t of one g, so two shuffles reduce its max; m is the running max
+// of s * scale2 (scale2 = |scale| log2(e), one FFMA per score, Q negated
+// for a negative scale), l each thread's share of the row sum of the
+// unrounded fp32 p. p then goes to bf16 A fragments in registers for O +=
+// P V, which takes B from the V tile through ldmatrix.trans. The mask is
+// keep()'s, from each row's key bounds, and only on tiles that all_kept
+// does not clear; tiles none of a warp's rows attend are skipped (they
+// would change nothing). kMinBlocks: blocks an SM that the registers must
+// leave room for.
+template <int H, int BK, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, Shape sh) {
+  constexpr int S = Tile<H>::kStride;
+  constexpr int NT = BK / 8;
+  constexpr int kStage = 2 * BK * S;
+  constexpr float kLn2 = 0.6931471805599453f;
+  // Causal sweeps are longest for the last q tiles: blocks take the tiles
+  // from the last, every slab's at once, so the long sweeps start first.
+  const int bn = gridDim.x / sh.tiles;
+  const int slab = blockIdx.x % bn;
+  const int tile = sh.causal ? sh.tiles - 1 - blockIdx.x / bn : blockIdx.x / bn;
+  const int row0 = tile * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  extern __shared__ __align__(16) uint8_t smem_tc[];
+  uint8_t* q_s = smem_tc;              // [64 rows][S]
+  uint8_t* ring = q_s + kRows * S;     // 2 stages of k, v [BK][S]
+
+  const size_t q_off = (size_t)slab * sh.rows_q;
+  const __nv_bfloat16* k_slab = k + (size_t)slab * sh.s_kv * H;
+  const __nv_bfloat16* v_slab = v + (size_t)slab * sh.s_kv * H;
+
+  // The keys this block's rows attend: from its first position's window
+  // start to its last position's causal frontier.
+  const int last_row = min(row0 + kRows, sh.rows_q) - 1;
+  const int last_col = sh.causal ? min(last_row / sh.group, sh.s_kv - 1) : sh.s_kv - 1;
+  const int first_col = sh.window > 0 ? max(0, row0 / sh.group - (sh.window - 1)) : 0;
+  const int first_kt = first_col / BK;
+  const int n_tiles = last_col / BK - first_kt + 1;
+
+  auto fetch = [&](int i) {
+    uint8_t* st = ring + (i % 2) * kStage;
+    const int c0 = (first_kt + i) * BK;
+    load_tile<H>(st, k_slab, c0, BK, sh.s_kv);
+    load_tile<H>(st + BK * S, v_slab, c0, BK, sh.s_kv);
+  };
+  load_tile<H>(q_s, q + q_off * H, row0, kRows, sh.rows_q);
+  cp_async_commit();
+  if (n_tiles > 0) fetch(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  uint32_t qf[H / 16][4];
+  const uint32_t sign = sh.scale < 0.f ? 0x80008000u : 0u;
+#pragma unroll
+  for (int ks = 0; ks < H / 16; ++ks) {
+    load_a<H>(qf[ks], q_s, warp * 16, ks * 16);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qf[ks][r] ^= sign;
+  }
+  const float scale2 = fabsf(sh.scale) * kLog2e;
+
+  // Thread (g, t) holds rows r0 + g and r0 + g + 8 (h = 0, 1).
+  const int r0 = row0 + warp * 16;
+  int lo[2], hi[2];
+  key_bounds(sh, r0 + g, lo[0], hi[0]);
+  key_bounds(sh, r0 + g + 8, lo[1], hi[1]);
+  float acc[H / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) fetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint8_t* k_t = ring + (i % 2) * kStage;
+    const uint8_t* v_t = k_t + BK * S;
+    const int c0 = (first_kt + i) * BK;
+    if (!none_kept(sh, r0, r0 + 15, c0, c0 + BK - 1)) {
+      float s[NT][4] = {};
+      product_nk<H, NT>(s, qf, k_t);
+      auto softmax = [&](auto masked) {
+        auto kept = [&](int j, int e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          return !decltype(masked)::value || (col >= lo[e >> 1] && col <= hi[e >> 1]);
+        };
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!kept(j, e)) s[j][e] = kNegInf;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        float corr[2], neg_m[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m[h], mx[h] * scale2);
+          corr[h] = ex2(m[h] - m_new);
+          m[h] = m_new;
+          neg_m[h] = -m_new;
+          l[h] *= corr[h];
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(s[j][e], scale2, neg_m[e >> 1]));
+            s[j][e] = kept(j, e) ? p : 0.f;
+            l[e >> 1] += s[j][e];
+          }
+#pragma unroll
+        for (int n = 0; n < H / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      };
+      if (all_kept(sh, r0, r0 + 15, c0, c0 + BK - 1)) {
+        softmax(std::false_type{});
+      } else {
+        softmax(std::true_type{});
+      }
+      product_kn<H, NT>(acc, s, v_t);
+    }
+    __syncthreads();   // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = r0 + g + 8 * h;
+    if (row < sh.rows_q) {
+      const float safe_l = sum == 0.f ? 1.f : sum;
+      const size_t base = (q_off + row) * H;
+#pragma unroll
+      for (int n = 0; n < H / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + base + 8 * n + 2 * t) =
+            pack_bf16(acc[n][2 * h] / safe_l, acc[n][2 * h + 1] / safe_l);
+      // Natural-log units, as the CUDA-core forward and the JAX kernel (the
+      // backward multiplies by log2(e) itself); a row that attends no key
+      // gets -1e30, as there.
+      if (t == 0) lse[q_off + row] = sum == 0.f ? kNegInf : m[h] * kLn2 + logf(sum);
+    }
+  }
+}
+
 }  // namespace tcb
 
 // ---------------------------------------------------------------- launches
@@ -971,6 +1168,24 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout, const f
   return (int)cudaGetLastError();
 }
 
+// The tensor-core forward holds Q in registers at both head dims. A scratch
+// probe of the tiles on the card found the fastest: H = 64 with 64-key
+// tiles at 127 registers, four blocks an SM; H = 128 with 32-key tiles at
+// 168 registers, three.
+template <int H, int BK, int kMinBlocks>
+int fwd_tc(const void* q, const void* k, const void* v, void* out, float* lse, int bn,
+           Shape sh, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  auto kernel = tcb::flash_fwd_tc_kernel<H, BK, kMinBlocks>;
+  constexpr size_t smem = tcb::fwd_smem<H, BK>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<bn * sh.tiles, tcb::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, sh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; H: 64 or 128; window <= 0: none. Tensors
@@ -1017,8 +1232,18 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void*
 #undef CALL
 }
 
-// The tensor-core design of the two backward kernels: bf16 only (dtype 1),
-// H 64 or 128; -1 for anything else.
+// The tensor-core design of the forward and the two backward kernels: bf16
+// only (dtype 1), H 64 or 128; -1 for anything else.
+int flash_fwd_tc_launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int dtype, int bn, int rows_q, int s_kv, int H, int group,
+                        int causal, int window, float scale, void* stream) {
+  const Shape sh = make_shape(rows_q, rows_q, s_kv, group, causal, window, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && H == 64) return fwd_tc<64, 64, 4>(q, k, v, out, lse, bn, sh, st);
+  if (dtype == 1 && H == 128) return fwd_tc<128, 32, 3>(q, k, v, out, lse, bn, sh, st);
+  return -1;
+}
+
 int flash_bwd_dkv_tc_launch(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dk, void* dv,
                             int dtype, int bn, int rows_q, int s_kv, int H, int group,

@@ -15,8 +15,8 @@ H)`` for k/v: under GQA the group's query heads fold into the rows (row
 ``r`` is position ``r // group``), so k/v are never repeated.
 
 For CUDA tensors the three kernels of ``csrc/flash_attention.cu`` run
-(built at first use, see ``_build``), the two backward ones on tensor cores
-in bf16 and on CUDA cores in fp32 (``_bwd_design``); for CPU tensors the
+(built at first use, see ``_build``), each on tensor cores in bf16 and on
+CUDA cores in fp32 (``_fwd_design``, ``_bwd_design``); for CPU tensors the
 plain versions :func:`flash_attention_fwd_reference` and
 :func:`flash_attention_bwd_reference` run, which the tests hold against
 the JAX kernels. Nothing falls back from one to the other, nor from one
@@ -122,12 +122,12 @@ def flash_attention_bwd_reference(
 @functools.cache
 def _kernel_entries():
     """The C entry points of ``csrc/flash_attention.cu``, typed: the three
-    kernels, and the tensor-core design of the two backward ones (``_tc``)."""
+    kernels, and the tensor-core design of each (``_tc``)."""
     lib = load_library("flash_attention")
     tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     entries = {}
-    for name, n_ptrs in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7), ("bwd_dkv_tc", 8),
-                         ("bwd_dq_tc", 7)):
+    for name, n_ptrs in (("fwd", 5), ("bwd_dkv", 8), ("bwd_dq", 7), ("fwd_tc", 5),
+                         ("bwd_dkv_tc", 8), ("bwd_dq_tc", 7)):
         fn = getattr(lib, f"flash_{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
@@ -165,6 +165,15 @@ def _bwd_design(dtype: torch.dtype, head_dim: int) -> str:
     return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 
+def _fwd_design(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel's design for a dtype, by the rule of
+    :func:`_bwd_design` (and apart from it, so that one can be forced
+    without the other): ``"tensor_core"`` for bf16, ``"cuda_core"`` for
+    fp32, at head_dim 64 and 128."""
+    del head_dim
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def _launch(name: str, pointers, q, k, scale, causal, window, group,
             design: str = "cuda_core") -> None:
     """Launch one kernel of ``design`` on the current stream; raise on a
@@ -186,9 +195,10 @@ def _launch(name: str, pointers, q, k, scale, causal, window, group,
         flash_attention.launches[f"{name}_tensor_core"] += 1
 
 
-def _fwd(q, k, v, scale, causal, window, group):
-    """Folded forward → ``(out, lse)``: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def _fwd(q, k, v, scale, causal, window, group, design=None):
+    """Folded forward → ``(out, lse)``: for CUDA tensors the kernel of the
+    design :func:`_fwd_design` picks (``design`` overrides it, to hold one
+    design against the other); the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(
             q, k, v, scale=scale, causal=causal, window=window, group=group
@@ -202,7 +212,8 @@ def _fwd(q, k, v, scale, causal, window, group):
     lse = torch.empty(q.shape[0], q.shape[1], 1, dtype=torch.float32, device=q.device)
     _check_cuda(q=q, k=k, v=v, out=out, lse=lse)
     ptrs = [t.data_ptr() for t in (q, k, v, out, lse)]
-    _launch("fwd", ptrs, q, k, scale, causal, window, group)
+    design = design or _fwd_design(q.dtype, q.shape[-1])
+    _launch("fwd", ptrs, q, k, scale, causal, window, group, design)
     return out, lse
 
 
@@ -325,10 +336,10 @@ def flash_attention(
 
 
 #: Kernel launches since the last reset; each wrapper adds one per launch.
-#: ``bwd_dkv``/``bwd_dq`` count both designs, ``*_tensor_core`` the launches
-#: of the tensor-core design among them.
-flash_attention.launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0, "bwd_dkv_tensor_core": 0,
-                            "bwd_dq_tensor_core": 0}
+#: ``fwd``/``bwd_dkv``/``bwd_dq`` count both designs, ``*_tensor_core`` the
+#: launches of the tensor-core design among them.
+flash_attention.launches = {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0, "fwd_tensor_core": 0,
+                            "bwd_dkv_tensor_core": 0, "bwd_dq_tensor_core": 0}
 
 
 def make_flash_attn_fn(mesh=None, rules=None, **kwargs):

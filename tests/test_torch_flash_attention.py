@@ -7,7 +7,7 @@ numpy-seeded inputs go to both; forward ``out`` and ``lse`` and the
 gradients ``dq``/``dk``/``dv`` (torch autograd against ``jax.grad``, with a
 fixed random cotangent) agree within atol 1e-5 in fp32, and in bf16 within
 1e-2 of the largest reference magnitude. The CUDA kernels (in bf16 the
-backward's tensor-core design, and the CUDA-core one) are held against the
+tensor-core design of each, and the CUDA-core one) are held against the
 plain versions on the card by ``chip_smoke.py``.
 """
 
@@ -32,6 +32,8 @@ from learning_jax_sharding_tpu_torch.ops.attention import (
 from learning_jax_sharding_tpu_torch.ops.flash_attention import (
     _auto_block,
     _bwd_design,
+    _fwd,
+    _fwd_design,
     flash_attention,
     flash_attention_fwd_reference,
     make_flash_attn_fn,
@@ -163,18 +165,36 @@ def test_bwd_design_by_dtype(h):
     assert _bwd_design(torch.float32, h) == "cuda_core"
 
 
+@pytest.mark.parametrize("h", [64, 128])
+def test_fwd_design_by_dtype(h):
+    """The forward takes the same rule: bf16 the tensor-core design, fp32
+    the CUDA-core one, at both head dims."""
+    assert _fwd_design(torch.bfloat16, h) == "tensor_core"
+    assert _fwd_design(torch.float32, h) == "cuda_core"
+
+
 def test_cpu_backward_moves_no_launch_counter():
     """The counters ``chip_smoke.py`` reads exist, the tensor-core ones
     beside the totals, and a CPU forward and backward (the plain versions)
-    launch nothing, in either dtype."""
+    launch nothing, in either dtype; nor does a CPU forward asked for the
+    tensor-core design, which takes the plain version too."""
     assert set(flash_attention.launches) == {
-        "fwd", "bwd_dkv", "bwd_dq", "bwd_dkv_tensor_core", "bwd_dq_tensor_core"}
+        "fwd", "bwd_dkv", "bwd_dq", "fwd_tensor_core", "bwd_dkv_tensor_core",
+        "bwd_dq_tensor_core"}
     before = dict(flash_attention.launches)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, cot = (_to_torch(x).to(dtype).requires_grad_()
                         for x in _inputs(3, 1, 32, 2, 2, h=64))
         (flash_attention(q, k, v, causal=True) * cot).sum().backward()
         assert q.grad is not None and k.grad is not None and v.grad is not None
+        # Shaped as the folded layout (rows of q = 2 x those of k); which row
+        # is which does not matter here: both sides get the same tensors.
+        folded = [x.detach().reshape(1, -1, 64) for x in (q, k, v)]
+        out, lse = _fwd(*folded, 0.125, True, None, 2, design="tensor_core")
+        want_out, want_lse = flash_attention_fwd_reference(*folded, scale=0.125, causal=True,
+                                                           group=2)
+        torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
     assert flash_attention.launches == before
 
 
