@@ -77,6 +77,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     fused_next_token_loss,
 )
 from learning_jax_sharding_tpu_torch.ops import _build
+from learning_jax_sharding_tpu_torch.ops import decode_attention as da
 from learning_jax_sharding_tpu_torch.ops import flash_attention as flash
 from learning_jax_sharding_tpu_torch.ops import fused_norm as norm_ops
 from learning_jax_sharding_tpu_torch.ops import int4_ff as ff4
@@ -99,6 +100,8 @@ from learning_jax_sharding_tpu_torch.utils.bench import (
 )
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+CHECK_SPLITS = 3   # the split every decode-attention check runs beside one piece
+SPLIT_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16)   # splits timed at each decode-attention shape
 # bf16: both sides accumulate in fp32, the output rounds to bf16 (2^-8
 # relative at |out| ≲ 2).
 FLASH_TOL = {
@@ -258,10 +261,25 @@ def int8_kv(gen, *shape):
     return q.to(torch.int8), scale
 
 
+def decode_variants(dtype):
+    """The (design, splits) launches a decode-attention check runs beside
+    the public call: each design the dtype takes (the tensor cores take bf16
+    only), in one piece and in ``CHECK_SPLITS``."""
+    designs = ("tensor_core", "cuda_core") if dtype == torch.bfloat16 else ("cuda_core",)
+    return [(design, splits) for design in designs for splits in (1, CHECK_SPLITS)]
+
+
+def variant_name(design, splits) -> str:
+    return "public" if design is None else f"{design}/{splits}"
+
+
 def kernel_case(name, gen, dtype, *, b, s, n, n_kv, h, length, index,
                 window=None, fold=False, write_enable=None, int8=False):
-    """One kernel-vs-plain comparison on the card → max abs error. ``int8``:
-    quantized caches with their scales (and new-token scales when folded)."""
+    """Decode attention against its plain version on the card, through the
+    public call and in every ``decode_variants`` launch on the same inputs
+    (each from the same caches) → the largest max abs error. ``int8``:
+    quantized caches with their scales (and new-token scales when folded).
+    A folded write must equal the plain version's bit for bit."""
     q = randn(gen, b, s, n, h, dtype=dtype)
     kw = dict(window=window)
     if int8:
@@ -280,46 +298,57 @@ def kernel_case(name, gen, dtype, *, b, s, n, n_kv, h, length, index,
             new = {"k_new": randn(gen, b, n_kv, 1, h, dtype=dtype),
                    "v_new": randn(gen, b, n_kv, 1, h, dtype=dtype)}
         kw.update(new, write_enable=write_enable)
-    before = {k: v.clone() for k, v in caches.items()}
+
+    def call(fn, bufs, **extra):
+        scales = {k: bufs[k] for k in ("k_scale", "v_scale") if k in bufs}
+        out = fn(q, bufs["k_cache"], bufs["v_cache"], index, **scales, **kw, **extra)
+        return out[0] if fold else out
+
     ref_caches = {k: v.clone() for k, v in caches.items()}
-    scales = {k: caches[k] for k in ("k_scale", "v_scale") if k in caches}
-    ref_scales = {k: ref_caches[k] for k in scales}
-    out = decode_attention(q, caches["k_cache"], caches["v_cache"], index, **scales, **kw)
-    ref = decode_attention_reference(q, ref_caches["k_cache"], ref_caches["v_cache"], index,
-                                     **ref_scales, **kw)
-    torch.cuda.synchronize()
-    if fold:
-        out, ref = out[0], ref[0]
-        for key in caches:
-            if not torch.equal(caches[key], ref_caches[key]):
-                raise AssertionError(f"{name}: folded write of {key} differs from the plain "
-                                     f"version")
-        idx = index.expand(b).tolist()
-        enabled = [True] * b if write_enable is None else [bool(e) for e in write_enable.tolist()]
-        written = {"k_cache": "k_new", "v_cache": "v_new", "k_scale": "ks_new",
-                   "v_scale": "vs_new"}
-        for row in range(b):
-            for key, buf in caches.items():
-                if enabled[row]:
-                    if not torch.equal(buf[row, :, idx[row]], new[written[key]][row, :, 0]):
-                        raise AssertionError(f"{name}: row {row} slot of {key} not written")
-                elif not torch.equal(buf[row], before[key][row]):
-                    raise AssertionError(f"{name}: disabled row {row} {key} changed")
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{name}: non-finite output")
-    err = (out.float() - ref.float()).abs().max().item()
-    label = f"{name}{' int8' if int8 else ''}"
-    log(f"[kernel] {label} {str(dtype)[6:]}: max abs err {err:.3e} (tol {TOL[dtype]:g})")
-    if err > TOL[dtype]:
-        raise AssertionError(f"{label} {dtype}: max abs err {err} > {TOL[dtype]}")
-    return err
+    ref = call(decode_attention_reference, ref_caches)
+    label = f"{name}{' int8' if int8 else ''} {str(dtype)[6:]}"
+    errs = {}
+    for design, splits in [(None, None)] + decode_variants(dtype):
+        bufs = {k: v.clone() for k, v in caches.items()}
+        out = call(decode_attention, bufs, design=design, splits=splits)
+        torch.cuda.synchronize()
+        vname = variant_name(design, splits)
+        if fold:
+            for key in caches:
+                if not torch.equal(bufs[key], ref_caches[key]):
+                    raise AssertionError(f"{label} {vname}: folded write of {key} differs from "
+                                         f"the plain version")
+            idx = index.expand(b).tolist()
+            enabled = ([True] * b if write_enable is None else
+                       [bool(e) for e in write_enable.tolist()])
+            written = {"k_cache": "k_new", "v_cache": "v_new", "k_scale": "ks_new",
+                       "v_scale": "vs_new"}
+            for row in range(b):
+                for key, buf in bufs.items():
+                    if enabled[row]:
+                        if not torch.equal(buf[row, :, idx[row]], new[written[key]][row, :, 0]):
+                            raise AssertionError(f"{label} {vname}: row {row} slot of {key} not "
+                                                 f"written")
+                    elif not torch.equal(buf[row], caches[key][row]):
+                        raise AssertionError(f"{label} {vname}: disabled row {row} {key} changed")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label} {vname}: non-finite output")
+        errs[vname] = (out.float() - ref.float()).abs().max().item()
+    log(f"[kernel] {label}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL[dtype]:g})")
+    bad = {k: v for k, v in errs.items() if not v <= TOL[dtype]}
+    if bad:
+        raise AssertionError(f"{label}: max abs err {bad} > {TOL[dtype]}")
+    return max(errs.values())
 
 
 def check_kernel(gen, *, int8=False):
     """Decode attention against its plain version at the 125M prefill
     (S=128) and decode (S=1, index 200) shapes, a ragged folded write with
-    one row disabled, and GQA + window at H=128; float caches, or int8
-    ones with their scales."""
+    one row disabled, GQA + window at H=128, a GQA-4 windowed token step
+    with a ragged folded write, an MQA token step of 16 folded rows (the
+    tensor-core design's least) with a folded write, and a 10-row chunk;
+    float caches, or int8 ones with their scales."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         mha = dict(b=B, n=12, n_kv=12, h=64, length=1024, int8=int8)
@@ -335,6 +364,14 @@ def check_kernel(gen, *, int8=False):
                         write_enable=enable, **mha),
             kernel_case("gqa_window", gen, dtype, b=4, s=64, n=16, n_kv=4, h=128,
                         length=1024, index=zero + 300, window=64, int8=int8),
+            kernel_case("gqa4_window_fold", gen, dtype, b=B, s=1, n=16, n_kv=4, h=64,
+                        length=512, index=row_index % 512, window=100, fold=True,
+                        write_enable=enable, int8=int8),
+            kernel_case("mqa16_fold", gen, dtype, b=4, s=1, n=16, n_kv=1, h=128, length=768,
+                        index=row_index[:4] % 768, fold=True, write_enable=enable[B // 2:],
+                        int8=int8),
+            kernel_case("chunk10", gen, dtype, b=2, s=5, n=4, n_kv=2, h=64, length=1024,
+                        index=row_index[:2] % 1000, int8=int8),
         ]
         if int8:
             cases.append(kernel_case("decode_fold", gen, dtype, s=1, index=zero + 200,
@@ -346,14 +383,16 @@ def check_kernel(gen, *, int8=False):
 def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, shared,
                fold=False, window=None, int8=False):
     """The paged kernel against its plain version, and against the
-    contiguous kernel on the same values permuted into pages → max abs
-    error against the plain version. Row indices are drawn from [lo, hi).
+    contiguous kernel on the same values permuted into pages, through the
+    public call and in every ``decode_variants`` launch → the largest max
+    abs error against the plain version. Row indices are drawn from [lo, hi).
     Rows 0 and 1 share their first ``shared`` pages (a prefix cache); every
     other mapped page is private, in a shuffled order; table entries past a
     row's frontier name the scratch page 0, and unmapped pool pages hold
-    seeded noise. The paged output (and, folded, the written values) must be
-    bit-equal to the contiguous kernel's, and a folded write must change no
-    pool slot but the enabled rows' mapped write slots."""
+    seeded noise. In each launch the paged output (and, folded, the written
+    values) must be bit-equal to the contiguous kernel's in the same design
+    and split, and a folded write must change no pool slot but the enabled
+    rows' mapped write slots."""
     length = t_cap * page
     idx = torch.randint(lo, hi, (b,), generator=gen, device="cuda", dtype=torch.int32)
     q = randn(gen, b, s, n, h, dtype=dtype)
@@ -396,7 +435,6 @@ def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, share
         enable = torch.ones(b, dtype=torch.int32, device="cuda")
         enable[b // 2] = 0
         kw.update(new, write_enable=enable)
-    before = {k: v.clone() for k, v in pools.items()}
     ref_pools = {k: v.clone() for k, v in pools.items()}
 
     def run(fn, caches, **extra):
@@ -404,35 +442,46 @@ def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, share
         out = fn(q, caches["k_cache"], caches["v_cache"], idx, **scales, **kw, **extra)
         return out[0] if fold else out
 
-    out = run(decode_attention, pools, block_table=table, block_k=page)
-    out_c = run(decode_attention, contig)
     ref = run(decode_attention_reference, ref_pools, block_table=table)
-    torch.cuda.synchronize()
     label = f"paged {name}{' int8' if int8 else ''} {str(dtype)[6:]}"
-    if not torch.equal(out, out_c):
-        raise AssertionError(f"{label}: output differs from the contiguous kernel's")
-    for key, pool in pools.items():
-        paged = contig[key].view(b, n_kv, t_cap, page, *contig[key].shape[3:]).transpose(1, 2)
-        if not torch.equal(pool[table[mapped].long()], paged[mapped]):
-            raise AssertionError(f"{label}: {key} pages differ from the contiguous kernel's cache")
-        if fold:
-            if not torch.equal(pool, ref_pools[key]):
-                raise AssertionError(f"{label}: folded write of {key} differs from the plain version")
-            allowed = torch.zeros(n_pages, page, dtype=torch.bool, device="cuda")
-            rows = enable.nonzero()[:, 0]
-            at = idx[rows].long()
-            allowed[table[rows, at // page].long(), at % page] = True
-            changed = (pool != before[key]).transpose(1, 2).reshape(n_pages, page, -1).any(-1)
-            if (changed & ~allowed).any():
-                raise AssertionError(f"{label}: {key} changed outside the enabled write slots")
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{label}: non-finite output")
-    err = (out.float() - ref.float()).abs().max().item()
-    log(f"[kernel] {label}: bit-equal to the contiguous kernel; max abs err {err:.3e} against "
-        f"the plain version (tol {TOL[dtype]:g})")
-    if err > TOL[dtype]:
-        raise AssertionError(f"{label}: max abs err {err} > {TOL[dtype]}")
-    return err
+    errs = {}
+    for design, splits in [(None, None)] + decode_variants(dtype):
+        vname = variant_name(design, splits)
+        variant = dict(design=design, splits=splits)
+        bufs = {k: v.clone() for k, v in pools.items()}
+        cbufs = {k: v.clone() for k, v in contig.items()}
+        out = run(decode_attention, bufs, block_table=table, block_k=page, **variant)
+        out_c = run(decode_attention, cbufs, **variant)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_c):
+            raise AssertionError(f"{label} {vname}: output differs from the contiguous kernel's")
+        for key, pool in bufs.items():
+            paged = cbufs[key].view(b, n_kv, t_cap, page, *contig[key].shape[3:]).transpose(1, 2)
+            if not torch.equal(pool[table[mapped].long()], paged[mapped]):
+                raise AssertionError(f"{label} {vname}: {key} pages differ from the contiguous "
+                                     f"kernel's cache")
+            if fold:
+                if not torch.equal(pool, ref_pools[key]):
+                    raise AssertionError(f"{label} {vname}: folded write of {key} differs from "
+                                         f"the plain version")
+                allowed = torch.zeros(n_pages, page, dtype=torch.bool, device="cuda")
+                rows = enable.nonzero()[:, 0]
+                at = idx[rows].long()
+                allowed[table[rows, at // page].long(), at % page] = True
+                changed = (pool != pools[key]).transpose(1, 2).reshape(n_pages, page, -1).any(-1)
+                if (changed & ~allowed).any():
+                    raise AssertionError(f"{label} {vname}: {key} changed outside the enabled "
+                                         f"write slots")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label} {vname}: non-finite output")
+        errs[vname] = (out.float() - ref.float()).abs().max().item()
+    log(f"[kernel] {label}: bit-equal to the contiguous kernel in every launch; max abs err "
+        f"against the plain version " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TOL[dtype]:g})")
+    bad = {k: v for k, v in errs.items() if not v <= TOL[dtype]}
+    if bad:
+        raise AssertionError(f"{label}: max abs err {bad} > {TOL[dtype]}")
+    return max(errs.values())
 
 
 # The paged kernel checks: the engine's decode (ragged fold, page 64, rows at
@@ -655,6 +704,35 @@ def check_output(out, b, total, vocab):
         raise AssertionError("output token ids out of range")
 
 
+def generate_decode_launches(cfg) -> dict:
+    """Decode attention's tensor-core and split launches in one rectangular
+    generate (b=B, prompt PROMPT, +NEW) as the wrapper's rules give them:
+    the prefill's launches (PROMPT · group folded rows) on the tensor cores,
+    every token step's split. Raises if the rules would leave the token
+    step in one piece."""
+    layers, n_kv = cfg.num_layers, cfg.num_kv_heads or cfg.num_heads
+    h = cfg.head_dim
+    prefill = public_split(B, PROMPT, cfg.num_heads, n_kv, h, cfg.max_seq_len)
+    step = public_split(B, 1, cfg.num_heads, n_kv, h, cfg.max_seq_len)
+    if prefill[0] != "tensor_core" or step[1] == 1:
+        raise AssertionError(f"decode attention rules: prefill {prefill}, token step {step}")
+    return {"decode_attention_tensor_core": layers,
+            "decode_attention_split": layers * (NEW - 1) + layers * (prefill[1] > 1)}
+
+
+def check_generate_designs(label, cfg) -> dict:
+    """Hold decode attention's counters after one counted rectangular
+    generate to ``generate_decode_launches``."""
+    want = generate_decode_launches(cfg)
+    got = {"decode_attention_tensor_core": decode_attention.tensor_core_launches,
+           "decode_attention_split": decode_attention.split_launches}
+    log(f"[main] {label}: decode attention {got} (want {want}: the prefill on the tensor "
+        f"cores, every token step split)")
+    if got != want:
+        raise AssertionError(f"{label} generate: decode attention launches {got}, want {want}")
+    return got
+
+
 def run_main_path(params, gen, tf_model, card):
     """Rectangular and ragged+EOS generation through make_generate_fn."""
     vocab = CONFIG_125M.vocab_size
@@ -663,10 +741,11 @@ def run_main_path(params, gen, tf_model, card):
     rect = make_generate_fn(CONFIG_125M, max_new_tokens=NEW, inference_dtype=torch.bfloat16)
     rect(params, prompt)                                     # warm-up
     torch.cuda.synchronize()
-    decode_attention.launches = 0
+    reset_launches()
     out = rect(params, prompt)
     torch.cuda.synchronize()
     rect_launches = decode_attention.launches
+    designs = check_generate_designs("rectangular", CONFIG_125M)
     want = CONFIG_125M.num_layers * NEW
     log(f"[main] rectangular b={B} prompt {PROMPT} +{NEW}: {rect_launches} kernel launches (want {want})")
     if rect_launches != want:
@@ -718,7 +797,7 @@ def run_main_path(params, gen, tf_model, card):
     if gap_r > TF_GAP:
         raise AssertionError(f"ragged teacher-forced gap {gap_r} > {TF_GAP}")
     return dict(rect_launches=rect_launches, ragged_launches=ragged_launches,
-                tok_s=tok_s, ms_per_step=sec / NEW * 1e3, gap=max(gap, gap_r))
+                tok_s=tok_s, ms_per_step=sec / NEW * 1e3, gap=max(gap, gap_r), **designs)
 
 
 def profile_summary(label, run, steps, ms_per_step):
@@ -1048,10 +1127,11 @@ def run_int8_generate(params, gen, card):
     for fn in fns.values():
         fn(params, prompt)                                  # warm-up
     torch.cuda.synchronize()
-    decode_attention.launches = 0
+    reset_launches()
     out = fns["int8_cache"](params, prompt)
     torch.cuda.synchronize()
     launches = decode_attention.launches
+    check_generate_designs("int8 KV cache", cfg)
     want = cfg.num_layers * NEW
     log(f"[main] 125M generate, int8 KV cache, b={B} prompt {PROMPT} +{NEW}: {launches} decode "
         f"attention launches (want {want})")
@@ -1155,30 +1235,56 @@ def time_flash(gen, card):
                       sdpa_fwd_bwd_ms=lib_fwd_bwd * 1e3)
 
 
-def time_shape(gen, name, *, s, index):
-    """Kernel, plain version and SDPA at one main-path shape (bf16)."""
+def public_split(b, s, n, n_kv, h, length, dtype=torch.bfloat16):
+    """The design and split ``decode_attention`` takes at a shape."""
+    return da._plan(dtype, b, s, n, n_kv, h, length)[:2]
+
+
+def time_designs(args, kw, shape):
+    """Queued times (µs) of decode attention on ``args``/``kw``: the public
+    call, the first design (``cuda_core`` in one piece) and the public
+    design at every ``SPLIT_SWEEP`` split, beside the plain version. Returns
+    (row, samples enqueued past the sleep)."""
+    design, splits = public_split(*shape)
+    ms, late = queued_time(decode_attention, *args, **kw)
+    old_ms, old_late = queued_time(decode_attention, *args, design="cuda_core", splits=1, **kw)
+    sweep = {sp: queued_time(decode_attention, *args, design=design, splits=sp, **kw)[0] * 1e3
+             for sp in SPLIT_SWEEP}
+    plain_ms, _ = queued_time(decode_attention_reference, *args, inner=3, repeats=5, **kw)
+    return dict(ms=ms * 1e3, design=design, splits=splits, cuda_core_design_ms=old_ms * 1e3,
+                split_sweep_ms=sweep, plain_ms=plain_ms * 1e3), late + old_late
+
+
+def time_shape(gen, name, *, s, index, card):
+    """Decode attention at one generate shape (b=8, 12 heads, H=64, bf16
+    1024-slot caches, one index), queued (device time): the public call,
+    the first design on the same inputs, the split sweep, the plain version,
+    SDPA on the valid prefix (causal for a chunk) and the bound (bytes: the
+    valid K/V prefix, q and out)."""
     dtype, n, h, length = torch.bfloat16, 12, 64, 1024
     q = randn(gen, B, s, n, h, dtype=dtype)
     kc = randn(gen, B, n, length, h, dtype=dtype)
     vc = randn(gen, B, n, length, h, dtype=dtype)
     idx = torch.full((), index, dtype=torch.int32, device="cuda")
-    ms = time_fn(decode_attention, q, kc, vc, idx) * 1e3
-    plain_ms = time_fn(decode_attention_reference, q, kc, vc, idx) * 1e3
+    row, late = time_designs((q, kc, vc, idx), {}, (B, s, n, n, h, length))
     valid = index + s
     qt, kt, vt = q.transpose(1, 2).contiguous(), kc[:, :, :valid], vc[:, :, :valid]
-    library_ms = time_fn(
-        torch.nn.functional.scaled_dot_product_attention, qt, kt, vt, is_causal=s > 1,
-    ) * 1e3
+    library_ms, _ = queued_time(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                                is_causal=s > 1)
     itemsize = q.element_size()
     nbytes = 2 * q.numel() * itemsize + 2 * B * n * valid * h * itemsize
     pairs = s * index + s * (s + 1) // 2        # (query, key) pairs per (b, head)
     ops = 4 * h * pairs * B * n
     bound_ms, bound_by = bound(nbytes, ops)
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms, bytes=nbytes, ops=ops)
-    log(f"[time] decode_attention {name} (q {tuple(q.shape)}, index {index}, bf16): "
-        f"kernel {ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
-        f"plain {plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us")
+    row.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms * 1e3, bytes=nbytes,
+               ops=ops, late_samples=late)
+    log(f"[time] decode_attention {name} (q {tuple(q.shape)}, index {index}, bf16, queued): "
+        f"{row['design']}/{row['splits']} {row['ms'] * 1e3:.2f} us, cuda_core/1 (the first "
+        f"design) {row['cuda_core_design_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}), plain {row['plain_ms'] * 1e3:.2f} us, sdpa {library_ms * 1e6:.2f} us; "
+        f"{row['design']} by splits " + ", ".join(
+            f"{k}: {v * 1e3:.2f}" for k, v in row["split_sweep_ms"].items())
+        + f" us on {card}" + (f" ({late} samples enqueued past the sleep)" if late else ""))
     return row
 
 
@@ -1297,23 +1403,28 @@ def time_decode_int8(gen, card):
         ("bf16", (q, kf, vf, idx), {}, 2 * h),
     ):
         ms, late = queued_time(decode_attention, *args, **kw)
+        old_ms, _ = queued_time(decode_attention, *args, design="cuda_core", splits=1, **kw)
         plain_ms, _ = queued_time(decode_attention_reference, *args, inner=3, repeats=5, **kw)
         nbytes = qbytes + 2 * B * n * valid * per_slot
         bound_ms, by = bound(nbytes, ops)
+        design, splits = public_split(B, 1, n, n, h, length)
         rows[name] = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, bound_ms=bound_ms, bound_by=by,
-                          library_ms=lib_ms * 1e3, bytes=nbytes, ops=ops, late_samples=late)
+                          library_ms=lib_ms * 1e3, bytes=nbytes, ops=ops, late_samples=late,
+                          design=design, splits=splits, cuda_core_design_ms=old_ms * 1e3)
         log(f"[time] decode_attention decode {name} cache (q {tuple(q.shape)}, index {index}, "
-            f"queued): kernel {ms * 1e6:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}, "
+            f"queued): {design}/{splits} {ms * 1e6:.2f} us, cuda_core/1 (the first design) "
+            f"{old_ms * 1e6:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}, "
             f"{nbytes / 1e6:.2f} MB), plain {plain_ms * 1e6:.2f} us, sdpa bf16 "
             f"{lib_ms * 1e6:.2f} us on {card}")
     return rows
 
 
 def time_paged(gen, card):
-    """Decode attention over page pools against the contiguous kernel on the
-    same values, at the engine's decode shape (b=8, S=1, rows at 544-575,
-    64-slot pages) and refill shape (S=64 at 512), bf16, queued (device
-    time): both kernels, the plain paged version, the bound (bytes: each
+    """Decode attention over page pools at the engine's token-step shape
+    (b=8, S=1, rows at 544-575, 64-slot pages) and refill shape (S=64 at
+    512), bf16, queued (device time): the public call, the first design
+    and the split sweep on the pools, the public call on a contiguous cache
+    of the same values, the plain paged version, the bound (bytes: each
     row's valid K/V prefix read once, q, out, the index and the table) and
     SDPA on the same bf16 values (each row's valid prefix as a boolean
     mask) as the yardstick."""
@@ -1333,11 +1444,9 @@ def time_paged(gen, card):
             pool = torch.zeros(n_pages, n, page, h, dtype=torch.bfloat16, device="cuda")
             pool[table.long()] = c.view(B, n, t_cap, page, h).transpose(1, 2)
             pools.append(pool)
-        ms, late = queued_time(decode_attention, q, *pools, idx, block_table=table,
-                               block_k=page)
+        row, late = time_designs((q, *pools, idx), dict(block_table=table),
+                                 (B, s, n, n, h, length))
         contig_ms, contig_late = queued_time(decode_attention, q, kc, vc, idx)
-        plain_ms, _ = queued_time(decode_attention_reference, q, *pools, idx,
-                                  block_table=table, inner=3, repeats=5)
         valid = int((idx + s).max())
         qpos = idx[:, None].long() + torch.arange(s, device="cuda")
         mask = (torch.arange(valid, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
@@ -1348,18 +1457,31 @@ def time_paged(gen, card):
         pairs = int((s * idx.long() + s * (s + 1) // 2).sum())
         ops = 4 * h * pairs * n
         bound_ms, by = bound(nbytes, ops)
-        rows[name] = dict(ms=ms * 1e3, contiguous_ms=contig_ms * 1e3, plain_ms=plain_ms * 1e3,
-                          library_ms=lib_ms * 1e3, bound_ms=bound_ms, bound_by=by,
-                          bytes=nbytes, ops=ops, late_samples=late + contig_late,
-                          index=idx.tolist())
+        late += contig_late
+        row.update(contiguous_ms=contig_ms * 1e3, library_ms=lib_ms * 1e3, bound_ms=bound_ms,
+                   bound_by=by, bytes=nbytes, ops=ops, late_samples=late, index=idx.tolist())
+        rows[name] = row
         log(f"[time] decode_attention paged {name} (q {tuple(q.shape)}, index "
-            f"{min(idx.tolist())}-{max(idx.tolist())}, page {page}, bf16, queued): kernel "
-            f"{ms * 1e6:.2f} us, contiguous kernel {contig_ms * 1e6:.2f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB), plain "
-            f"{plain_ms * 1e6:.2f} us, sdpa {lib_ms * 1e6:.2f} us on {card}"
-            + (f" ({late + contig_late} samples enqueued past the sleep)"
-               if late + contig_late else ""))
+            f"{min(idx.tolist())}-{max(idx.tolist())}, page {page}, bf16, queued): "
+            f"{row['design']}/{row['splits']} {row['ms'] * 1e3:.2f} us, cuda_core/1 (the first "
+            f"design) {row['cuda_core_design_ms'] * 1e3:.2f} us, contiguous {contig_ms * 1e6:.2f}"
+            f" us, bound {bound_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB), plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, sdpa {lib_ms * 1e6:.2f} us; {row['design']} by "
+            f"splits " + ", ".join(f"{k}: {v * 1e3:.2f}" for k, v in row["split_sweep_ms"].items())
+            + f" us on {card}" + (f" ({late} samples enqueued past the sleep)" if late else ""))
     return rows
+
+
+def time_decode_designs(gen, card):
+    """Decode attention at the four main-path shapes, each in its public
+    design and split beside the first design: generate's prefill (S=128 at
+    0) and token step (S=1 at 200), the engine's refill (S=64 at 512) and
+    token step (rows at 544-575) over 64-slot pages."""
+    shapes = {"prefill": time_shape(gen, "prefill", s=PROMPT, index=0, card=card),
+              "decode": time_shape(gen, "decode", s=1, index=200, card=card)}
+    paged = time_paged(gen, card)
+    shapes.update({"paged_refill": paged["prefill"], "paged_decode": paged["decode"]})
+    return shapes
 
 
 def engine_prompts():
@@ -1419,22 +1541,38 @@ def run_engine_path(params, q4, card):
         if cold:
             serve.engine.flush_prefix_cache()
         forwards = serve.engine.model_forwards
+        engine = serve.engine
+        refills = []
+        refill_step = engine._refill_step
+        engine._refill_step = lambda *a: (refills.append(1), refill_step(*a))[1]
         torch.cuda.synchronize()
         reset_launches()
-        outs = serve(tree, prompts)
-        torch.cuda.synchronize()
+        try:
+            outs = serve(tree, prompts)
+            torch.cuda.synchronize()
+        finally:
+            del engine._refill_step
         launches = read_launches()
         calls = serve.engine.model_forwards - forwards
         runs[label] = dict(outs=outs, stats=serve.last_stats, latency=serve.last_latency,
-                           launches=launches, model_forwards=calls)
+                           launches=launches, model_forwards=calls, refill_calls=len(refills))
         want = cfg.num_layers * calls
         is_paged = serve.engine.last_stats is not None
-        log(f"[engine] {label}: {calls} model calls, decode attention {launches['decode_attention']} "
-            f"launches ({launches['decode_attention_paged']} paged; want {want}), stats "
-            f"{serve.last_stats}")
+        log(f"[engine] {label}: {calls} model calls ({len(refills)} refill chunks), decode "
+            f"attention {launches['decode_attention']} launches "
+            f"({launches['decode_attention_paged']} paged; want {want}; "
+            f"{launches['decode_attention_tensor_core']} tensor-core, "
+            f"{launches['decode_attention_split']} split), stats {serve.last_stats}")
         if launches["decode_attention"] != want or launches["decode_attention_paged"] != (
                 want if is_paged else 0):
             raise AssertionError(f"engine {label}: launches {launches}, want {want}")
+        # Refill chunks (S = 64) on the tensor cores, every token step split.
+        steps = cfg.num_layers * (calls - len(refills))
+        if (launches["decode_attention_tensor_core"] != cfg.num_layers * len(refills)
+                or launches["decode_attention_split"] not in (steps, want)):
+            raise AssertionError(f"engine {label}: decode attention launches {launches}, want "
+                                 f"{cfg.num_layers * len(refills)} on the tensor cores and "
+                                 f"every token step's split")
         if launches["int4_matmul3"]:
             # Refill chunks (8 x 64 rows) take the tensor-core design, decode
             # steps (8 rows) the CUDA-core one: both counts whole layers.
@@ -1687,6 +1825,8 @@ INT4_KERNELS = ("int4_matmul", "int4_matmul_w4a8", "int4_matmul3", "int4_ff")
 def reset_launches() -> None:
     decode_attention.launches = 0
     decode_attention.paged_launches = 0
+    decode_attention.tensor_core_launches = 0
+    decode_attention.split_launches = 0
     mm4.int4_matmul.launches = dict.fromkeys(mm4.int4_matmul.launches, 0)
     mm4.int4_matmul3.launches = 0
     mm4.int4_matmul3.tensor_core_launches = 0
@@ -1701,6 +1841,8 @@ def read_launches() -> dict:
             "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
             "decode_attention": decode_attention.launches,
             "decode_attention_paged": decode_attention.paged_launches,
+            "decode_attention_tensor_core": decode_attention.tensor_core_launches,
+            "decode_attention_split": decode_attention.split_launches,
             "int4_matmul_tensor_core": mm4.int4_matmul.launches["w4a16_tensor_core"],
             "int4_matmul_w4a8_tensor_core": mm4.int4_matmul.launches["w4a8_tensor_core"],
             "int4_matmul3_tensor_core": mm4.int4_matmul3.tensor_core_launches}
@@ -1721,18 +1863,20 @@ def run_quantized_path(params, gen):
     layers = cfg.num_layers
     # One prefill (M = B × PROMPT rows) and NEW - 1 decode steps (M = B):
     # the prefill's int4 matmuls take the tensor-core design, every decode
-    # step's the CUDA-core design (ops/int4_matmul.py::_variant).
+    # step's the CUDA-core design (ops/int4_matmul.py::_variant); decode
+    # attention as in the bf16 generate (generate_decode_launches).
+    attention = generate_decode_launches(cfg)
     want = {
         "fused": {"int4_matmul": (layers + 1) * NEW, "int4_matmul_w4a8": 0,
                   "int4_matmul3": layers * NEW, "int4_ff": layers * NEW,
                   "decode_attention": layers * NEW, "decode_attention_paged": 0,
                   "int4_matmul_tensor_core": layers + 1, "int4_matmul_w4a8_tensor_core": 0,
-                  "int4_matmul3_tensor_core": layers},
+                  "int4_matmul3_tensor_core": layers, **attention},
         "fused_w4a8": {"int4_matmul": 0, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
                        "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW,
                        "decode_attention_paged": 0, "int4_matmul_tensor_core": 0,
                        "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
-                       "int4_matmul3_tensor_core": 0},
+                       "int4_matmul3_tensor_core": 0, **attention},
     }
     rows, fns = {}, {}
     for mode in ("fused", "fused_w4a8"):
@@ -2022,6 +2166,7 @@ def ptxas_usage(report: str):
     kernel = spills = None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
+                          r"(?:_rows|_tc|_combine)?"
                           r"|int4_matmul(?:_w4a8)?(?:_tc)?|int4_ff(?:_reduce)?"
                           r"|fused_norm_(?:fwd|bwd|reduce))_kernel)I(\w+)", line)
         if entry:
@@ -2065,8 +2210,6 @@ def main() -> int:
     tf_model.load_state_dict(params)
     del model
     main_path = run_main_path(params, gen, tf_model, card)
-    prefill = time_shape(gen, "prefill", s=PROMPT, index=0)
-    decode = time_shape(gen, "decode", s=1, index=200)
     breakdown = profile_generate(params, gen, main_path["ms_per_step"])
     fused_gen = run_fused_generate(params, gen, tf_model, card)
     del tf_model
@@ -2085,7 +2228,7 @@ def main() -> int:
     del fused_fn
     torch.cuda.empty_cache()
     engine = run_engine_path(params, q4, card)
-    paged_times = time_paged(gen, card)
+    decode_times = time_decode_designs(gen, card)
     del params, q4
     torch.cuda.empty_cache()
     int4_times = time_int4(gen, card)
@@ -2102,13 +2245,24 @@ def main() -> int:
     log(f"[time] measured on {card}")
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    decode = decode_times["decode"]
+    warm = engine["runs"]["paged+prefix warm"]
     entries = [dict(
         name="decode_attention", route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
         launches=main_path["rect_launches"], ragged_launches=main_path["ragged_launches"],
         max_abs_err=errs[torch.bfloat16],
         max_err_bf16=errs[torch.bfloat16], max_err_fp32=errs[torch.float32],
         **{k: decode[k] for k in timing_keys},
-        shapes={"prefill": prefill, "decode": decode},
+        # The two designs: the token step's (top level) and the prefill's
+        # design and split, the rectangular generate's launches on each, and
+        # the first design (cuda_core, one piece) on the same inputs.
+        design={name: f"{decode_times[name]['design']}/{decode_times[name]['splits']}"
+                for name in ("decode", "prefill")},
+        splits=decode["splits"],
+        tensor_core_launches=main_path["decode_attention_tensor_core"],
+        split_launches=main_path["decode_attention_split"],
+        cuda_core_design_ms=decode["cuda_core_design_ms"],
+        shapes={"prefill": decode_times["prefill"], "decode": decode},
         # The int8 cache mode: its checks, its launches in the int8-cache
         # generate, and its queued time beside the bf16 cache's at decode.
         int8=dict(max_abs_err=int8_errs[torch.bfloat16], max_err_bf16=int8_errs[torch.bfloat16],
@@ -2125,8 +2279,18 @@ def main() -> int:
         max_abs_err=max(paged_errs[torch.bfloat16, q] for q in (False, True)),
         max_err_bf16=max(paged_errs[torch.bfloat16, q] for q in (False, True)),
         max_err_fp32=max(paged_errs[torch.float32, q] for q in (False, True)),
-        **{k: paged_times["decode"][k] for k in timing_keys},
-        contiguous_ms=paged_times["decode"]["contiguous_ms"], shapes=paged_times,
+        **{k: decode_times["paged_decode"][k] for k in timing_keys},
+        contiguous_ms=decode_times["paged_decode"]["contiguous_ms"],
+        # The engine's token step (top level) and refill: design and split,
+        # the warm serve's launches on the tensor cores (its refill chunks)
+        # and split, and the first design on the same pools.
+        design={name: f"{decode_times[key]['design']}/{decode_times[key]['splits']}"
+                for name, key in (("decode", "paged_decode"), ("refill", "paged_refill"))},
+        splits=decode_times["paged_decode"]["splits"],
+        tensor_core_launches=warm["launches"]["decode_attention_tensor_core"],
+        split_launches=warm["launches"]["decode_attention_split"],
+        cuda_core_design_ms=decode_times["paged_decode"]["cuda_core_design_ms"],
+        shapes={"decode": decode_times["paged_decode"], "prefill": decode_times["paged_refill"]},
     ))
     for name in ("fwd", "bwd_dkv", "bwd_dq"):
         public = (flash._fwd_design if name == "fwd" else flash._bwd_design)(torch.bfloat16, 64)

@@ -519,20 +519,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
 namespace tcb {
 
 using namespace tc_prims;
+using namespace tc_tiles;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;   // keys of a dK/dV block, q rows of a dQ block
 constexpr int kBQ = 32;              // q rows of a dK/dV stage
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared-memory tiles hold bf16 rows of H values padded by 16 bytes, so the 8
-// row addresses of an ldmatrix phase fall on 8 different bank groups.
-template <int H>
-struct Tile {
-  static constexpr int kStride = H * 2 + 16;   // bytes per row
-  static constexpr int kChunks = H / 8;        // 16-byte copies per row
-};
 
 // cp.async of rows [row0, row0 + n) of a (rows, H) bf16 slab into dst; rows
 // past `rows` read as zeros.
@@ -553,86 +546,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* vec, int row0,
   for (int r = threadIdx.x; r < n; r += kThreads) {
     const bool in = row0 + r < rows;
     cp_async4(dst + r, vec + (in ? row0 + r : 0), in ? 4 : 0);
-  }
-}
-
-// The A fragment of rows [m0, m0 + 16) x columns [k0, k0 + 16) of a tile.
-template <int H>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* tile, int m0, int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(a, tile + (m0 + lane % 16) * Tile<H>::kStride + (k0 + (lane / 16) * 8) * 2);
-}
-
-// B fragments of the two 8-column tiles n0 .. n0 + 15 at depth k0 .. k0 + 15.
-// "nk": the tile's rows are the product's columns (S = Q K^T takes K's rows
-// as columns), read as they lie. "kn": the tile's rows are its depth (dQ +=
-// dS K), read transposed by ldmatrix.trans.
-template <int H>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const uint8_t* tile, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(b, tile + (n0 + lane % 8 + (lane / 16) * 8) * Tile<H>::kStride +
-                     (k0 + ((lane / 8) % 2) * 8) * 2);
-}
-template <int H>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const uint8_t* tile, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * Tile<H>::kStride +
-                           (n0 + (lane / 16) * 8) * 2);
-}
-
-// acc (16 x 8 NT) += A B^T at depth ks * 16 .. + 15: `a` the A fragment, B
-// rows 0 .. 8 NT - 1 of b_tile ("nk").
-template <int H, int NT>
-__device__ __forceinline__ void mma_nk(float (&acc)[NT][4], const uint32_t (&a)[4],
-                                       const uint8_t* b_tile, int ks) {
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-    uint32_t b[4];
-    load_b_nk<H>(b, b_tile, np * 16, ks * 16);
-    mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// acc (16 x 8 NT) += A B^T over the whole depth H: A (16 x H) held as
-// fragments, or rows m0 .. m0 + 15 of a_tile.
-template <int H, int NT>
-__device__ __forceinline__ void product_nk(float (&acc)[NT][4], const uint32_t (&a)[H / 16][4],
-                                           const uint8_t* b_tile) {
-#pragma unroll
-  for (int ks = 0; ks < H / 16; ++ks) mma_nk<H, NT>(acc, a[ks], b_tile, ks);
-}
-template <int H, int NT>
-__device__ __forceinline__ void product_nk(float (&acc)[NT][4], const uint8_t* a_tile, int m0,
-                                           const uint8_t* b_tile) {
-#pragma unroll
-  for (int ks = 0; ks < H / 16; ++ks) {
-    uint32_t a[4];
-    load_a<H>(a, a_tile, m0, ks * 16);
-    mma_nk<H, NT>(acc, a, b_tile, ks);
-  }
-}
-
-// acc (16 x H) += X B: X is 16 x 8 NT as fp32 C fragments, rounded to bf16
-// (two C tiles make one A fragment); B is rows 0 .. 8 NT - 1 of b_tile ("kn").
-template <int H, int NT>
-__device__ __forceinline__ void product_kn(float (&acc)[H / 8][4], const float (&x)[NT][4],
-                                           const uint8_t* b_tile) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nh = 0; nh < H / 16; ++nh) {
-      uint32_t b[4];
-      load_b_kn<H>(b, b_tile, nh * 16, kk * 16);
-      mma_bf16(acc[2 * nh], a, b[0], b[1]);
-      mma_bf16(acc[2 * nh + 1], a, b[2], b[3]);
-    }
   }
 }
 
@@ -911,13 +824,6 @@ __device__ __forceinline__ void key_bounds(const Shape& sh, int row, int& lo, in
   const int pos = row / sh.group;
   hi = row < sh.rows_q ? (sh.causal ? min(pos, sh.s_kv - 1) : sh.s_kv - 1) : -1;
   lo = sh.window > 0 ? pos - sh.window + 1 : 0;
-}
-
-// 2^x in one MUFU instruction; results below 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int H, int BK>

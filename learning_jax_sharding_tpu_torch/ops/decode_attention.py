@@ -23,6 +23,15 @@ cache position ``i`` lives at ``(block_table[b, i // page], :, i % page)``;
 the logical capacity is ``T·page``. Both versions translate each logical row
 through the table and compute what the contiguous layout computes; the
 continuous engine (``models/serving.py``) owns the table.
+
+The kernel has two designs (:func:`_design`): ``"tensor_core"`` (bf16
+``mma.sync`` products into fp32) for chunks of at least 16 folded rows in
+bf16 (the engine's refill, the prompt's prefill), ``"cuda_core"`` (fp32
+FMAs) otherwise. Both split the cache span into ``splits`` pieces
+(:func:`_splits`, flash-decoding): each block attends one piece and writes
+its partial softmax, and a second kernel merges the pieces in fixed order.
+:func:`split_ranges` and :func:`decode_attention_split_reference` are the
+plain versions of the pieces and of that merge.
 """
 
 from __future__ import annotations
@@ -39,6 +48,15 @@ _BLOCK_Q = 128    # q rows per tile, as the JAX kernel
 _MAX_TILE_ROWS = 128   # kMaxRows in csrc/decode_attention.cu
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODES = {"cuda_core": 0, "tensor_core": 1}
+TILE_K = 64          # cache slots a tile (kTileK); pieces are whole tiles
+TC_ROWS = 64         # folded q rows a tensor-core block (tcd::kTcRows)
+TC_MIN_ROWS = 16     # one mma.sync tile of rows
+MAX_SPLITS = 16      # kMaxSplits
+# Blocks a launch should reach through its split, per design: fitted on an
+# H100 (132 SMs) by chip_smoke.py's split sweep at the four main-path shapes
+# (PERF.md section 6, decode attention).
+SPLIT_TARGET_BLOCKS = {"tensor_core": 192, "cuda_core": 384}
 
 
 def auto_block_k(length: int, cap: int = 256) -> int:
@@ -81,33 +99,71 @@ def decode_attention_reference(
     folded write lands at each row's mapped page and slot, then every row's
     logical view is gathered and attended as a contiguous cache. Takes
     validated arguments (see :func:`decode_attention`)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    _fold(q.shape[0], k_cache, v_cache, index, k_new=k_new, v_new=v_new, ks_new=ks_new,
+          vs_new=vs_new, k_scale=k_scale, v_scale=v_scale, write_enable=write_enable,
+          block_table=block_table)
+    out = _attend(q, *_logical(k_cache, v_cache, k_scale, v_scale, block_table), index,
+                  window, scale)
+    return _with_caches(out, k_new, k_cache, v_cache, k_scale, v_scale)
+
+
+def _with_caches(out, k_new, k_cache, v_cache, k_scale, v_scale):
+    """The public return: ``out``, or with the folded write the caches too."""
+    if k_new is None:
+        return out
+    return (out, k_cache, v_cache) + ((k_scale, v_scale) if k_scale is not None else ())
+
+
+def _fold(b, k_cache, v_cache, index, *, k_new, v_new, ks_new, vs_new, k_scale, v_scale,
+          write_enable, block_table):
+    """The folded write, IN PLACE: each enabled row's new k/v (and int8
+    scales) at slot ``index_b`` of its cache, or of its mapped page."""
+    if k_new is None:
+        return
+    merges = [(k_cache, k_new), (v_cache, v_new)]
+    if k_scale is not None:
+        merges += [(k_scale, ks_new), (v_scale, vs_new)]
     if block_table is not None:
-        return _paged_reference(
-            q, k_cache, v_cache, index, block_table, k_scale=k_scale, v_scale=v_scale,
-            k_new=k_new, v_new=v_new, ks_new=ks_new, vs_new=vs_new,
-            write_enable=write_enable, window=window, scale=scale,
-        )
-    b, s, n, h = q.shape
+        page = k_cache.shape[2]
+        length = block_table.shape[1] * page
+        rows = _fold_keep(index, write_enable, b, length, k_cache.device).nonzero()[:, 0]
+        at = _row_index(index, b, k_cache.device)[rows].long()
+        pages = block_table[rows, at // page].long()
+        for pool, new in merges:
+            pool[pages, :, at % page] = new[rows, :, 0].to(pool.dtype)
+        return
+    length = k_cache.shape[2]
+    idx = _row_index(index, b, k_cache.device)
+    slot = idx.long().clamp(0, length - 1)
+    keep = _fold_keep(idx, write_enable, b, length, k_cache.device)
+    for cache, new in merges:
+        lead = (b,) + (1,) * (cache.ndim - 1)          # per row, at dim 2
+        at = slot.view(lead).expand(*new.shape)
+        merged = torch.where(keep.view(lead), new.to(cache.dtype), cache.gather(2, at))
+        cache.scatter_(2, at, merged)
+
+
+def _logical(k_cache, v_cache, k_scale, v_scale, block_table):
+    """Each row's logical caches (and scales): the caches themselves, or
+    gathered from page pools through the table (copies)."""
+    if block_table is None:
+        return k_cache, v_cache, k_scale, v_scale
+    return tuple(None if t is None else _paged_view(t, block_table)
+                 for t in (k_cache, v_cache, k_scale, v_scale))
+
+
+def _scores(q, k_cache, k_scale, index, window, scale):
+    """fp32 scores ``(B, N, S, L)`` of the folded heads (int8: times the k
+    scales) and the kept mask ``(B, 1, S, L)``: causal from each row's
+    index, the window, the cache's end."""
+    b, s, n, _ = q.shape
     n_kv, length = k_cache.shape[1], k_cache.shape[2]
     group = n // n_kv
-    scale = h**-0.5 if scale is None else scale
     idx = _row_index(index, b, q.device)
-    quantized = k_scale is not None
-    if k_new is not None:
-        slot = idx.long().clamp(0, length - 1)
-        keep = _fold_keep(idx, write_enable, b, length, q.device)
-        merges = [(k_cache, k_new), (v_cache, v_new)]
-        if quantized:
-            merges += [(k_scale, ks_new), (v_scale, vs_new)]
-        for cache, new in merges:
-            lead = (b,) + (1,) * (cache.ndim - 1)          # per row, at dim 2
-            at = slot.view(lead).expand(*new.shape)
-            merged = torch.where(keep.view(lead), new.to(cache.dtype), cache.gather(2, at))
-            cache.scatter_(2, at, merged)
     k = k_cache.float().repeat_interleave(group, dim=1)       # (B, N, L, H)
-    v = v_cache.float().repeat_interleave(group, dim=1)
     scores = torch.einsum("bsnh,bnlh->bnsl", q.float() * scale, k)
-    if quantized:
+    if k_scale is not None:
         # Per-(token, head) scales are constant over H: they scale the
         # score columns after the contraction.
         scores = scores * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
@@ -116,20 +172,23 @@ def decode_attention_reference(
     mask = cols[None, None, :] <= qpos[:, :, None]                   # (B, S, L)
     if window is not None:
         mask = mask & (cols[None, None, :] > qpos[:, :, None] - window)
-    scores = torch.where(mask[:, None], scores, _NEG_INF)
+    return scores, mask[:, None]
+
+
+def _attend(q, k_cache, v_cache, k_scale, v_scale, index, window, scale):
+    """Dense masked attention over contiguous caches → ``(B, S, N, H)``."""
+    group = q.shape[2] // k_cache.shape[1]
+    scores, mask = _scores(q, k_cache, k_scale, index, window, scale)
+    scores = torch.where(mask, scores, _NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
-    if quantized:
+    if v_scale is not None:
         # l sums the unscaled p; the v scales weight the probability columns.
         p = p * v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    v = v_cache.float().repeat_interleave(group, dim=1)
     out = torch.einsum("bnsl,bnlh->bsnh", p / torch.where(l == 0, 1.0, l), v)
-    out = out.to(q.dtype)
-    if k_new is not None:
-        if quantized:
-            return out, k_cache, v_cache, k_scale, v_scale
-        return out, k_cache, v_cache
-    return out
+    return out.to(q.dtype)
 
 
 def _fold_keep(index, write_enable, b: int, length: int, device) -> torch.Tensor:
@@ -149,34 +208,138 @@ def _paged_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return view.reshape(*view.shape[:2], -1, *view.shape[4:])
 
 
-def _paged_reference(q, k_cache, v_cache, index, block_table, *, k_scale, v_scale,
-                     k_new, v_new, ks_new, vs_new, write_enable, window, scale):
-    """:func:`decode_attention_reference` over page pools."""
-    b = q.shape[0]
-    page = k_cache.shape[2]
-    length = block_table.shape[1] * page
-    quantized = k_scale is not None
-    if k_new is not None:
-        rows = _fold_keep(index, write_enable, b, length, q.device).nonzero()[:, 0]
-        at = _row_index(index, b, q.device)[rows].long()
-        pages = block_table[rows, at // page].long()
-        slots = at % page
-        merges = [(k_cache, k_new), (v_cache, v_new)]
-        if quantized:
-            merges += [(k_scale, ks_new), (v_scale, vs_new)]
-        for pool, new in merges:
-            pool[pages, :, slots] = new[rows, :, 0].to(pool.dtype)
-    scales = {}
-    if quantized:
-        scales = dict(k_scale=_paged_view(k_scale, block_table),
-                      v_scale=_paged_view(v_scale, block_table))
-    out = decode_attention_reference(
-        q, _paged_view(k_cache, block_table), _paged_view(v_cache, block_table), index,
-        window=window, scale=scale, **scales,
-    )
-    if k_new is not None:
-        return (out, k_cache, v_cache) + ((k_scale, v_scale) if quantized else ())
-    return out
+def split_ranges(index, s: int, group: int, window: int | None, length: int,
+                 splits: int, tile_rows: int | None = None) -> torch.Tensor:
+    """The cache slots each block of a split launch attends, as the kernels
+    compute them on the device (``piece_tiles``) → ``(B, tiles, splits, 2)``
+    int64 ``[start, end)``. Block (q tile, piece) takes its rows' span, from
+    the first row's window start to the last row's causal frontier (clipped
+    to the cache), cut into ``splits`` pieces of whole ``TILE_K``-slot tiles
+    as evenly as whole tiles allow; a piece with no tile is empty
+    (``start == end``). ``index``: an int or ``(B,)``; folded row ``g`` of a
+    row is query ``g // group``, at ``index_b + g // group``; ``tile_rows``
+    folded rows a q tile (default: all ``s·group`` in one)."""
+    idx = torch.as_tensor(index, dtype=torch.int64).reshape(-1)
+    total = s * group
+    tile_rows = total if tile_rows is None else tile_rows
+    row0 = torch.arange(0, total, tile_rows, device=idx.device)
+    row_last = (row0 + tile_rows).clamp(max=total) - 1
+    first_pos = idx[:, None] + row0 // group                       # (B, tiles)
+    last_col = (idx[:, None] + row_last // group).clamp(max=length - 1)
+    first_col = ((first_pos - window + 1).clamp(min=0) if window
+                 else torch.zeros_like(first_pos))
+    first_kt = first_col // TILE_K
+    n = torch.where(last_col >= first_col, last_col // TILE_K - first_kt + 1, 0)
+    piece = torch.arange(splits, device=idx.device)
+    kt0 = first_kt[..., None] + piece * n[..., None] // splits     # (B, tiles, splits)
+    kt1 = first_kt[..., None] + (piece + 1) * n[..., None] // splits
+    start = torch.maximum(first_col[..., None], kt0 * TILE_K)
+    end = torch.where(kt1 > kt0, torch.minimum(last_col[..., None] + 1, kt1 * TILE_K), start)
+    return torch.stack([start, end], dim=-1)
+
+
+def decode_attention_split_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    index,
+    *,
+    splits: int,
+    tile_rows: int | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+    k_new: torch.Tensor | None = None,
+    v_new: torch.Tensor | None = None,
+    ks_new: torch.Tensor | None = None,
+    vs_new: torch.Tensor | None = None,
+    write_enable: torch.Tensor | None = None,
+    block_table: torch.Tensor | None = None,
+    window: int | None = None,
+    scale: float | None = None,
+):
+    """The plain version of a split launch: the folded write as
+    :func:`decode_attention_reference`, then per (q tile, piece) of
+    :func:`split_ranges` a partial softmax over the piece's kept slots (m,
+    l of the unscaled p, acc = p·v_scale·V; a piece a row attends nowhere
+    gives l = 0), and per folded row the pieces merged in piece order over
+    those with l > 0: m the largest of their m, out = Σ acc·e^(m_p - m) /
+    Σ l·e^(m_p - m), l == 0 guarded to 1. Arguments as
+    :func:`decode_attention_reference`."""
+    b, s, n, h = q.shape
+    scale = h**-0.5 if scale is None else scale
+    _fold(b, k_cache, v_cache, index, k_new=k_new, v_new=v_new, ks_new=ks_new,
+          vs_new=vs_new, k_scale=k_scale, v_scale=v_scale, write_enable=write_enable,
+          block_table=block_table)
+    kc, vc, ks, vs = _logical(k_cache, v_cache, k_scale, v_scale, block_table)
+    n_kv, length = kc.shape[1], kc.shape[2]
+    group = n // n_kv
+    scores, kept = _scores(q, kc, ks, index, window, scale)           # (B, N, S, L)
+    ranges = split_ranges(_row_index(index, b, q.device), s, group, window, length, splits,
+                          tile_rows)                                  # (B, tiles, P, 2)
+    rows = (torch.arange(s, device=q.device)[None, :] * group
+            + torch.arange(n, device=q.device)[:, None] % group)      # (N, S) folded row
+    tile = rows // (s * group if tile_rows is None else tile_rows)
+    bounds = ranges[:, tile]                                          # (B, N, S, P, 2)
+    cols = torch.arange(length, device=q.device)
+    keep = (kept[:, :, :, None, :] & (cols >= bounds[..., :1])
+            & (cols < bounds[..., 1:]))                               # (B, N, S, P, L)
+    masked = torch.where(keep, scores[:, :, :, None, :], _NEG_INF)
+    m = masked.amax(dim=-1)                                           # (B, N, S, P)
+    p = torch.where(keep, torch.exp(masked - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * vs.repeat_interleave(group, dim=1)[:, :, None, None, :]
+    v = vc.float().repeat_interleave(group, dim=1)
+    acc = torch.einsum("bnspl,bnlh->bnsph", p, v)
+    seen = l > 0
+    m_max = torch.where(seen, m, -torch.inf).amax(dim=-1)
+    m_max = torch.where(seen.any(dim=-1), m_max, 0.0)
+    l_all = torch.zeros_like(m_max)
+    acc_all = torch.zeros_like(acc[..., 0, :])
+    for piece in range(splits):                                      # fixed order
+        w = torch.where(seen[..., piece], torch.exp(m[..., piece] - m_max), 0.0)
+        l_all = l_all + l[..., piece] * w
+        acc_all = acc_all + acc[..., piece, :] * w[..., None]
+    out = acc_all / torch.where(l_all == 0, 1.0, l_all)[..., None]
+    out = out.permute(0, 2, 1, 3).to(q.dtype)                         # (B, S, N, H)
+    return _with_caches(out, k_new, k_cache, v_cache, k_scale, v_scale)
+
+
+def _design(dtype: torch.dtype, rows: int, head_dim: int) -> str:
+    """The kernel's design for a launch of ``rows`` folded query rows
+    (S·group) a (batch row, kv head): ``"tensor_core"`` (bf16 ``mma.sync``
+    products into fp32, 64-row q tiles) for bf16 chunks of at least one
+    16-row MMA tile -- the engine's refill, the prompt's prefill; otherwise
+    ``"cuda_core"``: fp32, whose products tensor cores would take only as
+    TF32, and the token step's few rows, which an MMA tile would mostly
+    pad."""
+    if dtype == torch.bfloat16 and rows >= TC_MIN_ROWS and head_dim in _HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _splits(b: int, n_kv: int, tiles: int, length: int, design: str) -> int:
+    """Pieces of the cache span a launch cuts: enough that the grid of
+    ``b · n_kv · tiles`` blocks reaches ``SPLIT_TARGET_BLOCKS[design]``, at
+    most one a ``TILE_K``-slot tile of the capacity ``length`` and at most
+    ``MAX_SPLITS``. From the host's shapes alone: the valid prefix lives on
+    the device, and a piece past it is empty and exits at once."""
+    want = -(-SPLIT_TARGET_BLOCKS[design] // (b * n_kv * tiles))
+    return max(1, min(MAX_SPLITS, -(-length // TILE_K), want))
+
+
+def _plan(dtype, b, s, n, n_kv, h, length, block_q=_BLOCK_Q, design=None, splits=None):
+    """The launch :func:`decode_attention` makes for a shape → ``(design,
+    splits, tile_rows)``: the design :func:`_design` picks (or the one
+    given), the q tile rows of the CUDA-core design (``block_q // group``
+    whole queries, at most ``_MAX_TILE_ROWS``; the tensor-core design takes
+    ``TC_ROWS``), and the split :func:`_splits` picks for that design's q
+    tiles (or the one given)."""
+    group = n // n_kv
+    tile_rows = min(min(s, max(1, block_q // group)) * group, _MAX_TILE_ROWS)
+    design = design or _design(dtype, s * group, h)
+    tiles = -(-s * group // (TC_ROWS if design == "tensor_core" else tile_rows))
+    return design, splits or _splits(b, n_kv, tiles, length, design), tile_rows
 
 
 @functools.cache
@@ -184,17 +347,19 @@ def _kernel_entry():
     """The C entry point of ``csrc/decode_attention.cu``, typed for ctypes."""
     fn = load_library("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
 def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
-                 window, scale, tile_rows, scales, block_table=None):
+                 window, scale, tile_rows, scales, block_table=None, *,
+                 design="cuda_core", splits=1):
     """Check what the kernel takes, then launch it on the current stream.
     ``scales``: ``(k_scale, v_scale, ks_new, vs_new)`` of an int8 cache, or
-    Nones. ``block_table``: the paged table (the caches are then pools)."""
+    Nones. ``block_table``: the paged table (the caches are then pools).
+    ``design`` and ``splits`` as :func:`_design` and :func:`_splits` give
+    them; above one piece the partials go to a workspace made here."""
     b, s, n, h = q.shape
     n_kv = k_cache.shape[1]
     if block_table is None:
@@ -227,26 +392,38 @@ def _launch_cuda(q, k_cache, v_cache, idx, k_new, v_new, write_enable,
         )
     if h not in _HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes head_dim 64 or 128, got {h}")
-    for name in ("k_cache", "v_cache"):
+    if design == "tensor_core" and q.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core design takes bfloat16 q, got {q.dtype}")
+    aligned = ("q", "k_cache", "v_cache") if design == "tensor_core" else ("k_cache", "v_cache")
+    for name in aligned:
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     fn = _kernel_entry()
     out = torch.empty_like(q)
+    # Partials of each (piece, row, kv head, folded row): m and l, then acc.
+    workspace = (torch.empty(splits * b * n * s * (h + 2), dtype=torch.float32,
+                             device=q.device) if splits > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), idx.data_ptr(),
             ptr(k_new), ptr(v_new), ptr(write_enable), *map(ptr, scales),
-            out.data_ptr(), ptr(block_table), _DTYPE_CODES[q.dtype], int(quantized), b, s, n,
-            n_kv, length, h, 0 if window is None else window, scale, tile_rows, t_cap, page,
-            stream,
+            out.data_ptr(), ptr(block_table), ptr(workspace), _DTYPE_CODES[q.dtype],
+            int(quantized), b, s, n, n_kv, length, h, 0 if window is None else window, scale,
+            tile_rows, t_cap, page, _DESIGN_CODES[design], splits, stream,
         )
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: error {err}")
+        raise RuntimeError(
+            f"decode_attention kernel launch failed ({design}, splits {splits}): error {err}"
+        )
     decode_attention.launches += 1
     if block_table is not None:
         decode_attention.paged_launches += 1
+    if design == "tensor_core":
+        decode_attention.tensor_core_launches += 1
+    if splits > 1:
+        decode_attention.split_launches += 1
     return out
 
 
@@ -268,6 +445,8 @@ def decode_attention(
     scale: float | None = None,
     block_k: int | None = None,
     block_q: int = _BLOCK_Q,
+    design: str | None = None,
+    splits: int | None = None,
 ):
     """Attend chunk queries against the valid prefix of a KV cache.
 
@@ -302,6 +481,11 @@ def decode_attention(
             write lands at the row's mapped page and slot. Entries past a
             row's frontier are never read; they should name a scratch page
             (the engine's page 0) for the masked writes of chunk prefill.
+        design / splits: the kernel's design (``"tensor_core"``, bf16 only,
+            or ``"cuda_core"``) and the pieces of the cache span; None takes
+            :func:`_design` and :func:`_splits`. Given only to hold one
+            design or split against another; CPU tensors run the plain
+            version whatever they say.
 
     Returns:
         ``(B, S, N, H)`` in ``q.dtype``, or ``(out, k_cache, v_cache)`` with
@@ -365,6 +549,10 @@ def decode_attention(
     else:
         ks_new = vs_new = None
     scales = dict(k_scale=k_scale, v_scale=v_scale, ks_new=ks_new, vs_new=vs_new)
+    if design is not None and design not in _DESIGN_CODES:
+        raise ValueError(f"design must be one of {tuple(_DESIGN_CODES)}, got {design!r}")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got {splits}")
 
     if q.device.type == "cpu":
         return decode_attention_reference(
@@ -379,18 +567,23 @@ def decode_attention(
         )
     idx = _row_index(index, b, q.device)
     enable = None if write_enable is None else _row_index(write_enable, b, q.device)
-    qb = min(s, max(1, block_q // group))
-    tile_rows = min(qb * group, _MAX_TILE_ROWS)
+    design, splits, tile_rows = _plan(q.dtype, b, s, n, n_kv, h, length, block_q, design,
+                                      splits)
     out = _launch_cuda(
         q, k_cache, v_cache, idx, k_new, v_new, enable, window, scale, tile_rows,
-        (k_scale, v_scale, ks_new, vs_new), block_table,
+        (k_scale, v_scale, ks_new, vs_new), block_table, design=design, splits=splits,
     )
     if fold:
         return (out, k_cache, v_cache) + ((k_scale, v_scale) if quantized else ())
     return out
 
 
-#: Kernel launches since the last reset; the wrapper adds one per launch,
-#: and one to ``paged_launches`` too when the launch reads a block table.
+#: Kernel launches since the last reset; the wrapper adds one per call that
+#: launches, and one to ``paged_launches`` too when the launch reads a block
+#: table, to ``tensor_core_launches`` when it runs the tensor-core design, to
+#: ``split_launches`` when it cuts the cache span into pieces (its merge is
+#: part of the same call).
 decode_attention.launches = 0
 decode_attention.paged_launches = 0
+decode_attention.tensor_core_launches = 0
+decode_attention.split_launches = 0
