@@ -10,8 +10,9 @@ with float and int8 caches, and over page pools through a block table, where
 it must also give the contiguous kernel's bits; flash attention, its
 backward in both designs (tensor cores, which bf16 takes, and CUDA cores,
 which fp32 takes); the int4
-kernels in both designs (tensor cores for prefill rows, CUDA cores for
-decode), the fused residual+norm forward and backward). Then drives the
+kernels in every design (small-M tensor cores for decode rows, unsplit and
+split over K; tensor cores for prefill rows; CUDA cores), the fused
+residual+norm forward and backward). Then drives the
 port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
@@ -21,8 +22,10 @@ same int8 cache); int4 quantized serving of the same model through
 ``make_generate_fn(dequantize="fused" | "fused_w4a8")`` over
 ``quantize_tree(bits=4)``, checked against the dense bf16 model on the
 dequantized weights, its prefill's int4 matmuls held to the tensor-core
-design and its decode steps' to the CUDA-core one, then the decode ladder
-(bf16, int8, int4-fused, int4-w4a8) and the int4 prefill alone; the
+design and its decode steps' to the small-M one, then the decode ladder
+(bf16, int8, int4-fused, int4-w4a8), the int4 prefill alone and the int4
+generates against the same calls with their decode matmuls on the CUDA
+cores; the
 continuous engine (``models/serving.py``) on
 ``bench.py::bench_serving_125m``'s workload, unpaged, paged, with the prefix
 cache cold and warm, and int4-fused + paged + prefix, every paged variant's
@@ -208,6 +211,9 @@ INT4_CHECK_GROUPS = (64, 128, None)
 # cross over (a decode batch of that many slots); the engine's refill chunk;
 # generate's prefill.
 INT4_TIME_ROWS = (B, 16, 32, 64, B * PAGED_CHUNK, B * PROMPT)
+# HBM-cold timing (decode rows): calls rotate through copies of the weights
+# that together hold this many bytes, past the H100's 50 MB L2.
+COLD_BYTES = 120_000_000
 # Teacher-forced gap of the quantized runs against the dense bf16 model on the
 # dequantized weights. int4-fused: the same bf16 weights except the whole-FF
 # kernel, which keeps the hidden activation and down weights in fp32 where
@@ -1077,10 +1083,11 @@ def run_fused_generate(params, gen, tf_model, card):
 
 def interleaved_seconds(calls: dict, rounds: int = 3) -> dict:
     """Host seconds of each synchronised call, every round running each call
-    once in turn (no variant always runs first after another's work)."""
+    once in turn, every other round in reverse order (no variant always
+    runs first, or always right after the same other one)."""
     times = {name: [] for name in calls}
-    for _ in range(rounds):
-        for name, call in calls.items():
+    for r in range(rounds):
+        for name, call in (list(calls.items())[::-1] if r % 2 else calls.items()):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             call()
@@ -1310,6 +1317,35 @@ def queued_time(fn, *args, inner=20, repeats=7, **kwargs):
         end.synchronize()
         samples.append(start.elapsed_time(end) / 1e3 / inner)
     return statistics.median(samples), late
+
+
+def cold_time(calls, repeats=5):
+    """``queued_time`` for calls that each read their own copy of the
+    weights: one sample runs every call once, in turn, so that the copies
+    (together larger than the 50 MB L2, ``COLD_BYTES``) leave each call
+    to read its weights from HBM. Returns (median seconds per call, samples
+    whose enqueue outlasted the sleep)."""
+    for call in calls[:3]:
+        call()
+    torch.cuda.synchronize()
+    samples, late = [], 0
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)        # ~20 ms: the enqueue of a few hundred calls
+        start.record()
+        for call in calls:
+            call()
+        late += bool(start.query())
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / 1e3 / len(calls))
+    return statistics.median(samples), late
+
+
+def copies_past_l2(nbytes: int) -> int:
+    """Copies of ``nbytes`` of weights that together exceed ``COLD_BYTES``."""
+    return max(2, -(-COLD_BYTES // nbytes))
 
 
 def time_fused_norm(gen, card):
@@ -1575,14 +1611,22 @@ def run_engine_path(params, q4, card):
                                  f"every token step's split")
         if launches["int4_matmul3"]:
             # Refill chunks (8 x 64 rows) take the tensor-core design, decode
-            # steps (8 rows) the CUDA-core one: both counts whole layers.
-            tc = launches["int4_matmul3_tensor_core"]
-            log(f"[engine] {label}: int4 triple {launches['int4_matmul3']} launches ({tc} "
-                f"tensor-core, the refill chunks), w4a16 {launches['int4_matmul']} "
-                f"({launches['int4_matmul_tensor_core']} tensor-core)")
-            if launches["int4_matmul3"] != want or not 0 < tc < want or tc % cfg.num_layers:
-                raise AssertionError(f"engine {label}: int4 launches {launches}, want {want} "
-                                     f"triples, whole layers of them on the tensor cores")
+            # calls (8 rows) the small-M one: the triples a layer, the w4a16
+            # launches (out-projections and the lm_head) a layer and one more.
+            got = {k: launches[k] for k in (
+                "int4_matmul3", "int4_matmul3_tensor_core", "int4_matmul3_small_m",
+                "int4_matmul", "int4_matmul_tensor_core", "int4_matmul_small_m")}
+            triples = dict(zip(("tensor_core", "small_m"), (cfg.num_layers * len(refills), steps)))
+            w16 = {k: v // cfg.num_layers * (cfg.num_layers + 1) for k, v in triples.items()}
+            expect = {"int4_matmul3": want, "int4_matmul3_tensor_core": triples["tensor_core"],
+                      "int4_matmul3_small_m": triples["small_m"],
+                      "int4_matmul": want // cfg.num_layers * (cfg.num_layers + 1),
+                      "int4_matmul_tensor_core": w16["tensor_core"],
+                      "int4_matmul_small_m": w16["small_m"]}
+            log(f"[engine] {label}: int4 launches {got} (want {expect}: the refill chunks on "
+                f"the tensor cores, every decode call on the small-M design)")
+            if got != expect:
+                raise AssertionError(f"engine {label}: int4 launches {got}, want {expect}")
         for out, p in zip(outs, prompts):
             if out.shape != (len(p) + ENGINE_NEW,) or not np.array_equal(out[: len(p)], p):
                 raise AssertionError(f"engine {label}: output {out.shape} is not the prompt "
@@ -1640,18 +1684,21 @@ def run_engine_path(params, q4, card):
             latencies.setdefault(label, []).append(serve.last_latency)
         return run_once
 
-    secs = interleaved_seconds({
-        label: call(label, name, cold=label.endswith("cold"))
-        for label, name in (("unpaged", "unpaged"), ("paged", "paged"),
-                            ("paged+prefix cold", "paged+prefix"),
-                            ("paged+prefix warm", "paged+prefix"),
-                            ("int4+paged+prefix warm", "int4+paged+prefix"))
-    })
+    int4_cc = "int4+paged+prefix warm, decode on the CUDA cores"
+    calls = {label: call(label, name, cold=label.endswith("cold"))
+             for label, name in (("unpaged", "unpaged"), ("paged", "paged"),
+                                 ("paged+prefix cold", "paged+prefix"),
+                                 ("paged+prefix warm", "paged+prefix"),
+                                 ("int4+paged+prefix warm", "int4+paged+prefix"))}
+    # The int4 engine once more with its decode calls' matmuls (the small-M
+    # design's) on the CUDA-core design: what the redesign moved end to end.
+    calls[int4_cc] = on_design(call(int4_cc, "int4+paged+prefix"), "cuda_core", only="small_m")
+    secs = interleaved_seconds(calls)
     timing = {}
     for label, times in secs.items():
         sec = statistics.median(times)
         lats = latencies[label]
-        st = runs[label]["stats"]
+        st = runs[label if label != int4_cc else "int4+paged+prefix warm"]["stats"]
         timing[label] = dict(
             tok_s=ENGINE_REQUESTS * ENGINE_NEW / sec, seconds=times, median_s=sec,
             ttft_p50=statistics.median(x["ttft_p50"] for x in lats),
@@ -1668,11 +1715,20 @@ def run_engine_path(params, q4, card):
         f"125M engine serve, paged + prefix warm, per model call ({calls} a serve)",
         lambda: serve(tree, prompts), calls,
         timing["paged+prefix warm"]["median_s"] * 1e3 / calls)
+    serve, tree = engines["int4+paged+prefix"]
+    calls = runs["int4+paged+prefix warm"]["model_forwards"]
+    int4_profiles = {label: profile_summary(
+        f"125M engine serve, {label}, per model call ({calls} a serve)", run, calls,
+        timing[label]["median_s"] * 1e3 / calls)
+        for label, run in (("int4+paged+prefix warm", lambda: serve(tree, prompts)),
+                           (int4_cc, on_design(lambda: serve(tree, prompts), "cuda_core",
+                                               only="small_m")))}
     summary = {label: dict(stats=r["stats"], launches=r["launches"],
                            model_forwards=r["model_forwards"], latency=r["latency"])
                for label, r in runs.items()}
     del engines
     return dict(runs=summary, teacher_forced_max_gap=gaps, timing=timing, profile=profile,
+                int4_profiles=int4_profiles,
                 paged_launches=runs["paged+prefix warm"]["launches"]["decode_attention_paged"])
 
 
@@ -1693,36 +1749,50 @@ def rel_err(name, got, want):
 
 
 def int4_designs(m, k, n, ng, group, dtype, w4a8, nw=1):
-    """At a shape: the wrapper's choice as ``(design, tile rows or None)``,
-    and each other design (w4a16: and tensor-core tile) the layout takes,
-    launched directly beside it."""
+    """At a shape: the wrapper's choice as ``(design, tile rows or None,
+    splits)``, and each other launch the layout takes, launched directly
+    beside it: the CUDA-core design; the tensor-core one (w4a16: at each
+    tile); the small-M one unsplit and split (the rule's split, or 3 pieces
+    (2 where that is all the layout takes) where the rule keeps one)."""
     sms = mm4._sm_count(0)
     chosen = mm4._variant(m, k, n * nw, ng, group, dtype, w4a8, sms)
     tiles = [None] if w4a8 else [mm4.TILE_ROWS, mm4.SMALL_TILE_ROWS]
-    rule_tile = None if w4a8 or chosen == "cuda_core" else mm4._tile_rows(m, n, nw, sms)
-    every = [("cuda_core", None)]
+    rule_tile = mm4._tile_rows(m, n, nw, sms) if chosen == "tensor_core" and not w4a8 else None
+    every = [("cuda_core", None, 1)]
     if mm4._tensor_core_layout(k, ng, group, dtype, w4a8):
-        every += [("tensor_core", t) for t in tiles]
-    return (chosen, rule_tile), [d for d in every if d != (chosen, rule_tile)]
+        every += [("tensor_core", t, 1) for t in tiles]
+    rule_splits = 1
+    if mm4._small_m_layout(k, ng, group, dtype, w4a8):
+        rule_splits = mm4._splits(m, k, n, nw, ng, group, sms, w4a8)
+        choices = mm4.split_choices(k // 2, ng, group, w4a8)
+        split = rule_splits if rule_splits > 1 else choices[min(2, len(choices) - 1)]
+        every += [("small_m", None, 1)] + ([("small_m", None, split)] if split > 1 else [])
+    rule = (chosen, rule_tile, rule_splits if chosen == "small_m" else 1)
+    return rule, [d for d in every if d != rule]
 
 
-def design_name(design, tile=None):
-    return f"{design} {tile}-row" if tile else design
+def design_name(design, tile=None, splits=1):
+    if tile:
+        return f"{design} {tile}-row"
+    return f"{design} split" if splits > 1 else design
 
 
 def counted(kernel, chosen, call):
     """``call()`` through a wrapper, asserting that it counted one launch of
-    ``kernel`` and, beside it, one tensor-core launch exactly when the
-    wrapper's rule chose that design."""
+    ``kernel`` and, beside it, one launch of the design the wrapper's rule
+    chose (none for the CUDA-core design)."""
     def counts():
         if kernel == "int4_matmul3":
-            return mm4.int4_matmul3.launches, mm4.int4_matmul3.tensor_core_launches
+            return (mm4.int4_matmul3.launches, mm4.int4_matmul3.tensor_core_launches,
+                    mm4.int4_matmul3.small_m_launches)
         key = "w4a8" if kernel == "int4_matmul_w4a8" else "w4a16"
-        return mm4.int4_matmul.launches[key], mm4.int4_matmul.launches[f"{key}_tensor_core"]
+        launches = mm4.int4_matmul.launches
+        return launches[key], launches[f"{key}_tensor_core"], launches[f"{key}_small_m"]
 
     before = counts()
     out = call()
-    want = (before[0] + 1, before[1] + (chosen == "tensor_core"))
+    want = (before[0] + 1, before[1] + (chosen == "tensor_core"),
+            before[2] + (chosen == "small_m"))
     if counts() != want:
         raise AssertionError(f"{kernel} ({chosen}) counted {counts()}, want {want}")
     return out
@@ -1735,13 +1805,24 @@ def check_int4(gen):
     ``INT4_CHECK_GROUPS`` layout: through the public wrappers
     (``int4_matmul``, ``int4_matmul3``, ``int4_matmul(w4a8=True)``), whose
     counts must move as ``_variant`` says, and each other design (and
-    tile) the layout takes launched directly; the FF at its decode and
-    prefill shapes, an odd M, a whole-K/H group and group 64 → per kernel
-    and dtype the largest relative (checked) and absolute error over every
-    design, per design the same, and w4a8's count of outputs that are not
-    bit-equal."""
+    tile, and split) the layout takes launched directly; every small-M
+    launch twice, bit-equal; the FF at its decode and prefill shapes, an
+    odd M, a whole-K/H group and group 64 → per kernel and dtype the
+    largest relative (checked) and absolute error over every design, per
+    design the same, and w4a8's count of outputs that are not bit-equal."""
     worst, by_design = {}, {}
-    unequal = {"w4a8 outputs": 0, "not bit-equal": 0}
+    unequal = {"w4a8 outputs": 0, "not bit-equal": 0, "small_m relaunches": 0}
+
+    def again(design, first, launch):
+        """A small-M launch once more: its bits must not move."""
+        if design[0] != "small_m":
+            return
+        unequal["small_m relaunches"] += 1
+        second = launch()
+        for a, b in zip(first if isinstance(first, (list, tuple)) else [first],
+                        second if isinstance(second, (list, tuple)) else [second]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"small_m {design}: a second launch gave other bits")
     ff_cases = [("ff decode", B, 128), ("ff prefill", 1024, 128), ("ff m37", 37, 128),
                 ("ff whole-K/H group", B, 4096), ("ff group 64", B, 64)]
 
@@ -1774,28 +1855,42 @@ def check_int4(gen):
                              lambda: [mm4.int4_matmul(x, *pairs[0], group=group)]),
                             ("int4_matmul3", 3, lambda: mm4.int4_matmul3(x, pairs, group=group))):
                         chosen, others = int4_designs(m, k, n, ng, group, dtype, False, nw)
-                        launched = [(chosen, counted(kernel, chosen[0], wrapper))]
-                        launched += [(design, mm4._launch_w4a16(
-                            x, pairs[:nw], group=group, variant=design[0], tile_rows=design[1]))
-                            for design in others]
-                        for design, outs in launched:
+                        launched = [(chosen, counted(kernel, chosen[0], wrapper), wrapper)]
+                        for design in others:
+                            def launch(design=design):
+                                return mm4._launch_w4a16(
+                                    x, pairs[:nw], group=group, variant=design[0],
+                                    tile_rows=design[1], splits=design[2])
+                            launched.append((design, launch(), launch))
+                        for design, outs, launch in launched:
+                            again(design, outs, launch)
                             errs = [rel_err(name, o, w) for o, w in zip(outs, wants)]
                             note(kernel, design_name(*design), dtype, name,
                                  tuple(map(max, zip(*errs))), tol)
                     xq, sx = mm4.quantize_rows_int8(x)
                     want = mm4.int4_matmul_w4a8_reference(xq, sx, *pairs[0], group=group,
                                                           out_dtype=dtype)
-                    (chosen, _), others = int4_designs(m, k, n, ng, group, dtype, True)
-                    launched = [(chosen, counted(
-                        "int4_matmul_w4a8", chosen,
-                        lambda: mm4.int4_matmul(x, *pairs[0], group=group, w4a8=True)))]
-                    launched += [(design, mm4._launch_w4a8(xq, sx, *pairs[0], group=group,
-                                                           out_dtype=dtype, variant=design))
-                                 for design, _ in others]
-                    for design, got in launched:
+                    chosen, others = int4_designs(m, k, n, ng, group, dtype, True)
+
+                    def public():
+                        return mm4.int4_matmul(x, *pairs[0], group=group, w4a8=True)
+                    launched = [(chosen, counted("int4_matmul_w4a8", chosen[0], public), public)]
+                    for design in others:
+                        def launch(design=design):
+                            return mm4._launch_w4a8(xq, sx, *pairs[0], group=group,
+                                                    out_dtype=dtype, variant=design[0],
+                                                    splits=design[2])
+                        launched.append((design, launch(), launch))
+                    for design, got, launch in launched:
+                        again(design, got, launch)
+                        differ = int((got != want).sum().item())
+                        if differ and design[0] == "small_m":
+                            raise AssertionError(f"w4a8 {design} {name} {dtype}: {differ} "
+                                                 f"outputs not bit-equal to the plain version's")
                         unequal["w4a8 outputs"] += got.numel()
-                        unequal["not bit-equal"] += int((got != want).sum().item())
-                        note("int4_matmul_w4a8", design, dtype, name, rel_err(name, got, want),
+                        unequal["not bit-equal"] += differ
+                        note("int4_matmul_w4a8", design_name(*design), dtype, name,
+                             rel_err(name, got, want),
                              W4A8_TOL if dtype == torch.float32 else tol)
     for dtype in (torch.float32, torch.bfloat16):
         for name, m, g in ff_cases:
@@ -1813,9 +1908,10 @@ def check_int4(gen):
             f"{W4A8_TOL if kernel.endswith('w4a8') and dtype == torch.float32 else INT4_TOL[dtype]:.3g}), "
             f"at most {flips:.2e} of outputs differ")
     log(f"[int4] w4a8: {unequal['not bit-equal']} of {unequal['w4a8 outputs']} outputs not "
-        f"bit-equal to the plain version's (both designs, fp32 and bf16)")
-    log("[int4] every w4a16, triple and w4a8 case ran through its public wrapper, whose "
-        "launch and tensor-core counts moved as _variant says")
+        f"bit-equal to the plain version's (every design and split, fp32 and bf16)")
+    log(f"[int4] every w4a16, triple and w4a8 case ran through its public wrapper, whose "
+        f"launch and design counts moved as _variant says; {unequal['small_m relaunches']} "
+        f"small-M launches repeated bit-equal")
     return worst, by_design, unequal
 
 
@@ -1830,12 +1926,13 @@ def reset_launches() -> None:
     mm4.int4_matmul.launches = dict.fromkeys(mm4.int4_matmul.launches, 0)
     mm4.int4_matmul3.launches = 0
     mm4.int4_matmul3.tensor_core_launches = 0
+    mm4.int4_matmul3.small_m_launches = 0
     ff4.int4_ff.launches = 0
 
 
 def read_launches() -> dict:
-    """Each kernel's launches (both designs of the int4 matmuls), and the
-    tensor-core design's among them."""
+    """Each kernel's launches (every design of the int4 matmuls), and the
+    tensor-core and small-M designs' among them."""
     return {"int4_matmul": mm4.int4_matmul.launches["w4a16"],
             "int4_matmul_w4a8": mm4.int4_matmul.launches["w4a8"],
             "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
@@ -1845,7 +1942,10 @@ def read_launches() -> dict:
             "decode_attention_split": decode_attention.split_launches,
             "int4_matmul_tensor_core": mm4.int4_matmul.launches["w4a16_tensor_core"],
             "int4_matmul_w4a8_tensor_core": mm4.int4_matmul.launches["w4a8_tensor_core"],
-            "int4_matmul3_tensor_core": mm4.int4_matmul3.tensor_core_launches}
+            "int4_matmul3_tensor_core": mm4.int4_matmul3.tensor_core_launches,
+            "int4_matmul_small_m": mm4.int4_matmul.launches["w4a16_small_m"],
+            "int4_matmul_w4a8_small_m": mm4.int4_matmul.launches["w4a8_small_m"],
+            "int4_matmul3_small_m": mm4.int4_matmul3.small_m_launches}
 
 
 def run_quantized_path(params, gen):
@@ -1863,20 +1963,23 @@ def run_quantized_path(params, gen):
     layers = cfg.num_layers
     # One prefill (M = B × PROMPT rows) and NEW - 1 decode steps (M = B):
     # the prefill's int4 matmuls take the tensor-core design, every decode
-    # step's the CUDA-core design (ops/int4_matmul.py::_variant); decode
+    # step's the small-M design (ops/int4_matmul.py::_variant); decode
     # attention as in the bf16 generate (generate_decode_launches).
     attention = generate_decode_launches(cfg)
+    steps = NEW - 1
+    none = {"int4_matmul": 0, "int4_matmul_w4a8": 0, "int4_matmul3": 0, "int4_ff": 0,
+            "int4_matmul_tensor_core": 0, "int4_matmul_w4a8_tensor_core": 0,
+            "int4_matmul3_tensor_core": 0, "int4_matmul_small_m": 0,
+            "int4_matmul_w4a8_small_m": 0, "int4_matmul3_small_m": 0,
+            "decode_attention": layers * NEW, "decode_attention_paged": 0, **attention}
     want = {
-        "fused": {"int4_matmul": (layers + 1) * NEW, "int4_matmul_w4a8": 0,
-                  "int4_matmul3": layers * NEW, "int4_ff": layers * NEW,
-                  "decode_attention": layers * NEW, "decode_attention_paged": 0,
-                  "int4_matmul_tensor_core": layers + 1, "int4_matmul_w4a8_tensor_core": 0,
-                  "int4_matmul3_tensor_core": layers, **attention},
-        "fused_w4a8": {"int4_matmul": 0, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
-                       "int4_matmul3": 0, "int4_ff": 0, "decode_attention": layers * NEW,
-                       "decode_attention_paged": 0, "int4_matmul_tensor_core": 0,
+        "fused": {**none, "int4_matmul": (layers + 1) * NEW, "int4_matmul3": layers * NEW,
+                  "int4_ff": layers * NEW, "int4_matmul_tensor_core": layers + 1,
+                  "int4_matmul3_tensor_core": layers, "int4_matmul_small_m": (layers + 1) * steps,
+                  "int4_matmul3_small_m": layers * steps},
+        "fused_w4a8": {**none, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
                        "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
-                       "int4_matmul3_tensor_core": 0, **attention},
+                       "int4_matmul_w4a8_small_m": (6 * layers + 1) * steps},
     }
     rows, fns = {}, {}
     for mode in ("fused", "fused_w4a8"):
@@ -1944,19 +2047,53 @@ def run_ladder(params, q4, prompt, card, int4_fns):
     return rows, fns["int4-fused"]
 
 
-def on_design(fn, design, module=mm4, rule="_variant"):
-    """``fn`` with every kernel that ``module.rule`` routes launched on one
-    design (the int4 matmuls by default; ``flash, "_bwd_design"`` or
-    ``"_fwd_design"`` the flash backward or forward): the wrapper's rule is
-    patched for the call (a yardstick; the port never does this)."""
+def on_design(fn, design, module=mm4, rule="_variant", only=None):
+    """``fn`` with every kernel that ``module.rule`` routes (only those it
+    routes to ``only``, when given) launched on one design (the int4
+    matmuls by default; ``flash, "_bwd_design"`` or ``"_fwd_design"`` the
+    flash backward or forward): the wrapper's rule is patched for the call
+    (a yardstick; the port never does this)."""
     def call():
         chosen = getattr(module, rule)
-        setattr(module, rule, lambda *args: design)
+
+        def patched(*args):
+            return design if only is None or chosen(*args) == only else chosen(*args)
+        setattr(module, rule, patched)
         try:
             return fn()
         finally:
             setattr(module, rule, chosen)
     return call
+
+
+def time_int4_decode(q4, prompt, card, fns):
+    """The int4-fused and int4-w4a8 generates (b=8, prompt 128, +128), host
+    clock around a synchronised call, medians of 3 interleaved, beside the
+    same calls with every matmul that the rule gives the small-M design
+    (the decode steps') launched on the CUDA-core design instead; then each
+    of the four profiled: device-busy ms per token step and the int4
+    matmuls' ms per step (their kernels' profiled time over NEW steps)."""
+    calls = {}
+    for mode, name in (("fused", "int4-fused"), ("fused_w4a8", "int4-w4a8")):
+        run = functools.partial(fns[mode], q4, prompt)
+        calls[name] = run
+        calls[f"{name}, decode on the CUDA cores"] = on_design(run, "cuda_core", only="small_m")
+    times = interleaved_seconds(calls)
+    rows = {}
+    for name, run in calls.items():
+        sec = statistics.median(times[name])
+        ms = sec / NEW * 1e3
+        prof = profile_summary(f"125M {name} generate token step", run, NEW, ms)
+        int4_ms = sum(v for kernel, v in prof["port_kernels_ms_per_step"].items()
+                      if kernel.startswith("int4_matmul"))
+        rows[name] = dict(tok_s=B * NEW / sec, ms_per_token_step=ms, seconds=times[name],
+                          int4_matmul_ms_per_step=int4_ms, profile=prof)
+        log(f"[time] 125M {name} generate b={B} prompt {PROMPT} +{NEW} (interleaved): "
+            f"{B * NEW / sec:.1f} tok/s, {ms:.3f} ms/token-step (median of 3: "
+            f"{[round(t, 4) for t in times[name]]} s); profiled: device busy "
+            f"{prof['busy_ms_per_step']:.3f} ms a step, int4 matmuls {int4_ms:.4f} ms a step "
+            f"on {card}")
+    return rows
 
 
 def time_int4_prefill(q4, prompt, card):
@@ -2004,31 +2141,44 @@ def time_int4(gen, card):
     """Each int4 kernel at its 125M sites, bf16: w4a16 and w4a8 at every
     site and the q/k/v triple, at ``INT4_TIME_ROWS`` rows; the FF at decode
     and prefill. Each matmul row times every design on the same inputs,
-    launched directly: the tensor-core one (w4a16 and the triple: with 128-
-    and with 96-row tiles) and the CUDA-core one; ``ms`` is the one the
-    wrapper's rule takes. Beside them the plain version, the library
-    yardstick (``torch.matmul`` of x with the weight dequantized to bf16
-    beforehand; the FF: two of them and a GELU) and the bound (w4a8's
-    operations at the int8 peak, 1979 TOP/s)."""
+    launched directly: the small-M one (at the rule's split), the
+    tensor-core one (w4a16 and the triple: with 128- and with 96-row tiles)
+    and the CUDA-core one; ``ms`` is the one the wrapper's rule takes.
+    Beside them the plain version, the library yardstick (``torch.matmul``
+    of x with the weight dequantized to bf16 beforehand; the FF: two of them
+    and a GELU) and the bound (w4a8's operations at the int8 peak, 1979
+    TOP/s). At decode rows (M = B) each design and the yardstick also run
+    HBM-cold: every call reads its own copy of the weights, the copies past
+    the L2 (``cold_time``)."""
     bf16 = torch.bfloat16
     rows = {}
     sms = mm4._sm_count(0)
 
     def record(kernel, site, m, launch, plain, library, nbytes, ops, peak, variant=None,
-               tile=None):
-        """``launch(design, tile)`` launches one design; the FF has one.
-        ``variant`` and ``tile`` are the wrapper's choice."""
+               tile=None, splits=None, cold=None, split_layout=None):
+        """``launch(design, tile, weights, splits)`` launches one design on
+        the given weights (None: the row's own) and split (None: the rule's);
+        the FF has one design. ``variant``, ``tile`` and ``splits`` are the
+        wrapper's choice. ``cold``: (int4 weight copies, the yardstick's call
+        on a copy index, its copies); given at decode rows, where the
+        small-M design is also timed at every split it takes."""
         if not variant:
             designs = [(None, None)]
         elif kernel == "int4_matmul_w4a8":
-            designs = [("tensor_core", None), ("cuda_core", None)]
+            designs = [("small_m", None), ("tensor_core", None), ("cuda_core", None)]
         else:
-            designs = [("tensor_core", mm4.TILE_ROWS), ("tensor_core", mm4.SMALL_TILE_ROWS),
-                       ("cuda_core", None)]
+            designs = [("small_m", None), ("tensor_core", mm4.TILE_ROWS),
+                       ("tensor_core", mm4.SMALL_TILE_ROWS), ("cuda_core", None)]
         times, late = {}, 0
         for design in designs:
-            times[design], n_late = queued_time(launch, *design)
+            times[design], n_late = queued_time(launch, *design, None, None)
             late += n_late
+        sweep = {}
+        if cold and variant == "small_m":
+            for sp in mm4.split_choices(*split_layout):
+                if sp <= mm4.MAX_SMALL_M_SPLITS:
+                    sweep[sp], n_late = queued_time(launch, "small_m", None, None, sp)
+                    late += n_late
         plain_ms, plain_late = queued_time(plain, inner=3, repeats=5)
         lib_ms, lib_late = queued_time(library)
         bound_ms, by = bound(nbytes, ops, peak)
@@ -2038,22 +2188,42 @@ def time_int4(gen, card):
                    bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
                    late_samples=late + plain_late + lib_late)
         if variant:
-            row.update(variant=variant, tensor_core_ms=times["tensor_core", tc_tile] * 1e3,
+            row.update(variant=variant, small_m_ms=times["small_m", None] * 1e3,
+                       small_m_splits=splits, tensor_core_ms=times["tensor_core", tc_tile] * 1e3,
                        cuda_core_ms=times["cuda_core", None] * 1e3)
+            if sweep:
+                row["small_m_split_sweep_ms"] = {str(k): v * 1e3 for k, v in sweep.items()}
             if tc_tile:
                 row.update(tile_rows=tile, tile_ms={str(t): times["tensor_core", t] * 1e3
                                                     for _, t in designs if t})
+        if cold:
+            copies, lib_call, lib_copies = cold
+            secs = {design_name(*d): cold_time([functools.partial(launch, *d, w, None)
+                                                for w in copies])
+                    for d in designs}
+            lib_cold = cold_time([functools.partial(lib_call, i) for i in range(lib_copies)])
+            row["hbm_cold"] = dict(
+                {name: v[0] * 1e3 for name, v in secs.items()}, yardstick_ms=lib_cold[0] * 1e3,
+                copies=len(copies), yardstick_copies=lib_copies,
+                late_samples=sum(v[1] for v in secs.values()) + lib_cold[1])
         rows.setdefault(kernel, {})[f"{site} m={m}"] = row
         tiles = (" (" + ", ".join(f"{t}-row tiles {ms * 1e3:.2f} us" for t, ms in
-                                  row["tile_ms"].items()) + f"; the wrapper takes {tile})"
+                                  row["tile_ms"].items()) + ")"
                  if variant and tc_tile else "")
-        designs_us = (f"tensor-core {row['tensor_core_ms'] * 1e3:.2f} us{tiles}, CUDA-core "
-                      f"{row['cuda_core_ms'] * 1e3:.2f} us (the wrapper takes {variant}; "
-                      f"{row['cuda_core_ms'] / row['tensor_core_ms']:.2f}x)" if variant else
-                      f"kernel {row['ms'] * 1e3:.2f} us")
+        designs_us = (f"small-M {row['small_m_ms'] * 1e3:.2f} us ({splits} pieces), tensor-core "
+                      f"{row['tensor_core_ms'] * 1e3:.2f} us{tiles}, CUDA-core "
+                      f"{row['cuda_core_ms'] * 1e3:.2f} us (the wrapper takes {variant}; CUDA-core "
+                      f"over small-M {row['cuda_core_ms'] / row['small_m_ms']:.2f}x)" if variant
+                      else f"kernel {row['ms'] * 1e3:.2f} us")
+        cold_us = ("; HBM-cold " + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in row["hbm_cold"].items() if k.endswith("ms")
+            or k in (design_name(*d) for d in designs)) + " us" if cold else "")
+        sweep_us = ("; small-M by pieces " + ", ".join(
+            f"{k}: {v * 1e3:.2f}" for k, v in row["small_m_split_sweep_ms"].items()) + " us"
+            if sweep else "")
         log(f"[time] {kernel} {site} m={m} bf16: {designs_us}, bound {bound_ms * 1e3:.2f} us "
             f"({by}), plain {row['plain_ms'] * 1e3:.2f} us, bf16 dense yardstick "
-            f"{row['yardstick_ms'] * 1e3:.2f} us"
+            f"{row['yardstick_ms'] * 1e3:.2f} us{cold_us}{sweep_us}"
             + (f" ({row['late_samples']} samples enqueued past the sleep)" if row["late_samples"] else ""))
 
     int8_peak = 1979e12
@@ -2063,38 +2233,52 @@ def time_int4(gen, card):
         ng = s.shape[0]
         w = dequantize_leaf_int4(node, bf16)
         wbytes = q4.numel() + s.numel() * 4
+        copies = [(q4.clone(), s.clone()) for _ in range(copies_past_l2(wbytes))]
+        w_copies = [w.clone() for _ in range(copies_past_l2(w.numel() * 2))]
         for m in INT4_TIME_ROWS:
             x = randn(gen, m, k, dtype=bf16)
             xq, sx = mm4.quantize_rows_int8(x)
+            cold = (copies, lambda i: torch.matmul(x, w_copies[i]), len(w_copies)) if m == B else None
             record("int4_matmul", site, m,
-                   lambda d, t: mm4._launch_w4a16(x, [(q4, s)], group=128, variant=d,
-                                                  tile_rows=t),
+                   lambda d, t, ws, sp: mm4._launch_w4a16(x, [ws or (q4, s)], group=128,
+                                                          variant=d, tile_rows=t, splits=sp),
                    lambda: mm4.int4_matmul_reference(x, q4, s, group=128),
                    lambda: torch.matmul(x, w),
                    2 * m * k + wbytes + 2 * m * n, 2 * m * k * n, None,
-                   mm4._variant(m, k, n, ng, 128, bf16, False, sms), mm4._tile_rows(m, n, 1, sms))
+                   mm4._variant(m, k, n, ng, 128, bf16, False, sms), mm4._tile_rows(m, n, 1, sms),
+                   mm4._splits(m, k, n, 1, ng, 128, sms), cold, (k // 2, ng, 128, False))
             record("int4_matmul_w4a8", site, m,
-                   lambda d, _: mm4._launch_w4a8(xq, sx, q4, s, group=128, out_dtype=bf16,
-                                                 variant=d),
+                   lambda d, _, ws, sp: mm4._launch_w4a8(xq, sx, *(ws or (q4, s)), group=128,
+                                                         out_dtype=bf16, variant=d, splits=sp),
                    lambda: mm4.int4_matmul_w4a8_reference(xq, sx, q4, s, group=128,
                                                           out_dtype=bf16),
                    lambda: torch.matmul(x, w),
                    m * k + 4 * m + wbytes + 2 * m * n, 2 * m * k * n, int8_peak,
-                   mm4._variant(m, k, n, ng, 128, bf16, True, sms))
-        del node, q4, s, w
+                   mm4._variant(m, k, n, ng, 128, bf16, True, sms), None,
+                   mm4._splits(m, k, n, 1, ng, 128, sms, True), cold, (k // 2, ng, 128, True))
+        del node, q4, s, w, copies, w_copies
+        torch.cuda.empty_cache()
     nodes = [int4_weight(gen, 768, 768, 128) for _ in range(3)]
     pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
     w_qkv = torch.cat([dequantize_leaf_int4(nd, bf16) for nd in nodes], dim=1)
     wbytes = sum(q.numel() + sc.numel() * 4 for q, sc in pairs)
+    copies = [[(q.clone(), sc.clone()) for q, sc in pairs] for _ in range(copies_past_l2(wbytes))]
+    w_copies = [w_qkv.clone() for _ in range(copies_past_l2(w_qkv.numel() * 2))]
     for m in INT4_TIME_ROWS:
         x = randn(gen, m, 768, dtype=bf16)
+        cold = (copies, lambda i: torch.matmul(x, w_copies[i]), len(w_copies)) if m == B else None
         record("int4_matmul3", "qkv", m,
-               lambda d, t: mm4._launch_w4a16(x, pairs, group=128, variant=d, tile_rows=t),
+               lambda d, t, ws, sp: mm4._launch_w4a16(x, ws or pairs, group=128, variant=d,
+                                                      tile_rows=t, splits=sp),
                lambda: [mm4.int4_matmul_reference(x, *p, group=128) for p in pairs],
                lambda: torch.matmul(x, w_qkv),
                2 * m * 768 + wbytes + 3 * 2 * m * 768, 3 * 2 * m * 768 * 768, None,
                mm4._variant(m, 768, 3 * 768, pairs[0][1].shape[0], 128, bf16, False, sms),
-               mm4._tile_rows(m, 768, 3, sms))
+               mm4._tile_rows(m, 768, 3, sms),
+               mm4._splits(m, 768, 768, 3, pairs[0][1].shape[0], 128, sms), cold,
+               (384, pairs[0][1].shape[0], 128, False))
+    del copies, w_copies
+    torch.cuda.empty_cache()
     up, dn = int4_weight(gen, 768, 3072, 128), int4_weight(gen, 3072, 768, 128)
     args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
     w1, w2 = dequantize_leaf_int4(up, bf16), dequantize_leaf_int4(dn, bf16)
@@ -2167,7 +2351,7 @@ def ptxas_usage(report: str):
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
                           r"(?:_rows|_tc|_combine)?"
-                          r"|int4_matmul(?:_w4a8)?(?:_tc)?|int4_ff(?:_reduce)?"
+                          r"|int4_matmul(?:_w4a8)?(?:_tc|_small_m)?|int4_ff(?:_reduce)?"
                           r"|fused_norm_(?:fwd|bwd|reduce))_kernel)I(\w+)", line)
         if entry:
             kernel = f"{entry.group(1)}<{', '.join(template_args(entry.group(2)))}>"
@@ -2220,12 +2404,10 @@ def main() -> int:
 
     q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
     ladder, fused_fn = run_ladder(params, q4, q_prompt, card, int4_fns)
-    del int4_fns
     int4_prefill = time_int4_prefill(q4, q_prompt, card)
-    quant_breakdown = profile_summary(
-        "125M int4-fused generate token step", lambda: fused_fn(q4, q_prompt), NEW,
-        ladder["int4-fused"]["ms_per_token_step"])
-    del fused_fn
+    int4_decode = time_int4_decode(q4, q_prompt, card, int4_fns)
+    quant_breakdown = int4_decode["int4-fused"]["profile"]
+    del fused_fn, int4_fns
     torch.cuda.empty_cache()
     engine = run_engine_path(params, q4, card)
     decode_times = time_decode_designs(gen, card)
@@ -2317,9 +2499,9 @@ def main() -> int:
             entry["chained_max_err_bf16"] = flash_errs[torch.bfloat16, "chained", "checked"][name]
         entries.append(entry)
     # The int4 kernels: top-level numbers at the 768 x 768 decode site (q, k,
-    # v, out: most of the launches; the CUDA-core design), the prefill site
+    # v, out: most of the launches; the small-M design), the prefill site
     # (M=1024; the tensor-core design) under "prefill", every timed site and
-    # both designs under "shapes".
+    # every design under "shapes" (at decode rows also HBM-cold).
     main_site = {"int4_matmul": "qkv_out m=8", "int4_matmul_w4a8": "qkv_out m=8",
                  "int4_matmul3": "qkv m=8", "int4_ff": "ff m=8"}
     prefill_site = {"int4_matmul": "lm_head m=1024", "int4_matmul_w4a8": "lm_head m=1024",
@@ -2351,9 +2533,13 @@ def main() -> int:
                 variant={"decode (M=8)": row["variant"],
                          "prefill (M=1024)": int4_times[name][prefill_site[name]]["variant"]},
                 tensor_core_launches=launches[f"{name}_tensor_core"],
-                variants=f"tensor_core for more than {mm4.DECODE_ROWS} rows of bf16 "
-                         "(w4a16) or int8 (w4a8) whose K/2 and (w4a8) groups are multiples of "
-                         "32 packed rows, once the CUDA-core grid (N/32 x M/8 blocks) exceeds "
+                small_m_launches=launches[f"{name}_small_m"],
+                small_m_splits=row["small_m_splits"], cuda_core_ms=row["cuda_core_ms"],
+                hbm_cold=row["hbm_cold"],
+                variants=f"small_m for up to {mm4.SMALL_M_ROWS} rows of bf16 (w4a16) or int8 "
+                         "(w4a8) whose K/2 and groups are multiples of 32 packed rows, split "
+                         "over K into the warps of a block (_splits); past them tensor_core "
+                         "for such layouts once the CUDA-core grid (N/32 x M/8 blocks) exceeds "
                          f"{mm4.CUDA_CORE_BLOCKS_PER_SM[False]} (w4a16) or "
                          f"{mm4.CUDA_CORE_BLOCKS_PER_SM[True]} (w4a8) an SM, else cuda_core "
                          "(ops/int4_matmul.py::_variant); w4a16 tiles of 128 or 96 rows, "
@@ -2389,7 +2575,10 @@ def main() -> int:
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
-                     int4_prefill=int4_prefill)
+                     int4_prefill=int4_prefill,
+                     int4_decode={k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                                  | {"busy_ms_per_step": v["profile"]["busy_ms_per_step"]}
+                                  for k, v in int4_decode.items()})
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,

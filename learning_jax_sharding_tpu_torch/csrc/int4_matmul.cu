@@ -14,13 +14,12 @@
 // fp32 row scales; each scale group's products are summed exactly in int32,
 // converted to fp32, multiplied by the group scale, summed over the groups in
 // order (low group g, then high group g), multiplied by the row scale and
-// written in T. Both designs below compute exactly this; the wrapper
+// written in T. The three designs below compute exactly this; the wrapper
 // (ops/int4_matmul.py::_variant) picks one by shape.
 //
 // Design 1, CUDA cores (int4_matmul_kernel<T, NW>, int4_matmul_w4a8_kernel<T>;
-// decode, M <= 8; small M while its grid of N/32 x M/8 blocks fits the card
-// (two blocks an SM for w4a16, one for w4a8); fp32 activations, and layouts
-// design 2 does not take). A
+// fp32 activations, the rows between designs 3 and 2, and layouts neither
+// takes). A
 // block owns 32 output columns and up to 8 rows of x, staged in shared
 // memory. Its 256 threads are 8 column threads x 32 row slices: a thread
 // reads one 32-bit word (4 neighbouring columns) of q4 per packed row, so 8
@@ -29,9 +28,7 @@
 // (K/2, block_n) tile in VMEM becomes 32 slices reduced in the block, by warp
 // shuffles and then over the 8 warps in a fixed order (w4a8 reduces its
 // int32 group partials, which is exact). Products run as fp32 FMA or
-// __dp4a. Bound at decode (8 rows): the packed weights and scales over
-// 3.35 TB/s (0.31 MB for a 768 x 768 projection, 20.5 MB for the 125M
-// lm_head), which this design streams once per row tile.
+// __dp4a. It is the yardstick of design 3 at decode.
 //
 // Design 2, tensor cores (int4_matmul_tc_kernel<NW, BM> for bf16 x,
 // int4_matmul_w4a8_tc_kernel<T> for int8 x; prefill and the larger M past
@@ -56,6 +53,31 @@
 // 128. Bound at prefill (1024 rows): the products, 2*M*K*N operations, over
 // the bf16 (989 TFLOP/s) or int8 (1979 TOP/s) tensor-core peak.
 //
+// Design 3, small M on tensor cores (int4_matmul_small_m_kernel<NW> for bf16
+// x, int4_matmul_w4a8_small_m_kernel<T> for int8 x; decode and up to a few
+// dozen rows, K/2 and every group whole 32-row chunks). Bound at decode (8
+// rows): the packed weights and scales over 3.35 TB/s (0.31 MB for a
+// 768 x 768 projection, 20.5 MB for the 125M lm_head). The operands are
+// swapped, out^T = W^T x^T: the dequantized weights are the A operand (16
+// output columns x depth) and 8 rows of x the B operand, the n = 8 of
+// mma.sync.m16n8k16 (bf16) and m16n8k32 (s8), so nothing is padded. Inside
+// one MMA the depth order is free as long as A and B agree, and the
+// column order is free as long as the epilogue stores by it: a lane takes 4
+// neighbouring columns of a packed row as one 32-bit word of q4, builds its
+// A fragments from those words in registers (w4a16: two packed rows'
+// (q - 8) * s in fp32, rounded to bf16 in pairs; w4a8: a 4 x 4 byte
+// transpose of four rows, centred to int8), and reads its B fragments as
+// words of x's own rows in place: no shared-memory tile at all. A warp owns
+// 32 output columns and a piece of the packed rows, walked in 32-row chunks
+// with the next chunk's loads issued before this one's products. Where the
+// column tiles leave the card under-filled (the 768-column sites), K is
+// split into pieces (ops/int4_matmul.py::_splits, at most 16): the pieces of
+// a column tile are the warps of one block, and their partials meet in
+// shared memory after one barrier, added in piece order (w4a16, fp32) or,
+// for w4a8, as exact int32 sums per scale group (pieces of whole groups, or
+// equal parts of every group) that then fold in design 1's order: bit-equal
+// to the plain version, split or not. No second kernel, no workspace.
+//
 // What the designs leave for later: wgmma (warpgroup MMA from shared memory,
 // the only way to Hopper's full tensor-core rate; mma.sync reaches a part of
 // it), TMA with mbarriers in place of cp.async, a persistent grid that
@@ -63,11 +85,11 @@
 // grids of a few blocks an SM (the 96-row tile only narrows that
 // imbalance), a producer warp that dequantizes while
 // consumer warpgroups multiply (here every warp does both, with one
-// block-wide sync a stage), larger warp tiles (fewer fragment loads a
-// product; registers cap them at 64 x 32), and a small-M tensor-core tile
-// for decode and small M (one padded 16-row MMA tile, split-K where N is
-// small): at 8 rows design 2 as it is beats design 1 only on the 125M
-// lm_head, so decode stays on design 1, which streams the weights once.
+// block-wide sync a stage), and larger warp tiles (fewer fragment loads a
+// product; registers cap them at 64 x 32). Design 3 spends more
+// instructions dequantizing than moving bytes: its lm_head sits at about 3x
+// its bytes bound, and a cheaper dequantization (fewer operations a nibble)
+// is its next step.
 
 #include "int4_common.cuh"
 #include "tensor_core.cuh"
@@ -678,6 +700,423 @@ __global__ void __launch_bounds__(kThreads, 2) int4_matmul_w4a8_tc_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// Design 3: small M on tensor cores with the operands swapped.
+
+namespace sm {
+
+using namespace tc_prims;
+
+constexpr int kTiles = 2;                  // 16-column MMA tiles a warp
+constexpr int kCols = 16 * kTiles;         // 32 output columns a warp
+constexpr int kLaneCols = 2 * kTiles;      // 4 columns a lane: one 32-bit word a packed row
+constexpr int kRows = 8;                   // rows of x a warp: the MMA's n
+constexpr int kChunk = 32;                 // packed rows a chunk
+constexpr int kStages = 2;                 // chunks of loads a lane keeps in flight
+constexpr int kMaxPieces = 16;             // pieces of K a block splits a column tile into
+constexpr int kMaxThreads = 512;           // kMaxPieces warps
+constexpr int kTileOut = kRows * kCols;    // outputs of a column tile and row tile
+
+// Column tiles a block takes beside its pieces: 4 warps at least.
+__host__ __device__ __forceinline__ int tiles_a_block(int splits) {
+  return splits >= 4 ? 1 : 4 / splits;
+}
+
+// The lane's 4 columns of one packed row as one word, zeros past N (N is a
+// multiple of 4). Streamed weights: read once, kept out of L1.
+__device__ __forceinline__ uint32_t load_cols(const uint8_t* row, int col, int N) {
+  uint32_t v = 0u;
+  if (col < N) asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(row + col));
+  return v;
+}
+
+// Scales of the lane's 4 columns in one scale row, zeros past N.
+__device__ __forceinline__ void load_scales(float (&s)[kLaneCols], const float* __restrict__ row,
+                                            int col, int N) {
+  const float4 v = col < N ? __ldg(reinterpret_cast<const float4*>(row + col))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  s[0] = v.x;
+  s[1] = v.y;
+  s[2] = v.z;
+  s[3] = v.w;
+}
+
+// Packed-row chunks [c0, c1) of piece p of `splits`, over `groups` runs of
+// cg chunks: up to one piece a group, a piece takes whole groups; past that,
+// each group is cut into d = splits / groups pieces. w4a16 passes one-chunk
+// groups. ops/int4_matmul.py::split_pieces is the plain twin.
+struct Span {
+  int c0, c1, d;
+};
+__device__ __forceinline__ Span piece_span(int p, int splits, int groups, int cg) {
+  if (splits <= groups) return {p * groups / splits * cg, (p + 1) * groups / splits * cg, 1};
+  const int d = splits / groups, g = p / d, j = p % d;
+  return {g * cg + j * cg / d, g * cg + (j + 1) * cg / d, d};
+}
+
+// A warp's work: warp w of the block takes piece p = w / C of column tile
+// ci = w % C of the block's C = tiles_a_block(splits), the grid's column
+// tile ct. Inactive past N (it still meets the block's barrier).
+struct Item {
+  int ci, ct, p;
+  bool active;
+};
+__device__ __forceinline__ Item work_item(int N, int splits) {
+  const int tiles = tiles_a_block(splits), w = threadIdx.x / 32;
+  Item it;
+  it.ci = w % tiles;
+  it.p = w / tiles;
+  it.ct = blockIdx.x * tiles + it.ci;
+  it.active = it.ct * kCols < N;
+  return it;
+}
+
+// Exactly (float)(v - 8) for nibble v in byte I of a word of masked nibbles.
+template <int I>
+__device__ __forceinline__ float nibble(uint32_t masked) {
+  return __fsub_rn(__uint_as_float(__byte_perm(masked, 0x4Bu, 0x4550 + I)), 8388616.f);
+}
+
+// (q - 8) * s in fp32 for the lane's 4 columns of one packed row, low or
+// high nibbles (rounded to bf16 where they are packed into fragments).
+template <bool High>
+__device__ __forceinline__ void dequant_row(float (&v)[kLaneCols], uint32_t word,
+                                            const float (&s)[kLaneCols]) {
+  const uint32_t m = (High ? word >> 4 : word) & 0x0F0F0F0Fu;
+  v[0] = __fmul_rn(nibble<0>(m), s[0]);
+  v[1] = __fmul_rn(nibble<1>(m), s[1]);
+  v[2] = __fmul_rn(nibble<2>(m), s[2]);
+  v[3] = __fmul_rn(nibble<3>(m), s[3]);
+}
+
+// 4 x 4 byte transpose: o[j] byte i = w[i] byte j.
+__device__ __forceinline__ void transpose4(uint32_t (&o)[4], uint32_t w0, uint32_t w1, uint32_t w2,
+                                           uint32_t w3) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Four nibbles v, one a byte, as the int8 values v - 8 (the high bit of each
+// byte keeps the subtraction from borrowing across bytes).
+__device__ __forceinline__ uint32_t centered(uint32_t nibbles) {
+  return ((nibbles | 0x80808080u) - 0x08080808u) ^ 0x80808080u;
+}
+
+// Run the chunks [c0, c1) through a ring of kStages stages: the loads of
+// chunks c+1 .. c+kStages-1 are in flight while chunk c's products run.
+// fetch(stage, c) issues a chunk's loads, compute(stage, c) uses them.
+template <typename Stage, typename Fetch, typename Compute>
+__device__ __forceinline__ void chunk_ring(int c0, int c1, Fetch fetch, Compute compute) {
+  Stage st[kStages];
+#pragma unroll
+  for (int i = 0; i + 1 < kStages; ++i)
+    if (c0 + i < c1) fetch(st[i], c0 + i);
+  for (int c = c0; c < c1; c += kStages) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      if (c + i >= c1) break;
+      if (c + i + kStages - 1 < c1) fetch(st[(i + kStages - 1) % kStages], c + i + kStages - 1);
+      compute(st[i], c + i);
+    }
+  }
+}
+
+// Where lane (g, t) keeps value e of tile nt of its C fragment in a column
+// tile's kRows x kCols partial: row 2t + e % 2, column kLaneCols g + 2 nt +
+// e / 2.
+__device__ __forceinline__ int frag_index(int g, int t, int nt, int e) {
+  return (2 * t + e % 2) * kCols + kLaneCols * g + 2 * nt + e / 2;
+}
+
+}  // namespace sm
+
+// The lane of a small-M warp: g = lane / 4 names its 4 columns from col =
+// kCols ct + 4 g and its row of x, m0 + g (the B operand's column g); t =
+// lane % 4 its depth slots. MMA tile T (16 "rows" = output columns) maps its
+// row g to column col + 2T and its row g + 8 to col + 2T + 1, so lane (g, t)
+// builds its A fragments from the word it loaded of each packed row, and its
+// C fragment holds columns col + 2T (c0, c1) and col + 2T + 1 (c2, c3) of x
+// rows m0 + 2t (c0, c2) and m0 + 2t + 1 (c1, c3). A split's pieces of a
+// column tile are warps of one block: each writes its fp32 partial to shared
+// memory, and after the block's barrier the outputs are their sums in piece
+// order, rounded to bf16.
+template <int NW>
+__global__ void __launch_bounds__(sm::kMaxThreads) int4_matmul_small_m_kernel(
+    const __nv_bfloat16* __restrict__ x, Weights w, int M, int K, int N, int ng, int group,
+    int splits) {
+  using namespace sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* part = reinterpret_cast<float*>(smem);   // [ci][p][kRows][kCols]
+  const Item it = work_item(N, splits);
+  const int which = NW == 1 ? 0 : blockIdx.z;
+  const uint8_t* __restrict__ q4 = which == 0 ? w.q4[0] : which == 1 ? w.q4[1] : w.q4[2];
+  const float* __restrict__ scale =
+      which == 0 ? w.scale[0] : which == 1 ? w.scale[1] : w.scale[2];
+  __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(
+      which == 0 ? w.out[0] : which == 1 ? w.out[1] : w.out[2]);
+
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k_half = K / 2, chunks = k_half / kChunk;
+  const int col = it.ct * kCols + kLaneCols * g, m0 = blockIdx.y * kRows;
+  const bool x_in = m0 + g < M;
+  const uint32_t* __restrict__ xrow =
+      reinterpret_cast<const uint32_t*>(x + (size_t)(x_in ? m0 + g : 0) * K);
+
+  // A chunk (32 packed rows from r0) is 4 k16 steps. Step s gives lane t
+  // the packed rows r0 + 8s + 2t + {0, 1}: depth slots 2t, 2t + 1 are
+  // their low nibbles (x columns r0 + 8s + 2t + {0, 1}), slots 8 + 2t,
+  // 9 + 2t their high nibbles (x columns K/2 + the same): both x pairs are
+  // one 32-bit word of x's own row, read in place.
+  struct Stage {
+    uint32_t q[8];                        // packed row r0 + 8s + 2t + e at q[2s + e]
+    uint32_t b[4][2];                     // step s: x low and high pairs
+    float sl[kLaneCols], sh[kLaneCols];   // the chunk's group scales, low and high
+  };
+  float acc[kTiles][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  auto fetch = [&](Stage& st, int c) {
+    const int r0 = c * kChunk;
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        st.q[2 * s + e] = load_cols(q4 + (size_t)(r0 + 8 * s + 2 * t + e) * N, col, N);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = r0 + 8 * s + 2 * t;
+      st.b[s][0] = x_in ? __ldg(xrow + k / 2) : 0u;
+      st.b[s][1] = x_in ? __ldg(xrow + (k_half + k) / 2) : 0u;
+    }
+    const int gi = ng == 1 ? 0 : r0 / group;
+    load_scales(st.sl, scale + (size_t)gi * N, col, N);
+    load_scales(st.sh, scale + (size_t)(ng == 1 ? 0 : ng / 2 + gi) * N, col, N);
+  };
+  auto compute = [&](const Stage& st, int) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float lo0[kLaneCols], lo1[kLaneCols], hi0[kLaneCols], hi1[kLaneCols];
+      dequant_row<false>(lo0, st.q[2 * s], st.sl);
+      dequant_row<false>(lo1, st.q[2 * s + 1], st.sl);
+      dequant_row<true>(hi0, st.q[2 * s], st.sh);
+      dequant_row<true>(hi1, st.q[2 * s + 1], st.sh);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+        const uint32_t a[4] = {pack_bf16(lo0[2 * nt], lo1[2 * nt]),
+                               pack_bf16(lo0[2 * nt + 1], lo1[2 * nt + 1]),
+                               pack_bf16(hi0[2 * nt], hi1[2 * nt]),
+                               pack_bf16(hi0[2 * nt + 1], hi1[2 * nt + 1])};
+        mma_bf16(acc[nt], a, st.b[s][0], st.b[s][1]);
+      }
+    }
+  };
+  if (it.active) {
+    const Span span = piece_span(it.p, splits, chunks, 1);
+    chunk_ring<Stage>(span.c0, span.c1, fetch, compute);
+  }
+
+  if (splits == 1) {
+    if (!it.active) return;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + 2 * t + hr;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+        const int c = col + 2 * nt;
+        if (c < N)   // N is a multiple of 4: c < N covers c + 1
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + c) =
+              __floats2bfloat162_rn(acc[nt][hr], acc[nt][2 + hr]);
+      }
+    }
+    return;
+  }
+  float* mine = part + (size_t)(it.ci * splits + it.p) * kTileOut;
+#pragma unroll
+  for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[frag_index(g, t, nt, e)] = acc[nt][e];
+  __syncthreads();
+  const int tiles = tiles_a_block(splits);
+  for (int o = threadIdx.x; o < tiles * kTileOut; o += blockDim.x) {
+    const int ci = o / kTileOut, i = o % kTileOut;
+    const int m = m0 + i / kCols, c = (blockIdx.x * tiles + ci) * kCols + i % kCols;
+    if (m >= M || c >= N) continue;
+    const float* p = part + (size_t)ci * splits * kTileOut + i;
+    float sum = p[0];
+    for (int j = 1; j < splits; ++j) sum = __fadd_rn(sum, p[(size_t)j * kTileOut]);
+    out[(size_t)m * N + c] = __float2bfloat16(sum);
+  }
+}
+
+// w4a8: a chunk (32 packed rows from r0) is one k32 step of each half. Lane
+// t takes the packed rows r0 + 16h + 4t + i (h, i < 2, 4): depth slots
+// 4t + i and 16 + 4t + i, in the byte order of x's own row, so its B
+// fragments are 32-bit words of x read in place. A 4 x 4 byte transpose
+// turns four packed rows x the lane's four columns into one word per column,
+// the int8 A fragment of that column (low nibbles for the low half's
+// product, high for the high half's). Each scale group's int32 sums stay
+// exact: at its end (or the piece's), they fold into fp32 in design 1's
+// order (unsplit), or go to the block's shared memory as the slot of that
+// group (or of the piece, past one piece a group); after the barrier each
+// output adds a group's slots in int32 and folds them in design 1's order.
+template <typename T>
+__global__ void __launch_bounds__(sm::kMaxThreads) int4_matmul_w4a8_small_m_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx, const uint8_t* __restrict__ q4,
+    const float* __restrict__ scale, T* __restrict__ out, int M, int K, int N, int ng, int group,
+    int splits) {
+  using namespace sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Item it = work_item(N, splits);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k_half = K / 2, chunks = k_half / kChunk;
+  // One whole-K group: all packed rows, low and high summed in int32 before
+  // the single scale, as design 1 does.
+  const int groups = ng == 1 ? 1 : ng / 2;
+  const int cg = chunks / groups;
+  const int d = splits <= groups ? 1 : splits / groups;
+  const int slots = groups * d;
+  const Span span = piece_span(it.p, splits, groups, cg);
+  int* part = reinterpret_cast<int*>(smem);   // [ci][slot][lo, hi][kRows][kCols]
+  const int col = it.ct * kCols + kLaneCols * g, m0 = blockIdx.y * kRows;
+  const bool x_in = m0 + g < M;
+  const uint32_t* __restrict__ xrow =
+      reinterpret_cast<const uint32_t*>(xq + (size_t)(x_in ? m0 + g : 0) * K);
+
+  struct Stage {
+    uint32_t q[8];           // packed row r0 + 16h + 4t + i at q[4h + i]
+    uint32_t b[4];           // x words: low (h = 0, 1), then high
+  };
+  int acc_lo[kTiles][4], acc_hi[kTiles][4];
+  float total[kTiles][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_lo[i][e] = acc_hi[i][e] = 0;
+      total[i][e] = 0.f;
+    }
+
+  auto fetch = [&](Stage& st, int c) {
+    const int r0 = c * kChunk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        st.q[4 * h + i] = load_cols(q4 + (size_t)(r0 + 16 * h + 4 * t + i) * N, col, N);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = r0 + 16 * h + 4 * t;
+      st.b[h] = x_in ? __ldg(xrow + k / 4) : 0u;
+      st.b[2 + h] = x_in ? __ldg(xrow + (k_half + k) / 4) : 0u;
+    }
+  };
+  // The group's (or the piece's part of it) int32 sums are whole: fold them
+  // (unsplit) or keep them as their slot; start the next group from zero.
+  auto group_end = [&](int gi) {
+    if (splits == 1) {
+      float sl[kLaneCols], sh[kLaneCols];
+      load_scales(sl, scale + (size_t)gi * N, col, N);
+      load_scales(sh, scale + (size_t)(ng == 1 ? 0 : ng / 2 + gi) * N, col, N);
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int L = 2 * nt + e / 2;
+          float& v = total[nt][e];
+          if (ng == 1) {
+            v = __fmul_rn((float)(acc_lo[nt][e] + acc_hi[nt][e]), sl[L]);
+          } else {
+            v = __fadd_rn(v, __fmul_rn((float)acc_lo[nt][e], sl[L]));
+            v = __fadd_rn(v, __fmul_rn((float)acc_hi[nt][e], sh[L]));
+          }
+        }
+    } else {
+      const int slot = d == 1 ? gi : it.p;
+      int* lo = part + ((size_t)(it.ci * slots + slot) * 2) * kTileOut;
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          lo[frag_index(g, t, nt, e)] = acc_lo[nt][e];
+          lo[kTileOut + frag_index(g, t, nt, e)] = acc_hi[nt][e];
+        }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_lo[nt][e] = acc_hi[nt][e] = 0;
+  };
+  auto compute = [&](const Stage& st, int c) {
+    uint32_t o0[4], o1[4];                  // per column: rows 4t + i, and 16 + 4t + i
+    transpose4(o0, st.q[0], st.q[1], st.q[2], st.q[3]);
+    transpose4(o1, st.q[4], st.q[5], st.q[6], st.q[7]);
+#pragma unroll
+    for (int nt = 0; nt < kTiles; ++nt) {   // columns 2 nt, 2 nt + 1
+      const uint32_t a_lo[4] = {centered(o0[2 * nt] & 0x0F0F0F0Fu),
+                                centered(o0[2 * nt + 1] & 0x0F0F0F0Fu),
+                                centered(o1[2 * nt] & 0x0F0F0F0Fu),
+                                centered(o1[2 * nt + 1] & 0x0F0F0F0Fu)};
+      const uint32_t a_hi[4] = {centered((o0[2 * nt] >> 4) & 0x0F0F0F0Fu),
+                                centered((o0[2 * nt + 1] >> 4) & 0x0F0F0F0Fu),
+                                centered((o1[2 * nt] >> 4) & 0x0F0F0F0Fu),
+                                centered((o1[2 * nt + 1] >> 4) & 0x0F0F0F0Fu)};
+      tc::mma_s8(acc_lo[nt], a_lo, st.b[0], st.b[1]);
+      tc::mma_s8(acc_hi[nt], a_hi, st.b[2], st.b[3]);
+    }
+    if ((c + 1) % cg == 0 || c + 1 == span.c1) group_end(c / cg);
+  };
+  if (it.active) chunk_ring<Stage>(span.c0, span.c1, fetch, compute);
+
+  if (splits == 1) {
+    if (!it.active) return;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + 2 * t + hr;
+      if (m >= M) continue;
+      const float s = sx[m];
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+        const int c = col + 2 * nt;
+        if (c < N)
+          store2<T>(out + (size_t)m * N + c, __fmul_rn(total[nt][hr], s),
+                    __fmul_rn(total[nt][2 + hr], s));
+      }
+    }
+    return;
+  }
+  __syncthreads();
+  const int tiles = tiles_a_block(splits);
+  for (int o = threadIdx.x; o < tiles * kTileOut; o += blockDim.x) {
+    const int ci = o / kTileOut, i = o % kTileOut;
+    const int m = m0 + i / kCols, c = (blockIdx.x * tiles + ci) * kCols + i % kCols;
+    if (m >= M || c >= N) continue;
+    const int* p = part + (size_t)ci * slots * 2 * kTileOut + i;
+    float v = 0.f;
+    for (int gi = 0; gi < groups; ++gi) {
+      int lo = 0, hi = 0;
+      for (int j = 0; j < d; ++j) {
+        lo += p[(size_t)((gi * d + j) * 2) * kTileOut];
+        hi += p[(size_t)((gi * d + j) * 2 + 1) * kTileOut];
+      }
+      if (ng == 1) {
+        v = __fmul_rn((float)(lo + hi), scale[c]);
+      } else {
+        v = __fadd_rn(v, __fmul_rn((float)lo, scale[(size_t)gi * N + c]));
+        v = __fadd_rn(v, __fmul_rn((float)hi, scale[(size_t)(ng / 2 + gi) * N + c]));
+      }
+    }
+    out[(size_t)m * N + c] = Num<T>::store(__fmul_rn(v, sx[m]));
+  }
+}
+
 // Rows of x per block: up to 8, fewer when a tile of x would not fit.
 int pick_tile_m(int M, int K, int itemsize) {
   int tile = kMaxTileM;
@@ -775,19 +1214,82 @@ int launch_w4a8_tc(const int8_t* xq, const float* sx, const uint8_t* q4, const f
   return (int)cudaGetLastError();
 }
 
+// Design 3's grid: a block takes tiles_a_block(splits) 32-column tiles,
+// each in `splits` pieces of K (a warp each); x rows in tiles of 8 (y); NW
+// weights (z).
+inline dim3 small_m_grid(int M, int N, int splits, int nw) {
+  const int tiles = sm::tiles_a_block(splits);
+  const int tiles_n = (N + sm::kCols - 1) / sm::kCols;
+  return dim3((tiles_n + tiles - 1) / tiles, (M + sm::kRows - 1) / sm::kRows, nw);
+}
+
+// The layout design 3 takes: K/2 in whole 32-row chunks, each group (or the
+// one whole-K group) whole chunks.
+inline bool small_m_layout(int K, int ng, int group) {
+  return K % 2 == 0 && (K / 2) % sm::kChunk == 0 && (ng == 1 || group % sm::kChunk == 0);
+}
+
+// Design 3 for bf16 x: `splits` pieces of the packed rows (at most one a
+// chunk, at most kMaxPieces), each column tile's pieces in one block.
+template <int NW>
+int launch_w4a16_small_m(const void* x, const Weights& w, int M, int K, int N, int ng,
+                         int group, int splits, cudaStream_t stream) {
+  if (M == 0) return (int)cudaSuccess;
+  if (!small_m_layout(K, ng, group) || splits < 1 || splits > sm::kMaxPieces ||
+      splits > K / 2 / sm::kChunk || reinterpret_cast<uintptr_t>(x) % 4)
+    return -1;
+  const int tiles = sm::tiles_a_block(splits);
+  const size_t smem = splits == 1 ? 0 : (size_t)tiles * splits * sm::kTileOut * sizeof(float);
+  auto kernel = int4_matmul_small_m_kernel<NW>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<small_m_grid(M, N, splits, NW), 32 * tiles * splits, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), w, M, K, N, ng, group, splits);
+  return (int)cudaGetLastError();
+}
+
+// Design 3 for int8 x: `splits` pieces (at most kMaxPieces) of whole groups
+// (up to one a group) or of equal parts of every group (a multiple of the
+// groups, at most one a chunk of each); their int32 group sums meet in the
+// block's shared memory (tiles x slots x 2 x 8 x 32 int32, slots the groups,
+// or the pieces past one a group).
+template <typename T>
+int launch_w4a8_small_m(const int8_t* xq, const float* sx, const uint8_t* q4, const float* scale,
+                        void* out, int M, int K, int N, int ng, int group, int splits,
+                        cudaStream_t stream) {
+  if (M == 0) return (int)cudaSuccess;
+  if (!small_m_layout(K, ng, group) || reinterpret_cast<uintptr_t>(xq) % 4) return -1;
+  const int groups = ng == 1 ? 1 : ng / 2;
+  const int cg = K / 2 / sm::kChunk / groups;
+  const int d = splits <= groups ? 1 : splits / groups;
+  if (splits < 1 || splits > sm::kMaxPieces || (splits > groups && (splits % groups || d > cg)))
+    return -1;
+  const int tiles = sm::tiles_a_block(splits);
+  const size_t smem =
+      splits == 1 ? 0 : (size_t)tiles * groups * d * 2 * sm::kTileOut * sizeof(int);
+  auto kernel = int4_matmul_w4a8_small_m_kernel<T>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<small_m_grid(M, N, splits, 1), 32 * tiles * splits, smem, stream>>>(
+      xq, sx, q4, scale, static_cast<T*>(out), M, K, N, ng, group, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x @ dequant(q4_i, s_i) -> out_i for i < nw (1 or 3), all (K/2, N) weights of
-// one layout; dtype 0 = fp32, 1 = bf16 (x and outputs); tile_rows 0 runs
-// design 1, 128 or 96 design 2 (bf16 only) with that many rows of x a
-// block. Returns cudaGetLastError() after the launch, or -1 for an
-// unsupported dtype, nw, design, tile or layout.
+// one layout; dtype 0 = fp32, 1 = bf16 (x and outputs). design 0 runs design
+// 1; design 1 design 2 (bf16 only) with tile_rows (128 or 96) rows of x a
+// block; design 2 design 3 (bf16 only) in `splits` pieces. Returns
+// cudaGetLastError() after the launch, or -1 for an unsupported dtype, nw,
+// design, tile, split or layout.
 int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
                        const void* q1, const void* s1, void* o1, const void* q2,
                        const void* s2, void* o2, int dtype, int nw, int M, int K, int N,
-                       int ng, int group, int tile_rows, void* stream) {
+                       int ng, int group, int design, int tile_rows, int splits,
+                       void* stream) {
   Weights w;
   const void* qs[3] = {q0, q1, q2};
   const void* ss[3] = {s0, s1, s2};
@@ -798,11 +1300,19 @@ int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
     w.out[i] = os[i];
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile_rows) {
+  if (design == 2) {
+    if (dtype == 1 && nw == 1)
+      return launch_w4a16_small_m<1>(x, w, M, K, N, ng, group, splits, st);
+    if (dtype == 1 && nw == 3)
+      return launch_w4a16_small_m<3>(x, w, M, K, N, ng, group, splits, st);
+    return -1;
+  }
+  if (design == 1) {
     if (dtype == 1 && nw == 1) return launch_w4a16_tc<1>(x, w, M, K, N, ng, group, tile_rows, st);
     if (dtype == 1 && nw == 3) return launch_w4a16_tc<3>(x, w, M, K, N, ng, group, tile_rows, st);
     return -1;
   }
+  if (design != 0) return -1;
   if (dtype == 0 && nw == 1) return launch_w4a16<float, 1>(x, w, M, K, N, ng, group, st);
   if (dtype == 0 && nw == 3) return launch_w4a16<float, 3>(x, w, M, K, N, ng, group, st);
   if (dtype == 1 && nw == 1) return launch_w4a16<__nv_bfloat16, 1>(x, w, M, K, N, ng, group, st);
@@ -811,24 +1321,33 @@ int int4_matmul_launch(const void* x, const void* q0, const void* s0, void* o0,
 }
 
 // Per-row int8 xq (M, K) with fp32 row scales sx (M, 1) against q4/s ->
-// out (M, N) in dtype (0 = fp32, 1 = bf16). Design 1 (tensor_core 0): K % 8
-// == 0, and a group (or K/2 for one whole-K group) a multiple of 4 packed
-// rows; design 2 (tensor_core 1): both multiples of 32 packed rows. Returns
-// cudaGetLastError() after the launch, or -1 for an unsupported dtype or
-// layout.
+// out (M, N) in dtype (0 = fp32, 1 = bf16). Design 1 (design 0): K % 8 ==
+// 0, and a group (or K/2 for one whole-K group) a multiple of 4 packed
+// rows; design 2 (design 1): both multiples of 32 packed rows; design 3
+// (design 2): the same, in `splits` pieces. Returns cudaGetLastError() after
+// the launch, or -1 for an unsupported dtype, design, split or layout.
 int int4_matmul_w4a8_launch(const void* xq, const void* sx, const void* q4, const void* s,
                             void* out, int dtype, int M, int K, int N, int ng, int group,
-                            int tensor_core, void* stream) {
+                            int design, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* x = static_cast<const int8_t*>(xq);
   const float* rs = static_cast<const float*>(sx);
   const uint8_t* q = static_cast<const uint8_t*>(q4);
   const float* sc = static_cast<const float*>(s);
-  if (tensor_core) {
+  if (design == 2) {
+    if (dtype == 0)
+      return launch_w4a8_small_m<float>(x, rs, q, sc, out, M, K, N, ng, group, splits, st);
+    if (dtype == 1)
+      return launch_w4a8_small_m<__nv_bfloat16>(x, rs, q, sc, out, M, K, N, ng, group, splits,
+                                                st);
+    return -1;
+  }
+  if (design == 1) {
     if (dtype == 0) return launch_w4a8_tc<float>(x, rs, q, sc, out, M, K, N, ng, group, st);
     if (dtype == 1) return launch_w4a8_tc<__nv_bfloat16>(x, rs, q, sc, out, M, K, N, ng, group, st);
     return -1;
   }
+  if (design != 0) return -1;
   if (dtype == 0) return launch_w4a8<float>(x, rs, q, sc, out, M, K, N, ng, group, st);
   if (dtype == 1) return launch_w4a8<__nv_bfloat16>(x, rs, q, sc, out, M, K, N, ng, group, st);
   return -1;

@@ -21,14 +21,18 @@ For CUDA tensors the wrappers launch the hand-written kernels of
 they run the plain versions, which the tests hold against the JAX kernels.
 Nothing falls back from one to the other. Inference only: no gradient.
 
-The source has two designs of each kernel, and :func:`_variant` picks one
-by shape before the launch: the tensor-core design (``mma.sync``; tiles of
-128 or 96 rows (:func:`_tile_rows`) for w4a16, 64 for w4a8, each
-dequantizing its weight tile once per block) for prefill rows in bf16
-(w4a16) or int8 (w4a8) once the CUDA-core grid outgrows the card, the
-CUDA-core design (up to 8 rows a block, fp32 FMA or ``dp4a``) for decode,
-small row counts, fp32 activations and the layouts the tensor cores do not
-take. Both compute the same function.
+The source has three designs of each kernel, and :func:`_variant` picks
+one by shape before the launch: the small-M design (``mma.sync`` with the
+operands swapped: the dequantized weights are the A operand, up to 8 rows
+of x the B operand, a warp a 32-column tile of a piece of the packed rows,
+split over K by :func:`_splits` into the warps of one block, whose partials
+meet in shared memory) for decode and small row counts in bf16 (w4a16) or
+int8 (w4a8); the tensor-core design
+(``mma.sync``; tiles of 128 or 96 rows (:func:`_tile_rows`) for w4a16, 64
+for w4a8, each dequantizing its weight tile once per block) for prefill
+rows once the CUDA-core grid outgrows the card; the CUDA-core design (up to
+8 rows a block, fp32 FMA or ``dp4a``) for fp32 activations and the layouts
+the tensor cores do not take. All three compute the same function.
 """
 
 from __future__ import annotations
@@ -41,11 +45,20 @@ import torch
 from learning_jax_sharding_tpu_torch.ops._build import load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DESIGN_CODES = {"cuda_core": 0, "tensor_core": 1}
-#: Rows of a decode step: they stay on the CUDA-core design.
+_DESIGN_CODES = {"cuda_core": 0, "tensor_core": 1, "small_m": 2}
+#: Rows of a decode step.
 DECODE_ROWS = 8
-#: Packed rows a tensor-core stage covers, and the int8 MMA's depth.
+#: Packed rows a tensor-core stage covers, the int8 MMA's depth, and the
+#: packed rows of a small-M chunk (the unit its pieces are cut in).
 TENSOR_CORE_DEPTH = 32
+#: The small-M design: output columns a warp takes, rows of x it takes (the
+#: MMA's n; more rows run more row tiles), and the most rows it is chosen
+#: for (fitted to H100 timings of every 125M site at M = 8, 16, 32, 64).
+SMALL_M_COLS, SMALL_M_TILE_ROWS, SMALL_M_ROWS = 32, 8, 16
+#: Its split over K: pieces enough that the grid holds this many warps an
+#: SM, at most MAX_SMALL_M_SPLITS, the warps of one block (fitted to an H100
+#: sweep of every 125M site at M = 8, 16 and 32).
+SMALL_M_WARPS_PER_SM, MAX_SMALL_M_SPLITS = 8, 16
 #: Rows of x a tensor-core w4a16 block takes, and its columns.
 TILE_ROWS, SMALL_TILE_ROWS, TILE_COLS = 128, 96, 128
 #: Output columns and rows of x a CUDA-core block takes.
@@ -72,16 +85,31 @@ def _tensor_core_layout(k: int, ng: int, group: int, dtype: torch.dtype, w4a8: b
     return dtype == torch.bfloat16
 
 
+def _small_m_layout(k: int, ng: int, group: int, dtype: torch.dtype, w4a8: bool) -> bool:
+    """Whether the small-M design takes this layout: bf16 (w4a16) or int8
+    (w4a8) activations whose K/2 is whole 32-row chunks and whose groups
+    (or the one whole-K group) are too, so that a chunk lies in one group."""
+    k_half = k // 2
+    if k % 2 or k_half % TENSOR_CORE_DEPTH:
+        return False
+    if ng != 1 and group % TENSOR_CORE_DEPTH:
+        return False
+    return w4a8 or dtype == torch.bfloat16
+
+
 def _variant(m: int, k: int, n: int, ng: int, group: int, dtype: torch.dtype, w4a8: bool,
              sms: int) -> str:
     """Which kernel design takes an ``(m, k) × (k, n)`` launch (``n`` over
     all its weights: 3N for the triple) with ``ng`` scale rows of ``group``
-    contraction rows on a card of ``sms`` SMs: ``"tensor_core"`` where
-    :func:`_tensor_core_layout` holds, there are more than
-    ``DECODE_ROWS`` rows, and the CUDA-core grid (N/32 × M/8 blocks)
-    exceeds ``CUDA_CORE_BLOCKS_PER_SM`` an SM; else ``"cuda_core"``. A
-    choice between two kernels by shape, made before the launch: nothing
-    falls back."""
+    contraction rows on a card of ``sms`` SMs: ``"small_m"`` for up to
+    ``SMALL_M_ROWS`` rows where :func:`_small_m_layout` holds;
+    ``"tensor_core"`` where :func:`_tensor_core_layout` holds, there are
+    more than ``DECODE_ROWS`` rows, and the CUDA-core grid (N/32 × M/8
+    blocks) exceeds ``CUDA_CORE_BLOCKS_PER_SM`` an SM; else
+    ``"cuda_core"``. A choice between three kernels by shape, made before
+    the launch: nothing falls back."""
+    if m <= SMALL_M_ROWS and _small_m_layout(k, ng, group, dtype, w4a8):
+        return "small_m"
     if m <= DECODE_ROWS or not _tensor_core_layout(k, ng, group, dtype, w4a8):
         return "cuda_core"
     blocks = -(-n // CUDA_CORE_COLS) * -(-m // CUDA_CORE_ROWS)
@@ -98,6 +126,66 @@ def _tile_rows(m: int, n: int, nw: int, sms: int) -> int:
         blocks = -(-m // rows) * -(-n // TILE_COLS) * nw
         return -(-blocks // sms) * rows
     return SMALL_TILE_ROWS if load(SMALL_TILE_ROWS) < load(TILE_ROWS) else TILE_ROWS
+
+
+def _split_groups(k_half: int, ng: int, group: int, w4a8: bool) -> tuple[int, int]:
+    """The runs a small-M split cuts along: ``(runs, chunks a run)``. w4a8
+    keeps each scale group's int32 sums whole, so its runs are the groups
+    (one for a whole-K group); w4a16 cuts anywhere, so its runs are the
+    chunks."""
+    if k_half % TENSOR_CORE_DEPTH or (ng != 1 and group % TENSOR_CORE_DEPTH):
+        raise ValueError(f"a small-M split needs K/2 ({k_half}) and the groups ({group}) "
+                         f"in whole {TENSOR_CORE_DEPTH}-row chunks")
+    chunks = k_half // TENSOR_CORE_DEPTH
+    if not w4a8:
+        return chunks, 1
+    groups = 1 if ng == 1 else ng // 2
+    return groups, chunks // groups
+
+
+def split_choices(k_half: int, ng: int, group: int, w4a8: bool = False) -> list[int]:
+    """Every split a small-M launch over ``k_half`` packed rows takes: up to
+    one piece a run (:func:`_split_groups`), then (w4a8) d equal parts of
+    every group, at most one a chunk."""
+    runs, per_run = _split_groups(k_half, ng, group, w4a8)
+    return list(range(1, runs + 1)) + [runs * d for d in range(2, per_run + 1)]
+
+
+def split_pieces(k_half: int, ng: int, group: int, splits: int,
+                 w4a8: bool = False) -> list[tuple[int, int]]:
+    """The packed rows ``[r0, r1)`` of each piece of a small-M launch in
+    ``splits`` pieces, as the kernel cuts them (``sm::piece_span``): up to
+    one piece a run, a piece takes whole runs, as evenly as whole runs
+    allow; past that (w4a8) each group is cut into ``splits / groups``
+    parts. The plain twin of the device's split."""
+    if splits not in split_choices(k_half, ng, group, w4a8):
+        raise ValueError(f"split {splits} is not one of {split_choices(k_half, ng, group, w4a8)}")
+    runs, per_run = _split_groups(k_half, ng, group, w4a8)
+    pieces = []
+    for p in range(splits):
+        if splits <= runs:
+            c0, c1 = p * runs // splits * per_run, (p + 1) * runs // splits * per_run
+        else:
+            d = splits // runs
+            g, j = divmod(p, d)
+            c0, c1 = g * per_run + j * per_run // d, g * per_run + (j + 1) * per_run // d
+        pieces.append((c0 * TENSOR_CORE_DEPTH, c1 * TENSOR_CORE_DEPTH))
+    return pieces
+
+
+@functools.cache
+def _splits(m: int, k: int, n: int, nw: int, ng: int, group: int, sms: int,
+            w4a8: bool = False) -> int:
+    """Pieces a small-M launch of ``nw`` ``(m, k) × (k, n)`` products cuts
+    K into: the fewest of :func:`split_choices` (at most
+    ``MAX_SMALL_M_SPLITS``) whose grid of ``nw · ⌈m/8⌉ · ⌈n/32⌉`` warps a
+    piece reaches ``SMALL_M_WARPS_PER_SM`` warps an SM, else the most. The
+    768-column sites leave 24 warps a piece, the lm_head 1572. Cached: it
+    runs before every decode launch."""
+    warps = nw * -(-m // SMALL_M_TILE_ROWS) * -(-n // SMALL_M_COLS)
+    want = -(-SMALL_M_WARPS_PER_SM * sms // warps)
+    choices = [s for s in split_choices(k // 2, ng, group, w4a8) if s <= MAX_SMALL_M_SPLITS]
+    return next((s for s in choices if s >= want), choices[-1])
 
 
 @functools.cache
@@ -146,6 +234,52 @@ def int4_matmul_reference(x2, q4, scale, *, group: int) -> torch.Tensor:
     lo, hi = _dequant_halves(q4, scale, group, x2.dtype)
     acc = x2[:, :k_half].float() @ lo.float() + x2[:, k_half:].float() @ hi.float()
     return acc.to(x2.dtype)
+
+
+def int4_matmul_split_reference(x2, q4, scale, *, group: int, splits: int) -> torch.Tensor:
+    """The plain version of a small-M w4a16 launch in ``splits`` pieces
+    (:func:`split_pieces`): each piece's fp32 partial over its packed rows,
+    then the partials added in piece order, rounded to x's dtype."""
+    k_half = q4.shape[0]
+    lo, hi = _dequant_halves(q4, scale, group, x2.dtype)
+    acc = None
+    for r0, r1 in split_pieces(k_half, scale.shape[0], group, splits):
+        part = (x2[:, r0:r1].float() @ lo[r0:r1].float()
+                + x2[:, k_half + r0:k_half + r1].float() @ hi[r0:r1].float())
+        acc = part if acc is None else acc + part
+    return acc.to(x2.dtype)
+
+
+def int4_matmul_w4a8_split_reference(xq, sx, q4, scale, *, group: int, splits: int,
+                                     out_dtype) -> torch.Tensor:
+    """The plain version of a small-M w4a8 launch in ``splits`` pieces: per
+    piece and scale group it touches, the exact int32 sums of the low and
+    high halves (a slot in the block's shared memory: the group, or the
+    piece past one piece a group); then per group its slots added in int32
+    and folded into fp32 in :func:`int4_matmul_w4a8_reference`'s order.
+    Bit-equal to it."""
+    k_half, n = q4.shape
+    ng = scale.shape[0]
+    groups, rows = (1, k_half) if ng == 1 else (ng // 2, group)
+    d = 1 if splits <= groups else splits // groups
+    p = q4.to(torch.int32)
+    lo, hi = (p & 0xF) - 8, (p >> 4) - 8
+    slots = {}
+    for piece, (r0, r1) in enumerate(split_pieces(k_half, ng, group, splits, w4a8=True)):
+        for g in range(r0 // rows, -(-r1 // rows)):
+            a, b = max(r0, g * rows), min(r1, (g + 1) * rows)
+            slots[g if d == 1 else piece] = (_idot(xq[:, a:b], lo[a:b]),
+                                             _idot(xq[:, k_half + a:k_half + b], hi[a:b]))
+    out = torch.zeros(xq.shape[0], n, dtype=torch.float32, device=xq.device)
+    for g in range(groups):
+        s_lo = sum(slots[g * d + j][0] for j in range(d))
+        s_hi = sum(slots[g * d + j][1] for j in range(d))
+        if ng == 1:
+            out = (s_lo + s_hi).float() * scale
+        else:
+            out = out + s_lo.float() * scale[g]
+            out = out + s_hi.float() * scale[ng // 2 + g]
+    return (out * sx).to(out_dtype)
 
 
 def int4_matmul_w4a8_reference(xq, sx, q4, scale, *, group: int, out_dtype) -> torch.Tensor:
@@ -233,25 +367,27 @@ def _kernel_entries():
     lib = load_library("int4_matmul")
     w4a16 = lib.int4_matmul_launch
     w4a16.restype = ctypes.c_int
-    w4a16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    w4a16.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     w4a8 = lib.int4_matmul_w4a8_launch
     w4a8.restype = ctypes.c_int
-    w4a8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    w4a8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return {"w4a16": w4a16, "w4a8": w4a8}
 
 
 def _aligned(x2: torch.Tensor) -> torch.Tensor:
     """``x2``, or a fresh copy when it starts off a 16-byte boundary (a view
-    at an offset): the tensor-core design copies x in 16-byte pieces."""
+    at an offset): the tensor-core design copies x in 16-byte pieces, the
+    small-M one reads it in 4-byte words."""
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
 
-def _launch_w4a16(x2, weights, *, group: int, variant: str,
-                  tile_rows: int | None = None) -> list[torch.Tensor]:
+def _launch_w4a16(x2, weights, *, group: int, variant: str, tile_rows: int | None = None,
+                  splits: int | None = None) -> list[torch.Tensor]:
     """One launch of the w4a16 kernel's ``variant`` design over one
     (``int4_matmul``) or three (``int4_matmul3``) same-shape packed
     weights; the tensor-core design with ``tile_rows`` rows a block, by
-    default :func:`_tile_rows`'s."""
+    default :func:`_tile_rows`'s; the small-M design in ``splits`` pieces,
+    by default :func:`_splits`'s."""
     what = "int4_matmul3" if len(weights) == 3 else "int4_matmul"
     if x2.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what} kernel takes float32 or bfloat16 x, got {x2.dtype}")
@@ -259,14 +395,19 @@ def _launch_w4a16(x2, weights, *, group: int, variant: str,
     for i, (q4, scale) in enumerate(weights):
         tensors.update({f"q4_{i}": q4, f"scale_{i}": scale})
     _check_cuda(what, x2, **tensors)
-    if variant == "tensor_core":
+    if variant != "cuda_core":
         x2 = _aligned(x2)
     m, k = x2.shape
     n, ng = weights[0][0].shape[1], weights[0][1].shape[0]
-    if variant == "cuda_core":
+    sms = _sm_count(x2.device.index)
+    if variant != "tensor_core":
         tile_rows = 0
     elif tile_rows is None:
-        tile_rows = _tile_rows(m, n, len(weights), _sm_count(x2.device.index))
+        tile_rows = _tile_rows(m, n, len(weights), sms)
+    if variant != "small_m":
+        splits = 1
+    elif splits is None:
+        splits = _splits(m, k, n, len(weights), ng, group, sms)
     outs = [torch.empty(m, n, dtype=x2.dtype, device=x2.device) for _ in weights]
     pointers = []   # three (q4, scale, out) slots; one weight fills all three
     for (q4, scale), out in (list(zip(weights, outs)) * 3)[:3]:
@@ -275,16 +416,18 @@ def _launch_w4a16(x2, weights, *, group: int, variant: str,
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = _kernel_entries()["w4a16"](
             x2.data_ptr(), *pointers, _DTYPE_CODES[x2.dtype], len(weights),
-            m, k, n, ng, group, tile_rows, stream,
+            m, k, n, ng, group, _DESIGN_CODES[variant], tile_rows, splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"{what} {variant} kernel launch failed: error {err}")
     return outs
 
 
-def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype, variant: str) -> torch.Tensor:
-    """One launch of the w4a8 kernel's ``variant`` design; its layout
-    limits raise here."""
+def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype, variant: str,
+                 splits: int | None = None) -> torch.Tensor:
+    """One launch of the w4a8 kernel's ``variant`` design (the small-M one
+    in ``splits`` pieces, by default :func:`_splits`'s); its layout limits
+    raise here."""
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"int4_matmul w4a8 kernel writes float32 or bfloat16, got {out_dtype}")
     _check_cuda("int4_matmul w4a8", xq, q4=q4, scale=scale, sx=sx)
@@ -297,15 +440,19 @@ def _launch_w4a8(xq, sx, q4, scale, *, group: int, out_dtype, variant: str) -> t
             f"multiple of 4 packed rows (4-row int8 dot products), got K={k}, "
             f"group {group}"
         )
-    if variant == "tensor_core":
+    if variant != "cuda_core":
         xq = _aligned(xq)
+    if variant != "small_m":
+        splits = 1
+    elif splits is None:
+        splits = _splits(m, k, n, 1, ng, group, _sm_count(xq.device.index), w4a8=True)
     out = torch.empty(m, n, dtype=out_dtype, device=xq.device)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         err = _kernel_entries()["w4a8"](
             xq.data_ptr(), sx.data_ptr(), q4.data_ptr(), scale.data_ptr(),
             out.data_ptr(), _DTYPE_CODES[out_dtype], m, k, n, ng, group,
-            _DESIGN_CODES[variant], stream,
+            _DESIGN_CODES[variant], splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"int4_matmul w4a8 {variant} kernel launch failed: error {err}")
@@ -362,16 +509,19 @@ def int4_matmul(
 
 
 def _count(launches: dict, kernel: str, variant: str) -> None:
-    """One launch of ``kernel``: its total, and its tensor-core count."""
+    """One launch of ``kernel``: its total, and its design's count (none
+    for the CUDA-core design)."""
     launches[kernel] += 1
-    if variant == "tensor_core":
-        launches[f"{kernel}_tensor_core"] += 1
+    if variant != "cuda_core":
+        launches[f"{kernel}_{variant}"] += 1
 
 
 #: Kernel launches since the last reset, by kernel; the wrapper adds one per
-#: launch. ``w4a16``/``w4a8`` count both designs, ``*_tensor_core`` the
-#: launches of the tensor-core design among them.
-int4_matmul.launches = {"w4a16": 0, "w4a8": 0, "w4a16_tensor_core": 0, "w4a8_tensor_core": 0}
+#: launch. ``w4a16``/``w4a8``
+#: count every design, ``*_tensor_core`` and ``*_small_m`` the launches of
+#: those designs among them.
+int4_matmul.launches = {"w4a16": 0, "w4a8": 0, "w4a16_tensor_core": 0, "w4a8_tensor_core": 0,
+                        "w4a16_small_m": 0, "w4a8_small_m": 0}
 
 
 def int4_matmul3(
@@ -412,15 +562,17 @@ def int4_matmul3(
         outs = _launch_w4a16(x2, list(weights), group=group, variant=variant)
         int4_matmul3.launches += 1
         int4_matmul3.tensor_core_launches += variant == "tensor_core"
+        int4_matmul3.small_m_launches += variant == "small_m"
     else:
         outs = [int4_matmul_reference(x2, q4, s, group=group) for q4, s in weights]
     return tuple(o.reshape(*lead, n) for o in outs)
 
 
-#: Kernel launches since the last reset (both designs), and the tensor-core
-#: design's among them; the wrapper adds one per launch.
+#: Kernel launches since the last reset (every design), and the tensor-core
+#: and small-M designs' among them; the wrapper adds one per launch.
 int4_matmul3.launches = 0
 int4_matmul3.tensor_core_launches = 0
+int4_matmul3.small_m_launches = 0
 
 
 def make_int4_matmul_fn(mesh, rules, *, w4a8: bool = False):

@@ -1,8 +1,9 @@
 """Which int4 kernel design takes which product (``ops/int4_matmul.py::_variant``).
 
-``csrc/int4_matmul.cu`` holds two designs of the w4a16 kernel (one weight,
-or the q/k/v triple) and of the w4a8 kernel: tensor cores for prefill rows
-of bf16 or int8 activations, CUDA cores for decode, fp32 activations and the
+``csrc/int4_matmul.cu`` holds three designs of the w4a16 kernel (one weight,
+or the q/k/v triple) and of the w4a8 kernel: small-M tensor cores for
+decode and small row counts of bf16 or int8 activations, tensor cores for
+prefill rows, CUDA cores for fp32 activations, the rows between, and the
 layouts the tensor cores do not take. The rule is a pure function of the
 shape, layout and SM count, checked here on the CPU at every int4 site of
 the 125M model against the designs an H100 timed faster; the kernels
@@ -31,9 +32,12 @@ SITES = {"qkv_out": (D, D), "ff_up": (D, H), "ff_down": (H, D), "lm_head": (D, V
 KINDS = {"fp32": (torch.float32, False), "bf16": (torch.bfloat16, False),
          "w4a8": (torch.bfloat16, True)}
 H100_SMS = 132
-# The fewest rows, of those timed on an H100 (16, 32, 64, 512), at which each
-# site takes the tensor cores: where the tensor-core design timed faster
-# than the CUDA-core one. Decode (8 rows) and fp32 never do.
+# Up to this many rows, bf16 and w4a8 products at every site take the
+# small-M design: an H100 timed it faster than both other designs there.
+SMALL_M_ROWS = 16
+# Past them, the fewest rows, of those timed on an H100 (16, 32, 64, 512),
+# at which each site takes the tensor cores: where the tensor-core design
+# timed faster than the CUDA-core one. fp32 never does.
 FIRST_TENSOR_CORE_ROWS = {
     ("qkv_out", "bf16"): 512, ("ff_up", "bf16"): 32, ("ff_down", "bf16"): 512,
     ("lm_head", "bf16"): 9, ("qkv", "bf16"): 32,
@@ -43,6 +47,8 @@ FIRST_TENSOR_CORE_ROWS = {
 
 
 def _expected(site, m, kind):
+    if kind != "fp32" and m <= SMALL_M_ROWS:
+        return "small_m"
     first = FIRST_TENSOR_CORE_ROWS.get((site, kind))
     return "tensor_core" if first is not None and m >= first else "cuda_core"
 
@@ -61,14 +67,16 @@ def test_variant_at_125m_sites(site, m, kind):
 
 @pytest.mark.parametrize("w4a8,per_sm", [(False, 2), (True, 1)])
 def test_variant_grid_boundary(w4a8, per_sm):
-    """The tensor cores take over once the CUDA-core grid (N/32 × M/8
-    blocks) is larger than ``per_sm`` blocks an SM."""
-    sms = 10
+    """Past the small-M rows, the tensor cores take over once the CUDA-core
+    grid (N/32 × M/8 blocks) is larger than ``per_sm`` blocks an SM; up to
+    them the small-M design takes every grid."""
+    sms = 12
     n = 32 * per_sm * sms             # one row tile of blocks reaches the limit
-    assert mm4._variant(8 + 1, 768, n, 6, 128, torch.bfloat16, w4a8, sms) == "tensor_core"
-    assert mm4._variant(16, 768, n // 2, 6, 128, torch.bfloat16, w4a8, sms) == "cuda_core"
-    assert mm4._variant(17, 768, n // 2, 6, 128, torch.bfloat16, w4a8, sms) == "tensor_core"
-    assert mm4._variant(8, 768, 100 * n, 6, 128, torch.bfloat16, w4a8, sms) == "cuda_core"
+    m = mm4.SMALL_M_ROWS + 1          # 3 row tiles of 8
+    assert mm4._variant(m, 768, n, 6, 128, torch.bfloat16, w4a8, sms) == "tensor_core"
+    assert mm4._variant(m, 768, n // 3, 6, 128, torch.bfloat16, w4a8, sms) == "cuda_core"
+    assert mm4._variant(m + 8, 768, n // 3, 6, 128, torch.bfloat16, w4a8, sms) == "tensor_core"
+    assert mm4._variant(8, 768, 100 * n, 6, 128, torch.bfloat16, w4a8, sms) == "small_m"
 
 
 @pytest.mark.parametrize("k,group,dtype,w4a8,want", [
@@ -131,9 +139,11 @@ def test_tile_rows_boundary():
 
 
 def test_launch_counters_chip_smoke_reads():
-    """The totals per kernel and, beside them, the tensor-core launches."""
+    """The totals per kernel and, beside them, the tensor-core and small-M
+    launches."""
     assert set(mm4.int4_matmul.launches) == {
-        "w4a16", "w4a8", "w4a16_tensor_core", "w4a8_tensor_core"}
+        "w4a16", "w4a8", "w4a16_tensor_core", "w4a8_tensor_core", "w4a16_small_m",
+        "w4a8_small_m"}
     assert all(isinstance(v, int) for v in mm4.int4_matmul.launches.values())
     assert isinstance(mm4.int4_matmul3.launches, int)
     assert isinstance(mm4.int4_matmul3.tensor_core_launches, int)
