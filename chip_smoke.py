@@ -11,8 +11,9 @@ it must also give the contiguous kernel's bits; flash attention, its
 backward in both designs (tensor cores, which bf16 takes, and CUDA cores,
 which fp32 takes); the int4
 kernels in every design (small-M tensor cores for decode rows, unsplit and
-split over K; tensor cores for prefill rows; CUDA cores), the fused
-residual+norm forward and backward). Then drives the
+split over K; tensor cores for prefill rows; CUDA cores; the whole-FF
+kernel's small-M and tensor-core designs, the latter at every split of its
+down launch), the fused residual+norm forward and backward). Then drives the
 port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
@@ -21,11 +22,11 @@ and with ``kv_cache_dtype=torch.int8`` (held to the dense backend over the
 same int8 cache); int4 quantized serving of the same model through
 ``make_generate_fn(dequantize="fused" | "fused_w4a8")`` over
 ``quantize_tree(bits=4)``, checked against the dense bf16 model on the
-dequantized weights, its prefill's int4 matmuls held to the tensor-core
-design and its decode steps' to the small-M one, then the decode ladder
-(bf16, int8, int4-fused, int4-w4a8), the int4 prefill alone and the int4
-generates against the same calls with their decode matmuls on the CUDA
-cores; the
+dequantized weights, its prefill's int4 matmuls and FFs held to the
+tensor-core designs and its decode steps' to the small-M ones, then the
+decode ladder (bf16, int8, int4-fused, int4-w4a8), the int4 prefill alone
+and the int4 generates against the same calls with their decode matmuls,
+or their FFs, on the CUDA cores; the
 continuous engine (``models/serving.py``) on
 ``bench.py::bench_serving_125m``'s workload, unpaged, paged, with the prefix
 cache cold and warm, and int4-fused + paged + prefix, every paged variant's
@@ -1615,16 +1616,25 @@ def run_engine_path(params, q4, card):
             # launches (out-projections and the lm_head) a layer and one more.
             got = {k: launches[k] for k in (
                 "int4_matmul3", "int4_matmul3_tensor_core", "int4_matmul3_small_m",
-                "int4_matmul", "int4_matmul_tensor_core", "int4_matmul_small_m")}
+                "int4_matmul", "int4_matmul_tensor_core", "int4_matmul_small_m", "int4_ff",
+                "int4_ff_tensor_core", "int4_ff_small_m")}
             triples = dict(zip(("tensor_core", "small_m"), (cfg.num_layers * len(refills), steps)))
             w16 = {k: v // cfg.num_layers * (cfg.num_layers + 1) for k, v in triples.items()}
+            # The FF: the refill chunks' on the design ff4._design gives their
+            # rows, every decode call's on the small-M design.
+            refill_ff = ff4._design(B * PAGED_CHUNK, cfg.features, cfg.hidden,
+                                    cfg.quantization_group, torch.bfloat16, mm4._sm_count(0))
             expect = {"int4_matmul3": want, "int4_matmul3_tensor_core": triples["tensor_core"],
                       "int4_matmul3_small_m": triples["small_m"],
                       "int4_matmul": want // cfg.num_layers * (cfg.num_layers + 1),
                       "int4_matmul_tensor_core": w16["tensor_core"],
-                      "int4_matmul_small_m": w16["small_m"]}
+                      "int4_matmul_small_m": w16["small_m"], "int4_ff": want,
+                      "int4_ff_tensor_core": triples["tensor_core"] * (refill_ff == "tensor_core"),
+                      "int4_ff_small_m": triples["small_m"]
+                      + triples["tensor_core"] * (refill_ff == "small_m")}
             log(f"[engine] {label}: int4 launches {got} (want {expect}: the refill chunks on "
-                f"the tensor cores, every decode call on the small-M design)")
+                f"the tensor cores (the FF's on {refill_ff}), every decode call on the small-M "
+                f"design)")
             if got != expect:
                 raise AssertionError(f"engine {label}: int4 launches {got}, want {expect}")
         for out, p in zip(outs, prompts):
@@ -1798,6 +1808,52 @@ def counted(kernel, chosen, call):
     return out
 
 
+def ff_designs(m, group, dtype, k=768, hidden=3072):
+    """The FF at a shape: the wrapper's choice as ``(design, up tile rows,
+    down splits)`` (both None but for the tensor-core design), and each
+    other launch the shape takes: every design whose layout holds, the
+    tensor-core one at each split of its down launch and at the other tile
+    of its up launch (128 or 96 rows)."""
+    sms = mm4._sm_count(0)
+    chosen = ff4._design(m, k, hidden, group, dtype, sms)
+    every = [("cuda_core", None, None)]
+    if dtype == torch.bfloat16 and ff4._tensor_core_layout(k, hidden, group):
+        up = mm4._tile_rows(m, hidden, 1, sms)
+        split = ff4._down_splits(m, k, hidden, group, sms)
+        other = mm4.SMALL_TILE_ROWS if up == mm4.TILE_ROWS else mm4.TILE_ROWS
+        every += [("tensor_core", up, s) for s in ff4.down_split_choices(k, hidden, group)]
+        every.append(("tensor_core", other, split))
+    if (dtype == torch.bfloat16 and m <= mm4.SMALL_M_ROWS
+            and ff4._small_m_layout(k, hidden, group)):
+        every.append(("small_m", None, None))
+    rule = (chosen, None, None)
+    if chosen == "tensor_core":
+        rule = (chosen, mm4._tile_rows(m, hidden, 1, sms), ff4._down_splits(m, k, hidden, group,
+                                                                           sms))
+    return rule, [d for d in every if d != rule]
+
+
+def ff_design_name(design, up=None, splits=None):
+    return f"{design} {up}-row/{splits} pieces" if up else design
+
+
+def counted_ff(chosen, call):
+    """``call()`` through ``int4_ff``, asserting that it counted one launch
+    and, beside it, one of the design ``ff4._design`` chose (none for the
+    CUDA-core design)."""
+    def counts():
+        f = ff4.int4_ff
+        return f.launches, f.tensor_core_launches, f.small_m_launches
+
+    before = counts()
+    out = call()
+    want = (before[0] + 1, before[1] + (chosen == "tensor_core"),
+            before[2] + (chosen == "small_m"))
+    if counts() != want:
+        raise AssertionError(f"int4_ff ({chosen}) counted {counts()}, want {want}")
+    return out
+
+
 def check_int4(gen):
     """The four int4 kernels against their plain versions. w4a16, the q/k/v
     triple and w4a8 in fp32 and bf16 activations at every
@@ -1807,11 +1863,14 @@ def check_int4(gen):
     counts must move as ``_variant`` says, and each other design (and
     tile, and split) the layout takes launched directly; every small-M
     launch twice, bit-equal; the FF at its decode and prefill shapes, an
-    odd M, a whole-K/H group and group 64 → per kernel and dtype the
+    odd M, a whole-K/H group and group 64 through ``int4_ff`` (whose
+    counts must move as ``ff4._design`` says) and each other design that
+    takes the shape, every launch twice, bit-equal → per kernel and dtype the
     largest relative (checked) and absolute error over every design, per
     design the same, and w4a8's count of outputs that are not bit-equal."""
     worst, by_design = {}, {}
-    unequal = {"w4a8 outputs": 0, "not bit-equal": 0, "small_m relaunches": 0}
+    unequal = {"w4a8 outputs": 0, "not bit-equal": 0, "small_m relaunches": 0,
+               "int4_ff relaunches": 0}
 
     def again(design, first, launch):
         """A small-M launch once more: its bits must not move."""
@@ -1897,9 +1956,24 @@ def check_int4(gen):
             up, dn = int4_weight(gen, 768, 3072, g), int4_weight(gen, 3072, 768, g)
             x = randn(gen, m, 768, dtype=dtype)
             args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
-            got = ff4.int4_ff(x, *args, group=g)
             want = ff4.int4_ff_reference(x, *args, group=g)
-            note("int4_ff", "cuda_core", dtype, name, rel_err(name, got, want), INT4_TOL[dtype])
+            chosen, others = ff_designs(m, g, dtype)
+
+            def public():
+                return ff4.int4_ff(x, *args, group=g)
+            launched = [(chosen, counted_ff(chosen[0], public), public)]
+            for design in others:
+                def launch(design=design):
+                    return ff4._launch_cuda(x, *args, group=g, design=design[0],
+                                            up_rows=design[1], down_splits=design[2])[0]
+                launched.append((design, launch(), launch))
+            for design, got, launch in launched:
+                unequal["int4_ff relaunches"] += 1
+                if not torch.equal(got, launch()):
+                    raise AssertionError(f"int4_ff {design} {name}: a second launch gave "
+                                         f"other bits")
+                note("int4_ff", ff_design_name(*design), dtype, name, rel_err(name, got, want),
+                     INT4_TOL[dtype])
     torch.cuda.synchronize()
     for (kernel, design, dtype), (rel, abs_err, flips, cases) in sorted(
             by_design.items(), key=lambda kv: (kv[0][0], kv[0][1], str(kv[0][2]))):
@@ -1911,7 +1985,9 @@ def check_int4(gen):
         f"bit-equal to the plain version's (every design and split, fp32 and bf16)")
     log(f"[int4] every w4a16, triple and w4a8 case ran through its public wrapper, whose "
         f"launch and design counts moved as _variant says; {unequal['small_m relaunches']} "
-        f"small-M launches repeated bit-equal")
+        f"small-M launches repeated bit-equal; every FF case through int4_ff (counts as "
+        f"ff4._design says) and each other design, {unequal['int4_ff relaunches']} FF "
+        f"launches repeated bit-equal")
     return worst, by_design, unequal
 
 
@@ -1928,11 +2004,13 @@ def reset_launches() -> None:
     mm4.int4_matmul3.tensor_core_launches = 0
     mm4.int4_matmul3.small_m_launches = 0
     ff4.int4_ff.launches = 0
+    ff4.int4_ff.small_m_launches = 0
+    ff4.int4_ff.tensor_core_launches = 0
 
 
 def read_launches() -> dict:
-    """Each kernel's launches (every design of the int4 matmuls), and the
-    tensor-core and small-M designs' among them."""
+    """Each kernel's launches (every design of the int4 matmuls and the
+    FF), and the tensor-core and small-M designs' among them."""
     return {"int4_matmul": mm4.int4_matmul.launches["w4a16"],
             "int4_matmul_w4a8": mm4.int4_matmul.launches["w4a8"],
             "int4_matmul3": mm4.int4_matmul3.launches, "int4_ff": ff4.int4_ff.launches,
@@ -1945,7 +2023,9 @@ def read_launches() -> dict:
             "int4_matmul3_tensor_core": mm4.int4_matmul3.tensor_core_launches,
             "int4_matmul_small_m": mm4.int4_matmul.launches["w4a16_small_m"],
             "int4_matmul_w4a8_small_m": mm4.int4_matmul.launches["w4a8_small_m"],
-            "int4_matmul3_small_m": mm4.int4_matmul3.small_m_launches}
+            "int4_matmul3_small_m": mm4.int4_matmul3.small_m_launches,
+            "int4_ff_small_m": ff4.int4_ff.small_m_launches,
+            "int4_ff_tensor_core": ff4.int4_ff.tensor_core_launches}
 
 
 def run_quantized_path(params, gen):
@@ -1962,21 +2042,24 @@ def run_quantized_path(params, gen):
                            dtype=torch.int32)
     layers = cfg.num_layers
     # One prefill (M = B × PROMPT rows) and NEW - 1 decode steps (M = B):
-    # the prefill's int4 matmuls take the tensor-core design, every decode
-    # step's the small-M design (ops/int4_matmul.py::_variant); decode
+    # the prefill's int4 matmuls and FFs take the tensor-core design, every
+    # decode step's the small-M design (ops/int4_matmul.py::_variant,
+    # ops/int4_ff.py::_design); decode
     # attention as in the bf16 generate (generate_decode_launches).
     attention = generate_decode_launches(cfg)
     steps = NEW - 1
     none = {"int4_matmul": 0, "int4_matmul_w4a8": 0, "int4_matmul3": 0, "int4_ff": 0,
             "int4_matmul_tensor_core": 0, "int4_matmul_w4a8_tensor_core": 0,
             "int4_matmul3_tensor_core": 0, "int4_matmul_small_m": 0,
-            "int4_matmul_w4a8_small_m": 0, "int4_matmul3_small_m": 0,
-            "decode_attention": layers * NEW, "decode_attention_paged": 0, **attention}
+            "int4_matmul_w4a8_small_m": 0, "int4_matmul3_small_m": 0, "int4_ff_small_m": 0,
+            "int4_ff_tensor_core": 0, "decode_attention": layers * NEW,
+            "decode_attention_paged": 0, **attention}
     want = {
         "fused": {**none, "int4_matmul": (layers + 1) * NEW, "int4_matmul3": layers * NEW,
                   "int4_ff": layers * NEW, "int4_matmul_tensor_core": layers + 1,
                   "int4_matmul3_tensor_core": layers, "int4_matmul_small_m": (layers + 1) * steps,
-                  "int4_matmul3_small_m": layers * steps},
+                  "int4_matmul3_small_m": layers * steps, "int4_ff_tensor_core": layers,
+                  "int4_ff_small_m": layers * steps},
         "fused_w4a8": {**none, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
                        "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
                        "int4_matmul_w4a8_small_m": (6 * layers + 1) * steps},
@@ -2070,14 +2153,18 @@ def time_int4_decode(q4, prompt, card, fns):
     """The int4-fused and int4-w4a8 generates (b=8, prompt 128, +128), host
     clock around a synchronised call, medians of 3 interleaved, beside the
     same calls with every matmul that the rule gives the small-M design
-    (the decode steps') launched on the CUDA-core design instead; then each
-    of the four profiled: device-busy ms per token step and the int4
-    matmuls' ms per step (their kernels' profiled time over NEW steps)."""
+    (the decode steps') launched on the CUDA-core design instead, and the
+    int4-fused generate with every ``int4_ff`` on its CUDA-core design;
+    then each of the five profiled: device-busy ms per token step and the
+    int4 matmuls' and ``int4_ff``'s ms per step (their kernels' profiled
+    time over NEW steps)."""
     calls = {}
     for mode, name in (("fused", "int4-fused"), ("fused_w4a8", "int4-w4a8")):
         run = functools.partial(fns[mode], q4, prompt)
         calls[name] = run
         calls[f"{name}, decode on the CUDA cores"] = on_design(run, "cuda_core", only="small_m")
+    calls["int4-fused, int4_ff on the CUDA cores"] = on_design(
+        calls["int4-fused"], "cuda_core", module=ff4, rule="_design")
     times = interleaved_seconds(calls)
     rows = {}
     for name, run in calls.items():
@@ -2086,13 +2173,16 @@ def time_int4_decode(q4, prompt, card, fns):
         prof = profile_summary(f"125M {name} generate token step", run, NEW, ms)
         int4_ms = sum(v for kernel, v in prof["port_kernels_ms_per_step"].items()
                       if kernel.startswith("int4_matmul"))
+        ff_ms = sum(v for kernel, v in prof["port_kernels_ms_per_step"].items()
+                    if kernel.startswith("int4_ff"))
         rows[name] = dict(tok_s=B * NEW / sec, ms_per_token_step=ms, seconds=times[name],
-                          int4_matmul_ms_per_step=int4_ms, profile=prof)
+                          int4_matmul_ms_per_step=int4_ms, int4_ff_ms_per_step=ff_ms,
+                          profile=prof)
         log(f"[time] 125M {name} generate b={B} prompt {PROMPT} +{NEW} (interleaved): "
             f"{B * NEW / sec:.1f} tok/s, {ms:.3f} ms/token-step (median of 3: "
             f"{[round(t, 4) for t in times[name]]} s); profiled: device busy "
-            f"{prof['busy_ms_per_step']:.3f} ms a step, int4 matmuls {int4_ms:.4f} ms a step "
-            f"on {card}")
+            f"{prof['busy_ms_per_step']:.3f} ms a step, int4 matmuls {int4_ms:.4f} ms and "
+            f"int4_ff {ff_ms:.4f} ms a step on {card}")
     return rows
 
 
@@ -2102,9 +2192,11 @@ def time_int4_prefill(q4, prompt, card):
     logits, as ``make_generate_fn`` runs it) under ``"fused"`` and
     ``"fused_w4a8"``, host clock around a synchronised call, medians of 3
     interleaved; beside each, the same call with every int4 matmul forced
-    onto the CUDA-core design (``_variant`` patched for the yardstick only),
-    the launches of one prefill with each kernel's tensor-core share, and a
-    profile of each call (device busy against the host clock)."""
+    onto the CUDA-core design (``_variant`` patched for the yardstick only)
+    and, for ``"fused"``, the same call with only ``int4_ff`` on its
+    CUDA-core design (``ff4._design`` patched), the launches of one prefill
+    with each kernel's tensor-core share, and a profile of each call
+    (device busy against the host clock)."""
     prefills, launches = {}, {}
     for mode in ("fused", "fused_w4a8"):
         cfg, _ = apply_dequantize_policy(derive_decode_config(CONFIG_125M, torch.bfloat16), mode)
@@ -2118,7 +2210,9 @@ def time_int4_prefill(q4, prompt, card):
         torch.cuda.synchronize()
         launches[mode] = {k: v for k, v in read_launches().items() if v}
     cuda_core = {f"{mode} cuda-core": on_design(fn, "cuda_core") for mode, fn in prefills.items()}
-    times = interleaved_seconds({**prefills, **cuda_core})
+    # The same "fused" call with only int4_ff on its CUDA-core design.
+    ff_cc = on_design(prefills["fused"], "cuda_core", module=ff4, rule="_design")
+    times = interleaved_seconds({**prefills, **cuda_core, "fused ff cuda-core": ff_cc})
     rows = {}
     for mode in prefills:
         ms = statistics.median(times[mode]) * 1e3
@@ -2134,13 +2228,22 @@ def time_int4_prefill(q4, prompt, card):
             profile=profile_summary(f"125M int4 prefill {mode}", prefills[mode], 1, ms),
             cuda_core_profile=profile_summary(f"125M int4 prefill {mode}, all on the CUDA-core "
                                               f"design", cuda_core[f"{mode} cuda-core"], 1, cc_ms))
+    ff_ms = statistics.median(times["fused ff cuda-core"]) * 1e3
+    log(f"[time] 125M int4 prefill dequantize='fused' with int4_ff on its CUDA-core design "
+        f"(the matmuls by their rule): {ff_ms:.3f} ms against {rows['fused']['ms']:.3f} "
+        f"({ff_ms / rows['fused']['ms']:.2f}x; calls "
+        f"{[round(t * 1e3, 3) for t in times['fused ff cuda-core']]} ms) on {card}")
+    rows["fused"].update(
+        ff_cuda_core_ms=ff_ms, ff_cuda_core_seconds=times["fused ff cuda-core"],
+        ff_cuda_core_profile=profile_summary("125M int4 prefill fused, int4_ff on the CUDA-core "
+                                             "design", ff_cc, 1, ff_ms))
     return rows
 
 
 def time_int4(gen, card):
     """Each int4 kernel at its 125M sites, bf16: w4a16 and w4a8 at every
     site and the q/k/v triple, at ``INT4_TIME_ROWS`` rows; the FF at decode
-    and prefill. Each matmul row times every design on the same inputs,
+    and prefill (``time_ff``). Each matmul row times every design on the same inputs,
     launched directly: the small-M one (at the rule's split), the
     tensor-core one (w4a16 and the triple: with 128- and with 96-row tiles)
     and the CUDA-core one; ``ms`` is the one the wrapper's rule takes.
@@ -2279,18 +2382,101 @@ def time_int4(gen, card):
                (384, pairs[0][1].shape[0], 128, False))
     del copies, w_copies
     torch.cuda.empty_cache()
-    up, dn = int4_weight(gen, 768, 3072, 128), int4_weight(gen, 3072, 768, 128)
+    rows["int4_ff"] = time_ff(gen, card)
+    log(f"[time] int4 kernels measured on {card}")
+    return rows
+
+
+def time_ff(gen, card, k=768, hidden=3072, group=128):
+    """``int4_ff`` at the 125M FF (768 → 3072 → 768, group 128), bf16, at
+    every ``INT4_TIME_ROWS`` row count, queued: each design on the same
+    inputs (small-M up to ``SMALL_M_ROWS`` rows; the tensor-core one at the
+    rule's tiles and split, and at every other split of its down launch and
+    the other up tile; the CUDA-core one), beside the bound (the weights'
+    bytes or the 4·M·K·H products at the bf16 peak), the tensor-core
+    design's own floor ((2 + 6)·M·K·H: three MMAs a down tile), the plain
+    version, the dense bf16 FF (two ``torch.matmul`` on the weights
+    dequantized to bf16 beforehand and a GELU) and the per-projection int4
+    path on the same weights (two ``int4_matmul`` launches and a GELU). At
+    decode rows (M = B) each design and both yardsticks also run HBM-cold
+    (``cold_time``)."""
+    bf16 = torch.bfloat16
+    sms = mm4._sm_count(0)
+    gelu = torch.nn.functional.gelu
+    up, dn = int4_weight(gen, k, hidden, group), int4_weight(gen, hidden, k, group)
     args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
     w1, w2 = dequantize_leaf_int4(up, bf16), dequantize_leaf_int4(dn, bf16)
     wbytes = sum(t.numel() * t.element_size() for t in args)
-    gelu = torch.nn.functional.gelu
-    for m in (B, 1024):
-        x = randn(gen, m, 768, dtype=bf16)
-        record("int4_ff", "ff", m, lambda *_: ff4._launch_cuda(x, *args, group=128),
-               lambda: ff4.int4_ff_reference(x, *args, group=128),
-               lambda: torch.matmul(gelu(torch.matmul(x, w1), approximate="tanh"), w2),
-               2 * m * 768 + wbytes + 2 * m * 768, 2 * 2 * m * 768 * 3072, None)
-    log(f"[time] int4 kernels measured on {card}")
+    copies = [tuple(t.clone() for t in args) for _ in range(copies_past_l2(wbytes))]
+    w_copies = [(w1.clone(), w2.clone())
+                for _ in range(copies_past_l2((w1.numel() + w2.numel()) * 2))]
+    rows = {}
+    for m in INT4_TIME_ROWS:
+        x = randn(gen, m, k, dtype=bf16)
+        rule, others = ff_designs(m, group, bf16, k, hidden)
+
+        def launch(design, ws=None):
+            return ff4._launch_cuda(x, *(ws or args), group=group, design=design[0],
+                                    up_rows=design[1], down_splits=design[2])
+
+        def dense(w=(w1, w2)):
+            return torch.matmul(gelu(torch.matmul(x, w[0]), approximate="tanh"), w[1])
+
+        def per_projection(ws=args):
+            h = gelu(mm4.int4_matmul(x, ws[0], ws[1], group=group), approximate="tanh")
+            return mm4.int4_matmul(h, ws[2], ws[3], group=group)
+
+        late, times = 0, {}
+        for design in [rule, *others]:
+            times[design], n_late = queued_time(launch, design)
+            late += n_late
+        plain_ms, n_plain = queued_time(ff4.int4_ff_reference, x, *args, group=group, inner=3,
+                                        repeats=5)
+        dense_ms, n_dense = queued_time(dense)
+        proj_ms, n_proj = queued_time(per_projection)
+        late += n_plain + n_dense + n_proj
+        nbytes, ops = 2 * m * k + wbytes + 2 * m * k, 4 * m * k * hidden
+        bound_ms, by = bound(nbytes, ops)
+        tc = [d for d in times if d[0] == "tensor_core"]
+        tc_rule = rule if rule[0] == "tensor_core" else (
+            "tensor_core", mm4._tile_rows(m, hidden, 1, sms),
+            ff4._down_splits(m, k, hidden, group, sms))
+        row = dict(design=rule[0], ms=times[rule] * 1e3, plain_ms=plain_ms * 1e3,
+                   yardstick_ms=dense_ms * 1e3, per_projection_ms=proj_ms * 1e3,
+                   bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
+                   design_floor_ms=8 * m * k * hidden / (device_peak_flops() or 989e12) * 1e3,
+                   cuda_core_ms=times["cuda_core", None, None] * 1e3,
+                   tensor_core_ms=times[tc_rule] * 1e3, tensor_core_tiles=list(tc_rule[1:]),
+                   tensor_core_sweep_ms={f"{d[1]}-row/{d[2]}": times[d] * 1e3 for d in tc},
+                   late_samples=late)
+        if ("small_m", None, None) in times:
+            row["small_m_ms"] = times["small_m", None, None] * 1e3
+        if m == B:
+            cold = {ff_design_name(*d): cold_time([functools.partial(launch, d, ws)
+                                                   for ws in copies])
+                    for d in times if d[0] != "tensor_core" or d == tc_rule}
+            cold["dense bf16 FF"] = cold_time([functools.partial(dense, w) for w in w_copies])
+            cold["per-projection int4"] = cold_time([functools.partial(per_projection, ws)
+                                                     for ws in copies])
+            row["hbm_cold"] = dict({name: v[0] * 1e3 for name, v in cold.items()},
+                                   copies=len(copies), yardstick_copies=len(w_copies),
+                                   late_samples=sum(v[1] for v in cold.values()))
+        rows[f"ff m={m}"] = row
+        designs_us = ", ".join(
+            f"{name} {row[key] * 1e3:.2f} us" for name, key in (
+                ("small-M", "small_m_ms"), ("tensor-core", "tensor_core_ms"),
+                ("CUDA-core", "cuda_core_ms")) if key in row)
+        cold_us = ("; HBM-cold " + ", ".join(f"{name} {v * 1e3:.2f}" for name, v in
+                                             row["hbm_cold"].items() if isinstance(v, float))
+                   + " us" if m == B else "")
+        log(f"[time] int4_ff ff m={m} bf16: {designs_us} (the wrapper takes {rule[0]}; "
+            f"tensor-core at {tc_rule[1]}-row up tiles, {tc_rule[2]} down pieces; sweep "
+            + ", ".join(f"{key}: {v * 1e3:.2f}" for key, v in row["tensor_core_sweep_ms"].items())
+            + f" us), bound {bound_ms * 1e3:.2f} us ({by}), tensor-core floor "
+            f"{row['design_floor_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, dense "
+            f"bf16 FF {row['yardstick_ms'] * 1e3:.2f} us, per-projection int4 "
+            f"{row['per_projection_ms'] * 1e3:.2f} us{cold_us} on {card}"
+            + (f" ({late} samples enqueued past the sleep)" if late else ""))
     return rows
 
 
@@ -2351,10 +2537,12 @@ def ptxas_usage(report: str):
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d((?:flash_[a-z_]+?|decode_attention"
                           r"(?:_rows|_tc|_combine)?"
-                          r"|int4_matmul(?:_w4a8)?(?:_tc|_small_m)?|int4_ff(?:_reduce)?"
-                          r"|fused_norm_(?:fwd|bwd|reduce))_kernel)I(\w+)", line)
+                          r"|int4_matmul(?:_w4a8)?(?:_tc|_small_m)?"
+                          r"|int4_ff(?:_reduce|_small_m|_up_tc|_down_tc)?"
+                          r"|fused_norm_(?:fwd|bwd|reduce))_kernel)(?:I(\w+))?", line)
         if entry:
-            kernel = f"{entry.group(1)}<{', '.join(template_args(entry.group(2)))}>"
+            kernel = entry.group(1) + (f"<{', '.join(template_args(entry.group(2)))}>"
+                                       if entry.group(2) else "")
         elif "spill" in line:
             spills = line.strip()
         elif kernel and (used := re.search(r"Used (\d+) registers", line)):
@@ -2545,6 +2733,26 @@ def main() -> int:
                          "(ops/int4_matmul.py::_variant); w4a16 tiles of 128 or 96 rows, "
                          "whichever leaves the busiest SM the fewest rows (_tile_rows)",
                 prefill=int4_times[name][prefill_site[name]],
+                errors_by_design={f"{design} {str(dtype)[6:]}": dict(
+                    zip(("max_rel", "max_abs", "differing_share", "cases"), v))
+                    for (kernel, design, dtype), v in int4_design_errs.items() if kernel == name})
+        if name == "int4_ff":
+            prefill = int4_times[name]["ff m=1024"]
+            entry.update(
+                variant={"decode (M=8)": row["design"], "prefill (M=1024)": prefill["design"],
+                         "refill (M=512)": int4_times[name][f"ff m={B * PAGED_CHUNK}"]["design"]},
+                tensor_core_launches=launches["int4_ff_tensor_core"],
+                small_m_launches=launches["int4_ff_small_m"], cuda_core_ms=row["cuda_core_ms"],
+                hbm_cold=row["hbm_cold"], prefill=prefill,
+                instantiations=sorted(k for k, _, _ in ptxas_usage(
+                    _build.reports.get("int4_ff", "")) if k.startswith("int4_ff")),
+                variants=f"small_m for up to {mm4.SMALL_M_ROWS} rows of bf16 x (both products "
+                         "on mma.sync, one launch, partials summed through a cluster's "
+                         "distributed shared memory and by the last cluster); tensor_core for "
+                         "bf16 x past them (an up launch with the GELU writing u as three "
+                         "bf16 parts, a down launch on the integer nibbles, split over the "
+                         "scale groups by _down_splits); cuda_core for fp32 x and other "
+                         "layouts (ops/int4_ff.py::_design)",
                 errors_by_design={f"{design} {str(dtype)[6:]}": dict(
                     zip(("max_rel", "max_abs", "differing_share", "cases"), v))
                     for (kernel, design, dtype), v in int4_design_errs.items() if kernel == name})
