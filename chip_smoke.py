@@ -36,8 +36,18 @@ s=1024, 8 steps per call) through ``make_train_step``, checked for descent
 and against the dense attention path, its flash backward held to the
 tensor-core design, and again with ``fused_norm=True`` against the
 plain-norm step, both timed against the same steps with the flash backward
-forced onto the CUDA-core design. Each path's kernel launches are counted from
-zero around one run. Times the paths and the kernels, profiles the paths,
+forced onto the CUDA-core design. Then the probe kernels (``csrc/probes.cu``:
+a one-block copy, a one-call matmul at decode rows, the flash block's
+ablation) against their plain versions at the probe scripts' shapes, and
+the port's probe scripts through their own functions: the launch floor
+(``scripts/perf_call_floor.py``), the launch audit at a 1.4B decode shape
+(``scripts/perf_launch_audit.py``: bf16, int8 dequant and int4 fused, each
+generate's launches held to its designs) and the flash ceiling at long
+context (``scripts/perf_flash_ceiling.py``: the flash kernels at S=8192,
+composed train steps at S=8192 and 16384, causal and windowed, every flash
+launch on the tensor cores, and the ablation); then the design rules timed
+at the 1.4B shape. Each path's kernel launches are counted from zero around
+one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
 last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
 failure. Exits non-zero, printing no result, without a CUDA device.
@@ -80,12 +90,18 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     fused_next_token_loss,
 )
+from learning_jax_sharding_tpu_torch.scripts import (
+    perf_call_floor,
+    perf_flash_ceiling,
+    perf_launch_audit,
+)
 from learning_jax_sharding_tpu_torch.ops import _build
 from learning_jax_sharding_tpu_torch.ops import decode_attention as da
 from learning_jax_sharding_tpu_torch.ops import flash_attention as flash
 from learning_jax_sharding_tpu_torch.ops import fused_norm as norm_ops
 from learning_jax_sharding_tpu_torch.ops import int4_ff as ff4
 from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
+from learning_jax_sharding_tpu_torch.ops import probes
 from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -96,10 +112,12 @@ from learning_jax_sharding_tpu_torch.training.pipeline import (
     sharded_train_state,
 )
 from learning_jax_sharding_tpu_torch.utils.bench import (
+    bound,
     device_peak_flops,
-    device_peak_hbm_bw,
+    device_profile,
     mbu,
     mfu,
+    queued_time,
     time_fn,
 )
 
@@ -130,8 +148,6 @@ ENGINE_COMMON = dict(batch_size=B, max_new_tokens=ENGINE_NEW, refill_chunk=PAGED
 KERNEL_SOURCE = "learning_jax_sharding_tpu_torch/csrc/decode_attention.cu"
 REPLACES = "learning_jax_sharding_tpu/ops/decode_attention.py:83"
 FLASH_SOURCE = "learning_jax_sharding_tpu_torch/csrc/flash_attention.cu"
-# The port's kernels by name, with their template arguments, in a profile.
-PORT_KERNELS = r"(?:flash_|decode_attention|int4_|fused_norm_)\w*(?:<[^>]*>)?"
 FLASH_REPLACES = {
     "fwd": "learning_jax_sharding_tpu/ops/flash_attention.py:175",
     "bwd_dkv": "learning_jax_sharding_tpu/ops/flash_attention.py:314",
@@ -225,6 +241,36 @@ COLD_BYTES = 120_000_000
 # coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
 QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
 LADDER_ROUNDS = 3
+PROBES_SOURCE = "learning_jax_sharding_tpu_torch/csrc/probes.cu"
+# The TPU probe kernels each probe kernel replaces (body, then every launch).
+PROBES_REPLACES = {
+    "probe_copy": "scripts/perf_call_floor.py:26",
+    "probe_matmul": "scripts/perf_call_floor.py:49",
+    "probe_ablate": "scripts/perf_flash_ceiling.py:116",
+}
+PROBES_SITES = {
+    "probe_copy": ["scripts/perf_call_floor.py:31", "scripts/perf_launch_audit.py:160"],
+    "probe_matmul": ["scripts/perf_call_floor.py:56", "scripts/perf_call_floor.py:77"],
+    "probe_ablate": ["scripts/perf_flash_ceiling.py:147", "scripts/perf_flash_ceiling2.py:146"],
+}
+# The probes against their plain versions: the matmul's and the ablation's
+# outputs round to bf16 after fp32 sums in another order (the ablation's
+# plain version in the kernel's own order, ops/probes.py::
+# ablate_probe_online_reference; its distance from the TPU kernel's order is
+# reported beside it and bounded on the CPU by tests/test_torch_probes.py).
+PROBE_TOL = 2.0**-7
+# The launch audit's 1.4B decode shape, and its int4 sites (K, N, products a
+# launch) at the token step's and the prefill's rows.
+AUDIT = perf_launch_audit
+INT4_SITES_1P4B = {"qkv": (2048, 2048, 3), "out": (2048, 2048, 1), "lm_head": (2048, 50304, 1)}
+ROWS_1P4B = (AUDIT.B, AUDIT.B * AUDIT.PROMPT)
+# Decode attention in the 1.4B generate: (query rows, index) of a token step
+# halfway through and of the prefill chunk.
+DECODE_1P4B = {"token step": (1, AUDIT.PROMPT + AUDIT.NEW // 2), "prefill": (AUDIT.PROMPT, 0)}
+# The 1.4B prefill chunk against caches of 4 to 12 64-slot tiles, at index 0
+# and as the cache's last chunk: where a split of a chunk starts to pay
+# (ops/decode_attention.py::MIN_PIECE_TILES).
+CHUNK_SWEEP_TILES = tuple(range(4, 13))
 NORM_SOURCE = "learning_jax_sharding_tpu_torch/csrc/fused_norm.cu"
 NORM_REPLACES = {"fwd": "learning_jax_sharding_tpu/ops/fused_norm.py:57",
                  "bwd": "learning_jax_sharding_tpu/ops/fused_norm.py:82"}
@@ -281,10 +327,11 @@ def variant_name(design, splits) -> str:
 
 
 def kernel_case(name, gen, dtype, *, b, s, n, n_kv, h, length, index,
-                window=None, fold=False, write_enable=None, int8=False):
+                window=None, fold=False, write_enable=None, int8=False, variants=None):
     """Decode attention against its plain version on the card, through the
-    public call and in every ``decode_variants`` launch on the same inputs
-    (each from the same caches) → the largest max abs error. ``int8``:
+    public call and in every ``decode_variants`` launch (or each
+    ``(design, splits)`` of ``variants``) on the same inputs (each from the
+    same caches) → the largest max abs error. ``int8``:
     quantized caches with their scales (and new-token scales when folded).
     A folded write must equal the plain version's bit for bit."""
     q = randn(gen, b, s, n, h, dtype=dtype)
@@ -315,7 +362,7 @@ def kernel_case(name, gen, dtype, *, b, s, n, n_kv, h, length, index,
     ref = call(decode_attention_reference, ref_caches)
     label = f"{name}{' int8' if int8 else ''} {str(dtype)[6:]}"
     errs = {}
-    for design, splits in [(None, None)] + decode_variants(dtype):
+    for design, splits in [(None, None)] + (variants or decode_variants(dtype)):
         bufs = {k: v.clone() for k, v in caches.items()}
         out = call(decode_attention, bufs, design=design, splits=splits)
         torch.cuda.synchronize()
@@ -711,20 +758,20 @@ def check_output(out, b, total, vocab):
         raise AssertionError("output token ids out of range")
 
 
-def generate_decode_launches(cfg) -> dict:
+def generate_decode_launches(cfg, b=B, prompt=PROMPT, new=NEW) -> dict:
     """Decode attention's tensor-core and split launches in one rectangular
-    generate (b=B, prompt PROMPT, +NEW) as the wrapper's rules give them:
-    the prefill's launches (PROMPT · group folded rows) on the tensor cores,
+    generate (b, prompt, +new) as the wrapper's rules give them: the
+    prefill's launches (prompt · group folded rows) on the tensor cores,
     every token step's split. Raises if the rules would leave the token
     step in one piece."""
     layers, n_kv = cfg.num_layers, cfg.num_kv_heads or cfg.num_heads
     h = cfg.head_dim
-    prefill = public_split(B, PROMPT, cfg.num_heads, n_kv, h, cfg.max_seq_len)
-    step = public_split(B, 1, cfg.num_heads, n_kv, h, cfg.max_seq_len)
+    prefill = public_split(b, prompt, cfg.num_heads, n_kv, h, cfg.max_seq_len)
+    step = public_split(b, 1, cfg.num_heads, n_kv, h, cfg.max_seq_len)
     if prefill[0] != "tensor_core" or step[1] == 1:
         raise AssertionError(f"decode attention rules: prefill {prefill}, token step {step}")
     return {"decode_attention_tensor_core": layers,
-            "decode_attention_split": layers * (NEW - 1) + layers * (prefill[1] > 1)}
+            "decode_attention_split": layers * (new - 1) + layers * (prefill[1] > 1)}
 
 
 def check_generate_designs(label, cfg) -> dict:
@@ -809,33 +856,15 @@ def run_main_path(params, gen, tf_model, card):
 
 def profile_summary(label, run, steps, ms_per_step):
     """Where a step's time goes: ``run()`` (``steps`` steps) once under
-    torch.profiler → device kernels per step, device-busy time per step, the
-    idle share against the unprofiled ms/step, the top 6 kernels, and the
-    port's own kernels (``PORT_KERNELS``), each per step."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    # Device activity without the ranges that annotations (such as the
-    # optimizer's step) draw over the kernels they enclose.
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        raise AssertionError(f"{label}: the profiler saw no device kernels")
-    busy_us, by_name = 0.0, Counter()
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        busy_us += dur
-        by_name[e.name] += dur
-    busy_ms = busy_us / 1e3 / steps
-    top = [(name[:60], round(us / 1e3 / steps, 4)) for name, us in by_name.most_common(6)]
-    ported = {re.search(PORT_KERNELS, name).group(0): round(us / 1e3 / steps, 4)
-              for name, us in by_name.items() if re.search(PORT_KERNELS, name)}
-    row = dict(kernels_per_step=len(kernels) / steps, busy_ms_per_step=busy_ms,
+    torch.profiler (``utils/bench.py::device_profile``) → device kernels per
+    step, device-busy time per step, the idle share against the unprofiled
+    ms/step, the top 6 kernels, and the port's own kernels
+    (``PORT_KERNELS``), each per step."""
+    prof = device_profile(run, steps)
+    busy_ms = prof["busy_ms"]
+    top = [(name[:60], round(ms, 4)) for name, ms in prof["by_name"].most_common(6)]
+    ported = {name: round(ms, 4) for name, ms in prof["port_ms_by_name"].items()}
+    row = dict(kernels_per_step=prof["kernels"], busy_ms_per_step=busy_ms,
                idle_share=1 - busy_ms / ms_per_step, top_ms_per_step=top,
                port_kernels_ms_per_step=ported)
     log(f"[profile] {label}, per step: {row['kernels_per_step']:.1f} device kernels, "
@@ -1167,15 +1196,6 @@ def run_int8_generate(params, gen, card):
     return dict(launches=launches, teacher_forced_max_gap=gap, timing=timing)
 
 
-def bound(nbytes, ops, peak=None):
-    """The least time the card takes: bytes over its memory rate or
-    operations over its peak for their type (default bf16), whichever is
-    larger (ms, and which)."""
-    t_bytes = nbytes / (device_peak_hbm_bw() or 3.35e12) * 1e3
-    t_ops = ops / (peak or device_peak_flops() or 989e12) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def time_flash(gen, card):
     """Each flash kernel at the train step's attention shape (folded q (96,
     1024, 64) bf16, causal), queued (``queued_time``), in both designs on
@@ -1263,13 +1283,13 @@ def time_designs(args, kw, shape):
                 split_sweep_ms=sweep, plain_ms=plain_ms * 1e3), late + old_late
 
 
-def time_shape(gen, name, *, s, index, card):
-    """Decode attention at one generate shape (b=8, 12 heads, H=64, bf16
-    1024-slot caches, one index), queued (device time): the public call,
-    the first design on the same inputs, the split sweep, the plain version,
-    SDPA on the valid prefix (causal for a chunk) and the bound (bytes: the
-    valid K/V prefix, q and out)."""
-    dtype, n, h, length = torch.bfloat16, 12, 64, 1024
+def time_shape(gen, name, *, s, index, card, n=12, h=64, length=1024):
+    """Decode attention at one generate shape (b=8, by default 12 heads,
+    H=64, bf16 1024-slot caches, one index), queued (device time): the
+    public call, the first design on the same inputs, the split sweep, the
+    plain version, SDPA on the valid prefix (causal for a chunk) and the
+    bound (bytes: the valid K/V prefix, q and out)."""
+    dtype = torch.bfloat16
     q = randn(gen, B, s, n, h, dtype=dtype)
     kc = randn(gen, B, n, length, h, dtype=dtype)
     vc = randn(gen, B, n, length, h, dtype=dtype)
@@ -1294,30 +1314,6 @@ def time_shape(gen, name, *, s, index, card):
             f"{k}: {v * 1e3:.2f}" for k, v in row["split_sweep_ms"].items())
         + f" us on {card}" + (f" ({late} samples enqueued past the sleep)" if late else ""))
     return row
-
-
-def queued_time(fn, *args, inner=20, repeats=7, **kwargs):
-    """Median device seconds per call of ``fn``, as kernels run back to back:
-    each sample enqueues ``inner`` calls behind a sleeping kernel, so the
-    CUDA events time the device work and not the host's launch overhead
-    (which exceeds a decode-size kernel). Returns (seconds, samples whose
-    enqueue outlasted the sleep, which may hold host gaps)."""
-    for _ in range(3):
-        fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    samples, late = [], 0
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)        # ~10 ms at the H100's clocks
-        start.record()
-        for _ in range(inner):
-            fn(*args, **kwargs)
-        late += bool(start.query())          # the sleep ended before the enqueue did
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / 1e3 / inner)
-    return statistics.median(samples), late
 
 
 def cold_time(calls, repeats=5):
@@ -2028,6 +2024,34 @@ def read_launches() -> dict:
             "int4_ff_tensor_core": ff4.int4_ff.tensor_core_launches}
 
 
+def want_generate_launches(cfg, mode, b=B, prompt=PROMPT, new=NEW) -> dict:
+    """Every counter of ``read_launches`` after one rectangular generate
+    (b, prompt, +new) with ``dequantize=mode`` (False and True run no int4
+    kernel): one prefill (M = b × prompt rows) and new - 1 decode steps
+    (M = b); the prefill's int4 matmuls and FFs take the tensor-core
+    design, every decode step's the small-M design (ops/int4_matmul.py::
+    _variant, ops/int4_ff.py::_design); decode attention as in the bf16
+    generate (generate_decode_launches)."""
+    layers, steps = cfg.num_layers, new - 1
+    none = {"int4_matmul": 0, "int4_matmul_w4a8": 0, "int4_matmul3": 0, "int4_ff": 0,
+            "int4_matmul_tensor_core": 0, "int4_matmul_w4a8_tensor_core": 0,
+            "int4_matmul3_tensor_core": 0, "int4_matmul_small_m": 0,
+            "int4_matmul_w4a8_small_m": 0, "int4_matmul3_small_m": 0, "int4_ff_small_m": 0,
+            "int4_ff_tensor_core": 0, "decode_attention": layers * new,
+            "decode_attention_paged": 0, **generate_decode_launches(cfg, b, prompt, new)}
+    if mode == "fused":
+        return {**none, "int4_matmul": (layers + 1) * new, "int4_matmul3": layers * new,
+                "int4_ff": layers * new, "int4_matmul_tensor_core": layers + 1,
+                "int4_matmul3_tensor_core": layers, "int4_matmul_small_m": (layers + 1) * steps,
+                "int4_matmul3_small_m": layers * steps, "int4_ff_tensor_core": layers,
+                "int4_ff_small_m": layers * steps}
+    if mode == "fused_w4a8":
+        return {**none, "int4_matmul_w4a8": (6 * layers + 1) * new,
+                "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
+                "int4_matmul_w4a8_small_m": (6 * layers + 1) * steps}
+    return none
+
+
 def run_quantized_path(params, gen):
     """int4 serving of the 125M model through ``make_generate_fn``: the
     ``"fused"`` and ``"fused_w4a8"`` runs, each with its launches counted
@@ -2040,30 +2064,7 @@ def run_quantized_path(params, gen):
     tf_model.load_state_dict(dequantize_tree(q4, torch.bfloat16))
     prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
                            dtype=torch.int32)
-    layers = cfg.num_layers
-    # One prefill (M = B × PROMPT rows) and NEW - 1 decode steps (M = B):
-    # the prefill's int4 matmuls and FFs take the tensor-core design, every
-    # decode step's the small-M design (ops/int4_matmul.py::_variant,
-    # ops/int4_ff.py::_design); decode
-    # attention as in the bf16 generate (generate_decode_launches).
-    attention = generate_decode_launches(cfg)
-    steps = NEW - 1
-    none = {"int4_matmul": 0, "int4_matmul_w4a8": 0, "int4_matmul3": 0, "int4_ff": 0,
-            "int4_matmul_tensor_core": 0, "int4_matmul_w4a8_tensor_core": 0,
-            "int4_matmul3_tensor_core": 0, "int4_matmul_small_m": 0,
-            "int4_matmul_w4a8_small_m": 0, "int4_matmul3_small_m": 0, "int4_ff_small_m": 0,
-            "int4_ff_tensor_core": 0, "decode_attention": layers * NEW,
-            "decode_attention_paged": 0, **attention}
-    want = {
-        "fused": {**none, "int4_matmul": (layers + 1) * NEW, "int4_matmul3": layers * NEW,
-                  "int4_ff": layers * NEW, "int4_matmul_tensor_core": layers + 1,
-                  "int4_matmul3_tensor_core": layers, "int4_matmul_small_m": (layers + 1) * steps,
-                  "int4_matmul3_small_m": layers * steps, "int4_ff_tensor_core": layers,
-                  "int4_ff_small_m": layers * steps},
-        "fused_w4a8": {**none, "int4_matmul_w4a8": (6 * layers + 1) * NEW,
-                       "int4_matmul_w4a8_tensor_core": 6 * layers + 1,
-                       "int4_matmul_w4a8_small_m": (6 * layers + 1) * steps},
-    }
+    want = {mode: want_generate_launches(cfg, mode) for mode in ("fused", "fused_w4a8")}
     rows, fns = {}, {}
     for mode in ("fused", "fused_w4a8"):
         fn = fns[mode] = make_generate_fn(cfg, max_new_tokens=NEW,
@@ -2480,6 +2481,364 @@ def time_ff(gen, card, k=768, hidden=3072, group=128):
     return rows
 
 
+def check_probes(gen):
+    """[probes] Each probe kernel against its plain version at the probe
+    scripts' shapes: the (8, 128) copy bit-equal; the (8, 2048) x (2048,
+    8192) matmul in one call and in four calls of 2048 columns within
+    ``PROBE_TOL`` of the largest |ref| with at most ``INT4_BF16_FLIPS`` of
+    its bf16 outputs differing; the ablation over 16 blocks of 1024 rows
+    at h = 64 and 128 in each mode within ``PROBE_TOL``. The launches made
+    here are not counted for the paths."""
+    del gen
+    errs = {}
+    x, out = perf_call_floor.copy_inputs()
+    got = probes.copy_probe(x, out)
+    torch.cuda.synchronize()
+    if not torch.equal(got, probes.copy_probe_reference(x)):
+        raise AssertionError("copy_probe is not bit-equal to its plain version")
+    errs["copy"] = dict(max_abs=0.0, bit_equal=True)
+    log("[probes] copy_probe (8, 128) bf16: bit-equal")
+    x, w, out = perf_call_floor.matmul_inputs()
+    want = probes.matmul_probe_reference(x, w)
+    for name, call in (("one call", lambda: probes.matmul_probe(x, w, out)),
+                       ("four calls", lambda: perf_call_floor.four_calls(x, w, out))):
+        out.fill_(float("nan"))
+        got = call()
+        torch.cuda.synchronize()
+        rel, abs_err, flips = rel_err(f"matmul_probe {name}", got, want)
+        errs[f"matmul {name}"] = dict(max_rel=rel, max_abs=abs_err, differing_share=flips)
+        log(f"[probes] matmul_probe {name} ({perf_call_floor.M}, {perf_call_floor.K}) x "
+            f"({perf_call_floor.K}, {perf_call_floor.N}) bf16: max err {rel:.3e} of max |ref| "
+            f"({abs_err:.3e} abs; limit {PROBE_TOL:.3e}), {flips:.4%} of outputs differ "
+            f"(limit {INT4_BF16_FLIPS:.0%})")
+        if not (rel <= PROBE_TOL and flips <= INT4_BF16_FLIPS):
+            raise AssertionError(f"matmul_probe {name}: err {rel}, {flips} differing")
+    block = perf_flash_ceiling.BLOCK
+    for h in perf_flash_ceiling.ABLATE_HEAD_DIMS:
+        q, k, v = perf_flash_ceiling.ablation_inputs(h)
+        for mode in perf_flash_ceiling.MODES:
+            got = probes.ablate_probe(q, k, v, block=block, mode=mode)
+            torch.cuda.synchronize()
+            rel, abs_err, flips = rel_err(
+                f"ablate_probe {mode} h={h}", got,
+                probes.ablate_probe_online_reference(q, k, v, block=block, mode=mode))
+            tpu_rel, _, _ = rel_err(f"ablate_probe {mode} h={h}", got,
+                                    probes.ablate_probe_reference(q, k, v, block=block, mode=mode))
+            errs[f"ablate {mode} h={h}"] = dict(max_rel=rel, max_abs=abs_err,
+                                                differing_share=flips, tpu_order_max_rel=tpu_rel)
+            log(f"[probes] ablate_probe {mode} h={h} ({perf_flash_ceiling.BLOCKS} blocks of "
+                f"{block}): max err {rel:.3e} of max |ref| against the plain version in the "
+                f"kernel's order (limit {PROBE_TOL:.3e}; {flips:.4%} of outputs differ), "
+                f"{tpu_rel:.3e} against the TPU kernel's order")
+            if not rel <= PROBE_TOL:
+                raise AssertionError(f"ablate_probe {mode} h={h}: err {rel} > {PROBE_TOL}")
+    probes.reset_launches()
+    return errs
+
+
+def check_1p4b_generate(label, fn, tree, prompt):
+    """One rectangular generate of the audit's variant ``label`` at the
+    1.4B shape, its launches counted from zero and held to
+    ``want_generate_launches`` (decode attention's prefill on the tensor
+    cores and every token step split; int4 fused: the prefill's matmuls and
+    FFs on the tensor-core designs, the token steps' on the small-M ones),
+    and its tokens teacher-forced against the dense bf16 model on the same
+    weights (the quantized ones dequantized)."""
+    mode = {"bf16": False, "int8 dequant": True, "int4 fused": "fused"}[label]
+    cfg = AUDIT.CONFIG_1P4B
+    want = want_generate_launches(cfg, mode, AUDIT.B, AUDIT.PROMPT, AUDIT.NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(tree, prompt)
+    torch.cuda.synchronize()
+    got = read_launches()
+    log(f"[audit] {label}: one 1.4B generate launched {got}")
+    if got != want:
+        raise AssertionError(f"1.4B {label} generate launched {got}, want {want}")
+    total = AUDIT.PROMPT + AUDIT.NEW
+    check_output(out, AUDIT.B, total, cfg.vocab_size)
+    tf_model = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                           seed=1).eval()
+    tf_model.load_state_dict(dequantize_tree(tree, torch.bfloat16))
+    gap = teacher_forced_gap(tf_model, out, [AUDIT.PROMPT] * AUDIT.B, [total] * AUDIT.B)
+    limit = QUANT_TF_GAP["fused"] if mode == "fused" else TF_GAP
+    log(f"[audit] {label}: teacher-forced max gap {gap:.4f} against the dense bf16 model on "
+        f"the same weights (limit {limit})")
+    if not gap <= limit:
+        raise AssertionError(f"1.4B {label} teacher-forced gap {gap} > {limit}")
+
+
+def run_probe_paths(card):
+    """The probe scripts through their own functions, as their ``main()``s
+    run them, each with the probe counters set to 0 just before and read
+    just after: the launch floor (``perf_call_floor``: copy and matmul
+    probes), the launch audit at 1.4B (``perf_launch_audit``: the copy
+    probe's floors in the same process; each variant's generate counted by
+    ``check_1p4b_generate``) and the flash ceiling (``perf_flash_ceiling``,
+    parts 1-4: the ablation probe; every flash launch of the composed steps
+    on the tensor cores). Fails if a probe kernel of a path launched no
+    time."""
+    rows, launches, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    probes.reset_launches()
+    rows["floor"] = {"copy": perf_call_floor.copy_floor(), "matmul": perf_call_floor.matmul_floor()}
+    launches["floor"] = {"probe_copy": probes.copy_probe.launches,
+                         "probe_matmul": probes.matmul_probe.launches}
+    perf_call_floor.report(rows["floor"]["copy"], "(8, 128) bf16")
+    perf_call_floor.report(rows["floor"]["matmul"], "(8, 2048) x (2048, 8192) bf16")
+    seconds["floor"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    probes.reset_launches()
+    rows["audit"] = perf_launch_audit.audit(check=check_1p4b_generate, log=log)
+    launches["audit"] = {"probe_copy": probes.copy_probe.launches}
+    seconds["audit"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    probes.reset_launches()
+    ceiling = rows["flash_ceiling"] = {
+        "part1": perf_flash_ceiling.kernel_bench(log=log),
+        "part2": perf_flash_ceiling.composed_8k(log=log),
+        "part3": perf_flash_ceiling.ablation(log=log),
+        "part4": perf_flash_ceiling.composed_16k(log=log)}
+    launches["flash_ceiling"] = {"probe_ablate": probes.ablate_probe.launches}
+    seconds["flash_ceiling"] = time.perf_counter() - t0
+    for part in ("part2", "part4"):
+        for name, row in ceiling[part].items():
+            calls = perf_flash_ceiling.STEPS_PER_CALL * perf_flash_ceiling.CONFIG_8K.num_layers
+            if row["flash_launches"] != dict.fromkeys(FLASH_LAUNCH_KEYS, calls):
+                raise AssertionError(f"flash ceiling {part} {name}: one call launched "
+                                     f"{row['flash_launches']}, want {calls} of each on the "
+                                     f"tensor cores")
+    log(f"[probes] path launches (counted from zero around each script): {launches}; "
+        f"seconds {dict((k, round(v, 1)) for k, v in seconds.items())}")
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{path}: {name} never launched")
+    return dict(rows, launches=launches, seconds=seconds)
+
+
+def time_probes(paths, card):
+    """The probes' numbers for the kernels line, at the scripts' shapes,
+    queued: the kernels' and their library calls' from the scripts' own
+    runs in ``paths`` (the floor: the copy against ``Tensor.copy_``, the
+    one-call matmul against ``torch.matmul``; the ablation, ``full`` at
+    h = 128, against SDPA at scale 1), beside the plain versions timed here
+    on the same inputs and the bounds."""
+    floor, ablation = paths["floor"], paths["flash_ceiling"]["part3"]
+    blocks, block = perf_flash_ceiling.BLOCKS, perf_flash_ceiling.BLOCK
+    x, _ = perf_call_floor.copy_inputs()
+    copy_plain, _ = queued_time(probes.copy_probe_reference, x)
+    xm, w, _ = perf_call_floor.matmul_inputs()
+    mm_plain, _ = queued_time(probes.matmul_probe_reference, xm, w, inner=3, repeats=5)
+    m, k, n = perf_call_floor.M, perf_call_floor.K, perf_call_floor.N
+    rows = {
+        "probe_copy": dict(ms=floor["copy"]["copy_probe"]["queued_ms"], plain_ms=copy_plain * 1e3,
+                           library_ms=floor["copy"]["copy_"]["queued_ms"],
+                           library_call="Tensor.copy_",
+                           bound=bound(2 * x.numel() * x.element_size(), 0)),
+        "probe_matmul": dict(ms=floor["matmul"]["matmul_probe"]["queued_ms"],
+                             plain_ms=mm_plain * 1e3,
+                             library_ms=floor["matmul"]["torch.matmul"]["queued_ms"],
+                             library_call="torch.matmul",
+                             bound=bound(2 * (m * k + k * n + m * n), 2 * m * k * n)),
+    }
+    h = 128
+    q, kk, v = perf_flash_ceiling.ablation_inputs(h)
+    ab_plain, _ = queued_time(probes.ablate_probe_reference, q, kk, v, block=block, mode="full",
+                              inner=3, repeats=5)
+    rows["probe_ablate"] = dict(
+        ms=ablation[h]["full"] * blocks / 1e3, plain_ms=ab_plain * 1e3,
+        library_ms=ablation[h]["sdpa"] * blocks / 1e3,
+        library_call="scaled_dot_product_attention(scale=1.0)",
+        bound=bound(4 * q.numel() * q.element_size(), probes.ablate_flops(blocks, block, h)))
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        log(f"[time] {name} (queued): {row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.3f} "
+            f"us ({row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us, {row['library_call']} "
+            f"{row['library_ms'] * 1e3:.2f} us on {card}")
+    return rows
+
+
+def int4_designs_1p4b(m, k, n, ng, nw):
+    """Every w4a16 launch the 1.4B sweep times at a site, bf16, group 128
+    → {name: (design, tile rows, splits)}, the rule's pick first: each
+    design the layout takes (``int4_designs``) and, where the rule takes the
+    small-M design, that design at every split it takes."""
+    rule, others = int4_designs(m, k, n, ng, 128, torch.bfloat16, False, nw)
+    designs = [rule, *others]
+    if rule[0] == "small_m":
+        designs += [("small_m", None, sp) for sp in mm4.split_choices(k // 2, ng, 128)
+                    if sp <= mm4.MAX_SMALL_M_SPLITS and ("small_m", None, sp) not in designs]
+    return {f"{d[0]}/{d[2]}" if d[0] == "small_m" else design_name(d[0], d[1]): d
+            for d in designs}
+
+
+def decode_shapes_1p4b():
+    """Decode attention's shapes at 1.4B (b = 8, 16 heads of 128, bf16) →
+    [(name, query rows, index, cache slots)]: the generate's token step and
+    prefill (``DECODE_1P4B``), then the prefill chunk over
+    ``CHUNK_SWEEP_TILES`` at index 0 and as the cache's last chunk."""
+    shapes = {(s, index, AUDIT.CONFIG_1P4B.max_seq_len): f"decode attention {name}"
+              for name, (s, index) in DECODE_1P4B.items()}
+    for tiles in CHUNK_SWEEP_TILES:
+        length = tiles * da.TILE_K
+        for index in (0, length - AUDIT.PROMPT):
+            shapes.setdefault((AUDIT.PROMPT, index, length),
+                              f"decode attention chunk at {index} of {tiles} tiles")
+    return [(name, *shape) for shape, name in shapes.items()]
+
+
+def check_1p4b_kernels(gen):
+    """[probes] The int4 kernels and decode attention against their plain
+    versions on the card at the launch audit's 1.4B shapes, bf16, group
+    128. At M = 8 and 512: the q/k/v triple, the 2048² out projection and
+    the lm_head through their public wrappers (counts as ``_variant``
+    says) and at every ``int4_designs_1p4b`` launch; the FF 2048 → 8192 →
+    2048 through ``int4_ff`` (counts as ``ff4._design`` says) and in every
+    other design, up tile and down split; each within ``INT4_TOL`` of the
+    largest |ref| with at most ``INT4_BF16_FLIPS`` of its outputs
+    differing, every small-M and FF launch repeated bit-equal. Decode
+    attention at every ``decode_shapes_1p4b`` shape, public, both designs
+    in one piece and in ``CHECK_SPLITS``, and the public design at every
+    ``SPLIT_SWEEP`` split, within ``TOL``. Exactly what
+    ``time_designs_1p4b`` times → the largest error per kernel."""
+    bf16, tol, cfg = torch.bfloat16, INT4_TOL[torch.bfloat16], AUDIT.CONFIG_1P4B
+    worst = {}
+
+    def hold(kernel, label, outs, wants, launch, repeat):
+        outs = outs if isinstance(outs, (list, tuple)) else [outs]
+        if repeat:
+            again = launch()
+            if not all(torch.equal(a, b) for a, b in zip(
+                    outs, again if isinstance(again, (list, tuple)) else [again])):
+                raise AssertionError(f"1.4B {label}: a second launch gave other bits")
+        errs = [rel_err(label, got, want) for got, want in zip(outs, wants)]
+        rel, abs_err, flips = map(max, zip(*errs))
+        if not (rel <= tol and flips <= INT4_BF16_FLIPS):
+            raise AssertionError(f"1.4B {label}: relative error {rel} (limit {tol}), "
+                                 f"{flips} of outputs differ (limit {INT4_BF16_FLIPS})")
+        old = worst.get(kernel, (0.0, 0.0, 0.0, 0))
+        worst[kernel] = (max(old[0], rel), max(old[1], abs_err), max(old[2], flips), old[3] + 1)
+
+    for site, (k, n, nw) in INT4_SITES_1P4B.items():
+        nodes = [int4_weight(gen, k, n, 128) for _ in range(nw)]
+        pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
+        ng = pairs[0][1].shape[0]
+        kernel = "int4_matmul3" if nw == 3 else "int4_matmul"
+        for m in ROWS_1P4B:
+            x = randn(gen, m, k, dtype=bf16)
+            wants = [mm4.int4_matmul_reference(x, *pair, group=128) for pair in pairs]
+            designs = int4_designs_1p4b(m, k, n, ng, nw)
+            rule = next(iter(designs.values()))
+
+            def public():
+                if nw == 3:
+                    return mm4.int4_matmul3(x, pairs, group=128)
+                return mm4.int4_matmul(x, *pairs[0], group=128)
+            hold(kernel, f"{kernel} {site} m={m} public", counted(kernel, rule[0], public),
+                 wants, public, rule[0] == "small_m")
+            for key, d in designs.items():
+                def launch(d=d):
+                    return mm4._launch_w4a16(x, pairs, group=128, variant=d[0], tile_rows=d[1],
+                                             splits=d[2])
+                hold(kernel, f"{kernel} {site} m={m} {key}", launch(), wants, launch,
+                     d[0] == "small_m")
+        del nodes, pairs
+        torch.cuda.empty_cache()
+    k, hidden = cfg.features, cfg.hidden
+    up, dn = int4_weight(gen, k, hidden, 128), int4_weight(gen, hidden, k, 128)
+    args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
+    for m in ROWS_1P4B:
+        x = randn(gen, m, k, dtype=bf16)
+        want = [ff4.int4_ff_reference(x, *args, group=128)]
+        rule, others = ff_designs(m, 128, bf16, k, hidden)
+
+        def public():
+            return ff4.int4_ff(x, *args, group=128)
+        hold("int4_ff", f"int4_ff m={m} public", counted_ff(rule[0], public), want, public, True)
+        for d in [rule, *others]:
+            def launch(d=d):
+                return ff4._launch_cuda(x, *args, group=128, design=d[0], up_rows=d[1],
+                                        down_splits=d[2])[0]
+            hold("int4_ff", f"int4_ff m={m} {ff_design_name(*d)}", launch(), want, launch, True)
+    del up, dn, args
+    torch.cuda.empty_cache()
+    n_kv = cfg.num_kv_heads or cfg.num_heads
+    for name, s, index, length in decode_shapes_1p4b():
+        design = public_split(AUDIT.B, s, cfg.num_heads, n_kv, cfg.head_dim, length)[0]
+        variants = list(dict.fromkeys(decode_variants(bf16)
+                                      + [(design, sp) for sp in SPLIT_SWEEP]))
+        err = kernel_case(f"1.4B {name}", gen, bf16, b=AUDIT.B, s=s, n=cfg.num_heads,
+                          n_kv=n_kv, h=cfg.head_dim, length=length,
+                          index=torch.full((), index, dtype=torch.int32, device="cuda"),
+                          variants=variants)
+        old = worst.get("decode_attention", (0.0, 0.0, 0.0, 0))
+        worst["decode_attention"] = (0.0, max(old[1], err), 0.0, old[3] + len(variants) + 1)
+    torch.cuda.synchronize()
+    for kernel, (rel, abs_err, flips, cases) in worst.items():
+        log(f"[probes] 1.4B {kernel}: {cases} launches held to the plain version, max err "
+            + (f"{abs_err:.3e} abs (tol {TOL[bf16]:g})" if kernel == "decode_attention" else
+               f"{rel:.3e} of the largest |ref| ({abs_err:.3e} abs; tol {tol:g}), at most "
+               f"{flips:.2e} of outputs differ"))
+    return {kernel: dict(zip(("max_rel", "max_abs", "differing_share", "cases"), v))
+            for kernel, v in worst.items()}
+
+
+def time_designs_1p4b(gen, card):
+    """The design rules at the launch audit's 1.4B shape, bf16, group 128,
+    queued: at the token step's rows (M = 8) and the prefill's (M = 512),
+    every ``int4_designs_1p4b`` launch of each int4 site (the w4a16 q/k/v
+    triple, the 2048² out projection, the lm_head), the FF 2048 → 8192 →
+    2048 at every down split and both up tiles, and decode attention at
+    every ``decode_shapes_1p4b`` shape over its split sweep; what
+    ``check_1p4b_kernels`` held to the plain versions. Each row names the
+    rule's pick and the fastest."""
+    bf16, rows = torch.bfloat16, {}
+
+    def record(label, rule, times):
+        best = min(times, key=times.get)
+        row = dict(rule=rule, rule_ms=times[rule], best=best, best_ms=times[best], ms=times)
+        rows[label] = row
+        log(f"[time] 1.4B {label}: the rule takes {rule} {times[rule] * 1e3:.2f} us, fastest "
+            f"{best} {times[best] * 1e3:.2f} us; " + ", ".join(
+                f"{d} {v * 1e3:.2f}" for d, v in times.items()) + f" us on {card}")
+
+    for site, (k, n, nw) in INT4_SITES_1P4B.items():
+        nodes = [int4_weight(gen, k, n, 128) for _ in range(nw)]
+        pairs = [(nd["q4"], nd["scale"]) for nd in nodes]
+        ng = pairs[0][1].shape[0]
+        for m in ROWS_1P4B:
+            x = randn(gen, m, k, dtype=bf16)
+            designs = int4_designs_1p4b(m, k, n, ng, nw)
+            times = {key: queued_time(mm4._launch_w4a16, x, pairs, group=128, variant=d[0],
+                                      tile_rows=d[1], splits=d[2], inner=5, repeats=5)[0] * 1e3
+                     for key, d in designs.items()}
+            record(f"{site} m={m}", next(iter(designs)), times)
+        del nodes, pairs
+        torch.cuda.empty_cache()
+    k, hidden = AUDIT.CONFIG_1P4B.features, AUDIT.CONFIG_1P4B.hidden
+    up, dn = int4_weight(gen, k, hidden, 128), int4_weight(gen, hidden, k, 128)
+    args = (up["q4"], up["scale"], dn["q4"], dn["scale"])
+    for m in ROWS_1P4B:
+        x = randn(gen, m, k, dtype=bf16)
+        rule, others = ff_designs(m, 128, bf16, k, hidden)
+        times = {ff_design_name(*d): queued_time(ff4._launch_cuda, x, *args, group=128,
+                                                 design=d[0], up_rows=d[1], down_splits=d[2],
+                                                 inner=5, repeats=5)[0] * 1e3
+                 for d in [rule, *others]}
+        record(f"ff m={m}", ff_design_name(*rule), times)
+    cfg = AUDIT.CONFIG_1P4B
+    for name, s_q, index, length in decode_shapes_1p4b():
+        row = time_shape(gen, f"1.4B {name}", s=s_q, index=index, card=card, n=cfg.num_heads,
+                         h=cfg.head_dim, length=length)
+        sweep = {f"{row['design']}/{sp}": v for sp, v in row["split_sweep_ms"].items()}
+        record(name, f"{row['design']}/{row['splits']}", sweep)
+    return rows
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one ``nvcc`` each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2492,7 +2851,7 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         built = list(pool.map(timed, ("decode_attention", "flash_attention", "int4_matmul",
-                                      "int4_ff", "fused_norm")))
+                                      "int4_ff", "fused_norm", "probes")))
     for lib, secs in built:
         log(f"[build] {lib.name} in {secs:.1f} s")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
@@ -2539,7 +2898,8 @@ def ptxas_usage(report: str):
                           r"(?:_rows|_tc|_combine)?"
                           r"|int4_matmul(?:_w4a8)?(?:_tc|_small_m)?"
                           r"|int4_ff(?:_reduce|_small_m|_up_tc|_down_tc)?"
-                          r"|fused_norm_(?:fwd|bwd|reduce))_kernel)(?:I(\w+))?", line)
+                          r"|fused_norm_(?:fwd|bwd|reduce)"
+                          r"|probe_(?:copy|matmul|ablate|colsum))_kernel)(?:I(\w+))?", line)
         if entry:
             kernel = entry.group(1) + (f"<{', '.join(template_args(entry.group(2)))}>"
                                        if entry.group(2) else "")
@@ -2566,7 +2926,16 @@ def main() -> int:
     log(f"[preflight] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    marks = [time.perf_counter()]
+
+    def mark(phase):
+        """Log the seconds since the last mark: what each phase costs of the
+        run's time limit."""
+        marks.append(time.perf_counter())
+        log(f"[phase] {phase}: {marks[-1] - marks[-2]:.1f} s (run {marks[-1] - marks[0]:.1f} s)")
+
     build_kernels()
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernel(gen)
     int8_errs = check_kernel(gen, int8=True)
@@ -2574,6 +2943,7 @@ def main() -> int:
     flash_errs = check_flash(gen)
     int4_errs, int4_design_errs, w4a8_unequal = check_int4(gen)
     norm_errs = check_fused_norm(gen)
+    mark("kernel checks")
 
     model = Transformer(CONFIG_125M, device="cuda", seed=0)
     params = model.state_dict()
@@ -2589,6 +2959,7 @@ def main() -> int:
     int8_gen = run_int8_generate(params, gen, card)
     decode_int8 = time_decode_int8(gen, card)
     torch.cuda.empty_cache()
+    mark("125M generate paths")
 
     q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
     ladder, fused_fn = run_ladder(params, q4, q_prompt, card, int4_fns)
@@ -2597,12 +2968,15 @@ def main() -> int:
     quant_breakdown = int4_decode["int4-fused"]["profile"]
     del fused_fn, int4_fns
     torch.cuda.empty_cache()
+    mark("int4 generate paths")
     engine = run_engine_path(params, q4, card)
+    mark("engine")
     decode_times = time_decode_designs(gen, card)
     del params, q4
     torch.cuda.empty_cache()
     int4_times = time_int4(gen, card)
     torch.cuda.empty_cache()
+    mark("decode attention and int4 kernel times")
 
     step = step_check(train_batch(gen, CONFIG_125M.vocab_size))
     torch.cuda.empty_cache()
@@ -2610,8 +2984,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_train = run_fused_train_path(gen, card)
     torch.cuda.empty_cache()
+    mark("train paths")
     flash_times, sdpa_times = time_flash(gen, card)
     norm_times = time_fused_norm(gen, card)
+    torch.cuda.empty_cache()
+    mark("flash and fused-norm kernel times")
+
+    probe_errs = check_probes(gen)
+    errs_1p4b = check_1p4b_kernels(gen)
+    probe_paths = run_probe_paths(card)
+    probe_times = time_probes(probe_paths, card)
+    mark("probes")
+    designs_1p4b = time_designs_1p4b(gen, card)
+    mark("1.4B design sweep")
     log(f"[time] measured on {card}")
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2780,6 +3165,26 @@ def main() -> int:
             "autograd backward of torch.nn.functional.layer_norm",
             shapes={k: v for k, v in norm_times.items() if k.startswith(name)},
         ))
+    # The probe kernels: launches from their scripts' runs (run_probe_paths),
+    # errors from check_probes, times from time_probes.
+    probe_err_keys = {"probe_copy": ["copy"], "probe_matmul": ["matmul one call", "matmul four calls"],
+                      "probe_ablate": [k for k in probe_errs if k.startswith("ablate")]}
+    for name, keys in probe_err_keys.items():
+        row = probe_times[name]
+        entries.append(dict(
+            name=name, route="cuda", source=PROBES_SOURCE, replaces=PROBES_REPLACES[name],
+            launch_sites=PROBES_SITES[name],
+            launches=sum(c.get(name, 0) for c in probe_paths["launches"].values()),
+            launches_by_path={p: c[name] for p, c in probe_paths["launches"].items() if name in c},
+            max_abs_err=max(probe_errs[k]["max_abs"] for k in keys),
+            max_err=max(probe_errs[k].get("max_rel", 0.0) for k in keys),
+            **{k: row[k] for k in timing_keys}, library_call=row["library_call"],
+            errors={k: probe_errs[k] for k in keys},
+        ))
+    entries[-3]["floor"] = probe_paths["floor"]["copy"]
+    entries[-2]["floor"] = probe_paths["floor"]["matmul"]
+    entries[-1]["shapes"] = {f"h={h} {mode}": us for h, r in
+                             probe_paths["flash_ceiling"]["part3"].items() for mode, us in r.items()}
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -2790,7 +3195,10 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
-                      "int8_cache_generate": int8_gen, "engine": engine}))
+                      "int8_cache_generate": int8_gen, "engine": engine,
+                      "launch_audit": probe_paths["audit"],
+                      "flash_ceiling": probe_paths["flash_ceiling"],
+                      "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b}, default=str))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0

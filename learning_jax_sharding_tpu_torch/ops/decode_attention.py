@@ -54,9 +54,13 @@ TC_ROWS = 64         # folded q rows a tensor-core block (tcd::kTcRows)
 TC_MIN_ROWS = 16     # one mma.sync tile of rows
 MAX_SPLITS = 16      # kMaxSplits
 # Blocks a launch should reach through its split, per design: fitted on an
-# H100 (132 SMs) by chip_smoke.py's split sweep at the four main-path shapes
-# (PERF.md section 6, decode attention).
-SPLIT_TARGET_BLOCKS = {"tensor_core": 192, "cuda_core": 384}
+# H100 (132 SMs) by chip_smoke.py's split sweeps (PERF.md section 6). The
+# tensor-core design (a chunk) splits only a grid short of one block an SM:
+# the 125M refill's 96 blocks gain from 2 pieces, while the 1.4B prefill
+# chunk's 128 blocks (16 heads of 128) run fastest whole over caches of 4 to
+# 12 tiles, at index 0 and as the cache's last chunk alike. Any target in
+# (96, 128] gives both; the 125M prefill (192 blocks) stays whole under all.
+SPLIT_TARGET_BLOCKS = {"tensor_core": 128, "cuda_core": 384}
 
 
 def auto_block_k(length: int, cap: int = 256) -> int:

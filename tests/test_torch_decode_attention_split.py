@@ -257,6 +257,22 @@ def test_splits_rule():
             assert b * 12 * sp >= da.SPLIT_TARGET_BLOCKS[design] or sp == da.MAX_SPLITS
 
 
+def test_splits_rule_at_the_1p4b_decode_shape():
+    """The launch audit's 1.4B generate (b = 8, 16 kv heads of 128, 256
+    slots), as an H100 timed it (PERF.md slice 12): the token step in 3
+    pieces (10.12 µs; 2 pieces 9.73, one 31.22); the prefill's 64-row chunk,
+    128 blocks, whole (10.76 µs against 19.05 in two), and so at every
+    cache of 4 to 12 tiles, at index 0 (10.64–10.80 whole, 19.02–19.07 in
+    two) and as the cache's last chunk (12 tiles: 34.72 whole, 38.90 in
+    two). The 125M refill's 96 blocks still split in two."""
+    assert da._plan(torch.bfloat16, 8, 1, 16, 16, 128, 256)[:2] == ("cuda_core", 3)
+    assert da._plan(torch.bfloat16, 8, 64, 16, 16, 128, 256)[:2] == ("tensor_core", 1)
+    for tiles in range(4, 13):
+        assert da._splits(8, 16, 1, da.TILE_K * tiles, "tensor_core") == 1
+    assert da._splits(8, 12, 1, 1024, "tensor_core") == 2
+    assert da._splits(1, 1, 1, 256, "cuda_core") == 4
+
+
 def test_wrapper_checks_design_and_splits():
     """``design=``/``splits=`` are checked before anything runs; on CPU
     tensors the plain version runs whatever they say, and no kernel
@@ -289,4 +305,4 @@ def test_plan_at_the_main_path_shapes():
     assert da._plan(fp32, 8, 128, 12, 12, 64, 1024) == ("cuda_core", 4, 128)
     assert da._plan(bf16, 8, 64, 12, 12, 64, 1024, design="cuda_core") == ("cuda_core", 4, 64)
     assert da._plan(bf16, 8, 1, 12, 12, 64, 1024, splits=1) == ("cuda_core", 1, 1)
-    assert da._plan(bf16, 4, 64, 16, 4, 128, 1024, block_q=32) == ("tensor_core", 3, 32)
+    assert da._plan(bf16, 4, 64, 16, 4, 128, 1024, block_q=32) == ("tensor_core", 2, 32)
