@@ -13,8 +13,10 @@ which fp32 takes); the int4
 kernels in every design (small-M tensor cores for decode rows, unsplit and
 split over K; tensor cores for prefill rows; CUDA cores; the whole-FF
 kernel's small-M and tensor-core designs, the latter at every split of its
-down launch), the fused residual+norm forward and backward). Then drives the
-port's main paths at
+down launch), the fused residual+norm forward and backward in both designs
+(row groups, which the public path takes, and the first, a warp a row) at
+768, 2048, 1001 and 16384 features, two backward launches bit-equal). Then
+drives the port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
 teacher-forced dense forward, with the plain norm, with ``fused_norm=True``
@@ -45,8 +47,9 @@ the port's probe scripts through their own functions: the launch floor
 generate's launches held to its designs) and the flash ceiling at long
 context (``scripts/perf_flash_ceiling.py``: the flash kernels at S=8192,
 composed train steps at S=8192 and 16384, causal and windowed, every flash
-launch on the tensor cores, and the ablation); then the design rules timed
-at the 1.4B shape. Each path's kernel launches are counted from zero around
+launch on the tensor cores, and the ablation); the 1.4B generate with
+``fused_norm=True`` (2048 features), teacher-forced and timed against the
+plain-norm one; then the design rules timed at the 1.4B shape. Each path's kernel launches are counted from zero around
 one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
 last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
@@ -277,6 +280,14 @@ NORM_REPLACES = {"fwd": "learning_jax_sharding_tpu/ops/fused_norm.py:57",
 # Row counts at M=768: the train step (b=8 × s=1024), a prefill of 8 × 128,
 # a decode step of 8 rows, and one that is not a power of two.
 NORM_ROWS = {"train": TRAIN_B * TRAIN_S, "prefill": B * PROMPT, "decode": B, "odd": 37}
+# Other widths and their row counts: the 1.4B width (its decode and prefill
+# rows, and a train-sized block), one that is a multiple of neither 8 nor 4
+# (one-element loads), and the widest the kernels take.
+NORM_WIDTHS = {768: tuple(NORM_ROWS.values()), 2048: (AUDIT.B, AUDIT.B * AUDIT.PROMPT, 2048),
+               1001: (AUDIT.B, 37), norm_ops.MAX_FEATURES: (4, 64)}
+# The designs checked and timed: the public one and the first (which takes
+# features a multiple of 8 up to 1024).
+NORM_DESIGNS = ("row_group", "warp_row")
 NORM_CASES = [  # kind, residual, beta
     ("layernorm", True, True), ("layernorm", False, True), ("layernorm", True, False),
     ("rmsnorm", True, False), ("rmsnorm", False, False),
@@ -574,19 +585,27 @@ def norm_inputs(gen, rows, dtype, param_dtype, resid, beta, m=768):
     return t
 
 
+def norm_design(name):
+    """The ``design`` argument of the fused-norm wrappers for a design name."""
+    return None if name == "row_group" else name
+
+
 def check_fused_norm(gen):
     """The fused-norm kernels against their plain versions on the card, in
-    fp32 and bf16, at every ``NORM_ROWS`` count and ``NORM_CASES`` kind; bf16
-    rows also with bf16 parameters (generation casts them). Forward with and
-    without the statistics; backward from the plain forward's statistics,
-    with ``dr`` when there is a residual → per kernel and dtype the largest
-    relative (checked) and absolute error and differing bf16 share."""
+    fp32 and bf16, every design (``NORM_DESIGNS``, where it takes the width)
+    at every ``NORM_WIDTHS`` width and row count and every ``NORM_CASES``
+    kind; bf16 rows of up to 1024 also with bf16 parameters (generation
+    casts them). Forward with and without the statistics; backward from the
+    plain forward's statistics, with ``dr`` when there is a residual, twice
+    for the public design, whose two launches must give the same bits → per
+    (kernel, dtype, design) the largest relative (checked) and absolute
+    error and differing bf16 share."""
     worst = {}
 
-    def note(kernel, dtype, label, name, got, want, tol):
+    def note(kernel, dtype, design, label, name, got, want, tol):
         errs = rel_err(f"{label} {name}", got, want)
-        old = worst.get((kernel, dtype), (0.0, 0.0, 0.0))
-        worst[kernel, dtype] = tuple(map(max, old, errs))
+        old = worst.get((kernel, dtype, design), (0.0, 0.0, 0.0))
+        worst[kernel, dtype, design] = tuple(map(max, old, errs))
         if not errs[0] <= tol:
             raise AssertionError(f"fused_norm {label} {name}: relative error {errs[0]} > {tol}")
         if want.dtype == torch.bfloat16 and not errs[2] <= INT4_BF16_FLIPS:
@@ -594,44 +613,64 @@ def check_fused_norm(gen):
                                  f"from the plain version's > {INT4_BF16_FLIPS}")
         return errs
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows_name, rows in NORM_ROWS.items():
-            params = [torch.float32] + ([torch.bfloat16] if dtype == torch.bfloat16
-                                        and rows_name in ("prefill", "decode") else [])
-            for param_dtype in params:
-                for kind, resid, beta in NORM_CASES:
-                    t = norm_inputs(gen, rows, dtype, param_dtype, resid, beta)
-                    label = (f"{rows_name} {rows}x768 {kind}{' +resid' if resid else ''}"
-                             f"{' +beta' if beta else ''} {str(dtype)[6:]}/{str(param_dtype)[6:]}")
-                    args = (t["x"], t["res"], t["g"], t["b"])
-                    kw = dict(eps=1e-6, kind=kind)
-                    ref = norm_ops.fused_residual_norm_reference(*args, **kw, needs_stats=True)
-                    errs = []
-                    for stats in (True, False):
-                        got = norm_ops._fwd(*args, **kw, needs_stats=stats)
-                        errs.append(note("fwd", dtype, label, "y", got[0], ref[0],
-                                         NORM_TOL[dtype]))
-                        if resid and not torch.equal(got[1], ref[1]):
-                            raise AssertionError(f"fused_norm {label}: new residual differs")
-                        if stats:
-                            for name, g, w in (("mean", got[2], ref[2]), ("rstd", got[3], ref[3])):
+    for m, row_counts in NORM_WIDTHS.items():
+        designs = [d for d in NORM_DESIGNS if d != "warp_row"
+                   or (m % 8 == 0 and m <= norm_ops.WARP_ROW_MAX_FEATURES)]
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in row_counts:
+                params = [torch.float32] + ([torch.bfloat16] if dtype == torch.bfloat16
+                                            and rows <= B * PROMPT else [])
+                for param_dtype in params:
+                    for kind, resid, beta in NORM_CASES:
+                        t = norm_inputs(gen, rows, dtype, param_dtype, resid, beta, m)
+                        args = (t["x"], t["res"], t["g"], t["b"])
+                        kw = dict(eps=1e-6, kind=kind)
+                        ref = norm_ops.fused_residual_norm_reference(*args, **kw, needs_stats=True)
+                        r_full = ref[1] if resid else t["x"]
+                        bwd_args = (t["dy"], r_full, t["g"], ref[2], ref[3], t["dr"])
+                        bkw = dict(kind=kind, has_beta=beta)
+                        want = norm_ops.fused_residual_norm_bwd_reference(*bwd_args, **bkw)
+                        for design in designs:
+                            label = (f"{design} {rows}x{m} {kind}{' +resid' if resid else ''}"
+                                     f"{' +beta' if beta else ''} "
+                                     f"{str(dtype)[6:]}/{str(param_dtype)[6:]}")
+                            errs = []
+                            for stats in (True, False):
+                                got = norm_ops._fwd(*args, **kw, needs_stats=stats,
+                                                    design=norm_design(design))
+                                errs.append(note("fwd", dtype, design, label, "y", got[0],
+                                                 ref[0], NORM_TOL[dtype]))
+                                if resid and not torch.equal(got[1], ref[1]):
+                                    raise AssertionError(f"fused_norm {label}: new residual "
+                                                         f"differs")
+                                if stats:
+                                    for name, g, w in (("mean", got[2], ref[2]),
+                                                       ("rstd", got[3], ref[3])):
+                                        if w is not None:
+                                            note("fwd", torch.float32, design, label, name, g, w,
+                                                 NORM_TOL[torch.float32])
+                            got = norm_ops._bwd(*bwd_args, **bkw, design=norm_design(design))
+                            errs.append(note("bwd", dtype, design, label, "dx", got[0], want[0],
+                                             NORM_TOL[dtype]))
+                            # dgamma/dbeta: fp32 column sums, cast to gamma's dtype.
+                            for name, g, w in (("dgamma", got[1], want[1]),
+                                               ("dbeta", got[2], want[2])):
                                 if w is not None:
-                                    note("fwd", torch.float32, label, name, g, w,
-                                         NORM_TOL[torch.float32])
-                    r_full = ref[1] if resid else t["x"]
-                    bwd_args = (t["dy"], r_full, t["g"], ref[2], ref[3], t["dr"])
-                    bkw = dict(kind=kind, has_beta=beta)
-                    got = norm_ops._bwd(*bwd_args, **bkw)
-                    want = norm_ops.fused_residual_norm_bwd_reference(*bwd_args, **bkw)
-                    errs.append(note("bwd", dtype, label, "dx", got[0], want[0], NORM_TOL[dtype]))
-                    # dgamma/dbeta: fp32 column sums, cast to gamma's dtype.
-                    for name, g, w in (("dgamma", got[1], want[1]), ("dbeta", got[2], want[2])):
-                        if w is not None:
-                            note("bwd", param_dtype, label, name, g, w, NORM_TOL[param_dtype])
-                    flips = (f"; differing bf16 outputs {max(e[2] for e in errs):.2e} "
-                             f"(limit {INT4_BF16_FLIPS:g})" if dtype == torch.bfloat16 else "")
-                    log(f"[norm] {label}: y {errs[0][0]:.2e} (no stats {errs[1][0]:.2e}), dx "
-                        f"{errs[2][0]:.2e} of the largest |ref|{flips}")
+                                    note("bwd", param_dtype, design, label, name, g, w,
+                                         NORM_TOL[param_dtype])
+                            if design == "row_group":
+                                again = norm_ops._bwd(*bwd_args, **bkw)
+                                if not all(torch.equal(a, b) for a, b in zip(got, again)
+                                           if a is not None):
+                                    raise AssertionError(f"fused_norm {label}: two backward "
+                                                         f"launches differ")
+                            flips = (f"; differing bf16 outputs {max(e[2] for e in errs):.2e} "
+                                     f"(limit {INT4_BF16_FLIPS:g})"
+                                     if dtype == torch.bfloat16 else "")
+                            log(f"[norm] {label}: y {errs[0][0]:.2e} (no stats {errs[1][0]:.2e}), "
+                                f"dx {errs[2][0]:.2e} of the largest |ref|{flips}"
+                                + ("; two backward launches bit-equal"
+                                   if design == "row_group" else ""))
     torch.cuda.synchronize()
     return worst
 
@@ -866,7 +905,7 @@ def profile_summary(label, run, steps, ms_per_step):
     ported = {name: round(ms, 4) for name, ms in prof["port_ms_by_name"].items()}
     row = dict(kernels_per_step=prof["kernels"], busy_ms_per_step=busy_ms,
                idle_share=1 - busy_ms / ms_per_step, top_ms_per_step=top,
-               port_kernels_ms_per_step=ported)
+               port_kernels_ms_per_step=ported, port_kernels_per_step=prof["port_by_name"])
     log(f"[profile] {label}, per step: {row['kernels_per_step']:.1f} device kernels, "
         f"device busy {busy_ms:.3f} ms of {ms_per_step:.3f} ms unprofiled "
         f"(idle share {row['idle_share']:.3f}); top: {top}; the port's kernels: {ported}")
@@ -1061,6 +1100,20 @@ def run_fused_train_path(gen, card):
         f"125M train step, fused_norm ({K_STEPS}-step call)",
         lambda: multi(states["fused_norm"], stacked), K_STEPS,
         timing["fused_norm"]["ms_per_step"])
+    # Fused-norm kernels a step: one forward and one backward launch a norm
+    # (the backward's dgamma/dbeta in the same launch; the launch counters
+    # above hold the exact count, the profiler can miss an event or two).
+    norm_kernels = {k: v for k, v in profile["port_kernels_per_step"].items()
+                    if k.startswith("fused_norm_")}
+    norm_ms = sum(v for k, v in profile["port_kernels_ms_per_step"].items()
+                  if k.startswith("fused_norm_"))
+    want_kernels = 2 * norm_calls(CONFIG_125M)
+    log(f"[profile] 125M train step, fused_norm: fused-norm kernels a step {norm_kernels} "
+        f"(want {want_kernels} in all), {norm_ms:.4f} ms a step")
+    if (abs(sum(norm_kernels.values()) - want_kernels) > 1
+            or any("warp_row" in k for k in norm_kernels)):
+        raise AssertionError(f"fused-norm train step ran {norm_kernels} fused-norm kernels a step")
+    profile["fused_norm_ms_per_step"] = norm_ms
     del states
     return dict(launches=norm, flash_launches=flash_launches, descent_losses=losses,
                 step_check=check, timing=timing, profile=profile)
@@ -1109,6 +1162,70 @@ def run_fused_generate(params, gen, tf_model, card):
                                   "125M generate bf16")
     return dict(launches=norm, teacher_forced_max_gap=gap, plain_norm_tf_gap=gap_plain,
                 timing=timing)
+
+
+def run_fused_generate_1p4b(card):
+    """The launch audit's 1.4B generate (``AUDIT.CONFIG_1P4B``, b=8, 64 +
+    64, bf16 weights from a seed) with ``fused_norm=True``: 2048 features, a
+    width the first design refused. Every norm through the no-statistics
+    forward, counted from zero around one call (49 a model call);
+    teacher-forced against the fused-norm dense bf16 forward on the same
+    weights (and, reported, the plain-norm one); timed interleaved with the
+    plain-norm 1.4B generate (medians of 3)."""
+    plain_cfg = AUDIT.CONFIG_1P4B
+    cfg = dataclasses.replace(plain_cfg, fused_norm=True)
+    params = Transformer(plain_cfg, device="cuda", seed=0).state_dict()
+    tree = {k: AUDIT.to_bf16(v) for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (AUDIT.B, AUDIT.PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    fns = {name: make_generate_fn(c, max_new_tokens=AUDIT.NEW, inference_dtype=torch.bfloat16)
+           for name, c in (("plain_norm", plain_cfg), ("fused_norm", cfg))}
+    for fn in fns.values():
+        fn(tree, prompt)                                    # warm-up
+    torch.cuda.synchronize()
+    reset_norm_launches()
+    out = fns["fused_norm"](tree, prompt)
+    torch.cuda.synchronize()
+    norm = dict(norm_ops.fused_residual_norm.launches)
+    want = {"fwd": 0, "fwd_nostats": norm_calls(cfg) * AUDIT.NEW, "bwd": 0}
+    log(f"[main] 1.4B generate, fused_norm, b={AUDIT.B} prompt {AUDIT.PROMPT} +{AUDIT.NEW}: "
+        f"fused-norm launches {norm} (want {want})")
+    if norm != want:
+        raise AssertionError(f"1.4B fused-norm generate launched {norm}, want {want}")
+    total = AUDIT.PROMPT + AUDIT.NEW
+    check_output(out, AUDIT.B, total, cfg.vocab_size)
+    span = ([AUDIT.PROMPT] * AUDIT.B, [total] * AUDIT.B)
+    gaps = {}
+    for name, c in (("fused_norm", cfg), ("plain_norm", plain_cfg)):
+        model = Transformer(dataclasses.replace(c, param_dtype=torch.bfloat16), device="cuda",
+                            seed=1).eval()
+        model.load_state_dict(tree)
+        gaps[name] = teacher_forced_gap(model, out, *span)
+        del model
+        torch.cuda.empty_cache()
+    log(f"[main] 1.4B fused_norm teacher-forced max gap {gaps['fused_norm']:.4f} (limit "
+        f"{TF_GAP}) against the fused-norm dense bf16 forward on the same weights; "
+        f"{gaps['plain_norm']:.4f} against the plain-norm one (reported)")
+    if not gaps["fused_norm"] <= TF_GAP:
+        raise AssertionError(f"1.4B fused-norm teacher-forced gap {gaps['fused_norm']} > {TF_GAP}")
+    secs = interleaved_seconds({name: functools.partial(fn, tree, prompt)
+                                for name, fn in fns.items()})
+    timing = {}
+    for name, calls in secs.items():
+        sec = statistics.median(calls)
+        timing[name] = dict(tok_s=AUDIT.B * AUDIT.NEW / sec,
+                            ms_per_token_step=sec / AUDIT.NEW * 1e3, seconds=calls)
+        log(f"[time] 1.4B generate bf16 b={AUDIT.B} prompt {AUDIT.PROMPT} +{AUDIT.NEW}, {name} "
+            f"(interleaved): {timing[name]['tok_s']:.1f} tok/s, "
+            f"{timing[name]['ms_per_token_step']:.3f} ms/token-step (median of 3: "
+            f"{[round(x, 4) for x in calls]} s) on {card}")
+    del fns, tree
+    torch.cuda.empty_cache()
+    return dict(launches=norm, teacher_forced_max_gap=gaps["fused_norm"],
+                plain_norm_tf_gap=gaps["plain_norm"], timing=timing)
 
 
 def interleaved_seconds(calls: dict, rounds: int = 3) -> dict:
@@ -1347,53 +1464,60 @@ def copies_past_l2(nbytes: int) -> int:
 
 def time_fused_norm(gen, card):
     """The fused-norm kernels at the main path's shapes, LayerNorm with
-    beta as the 125M model runs it, bf16 rows: the forward with and without
-    the residual at the train rows (statistics written, fp32 gamma) and at
-    the prefill and decode rows (no statistics, bf16 gamma, as generation
-    runs it); the backward at the train rows without and with ``dr``. Each
-    beside its plain version, its bound (bytes at the card's memory rate;
+    beta as the models run it, bf16 rows: the forward with and without the
+    residual at the 125M train rows (statistics written, fp32 gamma), at
+    its prefill and decode rows and at the 1.4B width's decode and prefill
+    rows (no statistics, bf16 gamma, as generation runs it); the backward at
+    the train rows without and with ``dr``. Each in the public design and,
+    where it takes the width, the first (``warp_row``) on the same inputs,
+    beside the plain version, the bound (bytes at the card's memory rate;
     each input read once, each output written once) and the library
     yardstick: ``F.layer_norm`` of ``x + resid`` (the add included), and its
     autograd backward, with gamma and beta cast to bf16 beforehand
     (``F.layer_norm`` takes one dtype)."""
-    bf16, m = torch.bfloat16, 768
+    bf16 = torch.bfloat16
     ln = torch.nn.functional.layer_norm
     fp32_rate = 67e12                 # fp32 outside the tensor cores (H100 SXM)
     rows_out = {}
 
-    def record(key, launch, plain, library, nbytes, ops):
+    def record(key, launch, plain, library, nbytes, ops, m):
         ms, late = queued_time(launch)
+        warp_ms, warp_late = (queued_time(launch, design="warp_row")
+                              if m <= norm_ops.WARP_ROW_MAX_FEATURES else (None, 0))
         plain_ms, plain_late = queued_time(plain, inner=3, repeats=5)
         lib_ms, lib_late = queued_time(library)
         bound_ms, by = bound(nbytes, ops, fp32_rate)
-        row = dict(ms=ms * 1e3, plain_ms=plain_ms * 1e3, library_ms=lib_ms * 1e3,
-                   bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
-                   late_samples=late + plain_late + lib_late)
+        row = dict(ms=ms * 1e3, warp_row_ms=None if warp_ms is None else warp_ms * 1e3,
+                   plain_ms=plain_ms * 1e3, library_ms=lib_ms * 1e3, bound_ms=bound_ms,
+                   bound_by=by, bytes=nbytes, ops=ops,
+                   late_samples=late + warp_late + plain_late + lib_late)
         rows_out[key] = row
-        log(f"[time] fused_norm {key} bf16: kernel {row['ms'] * 1e3:.2f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.2f} us, "
+        log(f"[time] fused_norm {key} bf16: kernel {row['ms'] * 1e3:.2f} us"
+            + (f" (warp_row {row['warp_row_ms'] * 1e3:.2f})" if warp_ms is not None else "")
+            + f", bound {bound_ms * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.2f} us, "
             f"F.layer_norm {row['library_ms'] * 1e3:.2f} us"
             + (f" ({row['late_samples']} samples enqueued past the sleep)"
                if row["late_samples"] else ""))
 
-    for rows_name in ("train", "prefill", "decode"):
-        rows = NORM_ROWS[rows_name]
-        stats = rows_name == "train"
+    shapes = [(NORM_ROWS[name], 768) for name in ("train", "prefill", "decode")]
+    shapes += [(rows, 2048) for rows in (AUDIT.B, AUDIT.B * AUDIT.PROMPT)]
+    for rows, m in shapes:
+        stats = rows == NORM_ROWS["train"]
         param_dtype = torch.float32 if stats else bf16
         pbytes = 2 * m * (4 if stats else 2)
         for resid in (True, False):
-            t = norm_inputs(gen, rows, bf16, param_dtype, resid, True)
+            t = norm_inputs(gen, rows, bf16, param_dtype, resid, True, m)
             x, res, g, b = t["x"], t["res"], t["g"], t["b"]
             g16, b16 = g.to(bf16), b.to(bf16)
             kw = dict(eps=1e-6, kind="layernorm", needs_stats=stats)
             tensors = (4 if resid else 2) * rows * m * 2
-            record(f"fwd{' +resid' if resid else ''} {rows}x768{' stats' if stats else ''}",
-                   lambda: norm_ops._launch_fwd(x, res, g, b, **kw),
+            record(f"fwd{' +resid' if resid else ''} {rows}x{m}{' stats' if stats else ''}",
+                   lambda design=None: norm_ops._launch_fwd(x, res, g, b, **kw, design=design),
                    lambda: norm_ops.fused_residual_norm_reference(x, res, g, b, **kw),
                    (lambda: ln(x + res, (m,), g16, b16)) if resid else
                    (lambda: ln(x, (m,), g16, b16)),
-                   tensors + pbytes + (8 * rows if stats else 0), 10 * rows * m)
-    rows = NORM_ROWS["train"]
+                   tensors + pbytes + (8 * rows if stats else 0), 10 * rows * m, m)
+    rows, m = NORM_ROWS["train"], 768
     t = norm_inputs(gen, rows, bf16, torch.float32, True, True)
     y, r, mean, rstd = norm_ops.fused_residual_norm_reference(
         t["x"], t["res"], t["g"], t["b"], eps=1e-6, kind="layernorm", needs_stats=True)
@@ -1404,13 +1528,35 @@ def time_fused_norm(gen, card):
         args = (t["dy"], r, t["g"], mean, rstd, dr)
         kw = dict(kind="layernorm", has_beta=True)
         tensors = (3 if dr is None else 4) * rows * m * 2
-        record(f"bwd{' +dr' if dr is not None else ''} {rows}x768",
-               lambda: norm_ops._launch_bwd(*args, **kw),
+        record(f"bwd{' +dr' if dr is not None else ''} {rows}x{m}",
+               lambda design=None: norm_ops._launch_bwd(*args, **kw, design=design),
                lambda: norm_ops.fused_residual_norm_bwd_reference(*args, **kw),
                lambda: torch.autograd.grad(lib_out, (s, g, b), t["dy"], retain_graph=True),
-               tensors + 8 * rows + 3 * m * 4, 14 * rows * m)
+               tensors + 8 * rows + 3 * m * 4, 14 * rows * m, m)
+    # The public geometry against its neighbours on the same train-row
+    # inputs: the backward at 1-5 row groups a block, the forward at 1, 2
+    # and 4 loads a thread (a row over 3, 2 and 1 warps).
+    Design = norm_ops.Design
+    geometry = {"fwd": {}, "bwd": {}}
+    for dr in (None, t["dr"]):
+        for groups in range(1, 6):
+            d = Design(8, 1, 96, groups)
+            geometry["bwd"][f"{'+dr ' if dr is not None else ''}{d}"] = queued_time(
+                lambda: norm_ops._launch_bwd(t["dy"], r, t["g"], mean, rstd, dr,
+                                             kind="layernorm", has_beta=True, design=d))[0] * 1e3
+    for resid in (True, False):
+        res = t["res"] if resid else None
+        for vectors, threads in ((1, 96), (2, 64), (4, 32)):
+            d = Design(8, vectors, threads, 1)
+            geometry["fwd"][f"{'+resid ' if resid else ''}{d}"] = queued_time(
+                lambda: norm_ops._launch_fwd(t["x"], res, t["g"], t["b"], eps=1e-6,
+                                             kind="layernorm", needs_stats=True,
+                                             design=d))[0] * 1e3
+    log(f"[time] fused_norm geometry at {rows}x{m} bf16, us: "
+        + "; ".join(f"{k} {name}: {v * 1e3:.2f}" for k, g in geometry.items()
+                    for name, v in g.items()))
     log(f"[time] fused_norm kernels measured on {card}")
-    return rows_out
+    return rows_out | {"geometry": geometry}
 
 
 def time_decode_int8(gen, card):
@@ -2898,7 +3044,7 @@ def ptxas_usage(report: str):
                           r"(?:_rows|_tc|_combine)?"
                           r"|int4_matmul(?:_w4a8)?(?:_tc|_small_m)?"
                           r"|int4_ff(?:_reduce|_small_m|_up_tc|_down_tc)?"
-                          r"|fused_norm_(?:fwd|bwd|reduce)"
+                          r"|fused_norm_(?:warp_row_)?(?:fwd|bwd|reduce)"
                           r"|probe_(?:copy|matmul|ablate|colsum))_kernel)(?:I(\w+))?", line)
         if entry:
             kernel = entry.group(1) + (f"<{', '.join(template_args(entry.group(2)))}>"
@@ -2995,6 +3141,8 @@ def main() -> int:
     probe_paths = run_probe_paths(card)
     probe_times = time_probes(probe_paths, card)
     mark("probes")
+    fused_1p4b = run_fused_generate_1p4b(card)
+    mark("1.4B fused-norm generate")
     designs_1p4b = time_designs_1p4b(gen, card)
     mark("1.4B design sweep")
     log(f"[time] measured on {card}")
@@ -3145,25 +3293,36 @@ def main() -> int:
             entry["not_bit_equal"] = w4a8_unequal
         entries.append(entry)
     # The fused-norm kernels: launches of the fused-norm train call (and the
-    # no-statistics forwards of the fused-norm generate), errors over every
-    # checked shape, top-level times at the train rows (forward with the
-    # residual; backward without dr), every timed shape under "shapes".
+    # no-statistics forwards of the 125M and 1.4B fused-norm generates),
+    # errors over every checked shape and design, top-level times at the
+    # train rows (forward with the residual; backward without dr) in the
+    # public design with the first design's beside them, every timed shape
+    # under "shapes".
     train_rows = NORM_ROWS["train"]
     for name, key in (("fwd", f"fwd +resid {train_rows}x768 stats"),
                       ("bwd", f"bwd {train_rows}x768")):
         row = norm_times[key]
+        errs = {design: norm_errs[name, torch.bfloat16, design] for design in NORM_DESIGNS}
         entries.append(dict(
             name=f"fused_norm_{name}", route="cuda", source=NORM_SOURCE,
             replaces=NORM_REPLACES[name], launches=fused_train["launches"][name],
             generate_launches=fused_gen["launches"]["fwd_nostats" if name == "fwd" else name],
-            max_abs_err=norm_errs[name, torch.bfloat16][1],
-            max_err_bf16=norm_errs[name, torch.bfloat16][0],
-            max_err_fp32=norm_errs[name, torch.float32][0],
-            bf16_differing_share=norm_errs[name, torch.bfloat16][2],
+            generate_1p4b_launches=fused_1p4b["launches"]["fwd_nostats" if name == "fwd"
+                                                          else name],
+            max_abs_err=errs["row_group"][1], max_err_bf16=errs["row_group"][0],
+            max_err_fp32=norm_errs[name, torch.float32, "row_group"][0],
+            bf16_differing_share=errs["row_group"][2],
             **{k: row[k] for k in timing_keys},
             library_call="torch.nn.functional.layer_norm(x + resid)" if name == "fwd" else
             "autograd backward of torch.nn.functional.layer_norm",
+            design="row_group (ops/fused_norm.py::_design; the backward in one launch, its "
+                   "column sums through a cluster and the last cluster to finish)",
+            warp_row_ms=row["warp_row_ms"], warp_row_max_err_bf16=errs["warp_row"][0],
+            widths=sorted(NORM_WIDTHS),
+            instantiations=sorted(k for k, _, _ in ptxas_usage(
+                _build.reports.get("fused_norm", "")) if k.startswith(f"fused_norm_{name}")),
             shapes={k: v for k, v in norm_times.items() if k.startswith(name)},
+            geometry_ms=norm_times["geometry"][name],
         ))
     # The probe kernels: launches from their scripts' runs (run_probe_paths),
     # errors from check_probes, times from time_probes.
@@ -3195,6 +3354,7 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
+                      "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,
                       "launch_audit": probe_paths["audit"],
                       "flash_ceiling": probe_paths["flash_ceiling"],

@@ -16,37 +16,75 @@
 // that dtype, as the JAX custom VJP adds them. dgamma = sum over rows of
 // dy * xhat and dbeta = sum of dy, in fp32, cast to gamma's dtype.
 //
-// Design. One warp per row; rows are strided over the warps of the grid, so a
-// warp loads gamma (and beta) once. Each lane holds its share of the row in
-// registers: 16-byte vectors of x's dtype, lane l owning vectors l, l + 32,
-// ... (at M = 768: 24 values a lane in fp32 and bf16). Row sums are warp
-// shuffles (xor butterflies: every lane gets the same bits). The backward's
-// dgamma/dbeta: each lane sums its columns over the warp's rows in
-// registers, the block adds its warps in warp order in shared memory and
-// writes one fp32 partial row per block; a second kernel sums the partials in
-// a fixed order (per column, 8 contiguous slices, then the slices in order).
-// The result is deterministic and uses no atomics.
-//
 // Bound on this card: bytes. At the 125M train shape (8192 x 768, bf16) the
 // forward with a residual reads x and resid and writes y and the residual,
 // 50.3 MB, about 15 us at 3.35 TB/s (H100 SXM); without one half of that.
 // The backward reads dy and the residual and writes dx, 37.7 MB (50.3 with
-// dr), about 11.3 us, plus the fp32 partials (0.8 MB, in L2). Left for
-// later: the partials' round trip (a cluster could reduce them on chip) and
-// one kernel for the forward and the add of the next residual.
+// dr), about 11.3 us. At a decode step (8 rows) the bound is 0.01-0.02 us:
+// there the time is one launch and one chain of dependent latencies.
+//
+// Two designs, picked before the launch (ops/fused_norm.py::_design).
+//
+// Design "row_group" (the public path). A row belongs to a row group of
+// `threads` threads (a multiple of 32, at most 512); thread t of a group
+// holds NV loads of VW elements: load c covers columns [(c * threads + t) *
+// VW, + VW). VW is 16 bytes of T where M is a multiple of that (every row
+// then starts 16-byte aligned), else one element (a row of odd width starts
+// anywhere, and a per-row head would move each thread's columns from row to
+// row). Either way a thread owns the same columns in every row, so it keeps
+// its gamma, beta and column sums in its own slots of shared memory, which
+// need no barrier (registers are what limits the blocks an SM holds). Row
+// sums are warp shuffles (xor butterflies: every lane gets the same bits),
+// then, past one warp, the warps' totals added in warp order through
+// shared memory, double-buffered so that one barrier a sum suffices.
+//
+//   Forward: a block is one row group; the grid is min(rows, SMs x the
+//   blocks an SM holds by the occupancy API), block b takes rows b, b +
+//   grid, ...: the 8 rows of a decode step run on 8 SMs, the 8192 rows of a
+//   train step stream through every resident block. A block's first row
+//   loads are issued before gamma's and beta's, all as 16-byte vectors.
+//   Where a thread holds at most kFwdHeld values, gamma and beta go to its
+//   shared-memory slots once, and the next row's x and resid (without a
+//   residual: the x of the next two rows) are in flight during this row's
+//   sums; wider rows load their row where they use it and gamma/beta at the
+//   output, from L2. The statistics are 8 bytes a row, written by thread 0:
+//   neighbouring rows belong to neighbouring blocks and meet in the same L2
+//   sector.
+//
+//   Backward, one launch: dx, dgamma and dbeta. A block holds `groups` row
+//   groups (each with its own named barrier); group j of block b takes rows
+//   b * groups + j, + grid * groups, ... and adds its columns' dy * xhat and
+//   dy to its own fp32 column sums in shared memory. Where a thread holds at
+//   most kBwdHeld values, gamma is in its slots, the next row's dy, r and dr
+//   are in flight during this one, and the kernel keeps to 64 registers (two
+//   blocks an SM); xhat and dxhat are recomputed after the row's sums rather
+//   than kept (the same operations, the same bits). Then: the block adds its
+//   groups' sums in group order; the blocks form clusters of up to 8 and
+//   rank j of a cluster adds slice j of the columns over the cluster's
+//   blocks through distributed shared memory in rank order, into a
+//   workspace (clusters x 2M fp32); the last cluster to finish slice j (an
+//   int32 counter a slice, one acquire-release add, left zero for the next
+//   launch) adds the clusters' sums in cluster order, in contiguous runs
+//   each summed in order and then the runs in order, and writes dgamma and
+//   dbeta. The order is fixed by index, never by arrival: two launches on
+//   the same inputs give the same bits. No float atomics.
+//
+// Design "warp_row" (the first design, kept so that the two are checked and
+// timed on the same inputs): one warp a row, up to 32 values a lane (M a
+// multiple of 8 up to 1024), rows strided over a grid of up to 8 blocks an
+// SM; the backward writes one fp32 partial row a block (a block an SM) and
+// one or two more launches of fused_norm_warp_row_reduce_kernel sum them in
+// a fixed order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kWarps = 8;                 // rows in flight per block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxPerLane = 32;           // values a lane holds: M <= 1024
-constexpr int kMaxM = 32 * kMaxPerLane;
-constexpr int kFwdMaxBlocks = 8 * 132;    // rows loop past this
-constexpr int kReduceSlices = 8;          // partial slices per column
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -56,6 +94,653 @@ template <> __device__ __forceinline__ float from_float<float>(float x) { return
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename Fn>
+cudaError_t set_smem(Fn kernel, size_t bytes) {
+  // Up to 48 KB, less the kernels' static shared memory (under 1 KB), needs
+  // no attribute.
+  if (bytes <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// Design "row_group".
+
+namespace rg {
+
+constexpr int kMaxThreads = 512;       // threads a block
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxGroups = 8;          // row groups a backward block (named barriers 1-8)
+constexpr int kMaxCluster = 8;         // blocks a cluster (the portable limit)
+constexpr int kMaxM = 16384;           // backward: 2M fp32 sums in shared memory
+constexpr int kFwdHeld = 16;           // forward: gamma/beta slots and prefetch up to this
+constexpr int kBwdHeld = 8;            // backward: gamma slots and prefetch up to this
+constexpr int kSmemLimit = 227 * 1024;
+
+// VW elements of T as loaded: one 16-byte vector, or one element.
+template <typename T, int VW>
+struct Pack {
+  static constexpr bool kVector = VW * sizeof(T) == 16;
+  static_assert(kVector || VW == 1, "a load is 16 bytes or one element");
+  using Word = typename std::conditional<kVector, uint4, T>::type;
+  Word w;
+  __device__ __forceinline__ void load(const T* p) {
+    w = __ldg(reinterpret_cast<const Word*>(p));
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    return to_float(reinterpret_cast<const T*>(&w)[e]);
+  }
+};
+
+template <typename T, int VW>
+__device__ __forceinline__ void store(T* p, const float* v) {
+  using Word = typename Pack<T, VW>::Word;
+  Word w;
+  T* vals = reinterpret_cast<T*>(&w);
+#pragma unroll
+  for (int e = 0; e < VW; ++e) vals[e] = from_float<T>(v[e]);
+  *reinterpret_cast<Word*>(p) = w;
+}
+
+// The parameters of columns [col, col + VW) in fp32, from bf16 or fp32
+// (bf16 != 0), in loads of up to 16 bytes.
+template <int VW>
+__device__ __forceinline__ void load_params(float* out, const void* src, bool bf16, int col) {
+  if (bf16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(src) + col;
+    if constexpr (VW == 8) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(v[e]);
+    } else if constexpr (VW == 4) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[e] = __bfloat162float(v[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) out[e] = __bfloat162float(__ldg(p + e));
+    }
+  } else {
+    const float* p = static_cast<const float*>(src) + col;
+    if constexpr (VW % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < VW / 4; ++q) {
+        const float4 w = __ldg(reinterpret_cast<const float4*>(p) + q);
+        out[4 * q] = w.x, out[4 * q + 1] = w.y, out[4 * q + 2] = w.z, out[4 * q + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) out[e] = __ldg(p + e);
+    }
+  }
+}
+
+// A thread's own parameters, kept in shared memory rather than registers
+// (registers are what limits the blocks an SM holds): the VW values of its
+// load c in 16-byte pieces, neighbouring threads on neighbouring pieces
+// (piece (c * VW / 4 + q) * threads + t), or one float (c * threads + t).
+// Only the thread that writes a slot reads it: no barrier.
+template <int VW>
+__device__ __forceinline__ void put_slot(float* s, int c, int t, int threads, const float* v) {
+  if constexpr (VW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VW / 4; ++q)
+      reinterpret_cast<float4*>(s)[(c * (VW / 4) + q) * threads + t] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+    s[c * threads + t] = v[0];
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void get_slot(const float* s, int c, int t, int threads, float* v) {
+  if constexpr (VW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VW / 4; ++q) {
+      const float4 w = reinterpret_cast<const float4*>(s)[(c * (VW / 4) + q) * threads + t];
+      v[4 * q] = w.x, v[4 * q + 1] = w.y, v[4 * q + 2] = w.z, v[4 * q + 3] = w.w;
+    }
+  } else {
+    v[0] = s[c * threads + t];
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// p[e] += v[e] for e < VW, in 16-byte pieces where VW allows (a thread's
+// own columns: no other thread touches them while it adds).
+template <int VW>
+__device__ __forceinline__ void add_cols(float* p, const float* v) {
+  if constexpr (VW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VW / 4; ++q) {
+      float4* at = reinterpret_cast<float4*>(p) + q;
+      *at = add4(*at, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VW; ++e) p[e] = __fadd_rn(p[e], v[e]);
+  }
+}
+
+__device__ __forceinline__ void group_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The sums of a (and b, kTwo) over a row group of `warps` warps: warp
+// shuffles, then the warps' totals in warp order through `red` (the group's
+// 2 x kMaxWarps float2; the half alternates with `parity`, so a warp that
+// writes the next sum cannot overwrite what a slower warp still reads).
+// Every thread of the group gets the same bits.
+template <bool kTwo>
+__device__ __forceinline__ float2 group_sum(float a, float b, float2* red, int& parity, int lane,
+                                            int warp, int warps, int bar, int count) {
+  a = warp_sum(a);
+  if (kTwo) b = warp_sum(b);
+  if (warps == 1) return make_float2(a, b);
+  float2* half = red + parity * kMaxWarps;
+  parity ^= 1;
+  if (lane == 0) half[warp] = make_float2(a, b);
+  group_barrier(bar, count);
+  float2 s = half[0];
+  for (int w = 1; w < warps; ++w) {
+    const float2 o = half[w];
+    s.x = __fadd_rn(s.x, o.x);
+    if (kTwo) s.y = __fadd_rn(s.y, o.y);
+  }
+  return s;
+}
+
+template <typename T, int VW, int NV>
+__global__ void __launch_bounds__(kMaxThreads) fused_norm_fwd_kernel(
+    const void* __restrict__ x_, const void* __restrict__ resid_, const void* __restrict__ gamma,
+    const void* __restrict__ beta, void* __restrict__ y_, void* __restrict__ r_out_,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, int rows, int M, float eps,
+    int layernorm, int param_bf16) {
+  constexpr int N = VW * NV;
+  constexpr bool kHeld = N <= kFwdHeld;
+  const T* x = static_cast<const T*>(x_);
+  const T* resid = static_cast<const T*>(resid_);
+  T* y = static_cast<T*>(y_);
+  T* r_out = static_cast<T*>(r_out_);
+  __shared__ float2 red[2 * kMaxWarps];
+  extern __shared__ float4 slots[];   // held: the threads' gamma, then beta
+  const int t = threadIdx.x, threads = blockDim.x;
+  const int lane = t % 32, warp = t / 32, warps = threads / 32;
+  const bool pbf = param_bf16 != 0, has_res = resid != nullptr, has_beta = beta != nullptr;
+  const float m = (float)M;
+  float* gs = reinterpret_cast<float*>(slots);
+  float* bs = gs + threads * N;
+  int parity = 0;
+
+  // xs: this row's x; rs: its residual, or (held, no residual) the x of the
+  // row after the next, so that two rows are in flight either way.
+  Pack<T, VW> xs[NV], rs[NV];
+  auto fetch = [&](Pack<T, VW>* dst, const T* src, int row) {
+    const size_t off = (size_t)row * M;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) dst[c].load(src + off + col);
+    }
+  };
+
+  // The first rows' loads go out before gamma's and beta's, whose trip to
+  // shared memory then overlaps them.
+  int row = blockIdx.x;
+  if (kHeld && row < rows) {
+    fetch(xs, x, row);
+    if (has_res) fetch(rs, resid, row);
+    else if (row + (int)gridDim.x < rows) fetch(rs, x, row + gridDim.x);
+  }
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        float p[VW];
+        load_params<VW>(p, gamma, pbf, col);
+        put_slot<VW>(gs, c, t, threads, p);
+        if (has_beta) {
+          load_params<VW>(p, beta, pbf, col);
+          put_slot<VW>(bs, c, t, threads, p);
+        }
+      }
+    }
+  }
+  for (; row < rows; row += gridDim.x) {
+    const size_t off = (size_t)row * M;
+    if constexpr (!kHeld) {
+      fetch(xs, x, row);
+      if (has_res) fetch(rs, resid, row);
+    }
+    float v[N];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) v[c * VW + e] = col < M ? xs[c][e] : 0.f;
+      if (has_res && col < M) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) v[c * VW + e] = __fadd_rn(v[c * VW + e], rs[c][e]);
+        store<T, VW>(r_out + off + col, v + c * VW);   // rounded once
+      }
+    }
+    const int next = row + gridDim.x;
+    if constexpr (kHeld) {
+      if (has_res) {
+        if (next < rows) fetch(xs, x, next), fetch(rs, resid, next);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) xs[c] = rs[c];
+        if (next + (int)gridDim.x < rows) fetch(rs, x, next + gridDim.x);
+      }
+    }
+    // Statistics of the unrounded fp32 sum (zeros past M add nothing).
+    float mean = 0.f;
+    if (layernorm) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) s = __fadd_rn(s, v[i]);
+      mean = __fdiv_rn(group_sum<false>(s, 0.f, red, parity, lane, warp, warps, 1, threads).x, m);
+    }
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if ((c * threads + t) * VW < M) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float d = __fsub_rn(v[c * VW + e], mean);
+          sq = __fadd_rn(sq, __fmul_rn(d, d));
+        }
+      }
+    }
+    const float var = group_sum<false>(sq, 0.f, red, parity, lane, warp, warps, 1, threads).x;
+    const float rstd = 1.f / sqrtf(__fadd_rn(__fdiv_rn(var, m), eps));
+    if (rstd_out != nullptr && t == 0) {
+      if (layernorm) mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        float gc[VW], bc[VW], out[VW];
+        if constexpr (kHeld) {
+          get_slot<VW>(gs, c, t, threads, gc);
+          if (has_beta) get_slot<VW>(bs, c, t, threads, bc);
+        } else {
+          load_params<VW>(gc, gamma, pbf, col);
+          if (has_beta) load_params<VW>(bc, beta, pbf, col);
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float tt = __fmul_rn(__fmul_rn(__fsub_rn(v[c * VW + e], mean), rstd), gc[e]);
+          out[e] = has_beta ? __fadd_rn(tt, bc[e]) : tt;
+        }
+        store<T, VW>(y + off + col, out);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of a forward block: the held parameters.
+__host__ __device__ inline size_t fwd_smem(int vec, int nv, int threads) {
+  return vec * nv <= kFwdHeld ? (size_t)2 * threads * vec * nv * 4 : 0;
+}
+
+// Entries [i, i + 4) of the column sums [dgamma | dbeta | padding], written
+// in the parameters' dtype.
+__device__ __forceinline__ void write_sums(void* dgamma, void* dbeta, bool bf16, int M, int i,
+                                           float4 v) {
+  const float s[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int j = i + e;
+    void* dst = dgamma;
+    if (j >= M) j -= M, dst = dbeta;
+    if (dst == nullptr || j >= M) continue;
+    if (bf16) static_cast<__nv_bfloat16*>(dst)[j] = __float2bfloat16(s[e]);
+    else static_cast<float*>(dst)[j] = s[e];
+  }
+}
+
+// Shared memory of a backward block: the groups' column sums (groups x A
+// fp32, A = 2M rounded up to 32), the reduction halves (groups x 2 x
+// kMaxWarps float2), the last cluster's runs (one float4 a thread) and,
+// held, the threads' gamma (vec x nv floats a thread).
+__host__ __device__ inline size_t bwd_smem(int M, int vec, int nv, int threads, int groups) {
+  const size_t A = (size_t)(2 * M + 31) / 32 * 32, block = (size_t)groups * threads;
+  return groups * A * 4 + (size_t)groups * 2 * kMaxWarps * 8 + block * 16 +
+         (vec * nv <= kBwdHeld ? block * vec * nv * 4 : 0);
+}
+
+template <typename T, int VW, int NV>
+__global__ void __launch_bounds__(kMaxThreads, VW * NV <= kBwdHeld ? 2 : 1) fused_norm_bwd_kernel(
+    const void* __restrict__ dy_, const void* __restrict__ r_, const void* __restrict__ gamma,
+    const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+    const void* __restrict__ dr_, void* __restrict__ dx_, float* __restrict__ ws,
+    int* __restrict__ counters, void* __restrict__ dgamma, void* __restrict__ dbeta, int rows,
+    int M, int threads, int layernorm, int param_bf16) {
+  constexpr int N = VW * NV;
+  constexpr bool kHeld = N <= kBwdHeld;
+  const T* dy = static_cast<const T*>(dy_);
+  const T* r = static_cast<const T*>(r_);
+  const T* dr = static_cast<const T*>(dr_);
+  T* dx = static_cast<T*>(dx_);
+  extern __shared__ float4 smem[];
+  __shared__ int last;
+  const int A = (2 * M + 31) / 32 * 32;
+  const int groups = blockDim.x / threads;
+  const int grp = threadIdx.x / threads, t = threadIdx.x % threads;
+  const int lane = t % 32, warp = t / 32, warps = threads / 32;
+  float* acc = reinterpret_cast<float*>(smem);                                 // groups x A
+  float2* red = reinterpret_cast<float2*>(acc + (size_t)groups * A) + grp * 2 * kMaxWarps;
+  float4* runs_out = reinterpret_cast<float4*>(
+      reinterpret_cast<float2*>(acc + (size_t)groups * A) + groups * 2 * kMaxWarps);
+  float* gs = reinterpret_cast<float*>(runs_out + blockDim.x) + (size_t)grp * threads * N;
+  const bool pbf = param_bf16 != 0, has_dr = dr != nullptr;
+  const float m = (float)M;
+  int parity = 0;
+
+  // Held: this row's dy / r / dr as loaded, and the next row's, in flight
+  // during this one. Otherwise the loads are issued where they are used
+  // (twice a row: the second from L1 or L2), which keeps wide rows' values
+  // out of registers. Either way xhat and dxhat are recomputed after the
+  // row's sums rather than kept: the same operations, the same bits, and
+  // fewer registers (held: at most 64, two blocks an SM).
+  constexpr int H = kHeld ? NV : 1;
+  Pack<T, VW> cur_dy[H], cur_r[H], cur_dr[H], nxt_dy[H], nxt_r[H], nxt_dr[H];
+  float cur_mu = 0.f, cur_rs = 0.f, nxt_mu = 0.f, nxt_rs = 0.f;
+  auto fetch = [&](Pack<T, VW>* pdy, Pack<T, VW>* pr, Pack<T, VW>* pdr, float& pmu,
+                   float& prs, int row) {
+    const size_t off = (size_t)row * M;
+#pragma unroll
+    for (int c = 0; c < H; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        pdy[c].load(dy + off + col);
+        pr[c].load(r + off + col);
+        if (has_dr) pdr[c].load(dr + off + col);
+      }
+    }
+    prs = __ldg(rstd_in + row);
+    if (layernorm) pmu = __ldg(mean_in + row);
+  };
+  // Load c of this row: dy and r as floats (from the held loads, or now).
+  auto raw = [&](int c, size_t off, int col, float* dyv, float* rv) {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) dyv[e] = cur_dy[c][e], rv[e] = cur_r[c][e];
+    } else {
+      Pack<T, VW> a, b;
+      a.load(dy + off + col);
+      b.load(r + off + col);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) dyv[e] = a[e], rv[e] = b[e];
+    }
+  };
+
+  // The first row's loads go out before gamma's, then the sums are zeroed.
+  const int step = gridDim.x * groups;
+  int row = blockIdx.x * groups + grp;
+  if (kHeld && row < rows) fetch(cur_dy, cur_r, cur_dr, cur_mu, cur_rs, row);
+  if constexpr (kHeld) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        float p[VW];
+        load_params<VW>(p, gamma, pbf, col);
+        put_slot<VW>(gs, c, t, threads, p);
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < groups * A; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+  float* mine = acc + (size_t)grp * A;   // this group's [dgamma | dbeta] sums
+  for (; row < rows; row += step) {
+    const size_t off = (size_t)row * M;
+    float mean, rstd;
+    if constexpr (kHeld) {
+      mean = cur_mu, rstd = cur_rs;
+      if (row + step < rows) fetch(nxt_dy, nxt_r, nxt_dr, nxt_mu, nxt_rs, row + step);
+    } else {
+      rstd = __ldg(rstd_in + row);
+      mean = layernorm ? __ldg(mean_in + row) : 0.f;
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        float dyv[VW], rv[VW], gc[VW], pg[VW];
+        raw(c, off, col, dyv, rv);
+        if constexpr (kHeld) get_slot<VW>(gs, c, t, threads, gc);
+        else load_params<VW>(gc, gamma, pbf, col);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(rv[e], mean), rstd);
+          const float dxh = __fmul_rn(dyv[e], gc[e]);
+          pg[e] = __fmul_rn(dyv[e], xh);
+          s1 = __fadd_rn(s1, dxh);
+          s2 = __fadd_rn(s2, __fmul_rn(dxh, xh));
+        }
+        add_cols<VW>(mine + col, pg);
+        add_cols<VW>(mine + M + col, dyv);
+      }
+    }
+    const float2 sums = group_sum<true>(s1, s2, red, parity, lane, warp, warps, 1 + grp, threads);
+    const float c1 = layernorm ? __fdiv_rn(sums.x, m) : 0.f;
+    const float c2 = __fdiv_rn(sums.y, m);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int col = (c * threads + t) * VW;
+      if (col < M) {
+        float dyv[VW], rv[VW], gc[VW], drv[VW], out[VW];
+        raw(c, off, col, dyv, rv);
+        if constexpr (kHeld) get_slot<VW>(gs, c, t, threads, gc);
+        else load_params<VW>(gc, gamma, pbf, col);
+        if (has_dr) {
+          if constexpr (kHeld) {
+#pragma unroll
+            for (int e = 0; e < VW; ++e) drv[e] = cur_dr[c][e];
+          } else {
+            Pack<T, VW> a;
+            a.load(dr + off + col);
+#pragma unroll
+            for (int e = 0; e < VW; ++e) drv[e] = a[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(rv[e], mean), rstd);
+          const float dxh = __fmul_rn(dyv[e], gc[e]);
+          const float tt = __fsub_rn(__fsub_rn(dxh, c1), __fmul_rn(xh, c2));
+          out[e] = to_float(from_float<T>(__fmul_rn(rstd, tt)));   // dx in dy's dtype
+          if (has_dr) out[e] = __fadd_rn(out[e], drv[e]);
+        }
+        store<T, VW>(dx + off + col, out);
+      }
+    }
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int c = 0; c < H; ++c) cur_dy[c] = nxt_dy[c], cur_r[c] = nxt_r[c], cur_dr[c] = nxt_dr[c];
+      cur_mu = nxt_mu, cur_rs = nxt_rs;
+    }
+  }
+
+  // The block's sums: its groups' in group order, into group 0's.
+  __syncthreads();
+  if (groups > 1) {
+    for (int i = threadIdx.x; i < A; i += blockDim.x) {
+      float s = acc[i];
+      for (int j = 1; j < groups; ++j) s = __fadd_rn(s, acc[(size_t)j * A + i]);
+      acc[i] = s;
+    }
+  }
+
+  // Rank j of the cluster adds slice j of [dgamma | dbeta] over its blocks
+  // in rank order; the last cluster to finish the slice adds the clusters'
+  // sums in cluster order.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int csize = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int clusters = gridDim.x / csize, cl = blockIdx.x / csize;
+  const int width = A / csize, quads = width / 4, lo = rank * width;
+  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+    const int i = lo + 4 * q;
+    float4 o[kMaxCluster];   // every rank's load issued before the first add
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < csize) o[j] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(acc, j) + i);
+    float4 v = o[0];
+#pragma unroll
+    for (int j = 1; j < kMaxCluster; ++j)
+      if (j < csize) v = add4(v, o[j]);
+    if (clusters == 1) write_sums(dgamma, dbeta, pbf, M, i, v);
+    else *reinterpret_cast<float4*>(ws + (size_t)cl * A + i) = v;
+  }
+  // Done reading the others' sums: tell the cluster, go on, and wait before
+  // exiting, so that no block leaves while another still reads its sums.
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (clusters > 1) {
+    // The block's slice sums, then one acquire-release add by thread 0:
+    // cumulative over the writes the barrier ordered before it, and the last
+    // cluster's thread 0 then sees every cluster's sums, as its block does
+    // after the next barrier.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int ticket;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                   : "=r"(ticket) : "l"(counters + rank), "r"(1) : "memory");
+      last = ticket == clusters - 1;
+    }
+    __syncthreads();
+    if (last) {
+      const int nruns = max(1, min(clusters, (int)blockDim.x / quads));
+      const int per = (clusters + nruns - 1) / nruns;
+      // Clusters j0 .. j1 - 1 in order, loaded kMaxCluster at a time.
+      auto run_sum = [&](int q, int j0, int j1) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = j0; j < j1; j += kMaxCluster) {
+          float4 o[kMaxCluster];
+#pragma unroll
+          for (int k = 0; k < kMaxCluster; ++k)
+            if (j + k < j1)
+              o[k] = __ldcg(reinterpret_cast<const float4*>(ws + (size_t)(j + k) * A + lo) + q);
+#pragma unroll
+          for (int k = 0; k < kMaxCluster; ++k)
+            if (j + k < j1) v = j + k == j0 ? o[k] : add4(v, o[k]);
+        }
+        return v;
+      };
+      if (nruns == 1) {
+        for (int q = threadIdx.x; q < quads; q += blockDim.x)
+          write_sums(dgamma, dbeta, pbf, M, lo + 4 * q, run_sum(q, 0, clusters));
+      } else {
+        const int k = threadIdx.x;
+        if (k < nruns * quads) {
+          const int run = k / quads, q = k % quads;
+          runs_out[k] = run_sum(q, run * per, min(clusters, (run + 1) * per));
+        }
+        __syncthreads();
+        if (k < quads) {
+          float4 v = runs_out[k];
+          for (int run = 1; run < nruns; ++run) v = add4(v, runs_out[run * quads + k]);
+          write_sums(dgamma, dbeta, pbf, M, lo + 4 * k, v);
+        }
+      }
+      if (threadIdx.x == 0) counters[rank] = 0;   // ready for the next launch
+    }
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The instantiations: 16-byte loads (bf16 up to 4 a thread, fp32 up to 8:
+// M <= 16384 at 512 threads a row), and one-element loads for widths that
+// are not a multiple of 16 bytes (up to 32 a thread).
+using FwdFn = void (*)(const void*, const void*, const void*, const void*, void*, void*, float*,
+                       float*, int, int, float, int, int);
+using BwdFn = void (*)(const void*, const void*, const void*, const float*, const float*,
+                       const void*, void*, float*, int*, void*, void*, int, int, int, int, int);
+
+template <bool kFwd, typename T, int VW>
+auto pick_nv(int nv) -> typename std::conditional<kFwd, FwdFn, BwdFn>::type {
+  using Fn = typename std::conditional<kFwd, FwdFn, BwdFn>::type;
+#define NV_CASE(n)                                                                           \
+  if (nv == n) {                                                                             \
+    if constexpr (kFwd) return reinterpret_cast<Fn>(fused_norm_fwd_kernel<T, VW, n>);        \
+    else return reinterpret_cast<Fn>(fused_norm_bwd_kernel<T, VW, n>);                       \
+  }
+  if constexpr (VW == 1) {
+    NV_CASE(1) NV_CASE(4) NV_CASE(32)
+  } else if constexpr (sizeof(T) == 2) {
+    NV_CASE(1) NV_CASE(2) NV_CASE(4)
+  } else {
+    NV_CASE(1) NV_CASE(2) NV_CASE(4) NV_CASE(8)
+  }
+#undef NV_CASE
+  return nullptr;
+}
+
+template <bool kFwd>
+auto pick(int dtype, int vec, int nv) -> typename std::conditional<kFwd, FwdFn, BwdFn>::type {
+  if (dtype == 0 && vec == 4) return pick_nv<kFwd, float, 4>(nv);
+  if (dtype == 0 && vec == 1) return pick_nv<kFwd, float, 1>(nv);
+  if (dtype == 1 && vec == 8) return pick_nv<kFwd, __nv_bfloat16, 8>(nv);
+  if (dtype == 1 && vec == 1) return pick_nv<kFwd, __nv_bfloat16, 1>(nv);
+  return nullptr;
+}
+
+// What both kernels take: a width up to kMaxM that the loads divide, and a
+// row group of whole warps, up to kMaxThreads, covering a row.
+bool geometry_ok(int dtype, int M, int vec, int nv, int threads) {
+  const int full = dtype == 0 ? 4 : 8;
+  return M >= 1 && M <= kMaxM && (vec == full || vec == 1) && M % vec == 0 && threads >= 32 &&
+         threads <= kMaxThreads && threads % 32 == 0 && (long)threads * vec * nv >= M;
+}
+
+cudaLaunchConfig_t bwd_config(int blocks, int block_threads, size_t smem, int cluster,
+                              cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(block_threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+}  // namespace rg
+
+// ---------------------------------------------------------------------------
+// Design "warp_row" (the first design).
+
+namespace wr {
+
+constexpr int kWarps = 8;                 // rows in flight per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxPerLane = 32;           // values a lane holds: M <= 1024
+constexpr int kMaxM = 32 * kMaxPerLane;
+constexpr int kFwdBlocksPerSm = 8;        // rows loop past this many blocks an SM
+constexpr int kReduceSlices = 8;          // partial slices per column
 
 // One 16-byte vector of T to fp32, and back.
 template <typename T>
@@ -77,12 +762,6 @@ __device__ __forceinline__ void store_vec(T* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // gamma / beta values of this lane's vectors, in fp32 (zeros past M, or
 // where the pointer is null).
 template <typename T, typename P>
@@ -99,7 +778,7 @@ __device__ __forceinline__ void load_params(float* dst, const P* src, int lane, 
 }
 
 template <typename T, typename P, bool kLayerNorm, bool kStats>
-__global__ void __launch_bounds__(kThreads) fused_norm_fwd_kernel(
+__global__ void __launch_bounds__(kThreads) fused_norm_warp_row_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ resid, const P* __restrict__ gamma,
     const P* __restrict__ beta, T* __restrict__ y, T* __restrict__ r_out,
     float* __restrict__ mean_out, float* __restrict__ rstd_out, int rows, int M, float eps) {
@@ -175,7 +854,7 @@ __global__ void __launch_bounds__(kThreads) fused_norm_fwd_kernel(
 }
 
 template <typename T, typename P, bool kLayerNorm>
-__global__ void __launch_bounds__(kThreads) fused_norm_bwd_kernel(
+__global__ void __launch_bounds__(kThreads) fused_norm_warp_row_bwd_kernel(
     const T* __restrict__ dy, const T* __restrict__ r, const P* __restrict__ gamma,
     const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
     const T* __restrict__ dr, T* __restrict__ dx, float* __restrict__ part_g,
@@ -269,7 +948,7 @@ __global__ void __launch_bounds__(kThreads) fused_norm_bwd_kernel(
 // out[col] = sum over blocks of part[block, col]: 32 columns per block, one
 // warp per contiguous slice of partials, the slices added in order.
 template <typename P>
-__global__ void __launch_bounds__(kThreads) fused_norm_reduce_kernel(
+__global__ void __launch_bounds__(kThreads) fused_norm_warp_row_reduce_kernel(
     const float* __restrict__ part, P* __restrict__ out, int nblocks, int M) {
   __shared__ float slice[kReduceSlices][32];
   const int lane = threadIdx.x % 32;
@@ -296,12 +975,13 @@ __global__ void __launch_bounds__(kThreads) fused_norm_reduce_kernel(
 template <typename T, typename P>
 int launch_fwd(const void* x, const void* resid, const void* gamma, const void* beta, void* y,
                void* r_out, float* mean, float* rstd, int layernorm, int rows, int M, float eps,
-               cudaStream_t stream) {
+               int sms, cudaStream_t stream) {
   const int needed = (rows + kWarps - 1) / kWarps;
-  const int blocks = needed < kFwdMaxBlocks ? needed : kFwdMaxBlocks;
+  const int cap = kFwdBlocksPerSm * sms;
+  const int blocks = needed < cap ? needed : cap;
   const bool stats = rstd != nullptr;
 #define FWD(LN, ST)                                                                    \
-  fused_norm_fwd_kernel<T, P, LN, ST><<<blocks, kThreads, 0, stream>>>(                \
+  fused_norm_warp_row_fwd_kernel<T, P, LN, ST><<<blocks, kThreads, 0, stream>>>(       \
       static_cast<const T*>(x), static_cast<const T*>(resid),                          \
       static_cast<const P*>(gamma), static_cast<const P*>(beta), static_cast<T*>(y),   \
       static_cast<T*>(r_out), mean, rstd, rows, M, eps)
@@ -318,41 +998,123 @@ int launch_bwd(const void* dy, const void* r, const void* gamma, const float* me
                const float* rstd, const void* dr, void* dx, float* part_g, float* part_b,
                void* dgamma, void* dbeta, int layernorm, int rows, int M, int blocks,
                cudaStream_t stream) {
-  auto kernel = layernorm ? fused_norm_bwd_kernel<T, P, true> : fused_norm_bwd_kernel<T, P, false>;
+  auto kernel = layernorm ? fused_norm_warp_row_bwd_kernel<T, P, true>
+                          : fused_norm_warp_row_bwd_kernel<T, P, false>;
   kernel<<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(r), static_cast<const P*>(gamma), mean,
       rstd, static_cast<const T*>(dr), static_cast<T*>(dx), part_g, part_b, rows, M);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int cols = (M + 31) / 32;
-  fused_norm_reduce_kernel<P><<<cols, kThreads, 0, stream>>>(part_g, static_cast<P*>(dgamma),
-                                                             blocks, M);
+  fused_norm_warp_row_reduce_kernel<P><<<cols, kThreads, 0, stream>>>(
+      part_g, static_cast<P*>(dgamma), blocks, M);
   if (part_b != nullptr)
-    fused_norm_reduce_kernel<P><<<cols, kThreads, 0, stream>>>(part_b, static_cast<P*>(dbeta),
-                                                               blocks, M);
+    fused_norm_warp_row_reduce_kernel<P><<<cols, kThreads, 0, stream>>>(
+        part_b, static_cast<P*>(dbeta), blocks, M);
   return (int)cudaGetLastError();
 }
 
 bool shape_ok(int rows, int M) { return rows >= 1 && M >= 8 && M <= kMaxM && M % 8 == 0; }
 
+}  // namespace wr
+
 }  // namespace
 
 extern "C" {
 
-// dtype / param_dtype: 0 = float32, 1 = bfloat16 (x, resid, y, r_out: dtype;
-// gamma, beta: param_dtype). resid / r_out, beta, mean / rstd may be null
-// (rstd null: no statistics are written; mean is read only for LayerNorm).
-// Returns cudaGetLastError() after the launch; -1 for a shape or dtype this
-// kernel does not take.
+// dtype / param_dtype: 0 = float32, 1 = bfloat16 (x, resid, y, r_out, dy,
+// r, dr, dx: dtype; gamma, beta, dgamma, dbeta: param_dtype). resid / r_out,
+// beta, mean / rstd, dr, dbeta may be null (rstd null: no statistics are
+// written; mean is read or written only for LayerNorm). Every launch
+// returns cudaGetLastError() after it; -1 for a shape, dtype or geometry
+// the kernels do not take.
+
+// Blocks of the "row_group" forward an SM holds at `threads` threads (the
+// occupancy API), or -1.
+int fused_norm_fwd_occupancy(int dtype, int vec, int nv, int threads) {
+  const rg::FwdFn kernel = rg::pick<true>(dtype, vec, nv);
+  if (kernel == nullptr) return -1;
+  const size_t smem = rg::fwd_smem(vec, nv, threads);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// The "row_group" forward: row groups of `threads` threads holding `nv`
+// loads of `vec` elements, `blocks` blocks.
 int fused_norm_fwd_launch(const void* x, const void* resid, const void* gamma, const void* beta,
                           void* y, void* r_out, float* mean, float* rstd, int dtype,
-                          int param_dtype, int layernorm, int rows, int M, float eps,
-                          void* stream) {
-  if (!shape_ok(rows, M)) return -1;
+                          int param_dtype, int layernorm, int rows, int M, float eps, int vec,
+                          int nv, int threads, int blocks, void* stream) {
+  const rg::FwdFn kernel = rg::pick<true>(dtype, vec, nv);
+  if (kernel == nullptr || rows < 1 || blocks < 1 || param_dtype < 0 || param_dtype > 1 ||
+      !rg::geometry_ok(dtype, M, vec, nv, threads))
+    return -1;
+  const size_t smem = rg::fwd_smem(vec, nv, threads);
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, resid, gamma, beta, y, r_out, mean, rstd, rows, M, eps, layernorm, param_dtype);
+  return (int)cudaGetLastError();
+}
+
+// Clusters of `cluster` "row_group" backward blocks (`groups` row groups of
+// `threads` threads) the device holds at once, or <= 0.
+int fused_norm_bwd_occupancy(int dtype, int vec, int nv, int threads, int groups, int M,
+                             int cluster) {
+  const rg::BwdFn kernel = rg::pick<false>(dtype, vec, nv);
+  if (kernel == nullptr || groups < 1 || groups * threads > rg::kMaxThreads) return -1;
+  const size_t smem = rg::bwd_smem(M, vec, nv, threads, groups);
+  if (smem > rg::kSmemLimit) return -1;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config = rg::bwd_config(cluster, groups * threads, smem, cluster, 0, attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// The "row_group" backward in one launch: `blocks` blocks of `groups` row
+// groups, in clusters of `cluster` dividing `blocks`; ws (blocks / cluster)
+// x round_up(2M, 32) fp32 scratch (unused for one cluster), counters
+// `cluster` int32 zeros (left zero).
+int fused_norm_bwd_launch(const void* dy, const void* r, const void* gamma, const float* mean,
+                          const float* rstd, const void* dr, void* dx, float* ws, int* counters,
+                          void* dgamma, void* dbeta, int dtype, int param_dtype, int layernorm,
+                          int rows, int M, int vec, int nv, int threads, int groups, int blocks,
+                          int cluster, void* stream) {
+  const rg::BwdFn kernel = rg::pick<false>(dtype, vec, nv);
+  if (kernel == nullptr || rows < 1 || param_dtype < 0 || param_dtype > 1 ||
+      !rg::geometry_ok(dtype, M, vec, nv, threads) || groups < 1 || groups > rg::kMaxGroups ||
+      groups * threads > rg::kMaxThreads || (vec * nv > rg::kBwdHeld && groups != 1) ||
+      cluster < 1 || cluster > rg::kMaxCluster || blocks < cluster || blocks % cluster)
+    return -1;
+  const size_t smem = rg::bwd_smem(M, vec, nv, threads, groups);
+  if (smem > rg::kSmemLimit) return -1;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config = rg::bwd_config(blocks, groups * threads, smem, cluster,
+                                             static_cast<cudaStream_t>(stream), attr);
+  err = cudaLaunchKernelEx(&config, kernel, dy, r, gamma, mean, rstd, dr, dx, ws, counters,
+                           dgamma, dbeta, rows, M, threads, layernorm, param_dtype);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The "warp_row" forward: rows strided over up to 8 blocks an SM of `sms`.
+int fused_norm_warp_row_fwd_launch(const void* x, const void* resid, const void* gamma,
+                                   const void* beta, void* y, void* r_out, float* mean,
+                                   float* rstd, int dtype, int param_dtype, int layernorm,
+                                   int rows, int M, float eps, int sms, void* stream) {
+  if (!wr::shape_ok(rows, M) || sms < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(T, P)                                                                   \
-  return launch_fwd<T, P>(x, resid, gamma, beta, y, r_out, mean, rstd, layernorm, rows, \
-                          M, eps, st)
+  return wr::launch_fwd<T, P>(x, resid, gamma, beta, y, r_out, mean, rstd, layernorm,  \
+                              rows, M, eps, sms, st)
   if (dtype == 0 && param_dtype == 0) LAUNCH(float, float);
   if (dtype == 0 && param_dtype == 1) LAUNCH(float, __nv_bfloat16);
   if (dtype == 1 && param_dtype == 0) LAUNCH(__nv_bfloat16, float);
@@ -361,18 +1123,18 @@ int fused_norm_fwd_launch(const void* x, const void* resid, const void* gamma, c
   return -1;
 }
 
-// part_g / part_b: (blocks, M) fp32 scratch; part_b and dbeta null without
-// beta; dr null when the residual output has no gradient. dgamma / dbeta are
-// written in param_dtype.
-int fused_norm_bwd_launch(const void* dy, const void* r, const void* gamma, const float* mean,
-                          const float* rstd, const void* dr, void* dx, float* part_g,
-                          float* part_b, void* dgamma, void* dbeta, int dtype, int param_dtype,
-                          int layernorm, int rows, int M, int blocks, void* stream) {
-  if (!shape_ok(rows, M) || blocks < 1) return -1;
+// The "warp_row" backward: part_g / part_b (blocks, M) fp32 scratch, part_b
+// and dbeta null without beta; then the ordered reduction launches.
+int fused_norm_warp_row_bwd_launch(const void* dy, const void* r, const void* gamma,
+                                   const float* mean, const float* rstd, const void* dr,
+                                   void* dx, float* part_g, float* part_b, void* dgamma,
+                                   void* dbeta, int dtype, int param_dtype, int layernorm,
+                                   int rows, int M, int blocks, void* stream) {
+  if (!wr::shape_ok(rows, M) || blocks < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(T, P)                                                                   \
-  return launch_bwd<T, P>(dy, r, gamma, mean, rstd, dr, dx, part_g, part_b, dgamma,   \
-                          dbeta, layernorm, rows, M, blocks, st)
+  return wr::launch_bwd<T, P>(dy, r, gamma, mean, rstd, dr, dx, part_g, part_b, dgamma, \
+                              dbeta, layernorm, rows, M, blocks, st)
   if (dtype == 0 && param_dtype == 0) LAUNCH(float, float);
   if (dtype == 0 && param_dtype == 1) LAUNCH(float, __nv_bfloat16);
   if (dtype == 1 && param_dtype == 0) LAUNCH(__nv_bfloat16, float);

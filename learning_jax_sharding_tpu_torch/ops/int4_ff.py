@@ -255,9 +255,11 @@ _counters: dict[tuple[int, int], torch.Tensor] = {}
 
 def _zero_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros on ``device`` for launches on ``stream``:
-    the small-M design's slice counters and the split down launch's tile
-    counters. Every launch leaves them zero (the last block to arrive resets
-    its counter), so one buffer serves every launch in stream order."""
+    the small-M design's slice counters, the split down launch's tile
+    counters and the fused-norm backward's slice counters
+    (``ops/fused_norm.py``). Every launch leaves them zero (the last block to
+    arrive resets its counter), so one buffer serves every launch in stream
+    order."""
     key = (device.index, stream)
     if key not in _counters or _counters[key].numel() < n:
         _counters[key] = torch.zeros(max(n, MAX_CLUSTER), dtype=torch.int32, device=device)

@@ -246,10 +246,13 @@ def test_non_cpu_tensor_never_falls_back():
 
 
 def test_kernel_checks_refuse_what_it_cannot_take():
-    """The wrapper's checks before a launch (they run on any device)."""
+    """The wrapper's checks before a launch (they run on any device). A
+    width that is no multiple of 8 is taken, as the JAX kernel takes it;
+    only the first design refuses it."""
     g = torch.ones(12)
+    fn._check_cuda(torch.zeros(4, 12), g)
     with pytest.raises(ValueError, match="multiple of 8"):
-        fn._check_cuda(torch.zeros(4, 12), g)
+        fn._check_cuda(torch.zeros(4, 12), g, warp_row=True)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fn._check_cuda(torch.zeros(4, 16, dtype=torch.float16), torch.ones(16))
     with pytest.raises(ValueError, match="resid must be"):
