@@ -15,7 +15,8 @@ split over K; tensor cores for prefill rows; CUDA cores; the whole-FF
 kernel's small-M and tensor-core designs, the latter at every split of its
 down launch), the fused residual+norm forward and backward in both designs
 (row groups, which the public path takes, and the first, a warp a row) at
-768, 2048, 1001 and 16384 features, two backward launches bit-equal). Then
+768, 2048, 1001 and 16384 features, and the wide kernels at 16385, 24576
+and 32768, two backward launches bit-equal). Then
 drives the port's main paths at
 the 125M model's full width and depth (seeded random weights): KV-cached
 greedy generation in bf16 through ``make_generate_fn``, checked against a
@@ -49,8 +50,22 @@ context (``scripts/perf_flash_ceiling.py``: the flash kernels at S=8192,
 composed train steps at S=8192 and 16384, causal and windowed, every flash
 launch on the tensor cores, and the ablation); the 1.4B generate with
 ``fused_norm=True`` (2048 features), teacher-forced and timed against the
-plain-norm one; then the design rules timed at the 1.4B shape. Each path's kernel launches are counted from zero around
-one run. Times the paths and the kernels, profiles the paths,
+plain-norm one; then the design rules timed at the 1.4B shape. The mesh
+phases (slice A): ``[mesh] 1x1``, the fused-norm train step and the float,
+int4-fused and w4a8 generates over a one-rank cuda mesh (DTensor
+parameters, the kernels through their per-shard wrappers) against the
+unsharded calls: the same launches, the same tokens, the same losses,
+both timed interleaved, and the weights' layout over the mesh timed
+alone; ``[mesh] 2x2 on one card``, a (2, 2) data x model mesh whose four
+ranks are threads of this process (four processes cannot share the one
+card: NCCL refuses it, and gloo's all-gather of CUDA tensors hangs), the
+train call and the float and int4-fused generates of
+``scripts/mesh_cards.py`` through the mesh wrappers against the unsharded
+calls (losses, teacher-forced tokens, every rank's launches); and ``[mesh]
+shards``, every shard of a (2, 2) and a (2, 4) layout of the mesh paths'
+main shapes through the kernels, stitched and held to the whole, each
+shard's launch held to the design rule at its shape. Each path's kernel
+launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
 last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
 failure. Exits non-zero, printing no result, without a CUDA device.
@@ -72,6 +87,7 @@ import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
+from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.decoding import (
     apply_dequantize_policy,
     derive_decode_config,
@@ -282,12 +298,16 @@ NORM_REPLACES = {"fwd": "learning_jax_sharding_tpu/ops/fused_norm.py:57",
 NORM_ROWS = {"train": TRAIN_B * TRAIN_S, "prefill": B * PROMPT, "decode": B, "odd": 37}
 # Other widths and their row counts: the 1.4B width (its decode and prefill
 # rows, and a train-sized block), one that is a multiple of neither 8 nor 4
-# (one-element loads), and the widest the kernels take.
+# (one-element loads), the widest one pass holds, and past it (the wide
+# kernels: one-element loads at 16385, two segments at 24576 and 32768).
 NORM_WIDTHS = {768: tuple(NORM_ROWS.values()), 2048: (AUDIT.B, AUDIT.B * AUDIT.PROMPT, 2048),
-               1001: (AUDIT.B, 37), norm_ops.MAX_FEATURES: (4, 64)}
+               1001: (AUDIT.B, 37), norm_ops.PASS_FEATURES: (4, 64), 16385: (4, 37),
+               24576: (4, 64), 32768: (8, 16)}
 # The designs checked and timed: the public one and the first (which takes
 # features a multiple of 8 up to 1024).
 NORM_DESIGNS = ("row_group", "warp_row")
+# The wide kernels' timed shape: 64 rows of 32768 features (two passes).
+WIDE_NORM_ROWS, WIDE_NORM_WIDTH = 64, 32768
 NORM_CASES = [  # kind, residual, beta
     ("layernorm", True, True), ("layernorm", False, True), ("layernorm", True, False),
     ("rmsnorm", True, False), ("rmsnorm", False, False),
@@ -1501,6 +1521,7 @@ def time_fused_norm(gen, card):
 
     shapes = [(NORM_ROWS[name], 768) for name in ("train", "prefill", "decode")]
     shapes += [(rows, 2048) for rows in (AUDIT.B, AUDIT.B * AUDIT.PROMPT)]
+    shapes += [(WIDE_NORM_ROWS, WIDE_NORM_WIDTH)]   # the wide kernels
     for rows, m in shapes:
         stats = rows == NORM_ROWS["train"]
         param_dtype = torch.float32 if stats else bf16
@@ -1533,6 +1554,22 @@ def time_fused_norm(gen, card):
                lambda: norm_ops.fused_residual_norm_bwd_reference(*args, **kw),
                lambda: torch.autograd.grad(lib_out, (s, g, b), t["dy"], retain_graph=True),
                tensors + 8 * rows + 3 * m * 4, 14 * rows * m, m)
+    # The wide backward (past one pass: two column slices).
+    rows_w, m_w = WIDE_NORM_ROWS, WIDE_NORM_WIDTH
+    tw = norm_inputs(gen, rows_w, bf16, torch.float32, True, True, m_w)
+    _, rw, mean_w, rstd_w = norm_ops.fused_residual_norm_reference(
+        tw["x"], tw["res"], tw["g"], tw["b"], eps=1e-6, kind="layernorm", needs_stats=True)
+    sw = rw.detach().clone().requires_grad_()
+    gw, bw = (p.detach().to(bf16).requires_grad_() for p in (tw["g"], tw["b"]))
+    lib_w = ln(sw, (m_w,), gw, bw)
+    wide_args = (tw["dy"], rw, tw["g"], mean_w, rstd_w, None)
+    record(f"bwd {rows_w}x{m_w}",
+           lambda design=None: norm_ops._launch_bwd(*wide_args, kind="layernorm", has_beta=True,
+                                                    design=design),
+           lambda: norm_ops.fused_residual_norm_bwd_reference(*wide_args, kind="layernorm",
+                                                              has_beta=True),
+           lambda: torch.autograd.grad(lib_w, (sw, gw, bw), tw["dy"], retain_graph=True),
+           3 * rows_w * m_w * 2 + 8 * rows_w + 3 * m_w * 4, 14 * rows_w * m_w, m_w)
     # The public geometry against its neighbours on the same train-row
     # inputs: the backward at 1-5 row groups a block, the forward at 1, 2
     # and 4 loads a thread (a row over 3, 2 and 1 warps).
@@ -2985,6 +3022,434 @@ def time_designs_1p4b(gen, card):
     return rows
 
 
+# The mesh phases (slice A). "[mesh] 1x1": the train step and the three
+# generates over a one-rank mesh on this card, against the unsharded port.
+# "[mesh] 2x2 on one card": four ranks cannot be four processes on one card
+# (NCCL refuses two ranks on one GPU, and gloo's all-gather of CUDA tensors,
+# which DTensor's redistributions issue, hangs: a probe on an H100 with
+# torch 2.11), so they are four threads of this process over torch's
+# in-process threaded group (``parallel.run_on_threads``), running
+# ``scripts/mesh_cards.py``'s train call and generates through the mesh
+# wrappers. "[mesh] shards": every shard of a (2, 2) and a (2, 4) data x
+# model layout through the kernels, one after another, stitched and held to
+# the whole, each shard's launch held to the design rule at its shape.
+MESH_RULES_TRAIN = "RULES_DP_TP_SP"
+MESH_RULES_GENERATE = "RULES_DP_TP"
+MESH_LOSS_RTOL = 1e-5
+MESH_LAYOUTS = ((2, 2), (2, 4))
+MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 32
+
+
+def _kernel_launches() -> dict:
+    """Every counter of the kernels on the mesh paths."""
+    return {**{f"flash_{k}": v for k, v in flash.flash_attention.launches.items()},
+            **{f"fused_norm_{k}": v for k, v in norm_ops.fused_residual_norm.launches.items()},
+            **read_launches()}
+
+
+def _reset_kernel_launches() -> None:
+    flash.flash_attention.launches = dict.fromkeys(flash.flash_attention.launches, 0)
+    reset_norm_launches()
+    reset_launches()
+
+
+def run_mesh_1x1(gen, card):
+    """The 125M train step (flash, fused norm, fused loss, AdamW, b=8,
+    s=1024, bf16, one 8-step call) and the float, "fused" and "fused_w4a8"
+    generates (b=8, 128 + 128) over a one-rank cuda mesh, each against the
+    same unsharded call from the same weights: the same kernel launches, the
+    same greedy tokens, the train losses within ``MESH_LOSS_RTOL``; then
+    both timed interleaved (the difference: DTensor's dispatch on one card)."""
+    from learning_jax_sharding_tpu_torch.parallel import logical, single_device_mesh
+
+    mesh = single_device_mesh(device_type="cuda")
+    rules_t = getattr(logical, MESH_RULES_TRAIN)
+    rules_g = getattr(logical, MESH_RULES_GENERATE)
+    out = {"train": {}, "generate": {}}
+    batch = train_batch(gen, CONFIG_125M.vocab_size)
+    stacked = {k: v.expand(K_STEPS, *v.shape) for k, v in batch.items()}
+    states, steps = {}, {}
+    for name, kw in (("mesh", dict(mesh=mesh, rules=rules_t)), ("one", {})):
+        fn = flash.make_flash_attn_fn(mesh, rules_t) if name == "mesh" else \
+            flash.make_flash_attn_fn()
+        cfg = dataclasses.replace(CONFIG_125M, attn_fn=fn, fused_norm=True)
+        states[name] = sharded_train_state(Transformer(cfg, device="cuda", seed=0),
+                                           adamw(3e-4), **kw)
+        steps[name] = make_train_step(steps_per_call=K_STEPS, **TRAIN_LOSS, **kw)
+    losses, launches = {}, {}
+    for name, state in states.items():
+        torch.cuda.synchronize()
+        _reset_kernel_launches()
+        _, call = steps[name](state, stacked)
+        torch.cuda.synchronize()
+        losses[name], launches[name] = call.tolist(), _kernel_launches()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["one"]))
+    log(f"[mesh] 1x1 125M train ({MESH_RULES_TRAIN}, fused norm, one {K_STEPS}-step call): "
+        f"losses {[round(x, 5) for x in losses['mesh']]} vs unsharded "
+        f"{[round(x, 5) for x in losses['one']]}, max rel diff {rel:.2e} "
+        f"(limit {MESH_LOSS_RTOL:g}); launches {launches['mesh']}")
+    if launches["mesh"] != launches["one"]:
+        raise AssertionError(f"[mesh] 1x1 train launched {launches['mesh']}, the unsharded "
+                             f"step {launches['one']}")
+    if not rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"[mesh] 1x1 train losses differ by {rel} relative")
+    times = interleaved_seconds({name: functools.partial(steps[name], state, stacked)
+                                 for name, state in states.items()})
+    ms = {name: statistics.median(t) / K_STEPS * 1e3 for name, t in times.items()}
+    log(f"[time] [mesh] 1x1 125M train step (interleaved, median of 3 {K_STEPS}-step calls): "
+        f"mesh {ms['mesh']:.3f} ms/step, unsharded {ms['one']:.3f}; DTensor dispatch "
+        f"{ms['mesh'] - ms['one']:.3f} ms/step on {card}")
+    out["train"] = dict(losses=losses, max_rel_diff=rel, launches=launches["mesh"],
+                        ms_per_step=ms, dtensor_ms_per_step=ms["mesh"] - ms["one"],
+                        call_seconds=times)
+    del states
+    torch.cuda.empty_cache()
+
+    params = Transformer(CONFIG_125M, device="cuda", seed=0).state_dict()
+    q4 = quantize_tree(params, bits=4)
+    prompt = torch.randint(0, CONFIG_125M.vocab_size, (B, PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    for mode in (False, "fused", "fused_w4a8"):
+        label = mode or "float"
+        tree = q4 if mode else params
+        fns = {"mesh": make_generate_fn(CONFIG_125M, mesh, rules_g, max_new_tokens=NEW,
+                                        inference_dtype=torch.bfloat16, dequantize=mode),
+               "one": make_generate_fn(CONFIG_125M, max_new_tokens=NEW,
+                                       inference_dtype=torch.bfloat16, dequantize=mode)}
+        toks, launches = {}, {}
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            _reset_kernel_launches()
+            toks[name] = fn(tree, prompt)
+            torch.cuda.synchronize()
+            launches[name] = _kernel_launches()
+        same = bool(torch.equal(toks["mesh"], toks["one"]))
+        log(f"[mesh] 1x1 125M generate {label} ({MESH_RULES_GENERATE}) b={B} prompt {PROMPT} "
+            f"+{NEW}: tokens equal to the unsharded generate's: {same}; launches "
+            f"{ {k: v for k, v in launches['mesh'].items() if v} }")
+        if launches["mesh"] != launches["one"]:
+            raise AssertionError(f"[mesh] 1x1 generate {label} launched {launches['mesh']}, the "
+                                 f"unsharded generate {launches['one']}")
+        if not same:
+            raise AssertionError(f"[mesh] 1x1 generate {label}: tokens differ from the "
+                                 f"unsharded generate's")
+        # One round (the checked calls above warmed both up): the mesh
+        # generates are host-bound at 4-8x the unsharded time.
+        times = interleaved_seconds({name: functools.partial(fn, tree, prompt)
+                                     for name, fn in fns.items()}, rounds=1)
+        ms = {name: statistics.median(t) / NEW * 1e3 for name, t in times.items()}
+        log(f"[time] [mesh] 1x1 125M generate {label} (interleaved, one call each): mesh "
+            f"{ms['mesh']:.3f} ms/token-step, unsharded {ms['one']:.3f}; DTensor dispatch "
+            f"{ms['mesh'] - ms['one']:.3f} ms/token-step on {card}")
+        out["generate"][label] = dict(launches=launches["mesh"], ms_per_token_step=ms,
+                                      dtensor_ms_per_token_step=ms["mesh"] - ms["one"],
+                                      seconds=times)
+    # Of the mesh generate's time: laying the weights out over the mesh,
+    # once a call (``shard_params`` on the 125M bf16 weights).
+    model = Transformer(derive_decode_config(CONFIG_125M, torch.bfloat16), device="cuda")
+    weights = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    lay = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard_params(model, mesh, rules_g, weights)
+        torch.cuda.synchronize()
+        lay.append(time.perf_counter() - t0)
+    out["shard_params_ms"] = statistics.median(lay) * 1e3
+    log(f"[time] [mesh] 1x1 shard_params of the 125M bf16 weights: "
+        f"{out['shard_params_ms']:.3f} ms a generate call (median of 3), "
+        f"{out['shard_params_ms'] / NEW:.3f} ms a token step at {NEW} new tokens, on {card}")
+    return out
+
+
+def run_mesh_threads(card):
+    """The (2, 2) data x model mesh on this card, its four ranks threads of
+    this process: ``scripts/mesh_cards.py``'s 125M fused-norm train call
+    (``MESH_THREAD_STEPS`` steps, ``RULES_DP_TP_SP``) and its float and
+    int4-fused generates (b=8, 128 + ``MESH_THREAD_NEW``, ``RULES_DP_TP``)
+    through the mesh wrappers, against the same calls unsharded: the losses
+    within its ``LOSS_RTOL``, each generate's tokens teacher-forced within
+    its ``TF_GAP``, and the four ranks' launches of every kernel, counted
+    from zero around the run, equal to ``mesh_cards.tp_launches``. Its wall
+    time only: the ranks take turns on one card and one interpreter."""
+    from learning_jax_sharding_tpu_torch.parallel import run_on_threads
+    from learning_jax_sharding_tpu_torch.scripts import mesh_cards
+
+    kw = dict(steps=MESH_THREAD_STEPS, new=MESH_THREAD_NEW, rounds=0)
+    one = mesh_cards.run(**kw)
+    torch.cuda.synchronize()
+    _reset_kernel_launches()
+    t0 = time.perf_counter()
+    mesh = run_on_threads(functools.partial(mesh_cards.run, count=False, **kw),
+                          mesh_cards.SHAPE, device_type="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ranks = math.prod(mesh_cards.SHAPE)
+    launches, want = mesh_cards._launches(), mesh_cards.tp_launches(one, ranks)
+    result = mesh_cards.compare(mesh, one, MESH_THREAD_NEW)
+    result.update(seconds=seconds, launches=launches, ranks=ranks)
+    log(f"[mesh] 2x2 on one card ({ranks} ranks as threads): losses "
+        f"{[round(x, 5) for x in result['losses']['mesh']]} vs unsharded "
+        f"{[round(x, 5) for x in result['losses']['one']]}, max rel diff "
+        f"{result['loss_max_rel_diff']:.2e} (limit {mesh_cards.LOSS_RTOL:g})")
+    for mode in ("float", "fused"):
+        log(f"[mesh] 2x2 on one card generate {mode}: tokens equal to the unsharded "
+            f"generate's {result[mode]['equal_share']:.4f} (first differing step "
+            f"{result[mode]['first_differing_step']}), teacher-forced gap "
+            f"{result[mode]['teacher_forced_max_gap']:.4f} (limit {mesh_cards.TF_GAP:g})")
+    log(f"[mesh] 2x2 on one card: launches of the {ranks} ranks "
+        f"{ {k: v for k, v in launches.items() if v} }; {seconds:.1f} s wall on {card}")
+    bad = mesh_cards.failures(result)
+    if launches != want:
+        bad.append(f"launched {launches}, want {want}")
+    if bad:
+        raise AssertionError(f"[mesh] 2x2 on one card: {'; '.join(bad)}")
+    return result
+
+
+def _shards(layout):
+    """The (data, model) coordinates of a layout, rank order."""
+    return [(i, j) for i in range(layout[0]) for j in range(layout[1])]
+
+
+def _cut(x, dims, layout, coord):
+    """Shard ``coord`` of ``x`` whose dims ``dims`` = {dim: 0 (data) or 1
+    (model)} split over the layout's axes."""
+    for dim, axis in dims.items():
+        n = x.shape[dim] // layout[axis]
+        x = x.narrow(dim, coord[axis] * n, n)
+    return x
+
+
+def _stitch(parts, dims, layout, like):
+    """The whole tensor from every shard's piece (rank order)."""
+    out = torch.empty_like(like)
+    for coord, part in zip(_shards(layout), parts):
+        _cut(out, dims, layout, coord).copy_(part)
+    return out
+
+
+def _held(label, got, want, tol, bit_equal=False):
+    err = rel_err(label, got, want)
+    same = bool(torch.equal(got, want))
+    if bit_equal and not same:
+        raise AssertionError(f"[mesh] {label}: stitched shards not bit-equal to the whole")
+    if not err[0] <= tol:
+        raise AssertionError(f"[mesh] {label}: stitched shards off the whole by {err[0]} > {tol}")
+    return dict(max_rel=err[0], max_abs=err[1], bit_equal=same)
+
+
+def shard_rows(name, rows):
+    """The per-shard phase's rows of one kernel of the kernels line (the
+    q/k/v triple and the whole FF take no tensor-parallel path)."""
+    if name.startswith(("flash", "fused_norm")):
+        return rows[name.rsplit("_", 1)[0] if name.startswith("fused") else "flash"]
+    if name == "decode_attention":
+        return rows["decode_attention"]
+    if name in ("int4_matmul", "int4_matmul_w4a8"):
+        return {k: v for k, v in rows["int4"].items()
+                if k.endswith(" w4a8") == (name == "int4_matmul_w4a8")}
+    return None
+
+
+def run_mesh_shards(gen, card):
+    """Every shard of each ``MESH_LAYOUTS`` (data, model) layout of the mesh
+    paths' main shapes through the kernel wrappers, one after another on the
+    card, stitched and held to the whole: flash forward and backward at the
+    train shape (batch over data, heads over model), the fused norm forward
+    and backward at the train step's rows of a shard (batch over data,
+    sequence over model: RULES_DP_TP_SP's activations; dgamma/dbeta the sum
+    of the shards'), decode attention at TP generate's prefill and token
+    step (batch and heads), the int4 matmuls at TP generate's token step,
+    w4a16 and w4a8: the column-parallel sites (q/k/v, FF up, lm_head) on a
+    column slice, the row-parallel ones (out, FF down) on the gathered
+    activation rows with the weights whole. Each shard's launches are
+    counted by design and held to the rule at its shape."""
+    bf16 = torch.bfloat16
+    sms = mm4._sm_count(torch.cuda.current_device())
+    cfg = CONFIG_125M
+    n, h, m = cfg.num_heads, cfg.head_dim, cfg.features
+    rows_out = {}
+    for layout in MESH_LAYOUTS:
+        tag = f"{layout[0]}x{layout[1]}"
+        res = rows_out[tag] = {}
+        shards = _shards(layout)
+
+        # Flash at the train shape: q, k, v (B, S, N, H), batch over data,
+        # heads over model.
+        q, k, v, dout = (randn(gen, TRAIN_B, TRAIN_S, n, h, dtype=bf16) for _ in range(4))
+        whole = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = flash.flash_attention(*whole, causal=True)
+        o.backward(dout)
+        want = [o.detach()] + [t.grad for t in whole]
+        dims = {0: 0, 2: 1}
+        parts, per = [], []
+        for coord in shards:
+            loc = [_cut(t, dims, layout, coord).detach().contiguous().requires_grad_()
+                   for t in (q, k, v)]
+            before = dict(flash.flash_attention.launches)
+            o = flash.flash_attention(*loc, causal=True)
+            o.backward(_cut(dout, dims, layout, coord).contiguous())
+            torch.cuda.synchronize()
+            per.append({key: flash.flash_attention.launches[key] - before[key] for key in before})
+            parts.append([o.detach()] + [t.grad for t in loc])
+        for launches in per:
+            if launches != dict.fromkeys(FLASH_LAUNCH_KEYS, 1):
+                raise AssertionError(f"[mesh] {tag} flash shard launched {launches}")
+        res["flash"] = {name: _held(f"{tag} flash {name}", _stitch([p[i] for p in parts], dims,
+                                                                   layout, want[i]),
+                                    want[i], TOL[bf16])
+                        for i, name in enumerate(("out", "dq", "dk", "dv"))}
+        res["flash"]["launches_per_shard"] = per[0]
+        res["flash"]["shard_shape"] = list(parts[0][0].shape)
+        log(f"[mesh] {tag} flash: shard {res['flash']['shard_shape']}, launches a shard "
+            f"{per[0]} (design {flash._fwd_design(bf16, h)} / {flash._bwd_design(bf16, h)}); "
+            + ", ".join(f"{k} {res['flash'][k]['max_rel']:.2e}"
+                        + (" bit-equal" if res['flash'][k]['bit_equal'] else "")
+                        for k in ("out", "dq", "dk", "dv")))
+        del q, k, v, dout, whole, o, want, parts
+
+        # Fused norm at the train rows: x, resid (B, S, M).
+        x, r, dy, dr = (randn(gen, TRAIN_B, TRAIN_S, m, dtype=bf16) for _ in range(4))
+        g = (1 + 0.1 * torch.randn(m, generator=gen, device="cuda"))
+        b_ = 0.1 * torch.randn(m, generator=gen, device="cuda")
+        ins = [x, r, g, b_]
+
+        def fused(x_, r_, g_, b2):
+            t = [x_.detach().contiguous().requires_grad_(), r_.detach().contiguous(),
+                 g_.detach().requires_grad_(), b2.detach().requires_grad_()]
+            y, nr = norm_ops.fused_residual_norm(t[0], t[1], t[2], t[3])
+            return t, y, nr
+
+        t, y, nr = fused(*ins)
+        torch.autograd.backward((y, nr), (dy, dr))
+        want = dict(y=y.detach(), r=nr.detach(), dx=t[0].grad, dgamma=t[2].grad,
+                    dbeta=t[3].grad)
+        dims = {0: 0, 1: 1}
+        got = {key: [] for key in want}
+        per = []
+        for coord in shards:
+            before = dict(norm_ops.fused_residual_norm.launches)
+            t, y, nr = fused(_cut(x, dims, layout, coord), _cut(r, dims, layout, coord), g, b_)
+            torch.autograd.backward((y, nr), (_cut(dy, dims, layout, coord).contiguous(),
+                                              _cut(dr, dims, layout, coord).contiguous()))
+            torch.cuda.synchronize()
+            per.append({key: norm_ops.fused_residual_norm.launches[key] - before[key]
+                        for key in before})
+            for key, val in (("y", y), ("r", nr), ("dx", t[0].grad), ("dgamma", t[2].grad),
+                             ("dbeta", t[3].grad)):
+                got[key].append(val.detach())
+        for launches in per:
+            if launches != {"fwd": 1, "fwd_nostats": 0, "bwd": 1}:
+                raise AssertionError(f"[mesh] {tag} fused norm shard launched {launches}")
+        shard_rows = TRAIN_B * TRAIN_S // (layout[0] * layout[1])
+        res["fused_norm"] = {key: _held(f"{tag} fused_norm {key}",
+                                        _stitch(got[key], dims, layout, want[key]),
+                                        want[key], NORM_TOL[bf16], bit_equal=key != "dx")
+                             for key in ("y", "r", "dx")}
+        for key in ("dgamma", "dbeta"):
+            res["fused_norm"][key] = _held(f"{tag} fused_norm {key}",
+                                           torch.stack(got[key]).sum(0), want[key], 1e-4)
+        res["fused_norm"].update(launches_per_shard=per[0], shard_rows=shard_rows,
+                                 design={"fwd": norm_ops._design(shard_rows, m, bf16),
+                                         "bwd": norm_ops._design(shard_rows, m, bf16, True)})
+        log(f"[mesh] {tag} fused norm: {shard_rows} rows a shard, launches a shard {per[0]}, "
+            f"design {res['fused_norm']['design']}; y/r bit-equal, dx "
+            f"{res['fused_norm']['dx']['max_rel']:.2e}, dgamma "
+            f"{res['fused_norm']['dgamma']['max_rel']:.2e} (sum of the shards')")
+        del x, r, dy, dr, t, y, nr, want, got
+
+        # Decode attention at TP generate's shapes (blocked cache).
+        length = cfg.max_seq_len
+        res["decode_attention"] = {}
+        for name, s_q, index in (("prefill", PROMPT, 0), ("token step", 1, PROMPT + NEW // 2)):
+            qd = randn(gen, B, s_q, n, h, dtype=bf16)
+            kc, vc = (randn(gen, B, n, length, h, dtype=bf16) for _ in range(2))
+            idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+            want = decode_attention(qd, kc, vc, idx)
+            parts, per, plans = [], [], []
+            for coord in shards:
+                ql = _cut(qd, {0: 0, 2: 1}, layout, coord).contiguous()
+                kl, vl = (_cut(c, {0: 0, 1: 1}, layout, coord).contiguous() for c in (kc, vc))
+                reset_launches()
+                parts.append(decode_attention(ql, kl, vl, idx))
+                torch.cuda.synchronize()
+                lz = read_launches()
+                per.append({key: lz[key] for key in ("decode_attention",
+                                                     "decode_attention_tensor_core",
+                                                     "decode_attention_split")})
+                plan = da._plan(bf16, ql.shape[0], s_q, ql.shape[2], kl.shape[1], h, length)
+                plans.append(plan)
+                wanted = {"decode_attention": 1,
+                          "decode_attention_tensor_core": int(plan[0] == "tensor_core"),
+                          "decode_attention_split": int(plan[1] > 1)}
+                if per[-1] != wanted:
+                    raise AssertionError(f"[mesh] {tag} decode attention {name} shard launched "
+                                         f"{per[-1]}, the rule {plan} wants {wanted}")
+            row = _held(f"{tag} decode attention {name}",
+                        _stitch(parts, {0: 0, 2: 1}, layout, want), want, TOL[bf16])
+            row.update(launches_per_shard=per[0], design=f"{plans[0][0]}/{plans[0][1]}",
+                       whole_design="{}/{}".format(*da._plan(bf16, B, s_q, n, n, h, length)[:2]),
+                       shard_shape=list(parts[0].shape))
+            res["decode_attention"][name] = row
+            log(f"[mesh] {tag} decode attention {name}: shard q {row['shard_shape']}, design "
+                f"{row['design']} (whole {row['whole_design']}), launches a shard "
+                f"{per[0]}; {row['max_rel']:.2e} of the largest |ref|")
+        del qd, kc, vc, want, parts
+
+        # int4 at TP generate's token step (M = B rows, B / data a shard).
+        res["int4"] = {}
+        sites = {"qkv (column)": (m, m, True), "ff up (column)": (m, cfg.hidden, True),
+                 "lm_head (column)": (m, cfg.vocab_size, True),
+                 "out (row)": (m, m, False), "ff down (row)": (cfg.hidden, m, False)}
+        for site, (kk, nn_, column) in sites.items():
+            node = int4_weight(gen, kk, nn_, 128)
+            wq4, wsc = node["q4"], node["scale"]
+            xs = randn(gen, B, kk, dtype=bf16)
+            for w4a8 in (False, True):
+                want = mm4.int4_matmul(xs, wq4, wsc, group=128, w4a8=w4a8)
+                parts, per, variants = [], [], []
+                for coord in shards:
+                    xl = _cut(xs, {0: 0}, layout, coord).contiguous()
+                    ql, sl = wq4, wsc
+                    if column:
+                        ql, sl = (_cut(t, {1: 1}, layout, coord).contiguous() for t in (wq4, wsc))
+                    reset_launches()
+                    parts.append(mm4.int4_matmul(xl, ql, sl, group=128, w4a8=w4a8))
+                    torch.cuda.synchronize()
+                    key = "int4_matmul_w4a8" if w4a8 else "int4_matmul"
+                    lz = read_launches()
+                    per.append({d: lz[f"{key}{d}"] for d in ("", "_tensor_core", "_small_m")})
+                    variant = mm4._variant(xl.shape[0], kk, ql.shape[1], sl.shape[0], 128, bf16,
+                                           w4a8, sms)
+                    variants.append(variant)
+                    wanted = {"": 1, "_tensor_core": int(variant == "tensor_core"),
+                              "_small_m": int(variant == "small_m")}
+                    if per[-1] != wanted:
+                        raise AssertionError(f"[mesh] {tag} int4 {site} shard launched "
+                                             f"{per[-1]}, the rule ({variant}) wants {wanted}")
+                dims = {0: 0, 1: 1} if column else {0: 0}
+                row = _held(f"{tag} int4 {site}{' w4a8' if w4a8 else ''}",
+                            _stitch(parts, dims, layout, want), want,
+                            TOL[bf16], bit_equal=w4a8)
+                splits = (mm4._splits(parts[0].shape[0], kk, parts[0].shape[1], 1,
+                                      wsc.shape[0], 128, sms, w4a8)
+                          if variants[0] == "small_m" else None)
+                row.update(launches_per_shard={k or "total": c for k, c in per[0].items()},
+                           variant=variants[0], splits=splits,
+                           whole_variant=mm4._variant(B, kk, nn_, wsc.shape[0], 128, bf16, w4a8,
+                                                      sms),
+                           shard_n=parts[0].shape[1] if column else nn_)
+                res["int4"][f"{site}{' w4a8' if w4a8 else ''}"] = row
+                log(f"[mesh] {tag} int4 {site}{' w4a8' if w4a8 else ''}: shard "
+                    f"({xs.shape[0] // layout[0]}, {kk}) x ({kk}, {row['shard_n']}), "
+                    f"{row['variant']}{f'/{splits}' if splits else ''} (whole "
+                    f"{row['whole_variant']}); {row['max_rel']:.2e}"
+                    + (" bit-equal" if row["bit_equal"] else ""))
+    torch.cuda.synchronize()
+    return rows_out
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one ``nvcc`` each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3131,6 +3596,15 @@ def main() -> int:
     fused_train = run_fused_train_path(gen, card)
     torch.cuda.empty_cache()
     mark("train paths")
+    mesh_1x1 = run_mesh_1x1(gen, card)
+    torch.cuda.empty_cache()
+    mark("[mesh] 1x1")
+    mesh_threads = run_mesh_threads(card)
+    torch.cuda.empty_cache()
+    mark("[mesh] 2x2 on one card")
+    mesh_shards = run_mesh_shards(gen, card)
+    torch.cuda.empty_cache()
+    mark("[mesh] shards")
     flash_times, sdpa_times = time_flash(gen, card)
     norm_times = time_fused_norm(gen, card)
     torch.cuda.empty_cache()
@@ -3344,6 +3818,22 @@ def main() -> int:
     entries[-2]["floor"] = probe_paths["floor"]["matmul"]
     entries[-1]["shapes"] = {f"h={h} {mode}": us for h, r in
                              probe_paths["flash_ceiling"]["part3"].items() for mode, us in r.items()}
+    # The mesh paths' launches of each kernel: the one-rank mesh's train call
+    # and generates (equal to the unsharded runs'), the four thread ranks'
+    # train call and generates in all, and a shard's launch in the
+    # per-shard phase with the design it took.
+    mesh_runs = {"1x1 train (8-step call)": mesh_1x1["train"]["launches"],
+                 **{f"1x1 generate {k}": v["launches"]
+                    for k, v in mesh_1x1["generate"].items()},
+                 "2x2 train + generates (4 ranks)": mesh_threads["launches"]}
+    for entry in entries:
+        keys = {"fused_norm_fwd": ("fused_norm_fwd", "fused_norm_fwd_nostats")}.get(
+            entry["name"], (entry["name"],))
+        counts = {run: sum(c.get(k, 0) for k in keys) for run, c in mesh_runs.items()}
+        entry["mesh_launches"] = {run: n for run, n in counts.items() if n}
+        per_shard = {layout: shard_rows(entry["name"], rows)
+                     for layout, rows in mesh_shards.items()}
+        entry["mesh_per_shard"] = per_shard if any(per_shard.values()) else None
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -3358,7 +3848,9 @@ def main() -> int:
                       "int8_cache_generate": int8_gen, "engine": engine,
                       "launch_audit": probe_paths["audit"],
                       "flash_ceiling": probe_paths["flash_ceiling"],
-                      "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b}, default=str))
+                      "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b,
+                      "mesh_1x1": mesh_1x1, "mesh_threads": mesh_threads,
+                      "mesh_shards": mesh_shards}, default=str))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))
     return 0

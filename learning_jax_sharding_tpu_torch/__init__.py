@@ -27,9 +27,15 @@ CUDA kernel under ``csrc/``:
   and its paged KV cache and prefix cache: decode attention's paged mode,
   the block table read by the same kernel.
 
-Not ported yet: meshes, MoE, ``scan_layers``, ``remat``, and the engine's
-sampling, mixed and multi-step schedulers, speculative decoding, recovery
-policies, fleet handoff and tenancy (each raises ``NotImplementedError``).
+Over a mesh (``parallel/``: ``DeviceMesh`` and DTensor placements by the
+JAX package's logical-axis rules; the collective matmuls): the train step
+and tensor-parallel generate, every kernel on its rank's shard, and the
+sharding lessons' cases (``cases/``).
+
+Not ported yet: MoE, ``scan_layers``, ``remat``, the hybrid mesh, ZeRO-1,
+and the engine over a mesh, its sampling, mixed and multi-step
+schedulers, speculative decoding, recovery policies, fleet handoff and
+tenancy (each raises ``NotImplementedError``).
 """
 
 import torch

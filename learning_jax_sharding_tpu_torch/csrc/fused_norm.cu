@@ -69,6 +69,11 @@
 //   dbeta. The order is fixed by index, never by arrival: two launches on
 //   the same inputs give the same bits. No float atomics.
 //
+// Rows past one pass of the widest row group (past 16384 features) take the
+// wide kernels of the same design: the row in segments of that geometry,
+// re-read once a pass; the backward's column sums split by segment over the
+// grid's second dimension (see fused_norm_fwd_wide_kernel).
+//
 // Design "warp_row" (the first design, kept so that the two are checked and
 // timed on the same inputs): one warp a row, up to 32 values a lane (M a
 // multiple of 8 up to 1024), rows strided over a grid of up to 8 blocks an
@@ -118,7 +123,8 @@ constexpr int kMaxThreads = 512;       // threads a block
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxGroups = 8;          // row groups a backward block (named barriers 1-8)
 constexpr int kMaxCluster = 8;         // blocks a cluster (the portable limit)
-constexpr int kMaxM = 16384;           // backward: 2M fp32 sums in shared memory
+constexpr int kMaxM = 16384;           // one pass (the backward: 2M fp32 sums in shared
+                                       // memory); wider rows take the wide kernels
 constexpr int kFwdHeld = 16;           // forward: gamma/beta slots and prefetch up to this
 constexpr int kBwdHeld = 8;            // backward: gamma slots and prefetch up to this
 constexpr int kSmemLimit = 227 * 1024;
@@ -426,6 +432,92 @@ __host__ __device__ inline size_t bwd_smem(int M, int vec, int nv, int threads, 
          (vec * nv <= kBwdHeld ? block * vec * nv * 4 : 0);
 }
 
+// The block's column sums acc ([dgamma | dbeta] of M columns, A floats)
+// into dgamma / dbeta across the grid: rank j of the cluster adds slice j
+// over the cluster's blocks in rank order; the last cluster to finish the
+// slice adds the clusters' sums (ws: clusters x A) in cluster order. Called
+// by every thread of the block after its sums are in acc.
+__device__ __forceinline__ void reduce_column_sums(float* acc, int A, int M, float* __restrict__ ws,
+                                                   int* __restrict__ counters, void* dgamma,
+                                                   void* dbeta, bool pbf, float4* runs_out,
+                                                   int& last) {
+  // Rank j of the cluster adds slice j of [dgamma | dbeta] over its blocks
+  // in rank order; the last cluster to finish the slice adds the clusters'
+  // sums in cluster order.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int csize = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int clusters = gridDim.x / csize, cl = blockIdx.x / csize;
+  const int width = A / csize, quads = width / 4, lo = rank * width;
+  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+    const int i = lo + 4 * q;
+    float4 o[kMaxCluster];   // every rank's load issued before the first add
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < csize) o[j] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(acc, j) + i);
+    float4 v = o[0];
+#pragma unroll
+    for (int j = 1; j < kMaxCluster; ++j)
+      if (j < csize) v = add4(v, o[j]);
+    if (clusters == 1) write_sums(dgamma, dbeta, pbf, M, i, v);
+    else *reinterpret_cast<float4*>(ws + (size_t)cl * A + i) = v;
+  }
+  // Done reading the others' sums: tell the cluster, go on, and wait before
+  // exiting, so that no block leaves while another still reads its sums.
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (clusters > 1) {
+    // The block's slice sums, then one acquire-release add by thread 0:
+    // cumulative over the writes the barrier ordered before it, and the last
+    // cluster's thread 0 then sees every cluster's sums, as its block does
+    // after the next barrier.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int ticket;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                   : "=r"(ticket) : "l"(counters + rank), "r"(1) : "memory");
+      last = ticket == clusters - 1;
+    }
+    __syncthreads();
+    if (last) {
+      const int nruns = max(1, min(clusters, (int)blockDim.x / quads));
+      const int per = (clusters + nruns - 1) / nruns;
+      // Clusters j0 .. j1 - 1 in order, loaded kMaxCluster at a time.
+      auto run_sum = [&](int q, int j0, int j1) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = j0; j < j1; j += kMaxCluster) {
+          float4 o[kMaxCluster];
+#pragma unroll
+          for (int k = 0; k < kMaxCluster; ++k)
+            if (j + k < j1)
+              o[k] = __ldcg(reinterpret_cast<const float4*>(ws + (size_t)(j + k) * A + lo) + q);
+#pragma unroll
+          for (int k = 0; k < kMaxCluster; ++k)
+            if (j + k < j1) v = j + k == j0 ? o[k] : add4(v, o[k]);
+        }
+        return v;
+      };
+      if (nruns == 1) {
+        for (int q = threadIdx.x; q < quads; q += blockDim.x)
+          write_sums(dgamma, dbeta, pbf, M, lo + 4 * q, run_sum(q, 0, clusters));
+      } else {
+        const int k = threadIdx.x;
+        if (k < nruns * quads) {
+          const int run = k / quads, q = k % quads;
+          runs_out[k] = run_sum(q, run * per, min(clusters, (run + 1) * per));
+        }
+        __syncthreads();
+        if (k < quads) {
+          float4 v = runs_out[k];
+          for (int run = 1; run < nruns; ++run) v = add4(v, runs_out[run * quads + k]);
+          write_sums(dgamma, dbeta, pbf, M, lo + 4 * k, v);
+        }
+      }
+      if (threadIdx.x == 0) counters[rank] = 0;   // ready for the next launch
+    }
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 template <typename T, int VW, int NV>
 __global__ void __launch_bounds__(kMaxThreads, VW * NV <= kBwdHeld ? 2 : 1) fused_norm_bwd_kernel(
     const void* __restrict__ dy_, const void* __restrict__ r_, const void* __restrict__ gamma,
@@ -591,81 +683,216 @@ __global__ void __launch_bounds__(kMaxThreads, VW * NV <= kBwdHeld ? 2 : 1) fuse
     }
   }
 
-  // Rank j of the cluster adds slice j of [dgamma | dbeta] over its blocks
-  // in rank order; the last cluster to finish the slice adds the clusters'
-  // sums in cluster order.
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int csize = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int clusters = gridDim.x / csize, cl = blockIdx.x / csize;
-  const int width = A / csize, quads = width / 4, lo = rank * width;
-  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
-    const int i = lo + 4 * q;
-    float4 o[kMaxCluster];   // every rank's load issued before the first add
+  reduce_column_sums(acc, A, M, ws, counters, dgamma, dbeta, pbf, runs_out, last);
+}
+
+// Rows wider than one pass of a row group (M past kMaxM, or one-element
+// loads past 512 x 32): the widest geometry (512 threads, the most loads a
+// thread) covers a segment of seg = threads x VW x NV columns, and a row is
+// `passes` segments. Nothing is held: every pass loads where it uses.
+//
+// Forward: three passes over the row, each recomputing s = x + resid from
+// the loads (the same operations, the same bits): the sum (and the rounded
+// residual, written once), the centred squares, the output.
+template <typename T, int VW, int NV>
+__global__ void __launch_bounds__(kMaxThreads) fused_norm_fwd_wide_kernel(
+    const void* __restrict__ x_, const void* __restrict__ resid_, const void* __restrict__ gamma,
+    const void* __restrict__ beta, void* __restrict__ y_, void* __restrict__ r_out_,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, int rows, int M, float eps,
+    int layernorm, int param_bf16, int passes) {
+  const T* x = static_cast<const T*>(x_);
+  const T* resid = static_cast<const T*>(resid_);
+  T* y = static_cast<T*>(y_);
+  T* r_out = static_cast<T*>(r_out_);
+  __shared__ float2 red[2 * kMaxWarps];
+  const int t = threadIdx.x, threads = blockDim.x;
+  const int lane = t % 32, warp = t / 32, warps = threads / 32;
+  const int seg = threads * VW * NV;
+  const bool pbf = param_bf16 != 0, has_res = resid != nullptr, has_beta = beta != nullptr;
+  const float m = (float)M;
+  int parity = 0;
+  // s = x + resid of the VW columns at col, in fp32.
+  auto sum_at = [&](size_t off, int col, float* v) {
+    Pack<T, VW> a;
+    a.load(x + off + col);
 #pragma unroll
-    for (int j = 0; j < kMaxCluster; ++j)
-      if (j < csize) o[j] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(acc, j) + i);
-    float4 v = o[0];
+    for (int e = 0; e < VW; ++e) v[e] = a[e];
+    if (has_res) {
+      Pack<T, VW> b;
+      b.load(resid + off + col);
 #pragma unroll
-    for (int j = 1; j < kMaxCluster; ++j)
-      if (j < csize) v = add4(v, o[j]);
-    if (clusters == 1) write_sums(dgamma, dbeta, pbf, M, i, v);
-    else *reinterpret_cast<float4*>(ws + (size_t)cl * A + i) = v;
-  }
-  // Done reading the others' sums: tell the cluster, go on, and wait before
-  // exiting, so that no block leaves while another still reads its sums.
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  if (clusters > 1) {
-    // The block's slice sums, then one acquire-release add by thread 0:
-    // cumulative over the writes the barrier ordered before it, and the last
-    // cluster's thread 0 then sees every cluster's sums, as its block does
-    // after the next barrier.
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int ticket;
-      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
-                   : "=r"(ticket) : "l"(counters + rank), "r"(1) : "memory");
-      last = ticket == clusters - 1;
+      for (int e = 0; e < VW; ++e) v[e] = __fadd_rn(v[e], b[e]);
     }
-    __syncthreads();
-    if (last) {
-      const int nruns = max(1, min(clusters, (int)blockDim.x / quads));
-      const int per = (clusters + nruns - 1) / nruns;
-      // Clusters j0 .. j1 - 1 in order, loaded kMaxCluster at a time.
-      auto run_sum = [&](int q, int j0, int j1) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int j = j0; j < j1; j += kMaxCluster) {
-          float4 o[kMaxCluster];
+  };
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t off = (size_t)row * M;
+    float s = 0.f;
+    for (int p = 0; p < passes; ++p) {
 #pragma unroll
-          for (int k = 0; k < kMaxCluster; ++k)
-            if (j + k < j1)
-              o[k] = __ldcg(reinterpret_cast<const float4*>(ws + (size_t)(j + k) * A + lo) + q);
+      for (int c = 0; c < NV; ++c) {
+        const int col = p * seg + (c * threads + t) * VW;
+        if (col < M) {
+          float v[VW];
+          sum_at(off, col, v);
+          if (has_res) store<T, VW>(r_out + off + col, v);   // rounded once
 #pragma unroll
-          for (int k = 0; k < kMaxCluster; ++k)
-            if (j + k < j1) v = j + k == j0 ? o[k] : add4(v, o[k]);
-        }
-        return v;
-      };
-      if (nruns == 1) {
-        for (int q = threadIdx.x; q < quads; q += blockDim.x)
-          write_sums(dgamma, dbeta, pbf, M, lo + 4 * q, run_sum(q, 0, clusters));
-      } else {
-        const int k = threadIdx.x;
-        if (k < nruns * quads) {
-          const int run = k / quads, q = k % quads;
-          runs_out[k] = run_sum(q, run * per, min(clusters, (run + 1) * per));
-        }
-        __syncthreads();
-        if (k < quads) {
-          float4 v = runs_out[k];
-          for (int run = 1; run < nruns; ++run) v = add4(v, runs_out[run * quads + k]);
-          write_sums(dgamma, dbeta, pbf, M, lo + 4 * k, v);
+          for (int e = 0; e < VW; ++e) s = __fadd_rn(s, v[e]);
         }
       }
-      if (threadIdx.x == 0) counters[rank] = 0;   // ready for the next launch
+    }
+    float mean = 0.f;
+    if (layernorm)
+      mean = __fdiv_rn(group_sum<false>(s, 0.f, red, parity, lane, warp, warps, 1, threads).x, m);
+    float sq = 0.f;
+    for (int p = 0; p < passes; ++p) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = p * seg + (c * threads + t) * VW;
+        if (col < M) {
+          float v[VW];
+          sum_at(off, col, v);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float d = __fsub_rn(v[e], mean);
+            sq = __fadd_rn(sq, __fmul_rn(d, d));
+          }
+        }
+      }
+    }
+    const float var = group_sum<false>(sq, 0.f, red, parity, lane, warp, warps, 1, threads).x;
+    const float rstd = 1.f / sqrtf(__fadd_rn(__fdiv_rn(var, m), eps));
+    if (rstd_out != nullptr && t == 0) {
+      if (layernorm) mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+    for (int p = 0; p < passes; ++p) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = p * seg + (c * threads + t) * VW;
+        if (col < M) {
+          float v[VW], gc[VW], bc[VW], out[VW];
+          sum_at(off, col, v);
+          load_params<VW>(gc, gamma, pbf, col);
+          if (has_beta) load_params<VW>(bc, beta, pbf, col);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float tt = __fmul_rn(__fmul_rn(__fsub_rn(v[e], mean), rstd), gc[e]);
+            out[e] = has_beta ? __fadd_rn(tt, bc[e]) : tt;
+          }
+          store<T, VW>(y + off + col, out);
+        }
+      }
     }
   }
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Shared memory of a wide backward block: one segment's column sums (A =
+// 2 seg rounded up to 32), the reduction halves and the last cluster's runs.
+__host__ __device__ inline size_t bwd_wide_smem(int seg, int threads) {
+  return (size_t)(2 * seg + 31) / 32 * 32 * 4 + 2 * kMaxWarps * 8 + (size_t)threads * 16;
+}
+
+// Backward: the grid's second dimension takes the column slices, one
+// segment each (slice y: columns [y seg, (y + 1) seg)). A block of slice y
+// takes rows blockIdx.x, + gridDim.x, ...: for each it sums dxhat and dxhat
+// * xhat over the whole row (every pass), then writes dx of its slice's
+// columns and adds their dy * xhat and dy to its shared-memory sums; the
+// slice's sums then meet across the blocks of its row (clusters along x) as
+// in the one-pass kernel, into its own part of ws and its own counters.
+template <typename T, int VW, int NV>
+__global__ void __launch_bounds__(kMaxThreads) fused_norm_bwd_wide_kernel(
+    const void* __restrict__ dy_, const void* __restrict__ r_, const void* __restrict__ gamma,
+    const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+    const void* __restrict__ dr_, void* __restrict__ dx_, float* __restrict__ ws,
+    int* __restrict__ counters, void* __restrict__ dgamma, void* __restrict__ dbeta, int rows,
+    int M, int threads, int layernorm, int param_bf16, int passes) {
+  const T* dy = static_cast<const T*>(dy_);
+  const T* r = static_cast<const T*>(r_);
+  const T* dr = static_cast<const T*>(dr_);
+  T* dx = static_cast<T*>(dx_);
+  extern __shared__ float4 smem[];
+  __shared__ int last;
+  const int t = threadIdx.x;
+  const int lane = t % 32, warp = t / 32, warps = threads / 32;
+  const int seg = threads * VW * NV, A = (2 * seg + 31) / 32 * 32;
+  const int c0 = blockIdx.y * seg, Ms = min(seg, M - c0);
+  float* acc = reinterpret_cast<float*>(smem);
+  float2* red = reinterpret_cast<float2*>(acc + A);
+  float4* runs_out = reinterpret_cast<float4*>(red + 2 * kMaxWarps);
+  const bool pbf = param_bf16 != 0, has_dr = dr != nullptr;
+  const float m = (float)M;
+  int parity = 0;
+  auto raw = [&](size_t off, int col, float* dyv, float* rv) {
+    Pack<T, VW> a, b;
+    a.load(dy + off + col);
+    b.load(r + off + col);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) dyv[e] = a[e], rv[e] = b[e];
+  };
+  for (int i = t; i < A; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t off = (size_t)row * M;
+    const float rstd = __ldg(rstd_in + row);
+    const float mean = layernorm ? __ldg(mean_in + row) : 0.f;
+    float s1 = 0.f, s2 = 0.f;
+    for (int p = 0; p < passes; ++p) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int col = p * seg + (c * threads + t) * VW;
+        if (col < M) {
+          float dyv[VW], rv[VW], gc[VW];
+          raw(off, col, dyv, rv);
+          load_params<VW>(gc, gamma, pbf, col);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float xh = __fmul_rn(__fsub_rn(rv[e], mean), rstd);
+            const float dxh = __fmul_rn(dyv[e], gc[e]);
+            s1 = __fadd_rn(s1, dxh);
+            s2 = __fadd_rn(s2, __fmul_rn(dxh, xh));
+          }
+        }
+      }
+    }
+    const float2 sums = group_sum<true>(s1, s2, red, parity, lane, warp, warps, 1, threads);
+    const float c1 = layernorm ? __fdiv_rn(sums.x, m) : 0.f;
+    const float c2 = __fdiv_rn(sums.y, m);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int lc = (c * threads + t) * VW, col = c0 + lc;
+      if (lc < Ms) {
+        float dyv[VW], rv[VW], gc[VW], drv[VW], pg[VW], out[VW];
+        raw(off, col, dyv, rv);
+        load_params<VW>(gc, gamma, pbf, col);
+        if (has_dr) {
+          Pack<T, VW> a;
+          a.load(dr + off + col);
+#pragma unroll
+          for (int e = 0; e < VW; ++e) drv[e] = a[e];
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(rv[e], mean), rstd);
+          const float dxh = __fmul_rn(dyv[e], gc[e]);
+          pg[e] = __fmul_rn(dyv[e], xh);
+          const float tt = __fsub_rn(__fsub_rn(dxh, c1), __fmul_rn(xh, c2));
+          out[e] = to_float(from_float<T>(__fmul_rn(rstd, tt)));   // dx in dy's dtype
+          if (has_dr) out[e] = __fadd_rn(out[e], drv[e]);
+        }
+        store<T, VW>(dx + off + col, out);
+        add_cols<VW>(acc + lc, pg);
+        add_cols<VW>(acc + Ms + lc, dyv);
+      }
+    }
+  }
+  __syncthreads();
+  const size_t pbytes = pbf ? 2 : 4;
+  const int clusters = gridDim.x / (int)cg::this_cluster().num_blocks();
+  reduce_column_sums(acc, A, Ms, ws + (size_t)blockIdx.y * clusters * A,
+                     counters + blockIdx.y * kMaxCluster,
+                     static_cast<char*>(dgamma) + c0 * pbytes,
+                     dbeta == nullptr ? nullptr : static_cast<char*>(dbeta) + c0 * pbytes, pbf,
+                     runs_out, last);
 }
 
 // The instantiations: 16-byte loads (bf16 up to 4 a thread, fp32 up to 8:
@@ -693,6 +920,36 @@ auto pick_nv(int nv) -> typename std::conditional<kFwd, FwdFn, BwdFn>::type {
   }
 #undef NV_CASE
   return nullptr;
+}
+
+// The wide kernels: the widest geometry of each load width only.
+using FwdWideFn = void (*)(const void*, const void*, const void*, const void*, void*, void*,
+                           float*, float*, int, int, float, int, int, int);
+using BwdWideFn = void (*)(const void*, const void*, const void*, const float*, const float*,
+                           const void*, void*, float*, int*, void*, void*, int, int, int, int,
+                           int, int);
+
+template <bool kFwd>
+auto pick_wide(int dtype, int vec, int nv)
+    -> typename std::conditional<kFwd, FwdWideFn, BwdWideFn>::type {
+  using Fn = typename std::conditional<kFwd, FwdWideFn, BwdWideFn>::type;
+#define WIDE_CASE(D, T, V, N)                                                                \
+  if (dtype == D && vec == V && nv == N) {                                                   \
+    if constexpr (kFwd) return reinterpret_cast<Fn>(fused_norm_fwd_wide_kernel<T, V, N>);    \
+    else return reinterpret_cast<Fn>(fused_norm_bwd_wide_kernel<T, V, N>);                   \
+  }
+  WIDE_CASE(0, float, 4, 8) WIDE_CASE(0, float, 1, 32)
+  WIDE_CASE(1, __nv_bfloat16, 8, 4) WIDE_CASE(1, __nv_bfloat16, 1, 32)
+#undef WIDE_CASE
+  return nullptr;
+}
+
+// A wide geometry: 512 threads, `passes` > 1 segments covering M.
+bool wide_ok(int dtype, int M, int vec, int nv, int threads, int passes) {
+  const int full = dtype == 0 ? 4 : 8;
+  const long seg = (long)threads * vec * nv;
+  return passes > 1 && threads == kMaxThreads && (vec == full || vec == 1) && M % vec == 0 &&
+         seg * (passes - 1) < M && seg * passes >= M;
 }
 
 template <bool kFwd>
@@ -1030,8 +1287,15 @@ extern "C" {
 // the kernels do not take.
 
 // Blocks of the "row_group" forward an SM holds at `threads` threads (the
-// occupancy API), or -1.
-int fused_norm_fwd_occupancy(int dtype, int vec, int nv, int threads) {
+// occupancy API), or -1. `passes` > 1: the wide kernel.
+int fused_norm_fwd_occupancy(int dtype, int vec, int nv, int threads, int passes) {
+  if (passes > 1) {
+    const rg::FwdWideFn wide = rg::pick_wide<true>(dtype, vec, nv);
+    if (wide == nullptr) return -1;
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wide, threads, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+  }
   const rg::FwdFn kernel = rg::pick<true>(dtype, vec, nv);
   if (kernel == nullptr) return -1;
   const size_t smem = rg::fwd_smem(vec, nv, threads);
@@ -1043,11 +1307,22 @@ int fused_norm_fwd_occupancy(int dtype, int vec, int nv, int threads) {
 }
 
 // The "row_group" forward: row groups of `threads` threads holding `nv`
-// loads of `vec` elements, `blocks` blocks.
+// loads of `vec` elements, `blocks` blocks; `passes` > 1 segments a row: the
+// wide kernel.
 int fused_norm_fwd_launch(const void* x, const void* resid, const void* gamma, const void* beta,
                           void* y, void* r_out, float* mean, float* rstd, int dtype,
                           int param_dtype, int layernorm, int rows, int M, float eps, int vec,
-                          int nv, int threads, int blocks, void* stream) {
+                          int nv, int threads, int blocks, int passes, void* stream) {
+  if (passes > 1) {
+    const rg::FwdWideFn wide = rg::pick_wide<true>(dtype, vec, nv);
+    if (wide == nullptr || rows < 1 || blocks < 1 || param_dtype < 0 || param_dtype > 1 ||
+        !rg::wide_ok(dtype, M, vec, nv, threads, passes))
+      return -1;
+    wide<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, resid, gamma, beta, y, r_out, mean, rstd, rows, M, eps, layernorm, param_dtype,
+        passes);
+    return (int)cudaGetLastError();
+  }
   const rg::FwdFn kernel = rg::pick<true>(dtype, vec, nv);
   if (kernel == nullptr || rows < 1 || blocks < 1 || param_dtype < 0 || param_dtype > 1 ||
       !rg::geometry_ok(dtype, M, vec, nv, threads))
@@ -1061,9 +1336,22 @@ int fused_norm_fwd_launch(const void* x, const void* resid, const void* gamma, c
 }
 
 // Clusters of `cluster` "row_group" backward blocks (`groups` row groups of
-// `threads` threads) the device holds at once, or <= 0.
+// `threads` threads) the device holds at once, or <= 0. `passes` > 1: the
+// wide kernel (one row group a block).
 int fused_norm_bwd_occupancy(int dtype, int vec, int nv, int threads, int groups, int M,
-                             int cluster) {
+                             int cluster, int passes) {
+  if (passes > 1) {
+    const rg::BwdWideFn wide = rg::pick_wide<false>(dtype, vec, nv);
+    if (wide == nullptr || groups != 1) return -1;
+    const size_t smem = rg::bwd_wide_smem(threads * vec * nv, threads);
+    cudaError_t err = set_smem(wide, smem);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t config = rg::bwd_config(cluster, threads, smem, cluster, 0, attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, wide, &config);
+    return err == cudaSuccess ? clusters : -(int)err;
+  }
   const rg::BwdFn kernel = rg::pick<false>(dtype, vec, nv);
   if (kernel == nullptr || groups < 1 || groups * threads > rg::kMaxThreads) return -1;
   const size_t smem = rg::bwd_smem(M, vec, nv, threads, groups);
@@ -1080,12 +1368,32 @@ int fused_norm_bwd_occupancy(int dtype, int vec, int nv, int threads, int groups
 // The "row_group" backward in one launch: `blocks` blocks of `groups` row
 // groups, in clusters of `cluster` dividing `blocks`; ws (blocks / cluster)
 // x round_up(2M, 32) fp32 scratch (unused for one cluster), counters
-// `cluster` int32 zeros (left zero).
+// `cluster` int32 zeros (left zero). `passes` > 1: the wide kernel, a grid
+// of blocks x passes (one column slice of threads x vec x nv columns each),
+// ws passes x (blocks / cluster) x round_up(2 seg, 32), counters passes x 8.
 int fused_norm_bwd_launch(const void* dy, const void* r, const void* gamma, const float* mean,
                           const float* rstd, const void* dr, void* dx, float* ws, int* counters,
                           void* dgamma, void* dbeta, int dtype, int param_dtype, int layernorm,
                           int rows, int M, int vec, int nv, int threads, int groups, int blocks,
-                          int cluster, void* stream) {
+                          int cluster, int passes, void* stream) {
+  if (passes > 1) {
+    const rg::BwdWideFn wide = rg::pick_wide<false>(dtype, vec, nv);
+    if (wide == nullptr || rows < 1 || param_dtype < 0 || param_dtype > 1 || groups != 1 ||
+        !rg::wide_ok(dtype, M, vec, nv, threads, passes) || cluster < 1 ||
+        cluster > rg::kMaxCluster || blocks < cluster || blocks % cluster)
+      return -1;
+    const size_t smem = rg::bwd_wide_smem(threads * vec * nv, threads);
+    cudaError_t err = set_smem(wide, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t config = rg::bwd_config(blocks, threads, smem, cluster,
+                                               static_cast<cudaStream_t>(stream), attr);
+    config.gridDim = dim3(blocks, passes);
+    err = cudaLaunchKernelEx(&config, wide, dy, r, gamma, mean, rstd, dr, dx, ws, counters,
+                             dgamma, dbeta, rows, M, threads, layernorm, param_dtype, passes);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   const rg::BwdFn kernel = rg::pick<false>(dtype, vec, nv);
   if (kernel == nullptr || rows < 1 || param_dtype < 0 || param_dtype > 1 ||
       !rg::geometry_ok(dtype, M, vec, nv, threads) || groups < 1 || groups > rg::kMaxGroups ||

@@ -41,7 +41,9 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from learning_jax_sharding_tpu_torch.models.convert import KERNEL_AXES
 from learning_jax_sharding_tpu_torch.models.quantize import Int4Linear, projection_dense
 from learning_jax_sharding_tpu_torch.ops.attention import (
     causal_mask,
@@ -51,6 +53,44 @@ from learning_jax_sharding_tpu_torch.ops.attention import (
 from learning_jax_sharding_tpu_torch.ops.decode_attention import decode_attention
 from learning_jax_sharding_tpu_torch.ops.int4_matmul import int4_matmul3
 from learning_jax_sharding_tpu_torch.ops.rope import apply_rope
+from learning_jax_sharding_tpu_torch.parallel.logical import (
+    BATCH,
+    EMBED,
+    HEADS,
+    KV,
+    SEQ,
+    active_mesh,
+    constrain,
+    local_call,
+    logical_placements,
+    on_whole_shards,
+    whole_call,
+)
+
+
+def _local(t):
+    """A DTensor's local shard (the same storage: in-place writes land in
+    it); anything else as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _local_shape(shape, mesh, placements) -> tuple:
+    shape = list(shape)
+    for mdim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            if shape[pl.dim] % mesh.size(mdim):
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not split "
+                                 f"{mesh.size(mdim)} ways")
+            shape[pl.dim] //= mesh.size(mdim)
+    return tuple(shape)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for size in reversed(shape):
+        stride.append(acc)
+        acc *= size
+    return tuple(reversed(stride))
 
 
 def resolve_decode_backend(mode: str, device: torch.device) -> str:
@@ -236,9 +276,28 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _one_split_row_dim(x):
+    """A DTensor whose leading (row) dims are split over two mesh dims (the
+    batch over data and the sequence over model: sequence parallelism),
+    with the later split gathered: the product flattens its rows, which
+    DTensor cannot do across two splits (GSPMD gathers the sequence for a
+    column-parallel weight the same way). Anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    rows = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim < x.ndim - 1]
+    if len({x.placements[i].dim for i in rows}) < 2:
+        return x
+    first = min(x.placements[i].dim for i in rows)
+    keep = [p if not (isinstance(p, Shard) and first < p.dim < x.ndim - 1) else Replicate()
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, keep)
+
+
 def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Flax Dense semantics: input and params cast to the compute dtype. An
     :class:`Int4Linear` (built with this ``dtype``) runs its own product."""
+    x = _one_split_row_dim(x)
     if isinstance(layer, Int4Linear):
         return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
@@ -275,6 +334,7 @@ class MultiHeadAttention(nn.Module):
         decode_page_count: int = 0,
         quantization: str | None = None,
         quantization_group: int = 128,
+        quantized_matmul_fn=None,
         device=None,
         generator: torch.Generator | None = None,
     ):
@@ -297,18 +357,24 @@ class MultiHeadAttention(nn.Module):
         self.use_bias = use_bias
         kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
                   param_dtype=param_dtype, group_size=quantization_group, device=device,
-                  generator=generator)
-        self.query = projection_dense(in_features=features, features=num_heads * head_dim, **kw)
-        self.key = projection_dense(in_features=features, features=n_kv * head_dim, **kw)
-        self.value = projection_dense(in_features=features, features=n_kv * head_dim, **kw)
-        self.out = projection_dense(in_features=num_heads * head_dim, features=features, **kw)
+                  generator=generator, matmul_fn=quantized_matmul_fn)
+        self.query = projection_dense(in_features=features, features=num_heads * head_dim,
+                                      kernel_axes=KERNEL_AXES["query"], **kw)
+        self.key = projection_dense(in_features=features, features=n_kv * head_dim,
+                                    kernel_axes=KERNEL_AXES["key"], **kw)
+        self.value = projection_dense(in_features=features, features=n_kv * head_dim,
+                                      kernel_axes=KERNEL_AXES["value"], **kw)
+        self.out = projection_dense(in_features=num_heads * head_dim, features=features,
+                                    kernel_axes=KERNEL_AXES["out"], **kw)
 
     def _fused_qkv(self, m: int) -> bool:
         """Route q/k/v through one ``int4_matmul3`` launch: int4 serving
-        (not w4a8), MHA (equal projection widths), no biases, and a group
+        (not w4a8) not split over a mesh (one whose axes are all of size 1
+        keeps it), MHA (equal projection widths), no biases, and a group
         layout the kernel can tile; the JAX module's rule."""
         if (
             self.quantization != "int4"
+            or not on_whole_shards()
             or self.use_bias
             or self.kv_heads != self.num_heads
             or m % 2
@@ -338,7 +404,29 @@ class MultiHeadAttention(nn.Module):
                 device=device, batch=batch, block_table=block_table,
             )
         shape = (batch, n_kv, length, h) if blocked else (batch, length, n_kv, h)
-        return KVCache.create(shape, store, ragged=self.decode_ragged, device=device)
+        mesh, rules = active_mesh()
+        if mesh is None:
+            return KVCache.create(shape, store, ragged=self.decode_ragged, device=device)
+        # Over a mesh each rank holds its (batch, heads) shard of the
+        # buffers, as the JAX module constrains them (``kv_axes``).
+        if self.decode_ragged:
+            raise NotImplementedError(
+                "ragged decode over a mesh: ported with the engine over a mesh (item 10)"
+            )
+        axes = (BATCH, HEADS, None, KV) if blocked else (BATCH, None, HEADS, KV)
+        placements = logical_placements(mesh, rules, axes)
+        local = KVCache.create(_local_shape(shape, mesh, placements), store, ragged=False,
+                               device=device)
+        wrap = lambda t, pl: DTensor.from_local(  # noqa: E731
+            t, mesh, pl, run_check=False,
+            shape=torch.Size(shape[:t.ndim]), stride=_contiguous_stride(shape[:t.ndim]))
+        scales = {}
+        if local.key_scale is not None:
+            sc_pl = logical_placements(mesh, rules, axes[:-1])
+            scales = dict(key_scale=wrap(local.key_scale, sc_pl),
+                          value_scale=wrap(local.value_scale, sc_pl))
+        return dataclasses.replace(local, key=wrap(local.key, placements),
+                                   value=wrap(local.value, placements), **scales)
 
     def _check_paged(self, blocked: bool) -> int:
         """The paged mode's preconditions (the JAX module's errors) → the
@@ -377,17 +465,20 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("chunk_lengths requires decode_ragged=True")
         if self.decode != (cache is not None):
             raise ValueError("decode mode takes a KVCache, and only decode mode does")
+        x = constrain(x, BATCH, SEQ, EMBED)
         if self._fused_qkv(m):
             g = min(self.quantization_group, m)
-            q, k, v = int4_matmul3(
-                x.to(self.dtype),
-                [(p.q4, p.scale) for p in (self.query, self.key, self.value)], group=g,
-            )
+            weights = [t for p in (self.query, self.key, self.value) for t in (p.q4, p.scale)]
+            q, k, v = whole_call(
+                lambda x_, *w: int4_matmul3(x_, list(zip(w[::2], w[1::2])), group=g),
+                (x.to(self.dtype), *weights), ((BATCH, SEQ, HEADS),) * 3)
         else:
             q, k, v = (linear(p, x, self.dtype) for p in (self.query, self.key, self.value))
+        q, k, v = (constrain(t, BATCH, SEQ, HEADS) for t in (q, k, v))
         q = q.reshape(b, s, self.num_heads, self.head_dim)
         k = k.reshape(b, s, self.kv_heads, self.head_dim)
         v = v.reshape(b, s, self.kv_heads, self.head_dim)
+        q, k, v = (constrain(t, BATCH, SEQ, HEADS, KV) for t in (q, k, v))
 
         if self.rope:
             # Rotate before caching: cached keys carry their absolute positions.
@@ -410,10 +501,13 @@ class MultiHeadAttention(nn.Module):
                 mask = sliding_window_mask(s, self.window, device=x.device)
             else:
                 mask = causal_mask(s, device=x.device) if self.causal else None
-            out = dot_product_attention(
-                q, repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads),
-                mask=mask,
-            )
+            k, v = repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads)
+            if active_mesh()[0] is not None:
+                spec = (BATCH, None, HEADS, None)
+                out = local_call(lambda q_, k_, v_: dot_product_attention(q_, k_, v_, mask=mask),
+                                 (q, k, v), (spec,) * 3, spec)
+            else:
+                out = dot_product_attention(q, k, v, mask=mask)
         else:
             if self.window is not None:
                 raise ValueError(
@@ -426,7 +520,9 @@ class MultiHeadAttention(nn.Module):
             if not getattr(self.attn_fn, "supports_gqa", False):
                 k, v = repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads)
             out = self.attn_fn(q, k, v, causal=self.causal)
+        out = constrain(out, BATCH, SEQ, HEADS, KV)
         out = linear(self.out, out.reshape(b, s, -1), self.dtype)
+        out = constrain(out, BATCH, SEQ, EMBED)
         if self.dropout_rate > 0.0 and not deterministic:
             out = dropout(out, self.dropout_rate, generator)
         return out
@@ -470,8 +566,17 @@ class MultiHeadAttention(nn.Module):
         blocked = resolve_decode_backend(self.decode_attention, q.device) == "blocked"
         if self.decode_paged:
             self._check_paged(blocked)
+        mesh, rules = active_mesh()
+        if mesh is not None:
+            return self._sharded_cached_attention(q, k, v, cache, chunk_lengths, blocked,
+                                                  mesh, rules)
         if blocked:
             return self._blocked_cached_attention(q, k, v, cache, chunk_lengths)
+        return self._dense_cached_attention(q, k, v, cache, chunk_lengths)
+
+    def _dense_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+        """Write the chunk into the ``(B, L, N_kv, H)`` buffers, then attend
+        the whole buffer under a mask."""
         _, s, n, _ = q.shape
         length = cache.key.shape[1]
         idx = self._advance(cache, s, chunk_lengths)
@@ -502,6 +607,28 @@ class MultiHeadAttention(nn.Module):
             mask = mask & (k_pos > q_pos - self.window)
         mask = mask[:, None] if self.decode_ragged else mask[None, None]
         return dot_product_attention(q, k_full, v_full, mask=mask)
+
+    def _sharded_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths, blocked,
+                                  mesh, rules):
+        """Cached attention over a mesh: each rank writes its (batch, heads)
+        shard of the chunk into its shard of the cache and attends it, the
+        kernel (blocked) or the masked product (dense) on the local shards
+        (``ops.decode_attention.make_decode_attn_fn`` is the same per-shard
+        call for a caller holding DTensors)."""
+        if self.decode_paged:
+            raise NotImplementedError(
+                "paged decode over a mesh: ported with the engine over a mesh (item 10)"
+            )
+        spec = (BATCH, None, HEADS, KV)
+        placements = logical_placements(mesh, rules, spec)
+        q, k, v = (constrain(t, *spec) for t in (q, k, v))
+        local = dataclasses.replace(
+            cache, **{f: _local(getattr(cache, f))
+                      for f in ("key", "value", "key_scale", "value_scale")})
+        attend = self._blocked_cached_attention if blocked else self._dense_cached_attention
+        out = attend(q.to_local(), k.to_local(), v.to_local(), local, chunk_lengths)
+        return DTensor.from_local(out.contiguous(), mesh, placements, run_check=False,
+                                  shape=q.shape, stride=_contiguous_stride(q.shape))
 
     def _blocked_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
         """The length-aware kernel over the ``(B, N_kv, L, H)`` cache (or the

@@ -20,6 +20,16 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from learning_jax_sharding_tpu_torch.parallel.logical import (
+    EMBED,
+    HEADS,
+    MLP,
+    SEQ,
+    VOCAB,
+    logical_placements,
+)
+from learning_jax_sharding_tpu_torch.parallel.sharding import put
+
 
 def _tensor(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
@@ -66,3 +76,71 @@ def from_flax_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
     sd.update(_norm("ln_out", params["ln_out"]))
     sd.update(_dense("lm_head", params["lm_head"]))
     return sd
+
+
+#: Each projection site's logical kernel axes ``(in, out)``, as the JAX
+#: model declares them (``models/attention.py`` ``_dense``,
+#: ``models/transformer.py`` ``FeedForward`` and ``lm_head``).
+KERNEL_AXES = {
+    "query": (EMBED, HEADS),
+    "key": (EMBED, HEADS),
+    "value": (EMBED, HEADS),
+    "out": (HEADS, EMBED),
+    "up": (EMBED, MLP),
+    "down": (MLP, EMBED),
+    "lm_head": (EMBED, VOCAB),
+}
+
+
+def param_logical_axes(name: str) -> tuple:
+    """The logical axes of the port's parameter or buffer ``name``, in the
+    port's layout: the JAX model's ``nn.with_logical_partitioning`` axes,
+    reversed for an ``(out, in)`` weight. An int4 node's ``q4`` and
+    ``scale`` (``(K/2, N)`` and ``(K/g, N)``, the JAX layout) shard their
+    columns only: split-half packing never splits the contraction."""
+    parts = name.split(".")
+    if name == "tok_embed.weight":
+        return (VOCAB, EMBED)
+    if name == "pos_embed":
+        return (SEQ, EMBED)
+    site, leaf = parts[-2], parts[-1]
+    if site in ("ln_attn", "ln_ff", "ln_out"):
+        return (EMBED,)
+    if site not in KERNEL_AXES:
+        raise KeyError(f"no logical axes for parameter {name!r}")
+    k_in, k_out = KERNEL_AXES[site]
+    if leaf == "weight":
+        return (k_out, k_in)
+    if leaf == "bias":
+        return (k_out,)
+    if leaf in ("q4", "scale"):
+        return (None, k_out)
+    raise KeyError(f"no logical axes for parameter {name!r}")
+
+
+def shard_params(model: torch.nn.Module, mesh, rules, state: Mapping | None = None) -> None:
+    """Lay every parameter (and int4 ``q4``/``scale`` buffer) of ``model``
+    out over ``mesh`` IN PLACE, as a DTensor placed by its logical axes
+    under ``rules``: the port's counterpart of a Flax state born sharded.
+    The model's own ``logical_axes(name)`` method gives them where it has
+    one, else :func:`param_logical_axes` (the transformer's table).
+    The values are the module's own full tensors, or ``state[name]`` (a full
+    state dict, cast to each tensor's dtype); each rank keeps its slice,
+    nothing is sent."""
+    axes = getattr(model, "logical_axes", param_logical_axes)
+    named = [(n, t, True) for n, t in model.named_parameters()]
+    named += [(n, t, False) for n, t in model.named_buffers()
+              if n.rsplit(".", 1)[-1] in ("q4", "scale")]
+    for name, old, is_param in named:
+        value = old.detach() if state is None else torch.as_tensor(state[name])
+        if hasattr(value, "full_tensor"):
+            value = value.full_tensor()
+        value = value.to(device=old.device, dtype=old.dtype)
+        placements = logical_placements(mesh, rules, axes(name))
+        new = put(value, placements, mesh)
+        owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+        leaf = name.rsplit(".", 1)[-1]
+        if is_param:
+            owner._parameters[leaf] = torch.nn.Parameter(new, requires_grad=old.requires_grad)
+        else:
+            owner._buffers[leaf] = new

@@ -31,7 +31,14 @@ def derive_decode_config(
     config: TransformerConfig, inference_dtype: torch.dtype | None = None
 ) -> TransformerConfig:
     """Decode variant of a training config: KV caches on, dropout off, and,
-    with ``inference_dtype``, compute and param dtypes swapped to it."""
+    with ``inference_dtype``, compute and param dtypes swapped to it.
+
+    It takes no mesh: the JAX one injects a ``shard_map`` decode-attention
+    wrapper on meshes of more than one device, while here the attention
+    module over a mesh holds each rank's shard of the cache and runs the
+    kernel on it itself (``models/attention.py``);
+    ``ops.decode_attention.make_decode_attn_fn`` is that per-shard call for
+    callers holding DTensors."""
     cfg = dataclasses.replace(config, decode=True, dropout_rate=0.0)
     if inference_dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=inference_dtype, param_dtype=inference_dtype)
@@ -39,12 +46,15 @@ def derive_decode_config(
 
 
 def apply_dequantize_policy(
-    cfg: TransformerConfig, dequantize: bool | str
+    cfg: TransformerConfig, dequantize: bool | str, mesh=None, rules=None
 ) -> tuple[TransformerConfig, bool]:
-    """The quantized-serving policy, on one device: validates the
-    ``dequantize`` mode and, for the fused modes, sets the config's
-    ``quantization`` so an int4 state dict applies as it is through the
-    fused kernels (``"fused_w4a8"``: with per-row int8 activations).
+    """The quantized-serving policy: validates the ``dequantize`` mode and,
+    for the fused modes, sets the config's ``quantization`` so an int4 state
+    dict applies as it is through the fused kernels (``"fused_w4a8"``: with
+    per-row int8 activations). Over a mesh the per-shard int4 matmul
+    (``ops.int4_matmul.make_int4_matmul_fn``) is injected, on every mesh: JAX
+    injects it on meshes of more than one device, but here a DTensor weight
+    never reaches the kernel's own wrapper, so one device takes it too.
 
     Returns ``(cfg, fused)``: callers build their cached apply with
     ``dequantize=bool(dequantize) and not fused`` and their param caster
@@ -56,9 +66,13 @@ def apply_dequantize_policy(
         )
     fused = dequantize in ("fused", "fused_w4a8")
     if fused:
-        cfg = dataclasses.replace(
-            cfg, quantization="int4_w4a8" if dequantize == "fused_w4a8" else "int4"
-        )
+        w4a8 = dequantize == "fused_w4a8"
+        cfg = dataclasses.replace(cfg, quantization="int4_w4a8" if w4a8 else "int4")
+        if mesh is not None:
+            from learning_jax_sharding_tpu_torch.ops.int4_matmul import make_int4_matmul_fn
+
+            cfg = dataclasses.replace(
+                cfg, quantized_matmul_fn=make_int4_matmul_fn(mesh, rules, w4a8=w4a8))
     return cfg, fused
 
 

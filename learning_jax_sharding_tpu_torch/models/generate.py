@@ -14,10 +14,12 @@ later work.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.decoding import (
@@ -27,7 +29,10 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     make_cached_apply,
     make_param_caster,
 )
+from learning_jax_sharding_tpu_torch.models.convert import shard_params
+from learning_jax_sharding_tpu_torch.models.quantize import dequantize_tree
 from learning_jax_sharding_tpu_torch.models.transformer import Transformer, TransformerConfig
+from learning_jax_sharding_tpu_torch.parallel.logical import activate
 
 
 def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -130,6 +135,8 @@ def _sample(
 
 def make_generate_fn(
     config: TransformerConfig,
+    mesh=None,
+    rules=None,
     *,
     max_new_tokens: int,
     temperature: float = 0.0,
@@ -180,6 +187,18 @@ def make_generate_fn(
     ``True``: an int8 (or int4) state dict that stays quantized and is
     dequantized to the compute dtype inside every model call. Quantized
     nodes are never cast; embeddings and norms cast to ``inference_dtype``.
+
+    ``mesh``/``rules``: tensor-parallel generate (the JAX package's
+    ``make_generate_fn(config, mesh, rules)``). Every rank calls
+    ``generate`` with the same arguments; the weights are laid out over the
+    mesh by their logical axes on each call, the KV caches are born split
+    over batch and heads (each rank holds its shard), every kernel runs on
+    its shard (decode attention on the cache's shards, the int4 matmuls
+    through their per-shard wrapper), and each step's last-position logits
+    are gathered whole, so every rank picks the same tokens and returns the
+    whole result. The mesh's device is the default ``device``. Over a mesh ``dequantize=True``
+    dequantizes the state dict once a call (the same weights a model call
+    would see); ``ragged`` runs with the engine over a mesh (item 10).
     """
     if ragged and prefill_chunk_size is not None:
         raise ValueError(
@@ -188,15 +207,24 @@ def make_generate_fn(
         )
     if prefill_chunk_size is not None and prefill_chunk_size < 1:
         raise ValueError(f"prefill_chunk_size must be >= 1, got {prefill_chunk_size}")
+    if mesh is not None:
+        if rules is None:
+            raise ValueError("rules are required when a mesh is given")
+        if ragged:
+            raise NotImplementedError(
+                "ragged generate over a mesh: ported with the engine over a mesh (item 10)"
+            )
+        device = mesh.device_type if device is None else device
     device = resolve_device(device)
     cfg = derive_decode_config(config, inference_dtype)
     if ragged:
         cfg = dataclasses.replace(cfg, decode_ragged=True)
-    cfg, fused = apply_dequantize_policy(cfg, dequantize)
+    cfg, fused = apply_dequantize_policy(cfg, dequantize, mesh, rules)
     model = Transformer(cfg, device=device).eval()
     maybe_cast = make_param_caster(inference_dtype, device, dequantize=bool(dequantize))
-    in_apply = bool(dequantize) and not fused
+    in_apply = bool(dequantize) and not fused and mesh is None
     cached_apply = make_cached_apply(model, dequantize=in_apply, dequant_dtype=cfg.param_dtype)
+    scope = (lambda: activate(mesh, rules)) if mesh is not None else contextlib.nullcontext
 
     @torch.no_grad()
     def generate(
@@ -223,16 +251,24 @@ def make_generate_fn(
         # The model serves its loaded weights, or (``dequantize=True``) each
         # call dequantizes the quantized state dict it is given.
         weights = maybe_cast(params)
-        if not in_apply:
+        if mesh is not None:
+            if dequantize and not fused:
+                weights = dequantize_tree(weights, cfg.param_dtype)
+            shard_params(model, mesh, rules, weights)
+            weights = None
+        elif not in_apply:
             model.load_state_dict(weights)
             weights = None
 
         def apply(cache, tokens, chunk_lengths=None):
-            return cached_apply(cache, tokens, chunk_lengths, params=weights)
+            with scope():
+                return cached_apply(cache, tokens, chunk_lengths, params=weights)
 
         def step_apply(cache, tokens, chunk_lengths=None):
             logits, cache = apply(cache, tokens, chunk_lengths)
-            return logits[:, -1], cache
+            logits = logits[:, -1]
+            # Over a mesh the last logits are gathered whole: every rank picks.
+            return (logits.full_tensor() if isinstance(logits, DTensor) else logits), cache
 
         rows = torch.arange(b, device=device)
 

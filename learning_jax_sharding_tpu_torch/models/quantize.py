@@ -200,8 +200,12 @@ class Int4Linear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, *, use_bias: bool = False,
                  dtype=torch.bfloat16, param_dtype=torch.float32, group_size: int = 128,
-                 activation_bits: int = 16, device=None):
+                 activation_bits: int = 16, kernel_axes: tuple = (None, None),
+                 matmul_fn=None, device=None):
         super().__init__()
+        # Over a mesh ``matmul_fn`` (``ops.int4_matmul.make_int4_matmul_fn``)
+        # runs the kernel on each shard, laid out by the logical kernel axes.
+        self.kernel_axes, self.matmul_fn = tuple(kernel_axes), matmul_fn
         if in_features % 2:
             raise ValueError(f"int4 packing needs an even contraction dim, got {in_features}")
         self.in_features, self.out_features = in_features, out_features
@@ -223,7 +227,11 @@ class Int4Linear(nn.Module):
         x = x.to(self.dtype)
         w4a8 = self.activation_bits == 8
         if self.scale.shape[0] == 1 or (k // 2) % g == 0:
-            y = int4_matmul(x, self.q4, self.scale, group=g, w4a8=w4a8)
+            if self.matmul_fn is not None:
+                y = self.matmul_fn(x, self.q4, self.scale, group=g,
+                                   kernel_axes=self.kernel_axes)
+            else:
+                y = int4_matmul(x, self.q4, self.scale, group=g, w4a8=w4a8)
         else:
             if w4a8:
                 raise ValueError(
@@ -248,6 +256,8 @@ def projection_dense(
     param_dtype,
     group_size: int = 128,
     kernel_init: Callable | None = None,
+    kernel_axes: tuple = (None, None),
+    matmul_fn=None,
     device=None,
     generator: torch.Generator | None = None,
 ) -> nn.Module:
@@ -260,7 +270,8 @@ def projection_dense(
         return Int4Linear(
             in_features, features, use_bias=use_bias, dtype=dtype,
             param_dtype=param_dtype, group_size=group_size,
-            activation_bits=8 if quantization == "int4_w4a8" else 16, device=device,
+            activation_bits=8 if quantization == "int4_w4a8" else 16,
+            kernel_axes=kernel_axes, matmul_fn=matmul_fn, device=device,
         )
     if quantization is not None:
         raise ValueError(

@@ -1018,11 +1018,18 @@ class ContinuousEngine:
         return results
 
 
-def make_continuous_engine(config: TransformerConfig, **kwargs):
+def make_continuous_engine(config: TransformerConfig, mesh=None, rules=None, **kwargs):
     """Build a persistent :class:`ContinuousEngine` and return its one-shot
     entry ``serve(params, prompts, rng=None, draft_params=None) ->
     list[np.ndarray]``. The engine is ``serve.engine``; after each call
-    ``serve.last_stats`` / ``serve.last_latency`` mirror the engine's."""
+    ``serve.last_stats`` / ``serve.last_latency`` mirror the engine's.
+    ``mesh``/``rules`` (the engine over a mesh) are ported with the rest of
+    the engine (item 10)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the continuous engine over a mesh: ported with the rest of the engine (item 10)"
+        )
+    del rules
     engine = ContinuousEngine(config, **kwargs)
 
     def serve(params, prompts, rng=None, draft_params=None):

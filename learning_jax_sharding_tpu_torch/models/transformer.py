@@ -27,6 +27,14 @@ tokens, the blocked backend and ``decode_ragged``) keeps every layer's K/V in
 page pools behind one ``(B, max_seq_len // page)`` block table, which the
 continuous engine (``models/serving.py``) owns.
 
+Over a mesh (``parallel.logical.activate(mesh, rules)`` active), the
+parameters are DTensors placed by their logical axes
+(``models/convert.py::param_logical_axes``), the activations are constrained
+at the JAX model's points (``parallel.logical.constrain``, the identity with
+no active mesh), and every custom kernel runs on local shards: the flash
+and decode-attention wrappers, the int4 wrapper
+(``quantized_matmul_fn``), and here the fused norm and the losses.
+
 Not ported yet: MoE feed-forwards, ``scan_layers`` and ``remat``; each raises
 ``NotImplementedError`` naming the slice that brings it.
 """
@@ -45,9 +53,23 @@ from learning_jax_sharding_tpu_torch.models.attention import (
     MultiHeadAttention,
     linear,
 )
+from learning_jax_sharding_tpu_torch.models.convert import KERNEL_AXES
 from learning_jax_sharding_tpu_torch.models.quantize import projection_dense
 from learning_jax_sharding_tpu_torch.ops.fused_norm import fused_residual_norm
 from learning_jax_sharding_tpu_torch.ops.int4_ff import int4_ff, int4_ff_eligible
+from learning_jax_sharding_tpu_torch.parallel.logical import (
+    BATCH,
+    EMBED,
+    HIDDEN,
+    SEQ,
+    VOCAB,
+    active_mesh,
+    constrain,
+    local_call,
+    on_whole_shards,
+    vocab_parallel_xent,
+    whole_call,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +108,7 @@ class TransformerConfig:
     decode_page_count: int = 0          # paged: pages in each layer's pools
     quantization: str | None = None     # "int4" / "int4_w4a8": int4 state dicts
     quantization_group: int = 128       # must match quantize_tree's group_size
+    quantized_matmul_fn: object = None  # per-shard int4 matmul (a mesh)
 
     def __post_init__(self):
         later = {
@@ -192,7 +215,23 @@ class FusedNorm(Norm):
         x = x.to(self.dtype)
         if resid is not None:
             resid = resid.to(self.dtype)
+        if active_mesh()[0] is not None:
+            return self._sharded(x, resid)
         return fused_residual_norm(x, resid, self.weight, self.bias, eps=self.eps, kind=self.kind)
+
+    def _sharded(self, x, resid):
+        """The kernel on each shard's rows: features whole (a rule that
+        splits EMBED gathers them, and the norm's parameters, first)."""
+        rows = (BATCH, SEQ, None)
+        args = [x, resid, self.weight, self.bias]
+        specs = [rows, rows if resid is not None else None, (None,),
+                 (None,) if self.bias is not None else None]
+
+        def body(x_l, r_l, w_l, b_l):
+            return fused_residual_norm(x_l, r_l, w_l, b_l, eps=self.eps, kind=self.kind)
+
+        # gamma/beta: each shard's gradient sums its own rows only.
+        return local_call(body, args, specs, (rows, rows), partial_grads=(2, 3))
 
 
 def make_norm(kind: str, features: int, dtype, param_dtype, eps: float = 1e-6, *, device=None,
@@ -210,33 +249,43 @@ class FeedForward(nn.Module):
 
     def __init__(self, features: int, hidden: int, *, use_bias=False, dtype=torch.float32,
                  param_dtype=torch.float32, quantization=None, quantization_group=128,
-                 device=None, generator=None):
+                 quantized_matmul_fn=None, device=None, generator=None):
         super().__init__()
         self.features, self.hidden, self.use_bias = features, hidden, use_bias
         self.dtype = dtype
         self.quantization, self.quantization_group = quantization, quantization_group
+        self.quantized_matmul_fn = quantized_matmul_fn
         kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
                   param_dtype=param_dtype, group_size=quantization_group, device=device,
-                  generator=generator)
-        self.up = projection_dense(in_features=features, features=hidden, **kw)
-        self.down = projection_dense(in_features=hidden, features=features, **kw)
+                  generator=generator, matmul_fn=quantized_matmul_fn)
+        self.up = projection_dense(in_features=features, features=hidden,
+                                   kernel_axes=KERNEL_AXES["up"], **kw)
+        self.down = projection_dense(in_features=hidden, features=features,
+                                     kernel_axes=KERNEL_AXES["down"], **kw)
 
     def _use_fused_ff(self, k: int) -> bool:
+        """The JAX rule: int4 serving, not split over a mesh (one whose
+        axes are all of size 1 keeps the whole-FF kernel: its shards are the
+        whole)."""
         return (
             self.quantization == "int4"
+            and on_whole_shards()
             and not self.use_bias
             and self.features == k
             and int4_ff_eligible(k, self.hidden, self.quantization_group)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = constrain(x, BATCH, SEQ, EMBED)
         if self._use_fused_ff(x.shape[-1]):
             # Up, GELU and down in one kernel: the hidden activation never
             # reaches device memory.
-            return int4_ff(x.to(self.dtype), self.up.q4, self.up.scale, self.down.q4,
-                           self.down.scale, group=self.quantization_group)
-        h = nn.functional.gelu(linear(self.up, x, self.dtype), approximate="tanh")
-        return linear(self.down, h, self.dtype)
+            args = (x.to(self.dtype), self.up.q4, self.up.scale, self.down.q4, self.down.scale)
+            return whole_call(lambda *a: int4_ff(*a, group=self.quantization_group), args,
+                              (BATCH, SEQ, EMBED))
+        h = constrain(linear(self.up, x, self.dtype), BATCH, SEQ, HIDDEN)
+        h = nn.functional.gelu(h, approximate="tanh")
+        return constrain(linear(self.down, h, self.dtype), BATCH, SEQ, EMBED)
 
 
 class TransformerBlock(nn.Module):
@@ -256,6 +305,7 @@ class TransformerBlock(nn.Module):
             window=cfg.window, dropout_rate=cfg.dropout_rate, causal=cfg.causal,
             use_bias=cfg.use_bias, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
             attn_fn=cfg.attn_fn, decode=cfg.decode,
+            quantized_matmul_fn=cfg.quantized_matmul_fn,
             max_decode_len=cfg.max_seq_len if cfg.decode else 0,
             kv_cache_dtype=cfg.kv_cache_dtype, decode_attention=cfg.decode_attention,
             decode_block_k=cfg.decode_block_k, decode_ragged=cfg.decode_ragged,
@@ -267,20 +317,22 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(
             cfg.features, cfg.hidden, use_bias=cfg.use_bias, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, quantization=cfg.quantization,
-            quantization_group=cfg.quantization_group, device=device, generator=generator,
+            quantization_group=cfg.quantization_group,
+            quantized_matmul_fn=cfg.quantized_matmul_fn, device=device, generator=generator,
         )
 
     def forward(self, x, *, deterministic: bool = True, generator=None,
                 cache: KVCache | None = None, chunk_lengths=None):
         attend = dict(deterministic=deterministic, generator=generator, cache=cache,
                       chunk_lengths=chunk_lengths)
+        x = constrain(x, BATCH, SEQ, EMBED)
         if self.fused_norm:
             h, _ = self.ln_attn(x)
             h, x = self.ln_ff(self.attn(h, **attend), x)
         else:
             x = x + self.attn(self.ln_attn(x), **attend)
             h = self.ln_ff(x)
-        return x + self.ff(h)
+        return constrain(x + self.ff(h), BATCH, SEQ, EMBED)
 
 
 @dataclasses.dataclass
@@ -334,6 +386,7 @@ class Transformer(nn.Module):
             use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
             group_size=cfg.quantization_group,
             kernel_init=lambda w, g: nn.init.normal_(w, 0.0, 0.02, generator=g),
+            kernel_axes=KERNEL_AXES["lm_head"], matmul_fn=cfg.quantized_matmul_fn,
             device=device, generator=gen,
         )
 
@@ -383,19 +436,27 @@ class Transformer(nn.Module):
             raise ValueError("chunk_lengths requires decode=True and decode_ragged=True")
         if cfg.decode != (cache is not None):
             raise ValueError("a decode config takes a DecodeCache, and only a decode config does")
-        tokens = tokens.long()
-        x = self.tok_embed(tokens).to(cfg.dtype)
+        tokens = constrain(tokens, BATCH, SEQ).long()
+        # Over a mesh a vocabulary-split table's rows come back as masked
+        # partial sums: each lookup is reduced on its own (the two masks
+        # cannot meet in one add).
+        x = constrain(self.tok_embed(tokens).to(cfg.dtype), BATCH, SEQ, EMBED)
         if self.pos_embed is not None:
-            steps = torch.arange(s, device=tokens.device)
+            steps = torch.arange(s, device=self.device)
             if cache is None:
                 positions = steps
             elif cfg.decode_ragged:
                 positions = cache.position[:, None] + steps                  # (B, S)
             else:
                 positions = cache.position + steps
-            x = x + self.pos_embed[positions.long()].to(cfg.dtype)
+            # A row gather of the (SEQ, EMBED) table (over a mesh, DTensor's
+            # embedding rule serves any placement of it).
+            pos = nn.functional.embedding(positions.long(), self.pos_embed)
+            pos = constrain(pos, *((BATCH, SEQ, EMBED) if pos.ndim == 3 else (SEQ, EMBED)))
+            x = x + pos.to(cfg.dtype)
             if cache is not None:
                 cache.position += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
+        x = constrain(x, BATCH, SEQ, EMBED)
         for i, block in enumerate(self.blocks):
             x = block(
                 x, deterministic=deterministic, generator=generator,
@@ -405,7 +466,7 @@ class Transformer(nn.Module):
         x = self.ln_out(x)[0] if cfg.fused_norm else self.ln_out(x)
         if return_hidden:
             return x
-        return linear(self.lm_head, x, cfg.dtype)
+        return constrain(linear(self.lm_head, x, cfg.dtype), BATCH, SEQ, VOCAB)
 
 
 def _chunk_total(hidden: torch.Tensor, targets: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -435,6 +496,8 @@ def fused_next_token_loss(
         raise ValueError(f"seq len {s} not divisible by chunk_size {chunk_size}")
     head = model.lm_head.weight.to(hidden.dtype)
     targets = batch["targets"]
+    if active_mesh()[0] is not None:
+        return _sharded_fused_loss(hidden, targets, head, chunk_size)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, s, chunk_size):
         end = start + chunk_size
@@ -445,9 +508,36 @@ def fused_next_token_loss(
     return total / (b * s)
 
 
+def _sharded_chunk_total(hidden, targets, head):
+    """One chunk's summed cross-entropy over a mesh: the head product as
+    DTensor places it, the logits constrained as the JAX loss constrains
+    them, then :func:`vocab_parallel_xent` on each shard."""
+    logits = constrain(nn.functional.linear(hidden, head), BATCH, SEQ, VOCAB)
+    return vocab_parallel_xent(logits, targets)
+
+
+def _sharded_fused_loss(hidden, targets, head, chunk_size):
+    b, s, _ = hidden.shape
+    # The chunk loop slices the sequence: gather it first where a rule
+    # splits it (sequence parallelism), as the JAX loss reshapes it whole.
+    hidden = constrain(hidden, BATCH, None, None)
+    targets = constrain(targets, BATCH, None)
+    total = None
+    for start in range(0, s, chunk_size):
+        end = start + chunk_size
+        part = checkpoint(_sharded_chunk_total, hidden[:, start:end], targets[:, start:end],
+                          head, use_reentrant=False)
+        total = part if total is None else total + part
+    return constrain(total / (b * s))
+
+
 def next_token_loss(logits: torch.Tensor, batch: dict) -> torch.Tensor:
     """Causal-LM loss: mean fp32 cross-entropy over all positions.
     ``batch["targets"]`` must already be the inputs shifted left by one."""
+    if active_mesh()[0] is not None:
+        # Over a mesh: each shard's rows against its vocabulary slice.
+        logits = constrain(logits, BATCH, SEQ, VOCAB)
+        return constrain(vocab_parallel_xent(logits, batch["targets"]) / batch["targets"].numel())
     return nn.functional.cross_entropy(
         logits.float().flatten(0, -2), batch["targets"].flatten().long()
     )

@@ -591,3 +591,54 @@ decode_attention.launches = 0
 decode_attention.paged_launches = 0
 decode_attention.tensor_core_launches = 0
 decode_attention.split_launches = 0
+
+
+def make_decode_attn_fn(mesh, rules, **kwargs):
+    """A mesh-aware :func:`decode_attention` for multi-device serving (the
+    JAX package's, there under ``shard_map``): the kernel runs on each
+    rank's shard, batch and heads split as the logical ``rules`` place them.
+    ``q`` ``(B, S, N, H)``, the caches ``(B, N_kv, L, H)`` and their int8
+    scales are DTensors (or full tensors); a scalar ``index`` is replicated.
+    Each shard's launch takes the design and split its own shape gives
+    (``_plan`` on ``b / data`` rows and ``n / model`` heads). Call-time
+    keywords (``window``, ``block_k``, ...) override those given here.
+    The folded write and paged pools serve the engine, whose mesh path is
+    ported with item 10."""
+    from learning_jax_sharding_tpu_torch.parallel.logical import (
+        BATCH,
+        HEADS,
+        activate,
+        local_call,
+    )
+
+    rules = tuple(rules)
+    q_spec = (BATCH, None, HEADS, None)
+    kv_spec = (BATCH, HEADS, None, None)
+    sc_spec = (BATCH, HEADS, None)
+
+    def attn_fn(q, k_cache, v_cache, index, *, k_scale=None, v_scale=None, k_new=None,
+                block_table=None, write_enable=None, **call_kwargs):
+        if k_new is not None or block_table is not None or write_enable is not None:
+            raise NotImplementedError(
+                "the folded write and paged pools over a mesh: ported with the "
+                "engine over a mesh (item 10)"
+            )
+        if torch.as_tensor(index).ndim:
+            raise NotImplementedError(
+                "per-row indices over a mesh: ported with the engine over a mesh (item 10)"
+            )
+        kw = {**kwargs, **call_kwargs}
+        quantized = k_scale is not None
+
+        def body(q_, kc, vc, ks, vs):
+            return decode_attention(q_, kc, vc, index, k_scale=ks, v_scale=vs, **kw)
+
+        with activate(mesh, rules):
+            return local_call(
+                body, (q, k_cache, v_cache, k_scale, v_scale),
+                (q_spec, kv_spec, kv_spec, sc_spec if quantized else None,
+                 sc_spec if quantized else None),
+                q_spec,
+            )
+
+    return attn_fn

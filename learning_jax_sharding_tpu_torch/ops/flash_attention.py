@@ -348,16 +348,47 @@ def make_flash_attn_fn(mesh=None, rules=None, **kwargs):
     ``kwargs`` (``window``, block sizes). It reads grouped k/v at their own
     head count (``attn_fn.supports_gqa``), so the module skips ``repeat_kv``.
 
-    A ``mesh`` (sharding the kernel over batch and heads) is not ported yet.
+    With ``mesh``/``rules`` the kernels run on each rank's shard, batch and
+    heads split as the rules place ``(BATCH, None, HEADS, None)``; the
+    sequence stays whole (flash needs every key). Gradients flow through:
+    the backward kernels run on the same shards. Grouped k/v whose head
+    count the heads axis cannot divide are repeated to full heads first.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_flash_attn_fn over a mesh: ported with slice A (the "
-            "sharding lessons)"
-        )
+    if mesh is None:
+        def attn_fn(q, k, v, *, causal: bool = False):
+            return flash_attention(q, k, v, causal=causal, **kwargs)
+
+        attn_fn.supports_gqa = True
+        return attn_fn
+    if rules is None:
+        raise ValueError("rules are required when a mesh is given")
+    from learning_jax_sharding_tpu_torch.parallel.logical import (
+        BATCH,
+        HEADS,
+        activate,
+        local_call,
+        logical_to_mesh_axes,
+    )
+
+    rules = tuple(rules)
+    spec = (BATCH, None, HEADS, None)
+    heads_entry = logical_to_mesh_axes(spec, rules)[2]
+    heads_axes = () if heads_entry is None else (
+        (heads_entry,) if isinstance(heads_entry, str) else tuple(heads_entry))
+    heads_axis_size = 1
+    for a in heads_axes:
+        heads_axis_size *= mesh.size(mesh.mesh_dim_names.index(a))
 
     def attn_fn(q, k, v, *, causal: bool = False):
-        return flash_attention(q, k, v, causal=causal, **kwargs)
+        if k.shape[2] != q.shape[2] and k.shape[2] % heads_axis_size:
+            reps = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(reps, dim=2)
+            v = v.repeat_interleave(reps, dim=2)
+        with activate(mesh, rules):
+            return local_call(
+                lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal, **kwargs),
+                (q, k, v), (spec,) * 3, spec,
+            )
 
     attn_fn.supports_gqa = True
     return attn_fn

@@ -19,12 +19,15 @@ Gradients go through :class:`_FusedNorm`, the counterpart of the JAX
 ``_fused`` custom VJP; with no gradient to take, the forward writes no
 statistics (the JAX primal path).
 
-The kernels take every width up to ``MAX_FEATURES``. Their geometry is
+The kernels take every width. Their geometry is
 :func:`_design`'s, picked before the launch: a row group of threads a row,
 each thread holding 16-byte loads of it (one-element loads where the width
 is no multiple of 16 bytes), the forward's grid from the rows and the
 card's SMs (:func:`_fwd_blocks`), the backward's blocks in clusters whose
-column sums meet in the same launch (:func:`_bwd_blocks`). The first design
+column sums meet in the same launch (:func:`_bwd_blocks`). A row past
+``PASS_FEATURES`` (one pass of the widest row group) takes the wide
+kernels: the widest geometry in ``passes`` segments a row, the backward's
+column sums split by segment over a second grid dimension. The first design
 (``design="warp_row"``: a warp a row, features a multiple of 8 up to 1024,
 the backward's sums in one or two more launches) stays reachable for
 comparison; the public path never takes it.
@@ -42,9 +45,10 @@ from learning_jax_sharding_tpu_torch.ops._build import load_library
 from learning_jax_sharding_tpu_torch.ops.int4_ff import _zero_counters
 from learning_jax_sharding_tpu_torch.ops.int4_matmul import _DTYPE_CODES, _on_cuda, _sm_count
 
-#: The widest row the kernels take (kMaxM in csrc/fused_norm.cu: the
-#: backward keeps 2M fp32 column sums in one block's shared memory).
-MAX_FEATURES = 16384
+#: The widest row one pass of a row group holds (kMaxM in csrc/fused_norm.cu:
+#: the backward keeps 2M fp32 column sums in one block's shared memory);
+#: wider rows take several passes.
+PASS_FEATURES = 16384
 #: Threads a block, and so a row group, at most.
 MAX_THREADS = 512
 #: Row groups a backward block at most (one named barrier each).
@@ -69,12 +73,15 @@ WARP_ROW_MAX_FEATURES = 1024
 class Design(NamedTuple):
     """The geometry of a ``"row_group"`` launch: ``vec`` elements a load (16
     bytes of the row's dtype, or 1), ``vectors`` loads a thread, ``threads``
-    threads a row (a multiple of 32), ``groups`` row groups a block."""
+    threads a row (a multiple of 32), ``groups`` row groups a block,
+    ``passes`` segments of ``threads · vectors · vec`` columns a row (more
+    than one: the wide kernels)."""
 
     vec: int
     vectors: int
     threads: int
     groups: int
+    passes: int = 1
 
 
 def _pick_block_r(rows: int, m: int, tile_bytes: int = 2 << 20) -> int:
@@ -155,13 +162,18 @@ def _design(rows: int, m: int, dtype: torch.dtype, backward: bool = False) -> De
     features of a bf16 row: 96 threads, one load each; 2048: 256). The
     forward's block is one row group. The backward adds row groups up to
     ``BWD_BLOCK_THREADS`` threads while a thread holds at most ``BWD_HELD``
-    values, and never more than ``rows`` needs. A choice made before the
-    launch: nothing falls back."""
+    values, and never more than ``rows`` needs. A row that no row group
+    holds in one pass takes the widest (``MAX_THREADS`` threads, the most
+    loads a thread) in ``passes`` segments, one row group a block. A choice
+    made before the launch: nothing falls back."""
     _check_width(m)
     full = 128 // torch.finfo(dtype).bits
     vec = full if m % full == 0 else 1
     loads = -(-m // vec)
     choices = VECTOR_CHOICES[dtype] if vec > 1 else ELEMENT_CHOICES
+    widest = choices[-1]
+    if loads > MAX_THREADS * widest:
+        return Design(vec, widest, MAX_THREADS, 1, -(-loads // (MAX_THREADS * widest)))
     vectors = next(v for v in choices if -(-loads // v) <= MAX_THREADS)
     threads = 32 * -(-loads // (32 * vectors))
     groups = 1
@@ -201,10 +213,10 @@ def _kernel_entries():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     entries = {}
     for name, args in {
-        "fwd_occupancy": [i32] * 4,
-        "fwd_launch": [ptr] * 8 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr],
-        "bwd_occupancy": [i32] * 7,
-        "bwd_launch": [ptr] * 11 + [i32] * 11 + [ptr],
+        "fwd_occupancy": [i32] * 5,
+        "fwd_launch": [ptr] * 8 + [i32] * 5 + [ctypes.c_float] + [i32] * 5 + [ptr],
+        "bwd_occupancy": [i32] * 8,
+        "bwd_launch": [ptr] * 11 + [i32] * 12 + [ptr],
         "warp_row_fwd_launch": [ptr] * 8 + [i32] * 5 + [ctypes.c_float, i32, ptr],
         "warp_row_bwd_launch": [ptr] * 11 + [i32] * 6 + [ptr],
     }.items():
@@ -219,7 +231,7 @@ def _fwd_per_sm(index: int, dtype: torch.dtype, design: Design) -> int:
     """Forward blocks an SM of device ``index`` holds (the occupancy API)."""
     with torch.cuda.device(index):
         n = _kernel_entries()["fwd_occupancy"](_DTYPE_CODES[dtype], design.vec, design.vectors,
-                                               design.threads)
+                                               design.threads, design.passes)
     if n < 1:
         raise RuntimeError(f"fused_norm forward {design}: occupancy query gave {n}")
     return n
@@ -230,7 +242,8 @@ def _bwd_clusters(index: int, dtype: torch.dtype, design: Design, m: int, cluste
     """Backward clusters of ``cluster`` blocks device ``index`` holds at once."""
     with torch.cuda.device(index):
         n = _kernel_entries()["bwd_occupancy"](_DTYPE_CODES[dtype], design.vec, design.vectors,
-                                               design.threads, design.groups, m, cluster)
+                                               design.threads, design.groups, m, cluster,
+                                               design.passes)
     if n < 1:
         raise RuntimeError(f"fused_norm backward {design}, M={m}, cluster {cluster}: occupancy "
                            f"query gave {n}")
@@ -241,14 +254,14 @@ def _check_width(m: int, warp_row: bool = False) -> None:
     if warp_row and (m % 8 or m > WARP_ROW_MAX_FEATURES):
         raise ValueError(f"the warp_row design takes features a multiple of 8 up to "
                          f"{WARP_ROW_MAX_FEATURES}, got {m}")
-    if not 1 <= m <= MAX_FEATURES:
-        raise ValueError(f"fused_norm kernels take 1 to {MAX_FEATURES} features, got {m}")
+    if m < 1:
+        raise ValueError(f"fused_norm kernels take at least 1 feature, got {m}")
 
 
 def _check_cuda(x2: torch.Tensor, gamma: torch.Tensor, *, warp_row: bool = False,
                 **tensors) -> None:
     """What the kernels take: one device; row tensors contiguous, in x's
-    dtype (fp32 or bf16); 1 to ``MAX_FEATURES`` features (``warp_row``: a
+    dtype (fp32 or bf16); any width (``warp_row``: a
     multiple of 8 up to 1024); gamma/beta ``(M,)`` contiguous fp32 or bf16,
     in one dtype. Where the width is a multiple of 16 bytes the kernels load
     16 bytes at a time, and row tensors and parameters must be 16-byte
@@ -313,7 +326,7 @@ def _launch_fwd(x2, r2, gamma, beta, *, eps, kind, needs_stats, design=None):
             d = design or _design(rows, m, x2.dtype)
             blocks = _fwd_blocks(rows, _sm_count(index), _fwd_per_sm(index, x2.dtype, d))
             err = _kernel_entries()["fwd_launch"](*args, d.vec, d.vectors, d.threads, blocks,
-                                                  _stream(x2.device))
+                                                  d.passes, _stream(x2.device))
     if err != 0:
         raise RuntimeError(f"fused_norm forward kernel launch failed: error {err}")
     fused_residual_norm.launches["fwd" if needs_stats else "fwd_nostats"] += 1
@@ -347,15 +360,17 @@ def _launch_bwd(dy, r, gamma, mean, rstd, dr, *, kind, has_beta, design=None):
         d = design or _design(rows, m, r.dtype, backward=True)
         cluster = _bwd_cluster(rows, d)
         blocks = _bwd_blocks(rows, d, cluster, _bwd_clusters(index, r.dtype, d, m, cluster))
-        ws = torch.empty(blocks // cluster if blocks > cluster else 0, -(-2 * m // 32) * 32,
-                         dtype=torch.float32, device=r.device)
+        # The clusters' column sums: a row of them each (per segment, wide).
+        cols = m if d.passes == 1 else d.threads * d.vec * d.vectors
+        ws = torch.empty(d.passes * (blocks // cluster if blocks > cluster else 0),
+                         -(-2 * cols // 32) * 32, dtype=torch.float32, device=r.device)
         with torch.cuda.device(index):
             err = _kernel_entries()["bwd_launch"](
                 dy.data_ptr(), r.data_ptr(), gamma.data_ptr(), _ptr(mean), rstd.data_ptr(),
                 _ptr(dr), dx.data_ptr(), ws.data_ptr(),
-                _zero_counters(r.device, stream, MAX_CLUSTER).data_ptr(), dgamma.data_ptr(),
-                _ptr(dbeta), *codes, d.vec, d.vectors, d.threads, d.groups, blocks, cluster,
-                stream)
+                _zero_counters(r.device, stream, MAX_CLUSTER * d.passes).data_ptr(),
+                dgamma.data_ptr(), _ptr(dbeta), *codes, d.vec, d.vectors, d.threads, d.groups,
+                blocks, cluster, d.passes, stream)
     if err != 0:
         raise RuntimeError(f"fused_norm backward kernel launch failed: error {err}")
     fused_residual_norm.launches["bwd"] += 1

@@ -576,8 +576,64 @@ int4_matmul3.small_m_launches = 0
 
 
 def make_int4_matmul_fn(mesh, rules, *, w4a8: bool = False):
-    """The mesh-aware (tensor-parallel) int4 matmul of the JAX package."""
-    raise NotImplementedError(
-        "make_int4_matmul_fn (tensor-parallel int4 serving over a mesh): "
-        "ported with slice A (the sharding lessons)"
+    """The mesh-aware int4 matmul for tensor-parallel fused serving (the
+    JAX package's, there under ``shard_map``).
+
+    The returned ``fn(x, q4, scale, *, group, kernel_axes)`` takes DTensors
+    (or full tensors) and runs :func:`int4_matmul` on each shard, laid out
+    by the projection's logical kernel axes: a column-parallel site (output
+    axis mapped) keeps its q4 columns local and emits a column-split output
+    with no collective; a row-parallel site (contraction axis mapped)
+    all-gathers its ACTIVATION columns and runs the q4 whole (split-half
+    packing never splits the contraction dim); w4a8 quantizes after the
+    gather. A weight axis that collides with the batch axis (FSDP's
+    EMBED→data) is dropped everywhere, as in JAX."""
+    import torch.distributed._functional_collectives as funcol
+
+    from learning_jax_sharding_tpu_torch.parallel.collectives import all_gather
+    from learning_jax_sharding_tpu_torch.parallel.logical import (
+        BATCH,
+        activate,
+        local_call,
+        logical_to_mesh_axes,
     )
+
+    rules = tuple(rules)
+
+    def to_axis(logical):
+        return None if logical is None else logical_to_mesh_axes((logical,), rules)[0]
+
+    def names(ax):
+        if ax is None:
+            return set()
+        return {ax} if isinstance(ax, str) else set(ax)
+
+    def fn(x, q4, scale, *, group, kernel_axes):
+        ax_in, ax_out = to_axis(kernel_axes[0]), to_axis(kernel_axes[1])
+        batch_ax = to_axis(BATCH)
+        if names(ax_in) & names(batch_ax):
+            ax_in = None
+        if names(ax_out) & names(batch_ax):
+            ax_out = None
+        if ax_in is not None and not isinstance(ax_in, str):
+            raise NotImplementedError(f"a contraction split over several mesh axes: {ax_in}")
+        mid = (None,) * (x.ndim - 2)
+        # Logical specs in mesh-axis terms: rules mapping each name to itself.
+        x_spec, w_spec = ("b", *mid, "i"), (None, "o")
+        out_spec = ("b", *mid, "o")
+        identity = tuple((k, v) for k, v in (("b", batch_ax), ("i", ax_in), ("o", ax_out))
+                         if v is not None)
+
+        def body(x_l, q4_l, s_l):
+            if ax_in is not None:
+                # Row-parallel: gather the activation columns so the kernel
+                # sees the whole contraction against the replicated q4.
+                x_l = funcol.wait_tensor(
+                    all_gather(x_l.contiguous(), x_l.ndim - 1,
+                                             mesh.get_group(ax_in)))
+            return int4_matmul(x_l, q4_l, s_l, group=group, w4a8=w4a8)
+
+        with activate(mesh, identity):
+            return local_call(body, (x, q4, scale), (x_spec, w_spec, w_spec), out_spec)
+
+    return fn

@@ -1,21 +1,37 @@
-"""Train state, train step, eval step and apply function, on one device.
+"""Train state, train step, eval step and apply function, on one device or
+over a mesh.
 
 Port of ``learning_jax_sharding_tpu/training/pipeline.py``. The JAX module
 builds the state born sharded over a mesh and jits SPMD step programs; here
 the model already lives on its device, the optimizer state is the torch
 optimizer's, and a step runs eagerly, updating the state IN PLACE (the JAX
 state is immutable and returned anew; ``donate_state`` has no counterpart,
-since nothing is copied). Sharding the state over a mesh comes with slice A.
+since nothing is copied).
+
+Over a mesh (``sharded_train_state(..., mesh=, rules=)``) every parameter,
+and so every AdamW moment, is a DTensor placed by its logical axes; a step
+built with the same ``mesh=, rules=`` (``make_train_step``, and so
+``make_eval_step`` and ``make_apply_fn``)
+runs the model under ``parallel.logical.activate(mesh, rules)`` (one SPMD
+program per rank, the collectives DTensor's), with the batch split as
+``(BATCH, SEQ)``; the mean loss over the global batch makes the gradients
+the data-axis average, reduced to each parameter's placement before the
+update. ZeRO-1 (``zero1_axis``) comes with slice D (``training/zero.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from learning_jax_sharding_tpu_torch.models.convert import shard_params
+from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, activate, constrain
 
 
 @dataclasses.dataclass
@@ -70,21 +86,51 @@ def clip_by_global_norm_(
         g.copy_(torch.where(keep, g, g / gnorm * max_norm))
 
 
-def sharded_train_state(model: nn.Module, optimizer, *, mesh=None, rules=None) -> TrainState:
+def sharded_train_state(model: nn.Module, optimizer, *, mesh=None, rules=None,
+                        zero1_axis: str | None = None) -> TrainState:
     """The train state of ``model`` under ``optimizer`` (an
     ``training.loop.AdamW``, e.g. ``adamw(3e-4)``), whose torch optimizer is
-    built here over the model's parameters. ``mesh``/``rules`` (the state
-    born sharded) are not ported yet."""
-    del rules
+    built here over the model's parameters.
+
+    With ``mesh``/``rules`` the model's parameters are laid out over the
+    mesh first (``models.convert.shard_params``: each a DTensor placed by
+    its logical axes; every rank built the same full model, and keeps its
+    slice), so the optimizer's moments are born sharded the same way.
+    ``zero1_axis`` (the optimizer state split over one more axis) is ported
+    with slice D (``training/zero.py``)."""
+    if zero1_axis is not None:
+        raise NotImplementedError("zero1_axis: ported with slice D (training/zero.py)")
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded_train_state over a mesh: ported with slice A (the "
-            "sharding lessons)"
-        )
+        if rules is None:
+            raise ValueError("rules are required when a mesh is given")
+        shard_params(model, mesh, rules)
     return TrainState(
         model=model, optimizer=optimizer.create(model.parameters()),
         schedule=optimizer.schedule, clip_norm=optimizer.clip_norm,
     )
+
+
+def _scope(mesh, rules):
+    """The mesh context of a step (nothing on one device)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    if rules is None:
+        raise ValueError("rules are required when a mesh is given")
+    return activate(mesh, rules)
+
+
+def _full(x):
+    """A DTensor result as the plain tensor every rank holds whole."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _place_batch(batch: Any, mesh) -> Any:
+    """Split a whole batch's rows as ``(BATCH, ...)`` over the mesh (a
+    DTensor keeps the layout it was given)."""
+    if mesh is None:
+        return batch
+    return _map_batch(lambda x: x if isinstance(x, DTensor)
+                      else constrain(x, BATCH, *([None] * (x.ndim - 1))), batch)
 
 
 def make_train_step(
@@ -97,9 +143,16 @@ def make_train_step(
     steps_per_call: int = 1,
     with_grad_norm: bool = False,
     skip_nonfinite: bool = False,
+    mesh=None,
+    rules=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, Any]]:
     """Build ``step(state, batch) -> (state, loss)``: forward, backward and
     one optimizer update, the state updated in place.
+
+    ``mesh``/``rules``: the step over a mesh, for a state built by
+    ``sharded_train_state`` with the same two. The batch comes whole on
+    every rank and is split as ``(BATCH, ...)``; the loss (and grad norm)
+    come back whole on every rank.
 
     ``loss_fn(y, batch)``, or ``loss_fn(y, batch, model)`` with
     ``loss_needs_params`` (the chunked head of
@@ -140,9 +193,18 @@ def make_train_step(
                 generator=torch.Generator(device=device).manual_seed(seed),
             )
         y = state.model(_inputs_of(batch), **kwargs)
-        return loss_fn(y, batch, state.model) if loss_needs_params else loss_fn(y, batch)
+        loss = loss_fn(y, batch, state.model) if loss_needs_params else loss_fn(y, batch)
+        # Over a mesh: the loss whole on every rank (partial sums reduced).
+        return constrain(loss) if isinstance(loss, DTensor) else loss
 
     def one_step(state: TrainState, batch: Any):
+        with _scope(mesh, rules):
+            out = _one_step(state, _place_batch(batch, mesh))
+        if isinstance(out, dict):
+            return {k: None if v is None else _full(v) for k, v in out.items()}
+        return _full(out)
+
+    def _one_step(state: TrainState, batch: Any):
         params = [p for p in state.model.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps == 1:
@@ -166,6 +228,11 @@ def make_train_step(
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum_steps)
+        for p in params:
+            # Over a mesh: partial sums of a gradient (the data axis, a
+            # contraction split) reduced to its parameter's placement.
+            if isinstance(p.grad, DTensor) and p.grad.placements != p.placements:
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         grads = [p.grad for p in params if p.grad is not None]
         gnorm = None
         if with_grad_norm or state.clip_norm is not None:
@@ -202,23 +269,32 @@ def make_eval_step(
     loss_fn: Callable[..., torch.Tensor] = default_loss,
     loss_needs_params: bool = False,
     apply_kwargs: dict[str, Any] | None = None,
+    mesh=None,
+    rules=None,
 ) -> Callable[[TrainState, Any], torch.Tensor]:
     """Build ``eval_step(state, batch) -> loss``: the forward and loss, no
-    gradients, no update, dropout off."""
+    gradients, no update, dropout off. Over a mesh (``mesh``/``rules``) the
+    loss comes back whole on every rank."""
 
     @torch.no_grad()
     def ev(state: TrainState, batch: Any) -> torch.Tensor:
-        y = state.model(_inputs_of(batch), **(apply_kwargs or {}))
-        return loss_fn(y, batch, state.model) if loss_needs_params else loss_fn(y, batch)
+        with _scope(mesh, rules):
+            batch = _place_batch(batch, mesh)
+            y = state.model(_inputs_of(batch), **(apply_kwargs or {}))
+            loss = loss_fn(y, batch, state.model) if loss_needs_params else loss_fn(y, batch)
+            return _full(loss)
 
     return ev
 
 
-def make_apply_fn() -> Callable[[TrainState, torch.Tensor], torch.Tensor]:
-    """Build ``apply_fn(state, x) -> y``: the model's forward, no gradients."""
+def make_apply_fn(*, mesh=None, rules=None) -> Callable[[TrainState, torch.Tensor], torch.Tensor]:
+    """Build ``apply_fn(state, x) -> y``: the model's forward, no gradients.
+    Over a mesh (``mesh``/``rules``) ``y`` is a DTensor laid out as the
+    model's output is constrained."""
 
     @torch.no_grad()
     def fwd(state: TrainState, x: torch.Tensor) -> torch.Tensor:
-        return state.model(x)
+        with _scope(mesh, rules):
+            return state.model(_place_batch(x, mesh))
 
     return fwd

@@ -1,0 +1,180 @@
+"""Rank bodies of the port's mesh tests (not a test module).
+
+``parallel.run_on_mesh`` spawns one process a rank and runs a function of
+this module there, so it imports torch and the port only (no JAX): the test
+modules compute the JAX side in their own process and compare with what
+rank 0 returns here.
+"""
+
+import torch
+
+from learning_jax_sharding_tpu_torch.parallel import (
+    collective_counts,
+    is_fully_replicated,
+    put,
+    shard_dims,
+    shard_shapes,
+    unique_shard_count,
+)
+from learning_jax_sharding_tpu_torch.parallel import collectives as coll
+from learning_jax_sharding_tpu_torch.parallel import logical
+from learning_jax_sharding_tpu_torch.parallel.hlo import counting
+
+# Cases 1a-4 on the (2, 4) x × y mesh: the operands' placements (shard_dims
+# keywords) and C's placement as GSPMD lays it out.
+CASES = {
+    "1a": (dict(y=1), dict(y=0), ()),
+    "1b": (dict(y=1), dict(x=0), ()),
+    "2": (dict(x=0, y=1), dict(x=0), ("x", None)),
+    "3": (dict(x=0, y=1), dict(x=0, y=1), ("x", "y")),
+    "4": (dict(x=0), dict(y=1), ("x", "y")),
+}
+
+
+def _fulls(x):
+    return x.full_tensor().detach().numpy().copy()
+
+
+def parallel_body(mesh, a_host, b_host, ring=True):
+    """Every case's shard shapes, distinct shards, replication and
+    collectives; the five collective matmuls' results and collectives (the
+    ring's point-to-point sends only with ``ring``)."""
+    out = {"cases": {}, "matmuls": {}}
+    for name, (sa, sb, sc) in CASES.items():
+        a = put(a_host, shard_dims(mesh, 2, **sa))
+        b = put(b_host, shard_dims(mesh, 2, **sb))
+        target = shard_dims(mesh, 2, **{ax: d for d, ax in enumerate(sc) if ax})
+
+        def matmul(a, b, target=target):
+            return (a @ b).redistribute(mesh, target.placements)
+
+        c = matmul(a, b)
+        out["cases"][name] = dict(
+            a=shard_shapes(a), b=shard_shapes(b), c=shard_shapes(c),
+            unique=unique_shard_count(c), replicated=is_fully_replicated(c),
+            counts=collective_counts(matmul, a, b), value=_fulls(c),
+        )
+    a_y, b_x = put(a_host, shard_dims(mesh, 2, y=1)), put(b_host, shard_dims(mesh, 2, x=0))
+    calls = {
+        "psum": lambda: coll.psum_matmul(a_host, b_host, mesh=mesh, axis="y"),
+        "allgather": lambda: coll.allgather_matmul(a_y, b_x, mesh=mesh, a_axis="y", b_axis="x"),
+        "reduce_scatter": lambda: coll.reduce_scatter_matmul(a_host, b_host, mesh=mesh, axis="y"),
+        "dp_tp": lambda: coll.dp_tp_matmul(a_host, b_host, mesh=mesh, dp_axis="x", tp_axis="y"),
+        "ring": lambda: coll.ring_allgather_matmul(a_host, b_host, mesh=mesh, axis="y"),
+    }
+    if not ring:
+        del calls["ring"]
+    for name, call in calls.items():
+        with counting() as counts:
+            c = call()
+        out["matmuls"][name] = dict(value=_fulls(c), counts=counts, c=shard_shapes(c))
+    return out
+
+
+def train_body(mesh, state_dict, batch, rules_names, steps, snapshot, flash):
+    """The sharded CONFIG_TINY train step under each rule set: rank 0's local
+    shape of every parameter, ``steps`` losses, and the parameters after
+    ``snapshot`` steps; then the flash attn_fn over the mesh, its output and
+    gradients."""
+    from learning_jax_sharding_tpu_torch.models.transformer import (
+        CONFIG_TINY,
+        Transformer,
+        next_token_loss,
+    )
+    from learning_jax_sharding_tpu_torch.ops.flash_attention import make_flash_attn_fn
+    from learning_jax_sharding_tpu_torch.training.loop import adamw
+    from learning_jax_sharding_tpu_torch.training.pipeline import (
+        make_train_step,
+        sharded_train_state,
+    )
+
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name in rules_names:
+        model = Transformer(CONFIG_TINY, device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+        rules = getattr(logical, name)
+        state = sharded_train_state(model, adamw(3e-4), mesh=mesh, rules=rules)
+        shapes = {n: tuple(p.to_local().shape) for n, p in state.model.named_parameters()}
+        step = make_train_step(loss_fn=next_token_loss, mesh=mesh, rules=rules)
+        losses, params = [], None
+        for i in range(steps):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            if i + 1 == snapshot:
+                params = {n: _fulls(p.detach()) for n, p in state.model.named_parameters()}
+        out[name] = dict(shapes=shapes, losses=losses, params=params)
+    # The kernels' path (flash, fused norm, fused loss) over the mesh, and
+    # the same steps on one device from the same weights.
+    import dataclasses
+    import functools
+
+    from learning_jax_sharding_tpu_torch.models.transformer import fused_next_token_loss
+
+    fused_loss = dict(loss_fn=functools.partial(fused_next_token_loss, chunk_size=16),
+                      loss_needs_params=True, apply_kwargs={"return_hidden": True})
+    kernel_losses = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        rules = logical.RULES_DP_TP_SP if m is not None else None
+        attn = (make_flash_attn_fn(m, rules, block_q=16, block_k=16) if m is not None
+                else make_flash_attn_fn(block_q=16, block_k=16))
+        model = Transformer(dataclasses.replace(CONFIG_TINY, attn_fn=attn, fused_norm=True),
+                            device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+        state = sharded_train_state(model, adamw(3e-4), mesh=m, rules=rules)
+        fused_step = make_train_step(mesh=m, rules=rules, **fused_loss)
+        kernel_losses[name] = [float(fused_step(state, batch)[1]) for _ in range(snapshot + 1)]
+    out["kernel_path"] = kernel_losses
+    q, k, v, dout = (torch.from_numpy(flash[n]).requires_grad_(n != "dout")
+                     for n in ("q", "k", "v", "dout"))
+    attn = make_flash_attn_fn(mesh, logical.RULES_DP_TP_SP, block_q=16, block_k=16)
+    with logical.activate(mesh, logical.RULES_DP_TP_SP):
+        o = attn(q, k, v, causal=True)
+        placements = o.placements
+        o = o.full_tensor()
+    (o * dout).sum().backward()
+    out["flash"] = dict(out=o.detach().numpy(), dq=q.grad.numpy(), dk=k.grad.numpy(),
+                        dv=v.grad.numpy(), placements=[repr(p) for p in placements])
+    return out
+
+
+def generate_body(mesh, float_sd, q4_sd, prompt, new, group, decode_args, int4_args):
+    """Tensor-parallel greedy generate of CONFIG_TINY (the blocked decode
+    backend, int4 group ``group``) in float, "fused" and "fused_w4a8"; then
+    the per-shard decode-attention and int4 wrappers on given inputs."""
+    import dataclasses
+
+    from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+    from learning_jax_sharding_tpu_torch.ops import decode_attention as da
+    from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
+
+    rules = logical.RULES_DP_TP
+    cfg = dataclasses.replace(CONFIG_TINY, quantization_group=group, decode_attention="blocked")
+    trees = {"float": float_sd, "fused": q4_sd, "fused_w4a8": q4_sd}
+    out = {"tokens": {}}
+    for mode, tree in trees.items():
+        gen = make_generate_fn(cfg, mesh, rules, max_new_tokens=new,
+                               dequantize=False if mode == "float" else mode)
+        params = {k: torch.from_numpy(v) for k, v in tree.items()}
+        out["tokens"][mode] = gen(params, torch.from_numpy(prompt)).numpy()
+    t = {k: torch.from_numpy(v) for k, v in decode_args.items()}
+    attn = da.make_decode_attn_fn(mesh, rules)
+    out["decode"] = _fulls(attn(t["q"], t["kc"], t["vc"], torch.tensor(t["index"].item())))
+    out["int4"] = {}
+    for (name, axes), (x, q4, sc) in int4_args.items():
+        for w4a8 in (False, True):
+            fn = mm4.make_int4_matmul_fn(mesh, rules, w4a8=w4a8)
+            got = fn(torch.from_numpy(x), torch.from_numpy(q4), torch.from_numpy(sc),
+                     group=group, kernel_axes=axes)
+            out["int4"][name, w4a8] = (_fulls(got), [repr(p) for p in got.placements])
+    return out
+
+
+def failing_body(mesh):
+    """Rank 1 raises; the others wait in a collective that never completes."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("rank one's own failure")
+    dist.barrier()

@@ -24,6 +24,8 @@ import torch
 
 from learning_jax_sharding_tpu.ops import flash_attention as jax_flash
 from learning_jax_sharding_tpu_torch.ops import _build
+from learning_jax_sharding_tpu_torch.parallel import compiled_hlo, single_device_mesh
+from learning_jax_sharding_tpu_torch.parallel import logical as port_logical
 from learning_jax_sharding_tpu_torch.ops.attention import (
     causal_mask,
     dot_product_attention,
@@ -291,7 +293,29 @@ def test_import_builds_nothing():
 
 
 def test_attn_fn_over_a_mesh_is_not_ported():
+    """Ported since (slice A; the name is kept): over a one-rank CPU mesh
+    the attn_fn runs the kernel's plain version on the shard (the whole),
+    output and gradients equal to the unsharded call's; a mesh wants rules;
+    the HLO analysis names slice G."""
     fn = make_flash_attn_fn(block_q=16)
     assert fn.supports_gqa
-    with pytest.raises(NotImplementedError, match="slice A"):
-        make_flash_attn_fn(mesh=object())
+    mesh = single_device_mesh(device_type="cpu")
+    sharded = make_flash_attn_fn(mesh, port_logical.RULES_DP_TP, block_q=16)
+    assert sharded.supports_gqa
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 32, 4, 16)).astype(np.float32))
+               .requires_grad_() for _ in range(3))
+    with port_logical.activate(mesh, port_logical.RULES_DP_TP):
+        out = sharded(q, k, v, causal=True).full_tensor()
+    out.square().sum().backward()
+    got = [out.detach()] + [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    want = fn(q, k, v, causal=True)
+    want.square().sum().backward()
+    for a, b in zip(got, [want.detach()] + [t.grad for t in (q, k, v)]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="rules are required"):
+        make_flash_attn_fn(mesh=mesh)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        compiled_hlo(lambda: None)

@@ -1,15 +1,17 @@
 """The port's fused residual+norm at every width the JAX kernel takes.
 
-The JAX kernel puts no bound on the feature width. The port's kernels take
-1 to ``MAX_FEATURES`` features: 16-byte loads where the width is a multiple
-of 16 bytes, one-element loads otherwise. Here, on the CPU:
+The JAX kernel puts no bound on the feature width, and neither do the
+port's kernels: 16-byte loads where the width is a multiple of 16 bytes,
+one-element loads otherwise; a row past ``PASS_FEATURES`` (one pass of the
+widest row group) in several passes. Here, on the CPU:
 
 - the plain versions (what the port runs for CPU tensors, and what the
   kernels are held to on the card) against the Pallas kernels in interpret
   mode at the 1.4B width (2048) and at an odd width (1001), forward and
   VJP: fp32 within rtol 1e-5 (gradients 3e-4), bf16 within one bf16 ulp
-  with the new residual bit-equal;
-- the wrapper's checks at those widths, and past the widest;
+  with the new residual bit-equal; and past one pass (16385, 20000) in
+  fp32;
+- the wrapper's checks at those widths, and past one pass;
 - ``_design``'s geometry and the grids at the main paths' shapes, and the
   instantiations ``csrc/fused_norm.cu`` holds for every geometry it picks.
 """
@@ -88,7 +90,7 @@ def test_odd_width_without_residual_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("m", [12, 1000, 1001, 2048, 8192, fn.MAX_FEATURES])
+@pytest.mark.parametrize("m", [12, 1000, 1001, 2048, 8192, fn.PASS_FEATURES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_check_cuda_takes_every_width_up_to_the_widest(m, dtype):
     rows = 3
@@ -97,9 +99,12 @@ def test_check_cuda_takes_every_width_up_to_the_widest(m, dtype):
 
 
 def test_check_cuda_refuses_past_the_widest_with_the_width():
-    m = fn.MAX_FEATURES + 1
-    with pytest.raises(ValueError, match=f"1 to {fn.MAX_FEATURES} features, got {m}"):
-        fn._check_cuda(torch.zeros(2, m), torch.ones(m))
+    """Past one pass every width is taken (the wide kernels); an empty row
+    and the first design's limit are refused, with the width."""
+    for m in (fn.PASS_FEATURES + 1, 32768):
+        fn._check_cuda(torch.zeros(2, m), torch.ones(m), resid=torch.zeros(2, m))
+    with pytest.raises(ValueError, match="at least 1 feature, got 0"):
+        fn._check_cuda(torch.zeros(2, 0), torch.ones(0))
     with pytest.raises(ValueError, match="warp_row design takes features a multiple of 8 up "
                                          "to 1024, got 2048"):
         fn._check_cuda(torch.zeros(2, 2048), torch.ones(2048), warp_row=True)
@@ -165,8 +170,8 @@ def test_design_covers_every_width_with_an_instantiated_kernel(dtype):
     assert {torch.bfloat16: bf16_vectors, torch.float32: fp32_vectors}[dtype] == \
         fn.VECTOR_CHOICES[dtype]
     full = 16 // torch.tensor([], dtype=dtype).element_size()
-    for m in list(range(1, 2100)) + list(range(2100, fn.MAX_FEATURES + 1, 97)) + [
-            fn.MAX_FEATURES]:
+    for m in list(range(1, 2100)) + list(range(2100, fn.PASS_FEATURES + 1, 97)) + [
+            fn.PASS_FEATURES]:
         d = fn._design(1, m, dtype)
         assert d.vec == (full if m % full == 0 else 1), m
         per_warp = 32 * d.vec * d.vectors
@@ -174,6 +179,43 @@ def test_design_covers_every_width_with_an_instantiated_kernel(dtype):
         assert m <= d.threads * d.vec * d.vectors < m + per_warp, (m, d)
         choices = fn.VECTOR_CHOICES[dtype] if d.vec > 1 else fn.ELEMENT_CHOICES
         assert d.vectors in choices, (m, d)
+        assert d.passes == 1, (m, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [16385, 20000, 24576, 32768, 50001])
+def test_design_past_one_pass_takes_the_widest_geometry_in_passes(dtype, m):
+    """Past one pass: 512 threads with the most loads a thread (a wide kernel
+    of ``csrc/fused_norm.cu`` for each load width), one row group a block,
+    forward and backward, and just enough segments to cover the row."""
+    full = 16 // torch.tensor([], dtype=dtype).element_size()
+    vec = full if m % full == 0 else 1
+    choices = fn.VECTOR_CHOICES[dtype] if vec > 1 else fn.ELEMENT_CHOICES
+    for backward in (False, True):
+        d = fn._design(64, m, dtype, backward=backward)
+        seg = d.threads * d.vec * d.vectors
+        assert (d.vec, d.vectors, d.threads, d.groups) == (vec, choices[-1], fn.MAX_THREADS, 1)
+        assert seg == fn.PASS_FEATURES
+        assert seg * (d.passes - 1) < m <= seg * d.passes, (m, d)
+    source = (Path(fn.__file__).parent.parent / "csrc" / "fused_norm.cu").read_text()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert re.search(rf"WIDE_CASE\({code}, \w+, {vec}, {choices[-1]}\)", source)
+
+
+@pytest.mark.parametrize("m", [16385, 20000])
+@pytest.mark.parametrize("kind,resid,beta", CASES, ids=["layernorm-resid-beta", "rmsnorm-plain"])
+def test_fp32_plain_matches_pallas_past_one_pass(m, kind, resid, beta):
+    """The plain versions the wide kernels are held to, against the Pallas
+    kernels in interpret mode, a few rows past one pass."""
+    a = _arrays(m, "float32", m, resid, beta, shape=(1, 8))
+    want, got = _jax_side(a, "float32", kind), _port_side(a, "float32", kind)
+    for name in ("y", "r"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-5, atol=1e-5, err_msg=name)
+    for name in ("dx", "dres", "dg", "db"):
+        assert (got[name] is None) == (want[name] is None), name
+        if want[name] is not None:
+            np.testing.assert_allclose(got[name], want[name], rtol=3e-4, atol=3e-4,
+                                       err_msg=name)
 
 
 def test_a_cpu_call_launches_nothing():

@@ -33,6 +33,10 @@ from learning_jax_sharding_tpu_torch.models.decoding import make_param_caster
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.ops import int4_ff as tff
 from learning_jax_sharding_tpu_torch.ops import int4_matmul as tmm
+from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
+from learning_jax_sharding_tpu_torch.parallel import logical as port_logical
+from learning_jax_sharding_tpu_torch.parallel import single_device_mesh
+from learning_jax_sharding_tpu_torch.parallel.collectives import quantized_all_reduce
 
 torch.set_num_threads(1)
 
@@ -407,8 +411,27 @@ def test_kernel_wrappers_reject_other_devices():
     q4, s = torch.zeros(32, 8, dtype=torch.uint8, device="meta"), torch.ones(1, 8, device="meta")
     with pytest.raises(ValueError, match="runs on CUDA"):
         tmm.int4_matmul(torch.zeros(2, 64, device="meta"), q4, s)
-    with pytest.raises(NotImplementedError, match="slice A"):
-        tmm.make_int4_matmul_fn(None, None)
+    # Over a mesh (slice A, ported): a one-rank CPU mesh's per-shard wrapper
+    # gives the plain product, w4a16 and w4a8; the int8 ring all-reduce and
+    # the engine over a mesh name their slices.
+    mesh = single_device_mesh(device_type="cpu")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32))
+    q4 = torch.from_numpy(rng.integers(0, 256, (32, 16)).astype(np.uint8))
+    s = torch.from_numpy((0.05 + rng.random((4, 16))).astype(np.float32))
+    with port_logical.activate(mesh, port_logical.RULES_DP_TP):
+        assert port_logical.on_whole_shards()    # the triple and whole FF stay open
+    for w4a8 in (False, True):
+        fn = tmm.make_int4_matmul_fn(mesh, port_logical.RULES_DP_TP, w4a8=w4a8)
+        got = fn(x, q4, s, group=16, kernel_axes=(port_logical.HEADS, port_logical.EMBED))
+        torch.testing.assert_close(got.full_tensor(),
+                                   tmm.int4_matmul(x, q4, s, group=16, w4a8=w4a8),
+                                   rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="slice F"):
+        quantized_all_reduce(x, mesh=mesh, axis="data")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_continuous_engine(CONFIG_TINY, mesh, port_logical.RULES_TP_SERVING, batch_size=1,
+                               max_new_tokens=1)
 
 
 @pytest.mark.parametrize("activation_bits", [16, 8])

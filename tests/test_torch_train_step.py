@@ -33,7 +33,11 @@ from learning_jax_sharding_tpu.parallel import build_mesh, mesh_sharding, put
 from learning_jax_sharding_tpu.parallel.logical import RULES_DP_TP, activate
 from learning_jax_sharding_tpu.training import loop as jax_loop
 from learning_jax_sharding_tpu.training import pipeline as jax_pipeline
+from torch.distributed.tensor import DTensor
+
+from learning_jax_sharding_tpu_torch import parallel as port_parallel
 from learning_jax_sharding_tpu_torch.models.attention import MultiHeadAttention
+from learning_jax_sharding_tpu_torch.parallel import logical as port_logical
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import (
     CONFIG_125M,
@@ -361,9 +365,30 @@ def test_unported_parts_name_their_slice():
     with pytest.raises(ValueError, match="unknown optimizer"):
         loop.default_optimizer(loop.TrainLoopConfig(steps=1, global_batch_size=1,
                                                     optimizer="sgd"))
+    # Over a mesh (slice A, ported): a one-rank CPU mesh runs the step, its
+    # losses those of the unsharded step; the mesh wants its rules; ZeRO-1
+    # and the hybrid mesh name slice D.
+    mesh = port_parallel.single_device_mesh(device_type="cpu")
+    tokens = torch.from_numpy(_tokens(3).astype(np.int64))
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    losses = {}
+    for name, kw in (("mesh", dict(mesh=mesh, rules=port_logical.RULES_DP_TP_SP)), ("one", {})):
+        state = pipeline.sharded_train_state(Transformer(CONFIG_TINY, device="cpu"),
+                                             loop.adamw(3e-4), **kw)
+        step = pipeline.make_train_step(loss_fn=next_token_loss, steps_per_call=2, **kw)
+        _, losses[name] = step(state, {k: torch.stack([v, v]) for k, v in batch.items()})
+    assert not isinstance(losses["mesh"], DTensor)
+    np.testing.assert_allclose(losses["mesh"].numpy(), losses["one"].numpy(), rtol=1e-6)
     model = Transformer(CONFIG_TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice A"):
-        pipeline.sharded_train_state(model, loop.adamw(3e-4), mesh=object())
+    with pytest.raises(ValueError, match="rules are required"):
+        pipeline.sharded_train_state(model, loop.adamw(3e-4), mesh=mesh)
+    with pytest.raises(ValueError, match="rules are required"):
+        pipeline.make_train_step(mesh=mesh)(state, batch)
+    with pytest.raises(NotImplementedError, match="slice D"):
+        pipeline.sharded_train_state(model, loop.adamw(3e-4), mesh=mesh,
+                                     rules=port_logical.RULES_DP_TP, zero1_axis="data")
+    with pytest.raises(NotImplementedError, match="slice D"):
+        port_parallel.build_hybrid_mesh((1, 1), (1, 1))
     with pytest.raises(NotImplementedError, match="slice E"):
         pipeline.make_train_step(skip_nonfinite=True)
 
