@@ -34,7 +34,13 @@ continuous engine (``models/serving.py``) on
 ``bench.py::bench_serving_125m``'s workload, unpaged, paged, with the prefix
 cache cold and warm, and int4-fused + paged + prefix, every paged variant's
 tokens held equal to the unpaged engine's and teacher-forced against the
-dense forward; and the train step (flash attention, fused loss, AdamW, b=8,
+dense forward; the engine's decoding modes (``[engine] modes``: mixed, mixed
+at horizon 4, self-draft speculation unpaged and paged with the prefix
+cache, sampling split and speculative; decode attention at the verify
+chunk's shape against its plain version; teacher-forced gaps, one host sync
+a horizon, sampled tokens in the filtered support and unchanged when the
+queue is admitted in reverse order, launches per model call and round;
+timed interleaved and profiled); and the train step (flash attention, fused loss, AdamW, b=8,
 s=1024, 8 steps per call) through ``make_train_step``, checked for descent
 and against the dense attention path, its flash backward held to the
 tensor-core design, and again with ``fused_norm=True`` against the
@@ -1921,6 +1927,359 @@ def run_engine_path(params, q4, card):
                 paged_launches=runs["paged+prefix warm"]["launches"]["decode_attention_paged"])
 
 
+# The engine's decoding modes on the same queue: bench.py's mixed budget
+# (two refill chunks beside the decode wave), its self-draft speculation,
+# and sampling through top-k 50 and top-p 0.95 at temperature 0.8.
+MODES_BUDGET = 2 * PAGED_CHUNK + B
+MODES_DRAFT = 4
+# Rounds a speculative decode block: 8 rounds of up to 5 tokens cover a
+# request's 32. At ENGINE_COMMON's 32 the block runs 32 rounds a wave of
+# which about 7 emit (each 5 draft calls and a verify), and the phase
+# outgrows its time.
+MODES_SPEC_ROUNDS = 8
+MODES_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+MODES_SEED = 0
+VERIFY_INDEX = 560   # a verify chunk's index inside the engine's range (544-576)
+
+
+def modes_variants(cfg):
+    """The ``[engine] modes`` engines: name → engine arguments."""
+    spec = dict(draft_config=cfg, num_draft=MODES_DRAFT, decode_block_steps=MODES_SPEC_ROUNDS)
+    paged = dict(paged_pages=ENGINE_PAGES, page_size=ENGINE_PAGE, prefix_cache=True)
+    return {
+        "split": {},
+        "mixed": dict(mixed=True, token_budget=MODES_BUDGET),
+        "mixed+horizon 4": dict(mixed=True, token_budget=MODES_BUDGET, horizon=4),
+        "self-draft spec": spec,
+        "self-draft spec+paged+prefix": dict(spec, **paged),
+        "sampled": dict(MODES_SAMPLING),
+        "sampled self-draft spec": dict(MODES_SAMPLING, **spec),
+    }
+
+
+def attention_kernel(design, rows, splits) -> str:
+    """The kernel of ``csrc/decode_attention.cu`` a launch runs: the
+    tensor-core design, or on the CUDA cores the rows kernel (a split launch
+    of at most ``kRowsMax`` = 4 folded rows) or the first design."""
+    if design == "tensor_core":
+        return "tensor_core"
+    return "cuda_core rows kernel" if splits > 1 and rows <= 4 else "cuda_core first design"
+
+
+def first_difference_gaps(model, outs, refs, start, score=None):
+    """For each request whose generated tokens differ from ``refs``'s, the
+    gap at the FIRST differing position between the two tokens' scores:
+    the dense forward's logits there (both sequences share the prefix), or
+    ``score(request, position, logits)`` (a sampled draw's Gumbel-perturbed
+    scores). → {request: gap}."""
+    gaps = {}
+    for i, (a, r) in enumerate(zip(outs, refs)):
+        diff = np.nonzero(a[start:] != r[start:])[0]
+        if not diff.size:
+            continue
+        pos = start + int(diff[0])
+        with torch.no_grad():
+            logits = model(torch.as_tensor(a[None, :pos], device="cuda"))[0, -1].float()
+        s = logits if score is None else score(i, pos - start, logits)
+        gaps[i] = abs(float(s[int(a[pos])]) - float(s[int(r[pos])]))
+    return gaps
+
+
+def support_check(model, outs, start):
+    """Sampled tokens against the dense forward's filtered support (top-k
+    50, top-p 0.95 at temperature 0.8) at their positions → (tokens, tokens
+    outside the strict support, largest shortfall of a token's logit below
+    the smallest kept logit)."""
+    from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
+
+    total = outside = 0
+    worst = 0.0
+    for i in range(0, len(outs), B):
+        batch = torch.as_tensor(np.stack(outs[i:i + B]), device="cuda")
+        with torch.no_grad():
+            logits = model(batch).float()[:, start - 1:-1]
+        kept = torch.isfinite(filtered_logits(logits, **MODES_SAMPLING))
+        toks = batch[:, start:].long()
+        chosen = logits.gather(-1, toks[..., None])[..., 0]
+        floor = torch.where(kept, logits, torch.inf).amin(-1)
+        total += toks.numel()
+        outside += int((~kept.gather(-1, toks[..., None])[..., 0]).sum())
+        worst = max(worst, float((floor - chosen).clamp(min=0).max()))
+    return total, outside, worst
+
+
+def run_engine_modes(params, gen, card):
+    """``[engine] modes``: the engine's decoding modes on
+    ``bench.py::bench_serving_125m``'s queue (``ENGINE_COMMON``): the split
+    engine, mixed (token budget 136), mixed at horizon 4, self-draft
+    speculation (4 proposals a round) unpaged and paged with the prefix
+    cache, and sampling (temperature 0.8, top-k 50, top-p 0.95, key 0),
+    split and speculative; the speculative engines in decode blocks of
+    ``MODES_SPEC_ROUNDS`` rounds. First decode attention at the verify chunk's
+    shape (8, 5, 12, 12, 64) against its plain version, timed beside the
+    token step. Gates: every greedy variant's requests teacher-forced
+    within 0.1 of a dense forward; the horizon's first difference from the
+    mixed engine's tokens, where any, a near tie (dense logits within 0.1);
+    one host sync a horizon (``torch.cuda.set_sync_debug_mode``); every
+    sampled token in the dense forward's filtered support (within 0.1 of
+    its smallest logit); the sampled queue admitted in reverse order under
+    the same ids gives the same tokens (the split engine's first
+    difference, where any, a near tie of the Gumbel-perturbed scores within
+    0.1); decode attention launched once a layer per model call, a
+    speculative round ``num_draft + 1`` draft calls and one verify call.
+    Then every variant's serve timed interleaved (medians of 3) and one
+    wave of each mode profiled per model call."""
+    import warnings
+
+    from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
+    from learning_jax_sharding_tpu_torch.utils import prng
+
+    cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
+    prompts = engine_prompts()
+    start = ENGINE_SYSTEM + ENGINE_OWN
+
+    # The verify chunk's shape, against the plain version and timed.
+    row_index = torch.randint(start, cfg.max_seq_len - MODES_DRAFT - 1, (B,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    verify_errs = {str(dtype)[6:]: kernel_case(
+        "verify chunk (8, 5, 12, 12, 64)", gen, dtype, b=B, s=MODES_DRAFT + 1, n=12, n_kv=12,
+        h=64, length=cfg.max_seq_len, index=row_index) for dtype in (torch.float32,
+                                                                     torch.bfloat16)}
+    verify_time = time_shape(gen, "verify chunk", s=MODES_DRAFT + 1, index=VERIFY_INDEX,
+                             card=card)
+    token_time = time_shape(gen, "token step at the verify index", s=1, index=VERIFY_INDEX,
+                            card=card)
+    design, splits = public_split(B, MODES_DRAFT + 1, 12, 12, 64, cfg.max_seq_len)
+    verify = dict(shape=[B, MODES_DRAFT + 1, 12, 12, 64], design=design, splits=splits,
+                  kernel=attention_kernel(design, MODES_DRAFT + 1, splits),
+                  max_abs_err=verify_errs, ms=verify_time, token_step_ms=token_time)
+    log(f"[engine] modes: verify chunk decode attention {design}/{splits} "
+        f"({verify['kernel']}), {verify_time['ms'] * 1e3:.2f} us beside the token step's "
+        f"{token_time['design']}/{token_time['splits']} {token_time['ms'] * 1e3:.2f} us at "
+        f"index {VERIFY_INDEX}; max abs err {verify_errs}")
+
+    variants = modes_variants(cfg)
+    engines = {name: make_continuous_engine(cfg, **{**ENGINE_COMMON, **kw})
+               for name, kw in variants.items()}
+
+    def served(name, queue):
+        """One serve of ``name``'s engine (key 0; the draft is the target)."""
+        speculative = "draft_config" in variants[name]
+        return engines[name](params, queue, rng=MODES_SEED,
+                             draft_params=params if speculative else None)
+
+    for name in engines:
+        served(name, prompts[:B])                           # warm-up
+    torch.cuda.synchronize()
+    # Sync debug mode's first report in a process comes twice: prime it
+    # with one read (its warnings logged), so each horizon below counts its
+    # own synchronizing operations.
+    probe = torch.ones(B, device="cuda")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            probe.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"[engine] modes: sync debug mode primed by one read: "
+        f"{[str(w.message)[:80] for w in caught]}")
+    runs = {}
+    for name, serve in engines.items():
+        eng = serve.engine
+        f0, d0 = eng.model_forwards, eng.draft_forwards
+        refills, rounds, syncs = [], [], []
+        tally = {}
+        launch = da._launch_cuda
+
+        def recording(q, k_cache, *a, design="cuda_core", splits=1, **k):
+            rows = q.shape[1] * (q.shape[2] // k_cache.shape[1])
+            key = f"S={q.shape[1]} {design}/{splits} ({attention_kernel(design, rows, splits)})"
+            tally[key] = tally.get(key, 0) + 1
+            return launch(q, k_cache, *a, design=design, splits=splits, **k)
+
+        refill_step, spec_round, multi = eng._refill_step, eng._spec_round, eng._multi_dispatch
+
+        def synced(*a, **k):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return multi(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    syncs.append(sum("synchroniz" in str(w.message).lower() for w in caught))
+                    if syncs[-1] != 1:
+                        log(f"[engine] modes {name}: a horizon's sync warnings "
+                            f"{[str(w.message)[:80] for w in caught]}")
+
+        eng._refill_step = lambda *a: (refills.append(1), refill_step(*a))[1]
+        eng._spec_round = lambda *a: (rounds.append(1), spec_round(*a))[1]
+        eng._multi_dispatch = synced
+        da._launch_cuda = recording
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            outs = served(name, prompts)
+            torch.cuda.synchronize()
+        finally:
+            da._launch_cuda = launch
+            del eng._refill_step, eng._spec_round, eng._multi_dispatch
+        launches = read_launches()
+        calls, drafts = eng.model_forwards - f0, eng.draft_forwards - d0
+        want = cfg.num_layers * (calls + drafts)
+        runs[name] = dict(outs=outs, stats=serve.last_stats, latency=serve.last_latency,
+                          model_forwards=calls, draft_forwards=drafts, refill_calls=len(refills),
+                          rounds=len(rounds), horizon_syncs=syncs,
+                          decode_attention=launches["decode_attention"],
+                          decode_attention_paged=launches["decode_attention_paged"],
+                          designs=tally)
+        log(f"[engine] modes {name}: {calls} target + {drafts} draft model calls "
+            f"({len(refills)} refill chunks, {len(rounds)} speculative rounds), decode "
+            f"attention {launches['decode_attention']} launches (want {want}; "
+            f"{launches['decode_attention_paged']} paged) by shape and design {tally}; "
+            f"stats {serve.last_stats}")
+        if launches["decode_attention"] != want:
+            raise AssertionError(f"modes {name}: {launches['decode_attention']} decode attention "
+                                 f"launches, want one a layer per model call ({want})")
+        if "draft_config" in variants[name] and not variants[name].get("mixed"):
+            # Split speculative engine: a refill chunk runs both models, a
+            # round num_draft + 1 draft calls and one verify call.
+            want_calls = (len(refills) + len(rounds),
+                          len(refills) + (MODES_DRAFT + 1) * len(rounds))
+            if (calls, drafts) != want_calls:
+                raise AssertionError(f"modes {name}: (target, draft) calls {(calls, drafts)}, "
+                                     f"want {want_calls}")
+        if variants[name].get("horizon", 1) > 1:
+            # Sync debug mode warns once a synchronizing operation; the
+            # horizon's one read of its links must be the only one.
+            log(f"[engine] modes {name}: synchronizing operations per horizon dispatch {syncs}")
+            if not syncs or any(n != 1 for n in syncs):
+                raise AssertionError(f"modes {name}: syncs per horizon {syncs}, want one each")
+        for out, p in zip(outs, prompts):
+            if out.shape != (len(p) + ENGINE_NEW,) or not np.array_equal(out[: len(p)], p):
+                raise AssertionError(f"modes {name}: output {out.shape} is not the prompt "
+                                     f"+ {ENGINE_NEW} tokens")
+            if out.min() < 0 or out.max() >= cfg.vocab_size:
+                raise AssertionError(f"modes {name}: token ids out of range")
+
+    dense = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                        seed=1).eval()
+    dense.load_state_dict(params)
+    greedy = [n for n in variants if "temperature" not in variants[n]]
+    gaps, agree = {}, {}
+    for name in greedy:
+        outs, split = runs[name]["outs"], runs["split"]["outs"]
+        gaps[name] = engine_gap(dense, outs)
+        agree[name] = float(np.mean([np.mean(a[start:] == b[start:])
+                                     for a, b in zip(outs, split)]))
+        log(f"[engine] modes {name}: teacher-forced max gap {gaps[name]:.4f} (limit {TF_GAP}), "
+            f"tokens equal to the split engine's {agree[name]:.1%}")
+    bad = {k: v for k, v in gaps.items() if not v <= TF_GAP}
+    if bad:
+        raise AssertionError(f"modes teacher-forced gaps {bad} > {TF_GAP}")
+    horizon_gaps = first_difference_gaps(dense, runs["mixed+horizon 4"]["outs"],
+                                         runs["mixed"]["outs"], start)
+    log(f"[engine] modes horizon 4 against horizon 1: {len(horizon_gaps)} of "
+        f"{ENGINE_REQUESTS} requests differ, first-difference logit gaps {horizon_gaps} "
+        f"(limit {TF_GAP})")
+    if any(g > TF_GAP for g in horizon_gaps.values()):
+        raise AssertionError(f"horizon tokens leave the mixed engine's past a near tie: "
+                             f"{horizon_gaps}")
+    for name in ("self-draft spec", "self-draft spec+paged+prefix"):
+        st = runs[name]["stats"]
+        log(f"[engine] modes {name}: spec_accept_rate {st['spec_accept_rate']:.4f} "
+            f"({st['spec_accepted']} of {st['spec_proposed']} proposals), the verify chunk on "
+            f"{verify['design']}/{verify['splits']} ({verify['kernel']})")
+
+    # Sampled variants: the support, then the queue reversed under its ids.
+    support, reverse = {}, {}
+    for name in ("sampled", "sampled self-draft spec"):
+        total, outside, worst = support_check(dense, runs[name]["outs"], start)
+        support[name] = dict(tokens=total, outside_strict=outside, worst_shortfall=worst)
+        log(f"[engine] modes {name}: {total} sampled tokens, {outside} outside the dense "
+            f"forward's strict filtered support, largest shortfall below its smallest kept "
+            f"logit {worst:.4f} (limit {TF_GAP})")
+        if worst > TF_GAP:
+            raise AssertionError(f"modes {name}: a sampled token {worst} below the support")
+        eng = engines[name].engine
+        speculative = "draft_config" in variants[name]
+        for i in reversed(range(ENGINE_REQUESTS)):
+            eng.add_request(prompts[i], rid=i)
+        got = {}
+        while eng.has_work():
+            eng.step(params, params if speculative else None)
+            got.update(eng.pop_finished())
+        back = [got[i] for i in range(ENGINE_REQUESTS)]
+        key = eng.rng
+
+        def perturbed(i, j, logits):
+            # The split engine's draw at generated position j of request i.
+            noise = prng.gumbel(prng.fold_in(prng.fold_in(key, i), j), logits.shape)
+            return filtered_logits(logits, **MODES_SAMPLING) + noise
+
+        ties = first_difference_gaps(dense, back, runs[name]["outs"], start,
+                                     None if speculative else perturbed)
+        same = sum(np.array_equal(a, b) for a, b in zip(back, runs[name]["outs"]))
+        reverse[name] = dict(equal=same, first_difference_gaps=ties)
+        log(f"[engine] modes {name} in reverse order: {same} of {ENGINE_REQUESTS} requests "
+            f"equal; first differences {ties}")
+        if ties and (speculative or any(g > TF_GAP for g in ties.values())):
+            raise AssertionError(f"modes {name}: the reversed queue's tokens differ past a "
+                                 f"near tie of the perturbed scores: {ties}")
+    del dense
+
+    latencies = {}
+
+    def timed(name):
+        def run_once():
+            served(name, prompts)
+            latencies.setdefault(name, []).append(
+                (engines[name].last_latency, engines[name].last_stats))
+        return run_once
+
+    secs = interleaved_seconds({name: timed(name) for name in engines})
+    timing = {}
+    for name, times in secs.items():
+        sec = statistics.median(times)
+        lats = [lat for lat, _ in latencies[name]]
+        rates = [st["spec_accept_rate"] for _, st in latencies[name]
+                 if st and st.get("spec_accept_rate") is not None]
+        timing[name] = dict(
+            tok_s=ENGINE_REQUESTS * ENGINE_NEW / sec, seconds=times, median_s=sec,
+            ttft_p50=statistics.median(x["ttft_p50"] for x in lats),
+            itl_p99=statistics.median(x["itl_p99"] for x in lats),
+            decode_stall_share=statistics.median(x["decode_stall_share"] for x in lats),
+            spec_accept_rate=statistics.median(rates) if rates else None)
+        t = timing[name]
+        log(f"[time] engine modes {name} (interleaved): {t['tok_s']:.1f} generated tok/s, "
+            f"{sec:.3f} s per serve (median of 3: {[round(x, 4) for x in times]}); TTFT p50 "
+            f"{t['ttft_p50'] * 1e3:.1f} ms, ITL p99 {t['itl_p99'] * 1e3:.1f} ms, decode stall "
+            f"share {t['decode_stall_share']:.3f}, spec_accept_rate {t['spec_accept_rate']} "
+            f"on {card}")
+
+    profiles = {}
+    for name in ("split", "mixed", "mixed+horizon 4", "self-draft spec", "sampled"):
+        eng = engines[name].engine
+        f0 = eng.model_forwards + eng.draft_forwards
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served(name, prompts[:B])
+        torch.cuda.synchronize()
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        calls = eng.model_forwards + eng.draft_forwards - f0
+        profiles[name] = profile_summary(
+            f"engine modes {name}, one wave of 8 requests, per model call ({calls} a wave)",
+            lambda name=name: served(name, prompts[:B]), calls, wave_ms / calls)
+    summary = {name: {k: v for k, v in r.items() if k != "outs"} for name, r in runs.items()}
+    del engines
+    return dict(verify=verify, runs=summary, teacher_forced_max_gap=gaps,
+                equal_to_split=agree, horizon_first_differences=horizon_gaps,
+                sampled_support=support, sampled_reverse=reverse, timing=timing,
+                profiles=profiles)
+
+
 def int4_weight(gen, k, n, group):
     """A seeded (K, N) kernel of the 125M init's scale, int4-quantized."""
     w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
@@ -3582,6 +3941,9 @@ def main() -> int:
     mark("int4 generate paths")
     engine = run_engine_path(params, q4, card)
     mark("engine")
+    modes = run_engine_modes(params, gen, card)
+    torch.cuda.empty_cache()
+    mark("[engine] modes")
     decode_times = time_decode_designs(gen, card)
     del params, q4
     torch.cuda.empty_cache()
@@ -3646,6 +4008,12 @@ def main() -> int:
                   max_err_fp32=int8_errs[torch.float32], launches=int8_gen["launches"],
                   **{k: decode_int8["int8"][k] for k in timing_keys},
                   bf16_cache_queued=decode_int8["bf16"]),
+        # The engine's decoding modes: the verify chunk's shape (checked,
+        # its design, split and kernel, timed beside the token step), and
+        # each mode's launches in its counted serve by shape and design.
+        engine_modes=dict(verify=modes["verify"], launches={
+            name: dict(total=r["decode_attention"], paged=r["decode_attention_paged"],
+                       by_shape_and_design=r["designs"]) for name, r in modes["runs"].items()}),
     )]
     # The paged mode: its checks over every PAGED_CASES shape, its launches in
     # the warm paged + prefix serve, its queued time at the engine's decode
@@ -3846,6 +4214,7 @@ def main() -> int:
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
                       "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,
+                      "engine_modes": modes,
                       "launch_audit": probe_paths["audit"],
                       "flash_ceiling": probe_paths["flash_ceiling"],
                       "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b,

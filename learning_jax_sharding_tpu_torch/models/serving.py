@@ -1,26 +1,44 @@
 """Continuous batching: a persistent engine serving requests over time.
 
 Port of ``learning_jax_sharding_tpu/models/serving.py`` on one device:
-:class:`ContinuousEngine` and :func:`make_continuous_engine` with greedy
-decoding, the split refill/decode scheduler, the paged KV cache and the
-prefix cache. The names, arguments, errors and bookkeeping follow the JAX
-engine; the allocator, prefix cache and scheduler are host code ported
+:class:`ContinuousEngine` and :func:`make_continuous_engine` with greedy or
+keyed sampled decoding, speculative decoding, the split and the mixed
+refill+decode schedulers, the multi-step horizon, the paged KV cache and
+the prefix cache. The names, arguments, errors and bookkeeping follow the
+JAX engine; the allocator, prefix cache and schedulers are host code ported
 almost line for line.
 
 A fixed batch of cache slots serves a request queue: a finished row's slot
 is refilled with the next queued prompt while the other rows keep their
 state. Each :meth:`ContinuousEngine.step` admits queued requests into idle
-slots, then runs ONE dispatch:
+slots, then runs ONE dispatch. The split engine (the default) runs:
 
 * a **refill** when any slot has pending prompt tokens: a fixed ``(B,
   refill_chunk)`` chunk whose per-row valid length rides the ragged
   ``chunk_lengths`` (decoding and idle rows ride with 0), up to
   ``decode_chain`` chunks back to back with one host sync;
 * else a **decode block** when any row is active: ``decode_block_steps``
-  greedy steps with ``tok``, ``active`` and ``remaining`` kept on the
-  device (no host sync inside the block; rows freeze at EOS or at their
-  budget and ride on with chunk length 0), up to ``decode_chain`` blocks
-  chained with one sync.
+  steps with ``tok``, ``active`` and ``remaining`` kept on the device (no
+  host sync inside the block; rows freeze at EOS or at their budget and
+  ride on with chunk length 0), up to ``decode_chain`` blocks chained with
+  one sync. With ``draft_config`` each step is a draft-verify ROUND: the
+  draft proposes ``num_draft`` tokens, the target verifies them in one
+  ``(B, num_draft + 1)`` chunk, and each row accepts and rewinds its own
+  cache (``models/speculative.py``).
+
+``mixed=True`` fuses the two: each link advances every decoding row by one
+token (or one round) AND pushes refill chunks scheduled FCFS under
+``token_budget``, up to ``decode_chain`` links with one sync; pure-decode
+phases fall through to the decode block. ``horizon > 1`` runs ``horizon``
+planned links a dispatch with ``tok``, ``active`` and ``remaining`` on the
+device and one sync after the last link, while the host stages the next
+horizon's plan.
+
+``temperature > 0`` samples every token from keys of (request id,
+generated position) folded into the engine's key, speculative draws also
+by a stream tag, through the port's threefry (``utils/prng.py``): a
+request's tokens do not depend on its slot, batch or schedule, and equal
+keys draw the JAX engine's tokens.
 
 Admission is a reset of the row's counters (``_reset_rows``): stale K/V
 past a reset row's index is hidden by the causal-at-index masks and
@@ -28,28 +46,27 @@ overwritten as the new request writes.
 
 ``paged_pages``: each layer's K/V live in pools of ``paged_pages`` pages of
 ``page_size`` tokens (page 0 is scratch), reached through one ``(B,
-max_seq_len // page_size)`` block table that this host loop owns: pages are
-allocated as a row's index approaches them and freed when the request
-retires, and the table is pushed to the device only when it changed.
-``prefix_cache``: a retired request's prompt pages are kept under their
-page-aligned token prefix, reference-counted, and mapped into a later
-request whose prompt starts with the same tokens (the last prompt token is
-always recomputed); reference-free pages are evicted LRU, chain tails before
-their roots. Pool pressure preempts a request and recomputes it later, which
-cannot change its tokens.
+max_seq_len // page_size)`` block table that this host loop owns (a draft
+model's pools page through the same table): pages are allocated as a row's
+index approaches them and freed when the request retires, and the table is
+pushed to the device only when it changed. ``prefix_cache``: a retired
+request's prompt pages are kept under their page-aligned token prefix,
+reference-counted, and mapped into a later request whose prompt starts
+with the same tokens (the last prompt token is always recomputed);
+reference-free pages are evicted LRU, chain tails before their roots. Pool
+pressure preempts a request and recomputes it later, which cannot change
+its tokens.
 
 Device work is the model calls (``Transformer`` in decode mode, the blocked
 backend on a GPU: decode attention's CUDA kernel, its paged mode with a
-table); everything else here is host bookkeeping. Host arrays reach the card
-through pinned buffers without blocking, so a chain of dispatches queues
-back to back.
+table) and the sampling draws; everything else here is host bookkeeping.
+Host arrays reach the card through pinned buffers without blocking, so a
+chain of dispatches queues back to back.
 
 Not ported yet, each raising ``NotImplementedError`` naming what brings it:
-sampling (``temperature > 0``), the mixed and multi-step schedulers,
-speculative decoding, the recovery policies, multi-LoRA adapters,
-communication compression and the telemetry objects (registry, tracer, SLO
-monitor, flight recorder). ``last_stats`` and ``last_latency`` come from
-plain host counters.
+the recovery policies, multi-LoRA adapters, communication compression and
+the telemetry objects (registry, tracer, SLO monitor, flight recorder).
+``last_stats`` and ``last_latency`` come from plain host counters.
 """
 
 from __future__ import annotations
@@ -57,13 +74,16 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Mapping
+from typing import Any
 
 import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch import resolve_device
-from learning_jax_sharding_tpu_torch.models.attention import resolve_decode_backend
+from learning_jax_sharding_tpu_torch.models.attention import (
+    resolve_decode_backend,
+    row_update_masked,
+)
 from learning_jax_sharding_tpu_torch.models.decoding import (
     apply_dequantize_policy,
     check_sequence_budget,
@@ -71,12 +91,20 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     make_cached_apply,
     make_param_caster,
 )
-from learning_jax_sharding_tpu_torch.models.generate import vocab_limit_filter
+from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
+from learning_jax_sharding_tpu_torch.models.speculative import (
+    _greedy as greedy_pick,
+    _rollback,
+    emit_vector,
+    greedy_accept_emit,
+    rejection,
+)
 from learning_jax_sharding_tpu_torch.models.transformer import (
     DecodeCache,
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.utils import prng
 
 
 @dataclasses.dataclass
@@ -136,44 +164,68 @@ class _Request:
 
 #: Counters of one stats window (``reset_stats`` starts one).
 _WINDOW = ("requests", "preemptions", "prefix_hits", "prefix_pages_reused",
-           "refill_s", "decode_s", "stall_s", "refill_n", "decode_n")
+           "refill_s", "decode_s", "mixed_s", "stall_s", "refill_n", "decode_n", "mixed_n",
+           "spec_acc", "spec_prop", "multi_n", "multi_links", "plan_staged", "plan_reused")
 
 
 class ContinuousEngine:
     """A persistent continuous-batching engine on one device.
 
-    Construction builds the decode model and validates the configuration;
-    the engine then serves any number of workloads, one-shot
-    (``serve(params, prompts)``: outputs in queue order) or streaming
-    (``add_request`` at any time, ``step(params)`` per scheduler iteration,
-    ``pop_finished()``). The KV cache, page pool and prefix registry persist
-    across calls: the cache is created by the first refill, once per engine
-    (``cache_creations``), and prefix hits span calls. The registry keys
-    pages by token bytes only, so call ``flush_prefix_cache()`` when the
-    served params change.
+    Construction builds the decode model(s) and validates the
+    configuration; the engine then serves any number of workloads, one-shot
+    (``serve(params, prompts, rng=None, draft_params=None)``: outputs in
+    queue order) or streaming (``add_request`` at any time, ``step(params,
+    draft_params)`` per scheduler iteration, ``pop_finished()``). The KV
+    cache, page pool and prefix registry persist across calls: the cache is
+    created by the first refill, once per engine (``cache_creations``), and
+    prefix hits span calls. The registry keys pages by token bytes only, so
+    call ``flush_prefix_cache()`` when the served params change.
 
     Each result is ``[prompt, generated...]``: generation stops at
     ``eos_id`` (included) or after ``max_new_tokens``. ``batch_size`` fixes
     the device batch (cache slots), ``refill_chunk`` the admission chunk
     (longer prompts stream through several refills), ``decode_block_steps``
-    the greedy steps per decode dispatch, ``decode_chain`` (public, read at
-    each dispatch) how many refill chunks or decode blocks go back to back
-    with one host sync. ``dequantize`` serves quantized weights as
-    ``make_generate_fn`` does (``"fused"``, ``"fused_w4a8"`` or ``True``);
-    ``paged_pages`` / ``page_size`` / ``prefix_cache`` as in the module
-    docstring. ``device=None`` means ``cuda``.
+    the steps (or speculative rounds) per decode dispatch, ``decode_chain``
+    (public, read at each dispatch) how many refill chunks, decode blocks
+    or mixed links go back to back with one host sync. ``dequantize``
+    serves quantized weights as ``make_generate_fn`` does (``"fused"``,
+    ``"fused_w4a8"`` or ``True``); ``paged_pages`` / ``page_size`` /
+    ``prefix_cache`` as in the module docstring. ``device=None`` means
+    ``cuda``.
 
-    ``model_forwards`` counts the model calls the engine issued (one per
-    refill chunk and one per decode step), each a launch of decode
-    attention per layer on the blocked backend.
+    ``temperature > 0`` samples through the filters ``top_k`` / ``top_p`` /
+    ``min_p`` / ``vocab_limit`` with draws keyed by (request id, generated
+    position): ``serve()`` numbers requests by queue index and re-keys the
+    engine with its ``rng`` (an int seed or two-word key data,
+    ``jax.random.key(0)``'s when None), which stays the key of later
+    streaming, as in the JAX engine; ``add_request`` ids are engine-global.
+
+    ``draft_config`` turns on speculative decode blocks: pass the draft
+    params as ``serve(..., draft_params=...)``; ``num_draft`` proposals a
+    round; ``draft_dequantize=True`` serves a quantized draft dequantized
+    inside each draft call. Greedy output equals the non-speculative
+    engine's; sampled output follows the target's filtered distribution.
+
+    ``mixed=True`` runs the fused refill+decode links under
+    ``token_budget`` (public, read at each dispatch; default ``refill_chunk
+    + batch_size``: decode rows funded first, refill takes the rest);
+    ``horizon`` (public, read at each dispatch; > 1 requires ``mixed``) is
+    the links one dispatch plans and runs.
+
+    ``model_forwards`` counts the target model calls the engine issued and
+    ``draft_forwards`` the draft's, each a launch of decode attention per
+    layer on the blocked backend.
 
     After each ``serve`` (and on demand through ``latency_stats()``):
     ``last_stats`` holds ``page_high_water`` (live pages, retained
     reference-free prefix pages apart), ``pages_total``, ``page_size``,
     ``preemptions`` and, with the prefix cache, ``prefix_hits``,
-    ``prefix_pages_reused`` and ``prefix_pages_retained`` (``None``
-    unpaged); ``last_latency`` the TTFT, TPOT, ITL, queue-wait and
-    end-to-end p50/p99 in seconds and the refill share of dispatch time.
+    ``prefix_pages_reused`` and ``prefix_pages_retained``, and, speculative,
+    ``spec_accepted`` / ``spec_proposed`` / ``spec_accept_rate`` (``None``
+    when no mode is on); ``last_latency`` the TTFT, TPOT, ITL, queue-wait
+    and end-to-end p50/p99 in seconds, the refill share and the decode
+    stall share of dispatch time, and with a horizon the dispatches, links
+    a dispatch and staged-plan reuse.
     """
 
     def __init__(
@@ -214,15 +266,7 @@ class ContinuousEngine:
         comm_compression: Any | None = None,
         device=None,
     ):
-        # top_k / top_p / min_p and num_draft shape only sampling and
-        # speculation, as in the JAX engine; greedy serving ignores them.
         later = {
-            "temperature": (temperature > 0, "keyed per-request sampling"),
-            "mixed": (mixed, "the mixed_step scheduler"),
-            "token_budget": (token_budget is not None, "the mixed_step scheduler"),
-            "horizon": (horizon != 1, "the multi_step horizon"),
-            "draft_config": (draft_config is not None, "speculative decoding"),
-            "draft_dequantize": (draft_dequantize, "speculative decoding"),
             "deadline_s": (deadline_s is not None, "the recovery policies"),
             "max_queue": (max_queue is not None, "the recovery policies"),
             "degradation": (degradation is not None, "the recovery policies"),
@@ -241,12 +285,35 @@ class ContinuousEngine:
             raise ValueError("batch_size, refill_chunk, decode_block_steps must be >= 1")
         if decode_chain < 1:
             raise ValueError(f"decode_chain must be >= 1, got {decode_chain}")
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        if horizon > 1 and not mixed:
+            raise ValueError(
+                "horizon > 1 requires mixed=True: the multi-step scan "
+                "fuses the MIXED iteration body (the split engine's "
+                "decode_block already amortizes its loop on device)"
+            )
+        if token_budget is not None and not mixed:
+            raise ValueError("token_budget requires mixed=True")
+        if token_budget is not None and token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         if refill_chunk > config.max_seq_len:
             raise ValueError(
                 f"refill_chunk ({refill_chunk}) exceeds max_seq_len ({config.max_seq_len})"
             )
+        speculative = draft_config is not None
+        if speculative:
+            if num_draft < 1:
+                raise ValueError(f"num_draft must be >= 1, got {num_draft}")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"target vocab {config.vocab_size} != draft vocab "
+                    f"{draft_config.vocab_size}"
+                )
+        if draft_dequantize and not speculative:
+            raise ValueError("draft_dequantize requires draft_config")
         if vocab_limit is not None and vocab_limit < 1:
             raise ValueError(f"vocab_limit must be >= 1, got {vocab_limit}")
         device = resolve_device(device)
@@ -256,57 +323,107 @@ class ContinuousEngine:
                 "prefix_cache requires the paged KV cache (paged_pages=N): "
                 "sharing is expressed through block-table entries"
             )
+
+        def check_paged(name, c):
+            # The paged preconditions, for the target and the draft: their
+            # caches page side by side through one block table.
+            if resolve_decode_backend(c.decode_attention, device) != "blocked":
+                raise ValueError(
+                    f"paged_pages requires the blocked decode backend for the {name} "
+                    "config (decode_attention='blocked', or 'auto' on a GPU)"
+                )
+            if c.max_seq_len % page_size:
+                raise ValueError(
+                    f"{name} max_seq_len ({c.max_seq_len}) must be a multiple of "
+                    f"page_size ({page_size})"
+                )
+
+        def pagedify(c):
+            return dataclasses.replace(c, decode_paged=True, decode_page_count=paged_pages,
+                                       decode_block_k=page_size)
+
         if paged:
             if paged_pages < 2:
                 raise ValueError("paged_pages must be >= 2 (page 0 is the scratch page)")
-            if resolve_decode_backend(config.decode_attention, device) != "blocked":
-                raise ValueError(
-                    "paged_pages requires the blocked decode backend for the target "
-                    "config (decode_attention='blocked', or 'auto' on a GPU)"
-                )
-            if config.max_seq_len % page_size:
-                raise ValueError(
-                    f"target max_seq_len ({config.max_seq_len}) must be a multiple of "
-                    f"page_size ({page_size})"
-                )
+            check_paged("target", config)
         cfg = dataclasses.replace(derive_decode_config(config, inference_dtype),
                                   decode_ragged=True)
         cfg, fused = apply_dequantize_policy(cfg, dequantize)
         if paged:
-            cfg = dataclasses.replace(cfg, decode_paged=True, decode_page_count=paged_pages,
-                                      decode_block_k=page_size)
+            cfg = pagedify(cfg)
         self._model = Transformer(cfg, device=device).eval()
         self._in_apply = bool(dequantize) and not fused
         self._apply = make_cached_apply(self._model, dequantize=self._in_apply,
                                         dequant_dtype=cfg.param_dtype)
         self._maybe_cast = make_param_caster(inference_dtype, device,
                                              dequantize=bool(dequantize))
+        d_cfg = None
+        if speculative:
+            if paged:
+                check_paged("draft", draft_config)
+                if draft_config.max_seq_len != config.max_seq_len:
+                    raise ValueError(
+                        f"draft max_seq_len ({draft_config.max_seq_len}) must equal the "
+                        f"target's ({config.max_seq_len}) under paged_pages: both caches "
+                        "page through one block table"
+                    )
+            d_cfg = dataclasses.replace(derive_decode_config(draft_config, inference_dtype),
+                                        decode_ragged=True)
+            if paged:
+                d_cfg = pagedify(d_cfg)
+            # A quantized draft is dequantized inside each draft call (the
+            # non-fused policy: a draft is small).
+            self._d_model = Transformer(d_cfg, device=device).eval()
+            self._d_in_apply = bool(draft_dequantize)
+            self._d_apply = make_cached_apply(self._d_model, dequantize=self._d_in_apply,
+                                              dequant_dtype=d_cfg.param_dtype)
+            self._d_cast = make_param_caster(inference_dtype, device,
+                                             dequantize=bool(draft_dequantize))
 
         self._device = device
-        self._cfg = cfg
+        self._cfg, self._d_cfg = cfg, d_cfg
         self._b = batch_size
         self._max_new = max_new_tokens
         self._eos = eos_id
+        self._temperature = temperature
+        self._filters = (top_k, top_p, min_p, vocab_limit)
         self._vocab_limit = vocab_limit
         self._refill_chunk = refill_chunk
         self._block_steps = decode_block_steps
         self.decode_chain = decode_chain       # public, read at each dispatch
+        self._mixed = bool(mixed)
+        # Public like decode_chain: the mixed scheduler's per-dispatch token
+        # ceiling (decode rows funded first, refill takes the rest).
+        self.token_budget = token_budget if token_budget is not None else (
+            refill_chunk + batch_size)
+        # Public: the fused links one dispatch plans and runs (1: the link
+        # loop under decode_chain).
+        self.horizon = horizon
+        self._num_draft = num_draft
+        self._speculative = speculative
         self._paged = paged
         self._paged_pages = paged_pages
         self._page_size = page_size
         self._prefix = prefix_cache
 
+        self.rng = prng.key(0, device)         # the sampling key (serve() re-keys)
         self.cache_creations = 0               # lifetime count of cache creations
-        self.model_forwards = 0                # lifetime count of model calls
+        self.model_forwards = 0                # lifetime count of target model calls
+        self.draft_forwards = 0                # lifetime count of draft model calls
         self.last_stats: dict | None = None
         self.last_latency: dict | None = None
         self._cache: DecodeCache | None = None
+        self._d_cache: DecodeCache | None = None
         self._queue: deque[_Request] = deque()
         self._finished: dict[int, _Request] = {}
         self._next_rid = 0
-        self._cast_src: Mapping | None = None
+        self._cast_src: tuple | None = None
         self._cast_key: list | None = None
-        self._cast_out: dict | None = None
+        self._cast_out: tuple | None = None
+        # The planner's staged next-horizon plan: (fingerprint, plan), taken
+        # by the next horizon dispatch only when the boundary state matches.
+        self._staged_plan = None
+        self._link_out: list[torch.Tensor] = []    # queued link outputs, read at the sync
         self._page_high = 0
         self._init_slots()
         if paged:
@@ -384,7 +501,7 @@ class ContinuousEngine:
                 self._fail_slot(slot, "shutdown", "engine closed", now)
         while self._queue:
             self._fail_request(self._queue.popleft(), "shutdown", "engine closed", now=now)
-        self._cache = None
+        self._cache = self._d_cache = None
         self._cast_src = self._cast_key = self._cast_out = None
         if self._paged:
             self._init_pool()
@@ -496,8 +613,9 @@ class ContinuousEngine:
         self._update_high_water()
 
     def _set_tables(self):
-        # Push the host table into the cache's one block table, only when an
-        # allocation or release changed it since the last push.
+        # Push the host table into the caches' one block table (the draft's
+        # cache shares it), only when an allocation or release changed it
+        # since the last push.
         if not self._tables_dirty:
             return
         self._tables_dirty = False
@@ -517,33 +635,52 @@ class ContinuousEngine:
     def _validate_prompt(self, p: np.ndarray):
         if p.size < 1:
             raise ValueError("empty prompt")
-        check_sequence_budget(
-            p.size + self._max_new, self._cfg.max_seq_len,
-            f"prompt ({p.size}) + max_new_tokens ({self._max_new}) for target",
-        )
+        headroom = self._num_draft + 1 if self._speculative else 0
+        budget_cfgs = [("target", self._cfg)]
+        if self._speculative:
+            # The draft's index walks in lockstep with the target's through
+            # refill, proposals and rollback: the same worst case.
+            budget_cfgs.append(("draft", self._d_cfg))
+        for name, c in budget_cfgs:
+            check_sequence_budget(
+                p.size + self._max_new + headroom, c.max_seq_len,
+                f"prompt ({p.size}) + max_new_tokens ({self._max_new})"
+                + (f" + draft headroom ({headroom})" if headroom else "")
+                + f" for {name}",
+            )
 
-    @staticmethod
-    def _check_draft_args(draft_params):
-        if draft_params is not None:
+    def _check_draft_args(self, draft_params):
+        if self._speculative and draft_params is None:
+            raise ValueError("draft_config was given: pass draft_params to serve()/step()")
+        if not self._speculative and draft_params is not None:
             raise ValueError("draft_params requires draft_config")
 
-    def _cast_params(self, params):
-        # The inference cast (and the load into the model) runs once per
-        # params object and tensor state, not once per step; the
-        # dequantize-per-call mode keeps the cast tree and hands it to every
-        # model call. Torch updates parameters in place, and a state_dict()
-        # aliases them, so the same dict can hold new weights: each tensor's
-        # identity and in-place version counter key the cast (host reads
-        # only, no device work).
-        key = [(t, _tensor_state(t)) for t in params.values()]
-        if self._cast_src is params and _same_tensors(key, self._cast_key):
+    def _cast_params(self, params, draft_params=None):
+        # The inference casts (and the loads into the models) run once per
+        # (params, draft_params) pair and tensor state, not once per step;
+        # a dequantize-per-call mode keeps its cast tree and hands it to
+        # every model call. Torch updates parameters in place, and a
+        # state_dict() aliases them, so the same dict can hold new weights:
+        # each tensor's identity and in-place version counter key the cast
+        # (host reads only, no device work).
+        trees = (params,) if draft_params is None else (params, draft_params)
+        key = [(t, _tensor_state(t)) for tree in trees for t in tree.values()]
+        if (self._cast_src is not None and self._cast_src[0] is params
+                and self._cast_src[1] is draft_params and _same_tensors(key, self._cast_key)):
             return self._cast_out
         weights = self._maybe_cast(params)
         if not self._in_apply:
             self._model.load_state_dict(weights)
             weights = None
-        self._cast_src, self._cast_key, self._cast_out = params, key, weights
-        return weights
+        d_weights = None
+        if draft_params is not None:
+            d_weights = self._d_cast(draft_params)
+            if not self._d_in_apply:
+                self._d_model.load_state_dict(d_weights)
+                d_weights = None
+        self._cast_src, self._cast_key = (params, draft_params), key
+        self._cast_out = (weights, d_weights)
+        return self._cast_out
 
     def add_request(self, prompt, *, rid: int | None = None, arrival_t: float | None = None,
                     deadline_s: float | None = None, adapter: str | None = None,
@@ -672,8 +809,9 @@ class ContinuousEngine:
     def _unadmit(self, slot: int):
         """Recompute preemption under pool pressure: push the slot's request
         back to the queue head and free the slot. The request restarts from
-        scratch on a later admission, and greedy decoding re-derives exactly
-        the tokens it had."""
+        scratch on a later admission and re-derives exactly the tokens it
+        had: greedy decoding is deterministic, and every draw is keyed by
+        (request id, generated position), never by the schedule."""
         self._queue.appendleft(self._slot_req[slot])
         if self._paged:
             self._release(slot, register=False)
@@ -727,41 +865,92 @@ class ContinuousEngine:
                         self._win["prefix_pages_reused"] += len(shared)
                     self._update_high_water()
 
-    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """``(B, V)`` logits → ``(B,)`` int32 argmax (ids ≥ ``vocab_limit``
-        masked)."""
-        logits = logits.float()
-        if self._vocab_limit is not None:
-            logits = vocab_limit_filter(logits, self._vocab_limit)
-        return logits.argmax(dim=-1).to(torch.int32)
+    # --- device programs ---------------------------------------------------
+
+    def _ensure_cache(self):
+        if self._cache is None:
+            self._cache = self._model.init_cache(self._b)
+            if self._speculative:
+                self._d_cache = self._d_model.init_cache(self._b,
+                                                         block_table=self._cache.block_table)
+            self.cache_creations += 1
 
     def _forward(self, weights, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """One model call over the engine's cache → fp32 logits."""
+        """One target model call over the engine's cache → fp32 logits."""
         logits, _ = self._apply(self._cache, tokens, lengths, params=weights)
         self.model_forwards += 1
         return logits
 
-    def _refill_step(self, weights, chunk, lengths, reset, reset_to) -> torch.Tensor:
-        """Admission resets, then one ``(B, refill_chunk)`` chunk: every row's
-        cache advances by its own valid length (0 for decoding or idle rows).
-        → each row's first generated token (device), from its chunk's last
-        valid position."""
-        lengths_d = self._to_device(lengths)
-        _reset_rows(self._cache, self._to_device(reset), self._to_device(reset_to))
-        logits = self._forward(weights, self._to_device(chunk), lengths_d)
-        rows = torch.arange(self._b, device=self._device)
-        return self._greedy(logits[rows, (lengths_d.long() - 1).clamp(min=0)])
+    def _d_forward(self, d_weights, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """One draft model call over the draft's cache → fp32 logits."""
+        logits, _ = self._d_apply(self._d_cache, tokens, lengths, params=d_weights)
+        self.draft_forwards += 1
+        return logits
 
-    def _decode_block(self, weights, tok, active, remaining):
-        """``decode_block_steps`` greedy steps, on the device with no host
-        sync. Rows that emit EOS or spend their ``remaining`` budget flip
-        inactive: chunk length 0 from then on, so a retired row's cache
-        index never passes its admission budget. → ``(B, K)`` tokens and the
-        carries."""
+    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        return greedy_pick(logits, self._vocab_limit)
+
+    def _row_keys(self, rid: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Keys of (request id, generated position): a request's stream
+        depends only on its identity and how far it has generated, never on
+        the schedule. ``pos`` is ``(B,)`` or ``(B, J)``."""
+        rid = rid.reshape(rid.shape + (1,) * (pos.ndim - 1))
+        return prng.fold_in(prng.fold_in(self.rng, rid), pos)
+
+    def _spec_keys(self, rid: torch.Tensor, pos: torch.Tensor, tag: int) -> torch.Tensor:
+        """Per-request speculative streams: ``speculative._pos_key``'s
+        position and tag (0 proposal, 1 acceptance, 2 residual/bonus) under
+        the request-id fold, so a rolled-back position re-derives its draws."""
+        return prng.fold_in(self._row_keys(rid, pos), tag)
+
+    def _to_flogits(self, logits: torch.Tensor) -> torch.Tensor:
+        return filtered_logits(logits, self._temperature, *self._filters)
+
+    def _sample_rows(self, logits: torch.Tensor, rid: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        """``(B, V)`` logits → ``(B,)`` int32: argmax at temperature 0, else
+        one draw a row from its (request, position) key."""
+        if self._temperature == 0.0:
+            return self._greedy(logits)
+        return prng.categorical(self._row_keys(rid, pos),
+                                self._to_flogits(logits)).to(torch.int32)
+
+    def _pick(self, logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """Each row's logits at its chunk's last valid position."""
+        rows = torch.arange(self._b, device=self._device)
+        return logits[rows, (lengths.long() - 1).clamp(min=0)]
+
+    def _reset(self, reset: torch.Tensor, reset_to: torch.Tensor):
+        _reset_rows(self._cache, reset, reset_to)
+        if self._speculative:
+            _reset_rows(self._d_cache, reset, reset_to)
+
+    def _refill_step(self, weights, d_weights, chunk, lengths, reset, reset_to, rid):
+        """Admission resets, then one ``(B, refill_chunk)`` chunk through the
+        target (and the draft, whose cache mirrors the target's valid
+        prefix): every row's caches advance by its own valid length (0 for
+        decoding or idle rows). → each row's first generated token (device),
+        position 0 of its stream, from its chunk's last valid position."""
+        lengths = self._to_device(lengths)
+        self._reset(self._to_device(reset), self._to_device(reset_to))
+        chunk = self._to_device(chunk)
+        logits = self._forward(weights, chunk, lengths)
+        if self._speculative:
+            self._d_forward(d_weights, chunk, lengths)
+        return self._sample_rows(self._pick(logits, lengths), rid, torch.zeros_like(rid))
+
+    def _decode_block(self, weights, tok, active, remaining, rid):
+        """``decode_block_steps`` steps, on the device with no host sync. Rows
+        that emit EOS or spend their ``remaining`` budget flip inactive:
+        chunk length 0 from then on, so a retired row's cache index never
+        passes its admission budget. → ``(B, K)`` tokens and the carries."""
         toks = []
         for _ in range(self._block_steps):
             logits = self._forward(weights, tok[:, None], active)
-            nxt = torch.where(active == 1, self._greedy(logits[:, -1]), tok)
+            # This draw's generated position: the row has emitted
+            # max_new_tokens - remaining tokens.
+            nxt = self._sample_rows(logits[:, -1], rid, self._max_new - remaining)
+            nxt = torch.where(active == 1, nxt, tok)
             remaining = remaining - active
             if self._eos is not None:
                 active = active * (nxt != self._eos).to(torch.int32)
@@ -770,11 +959,175 @@ class ContinuousEngine:
             tok = nxt
         return torch.stack(toks, dim=1), active, remaining
 
-    def _refill_dispatch(self, weights, retired: list[int]) -> bool:
+    def _spec_round(self, weights, d_weights, carry, rid):
+        """ONE draft-verify round with per-row acceptance and rollback: the
+        speculative core of the decode block and the mixed link. Frozen rows
+        (``active == 0``: idle, refilling or retired) ride every call with
+        length 0 and emit nothing, so the rollback re-asserts their ``pos``.
+        ``carry`` is ``(tok, active, pos, remaining, count, buffer, acc,
+        prop)``; the caches are updated in place."""
+        tok, active, pos, remaining, count, buffer, acc, prop = carry
+        nd, width = self._num_draft, self._num_draft + 1
+        sampled = self._temperature != 0.0
+        gen = self._max_new - remaining      # each row's next generated position
+        # 1. The draft proposes per row.
+        prev, drafts, q_all = tok, [], []
+        for j in range(nd):
+            lg = self._d_forward(d_weights, prev[:, None], active)[:, -1]
+            if sampled:
+                fl = self._to_flogits(lg)
+                nxt = prng.categorical(self._spec_keys(rid, gen + j, 0), fl).to(torch.int32)
+                q_all.append(torch.softmax(fl, dim=-1))
+            else:
+                nxt = self._greedy(lg)
+            prev = torch.where(active == 1, nxt, prev)
+            drafts.append(prev)
+        drafts = torch.stack(drafts, dim=1)
+        # One more feed puts the last proposal's K/V in the draft cache.
+        self._d_forward(d_weights, prev[:, None], active)
+        # 2. One chunked target verify.
+        chunk = torch.cat([tok[:, None], drafts], dim=1)
+        t_logits = self._forward(weights, chunk, active * width)
+        # 3. Per-row acceptance: accepted drafts, then the bonus/correction
+        #    (greedy) or the residual sample (sampling).
+        if sampled:
+            js = torch.arange(nd, device=self._device)
+            u = prng.uniform(self._spec_keys(rid, gen[:, None] + js, 1))
+            m, residual = rejection(drafts, torch.stack(q_all, dim=1),
+                                    torch.softmax(self._to_flogits(t_logits), dim=-1), u)
+            m = m.to(torch.int32)
+            rows = torch.arange(self._b, device=self._device)
+            token_m = prng.categorical(self._spec_keys(rid, gen + m, 2),
+                                       torch.log(residual[rows, m.long()]))
+            emitted = emit_vector(drafts, m, token_m.to(torch.int32))
+        else:
+            m, emitted, _ = greedy_accept_emit(drafts, self._greedy(t_logits))
+        # 4. Truncate each row's emission at EOS and at its budget.
+        raw = 1 + m
+        if self._eos is not None:
+            slots = torch.arange(width, device=self._device)
+            hit = (emitted == self._eos) & (slots[None, :] < raw[:, None])
+            any_hit = hit.any(dim=1)
+            first = hit.to(torch.int32).argmax(dim=1).to(torch.int32)
+            n_stop = torch.where(any_hit, first + 1, raw)
+        else:
+            any_hit = torch.zeros_like(active, dtype=torch.bool)
+            n_stop = raw
+        n_emit = torch.minimum(n_stop, remaining) * active
+        # 5. Append at each row's own offset; the pending token becomes the
+        #    last emitted one.
+        row_update_masked(buffer, emitted, count, n_emit, seq_dim=1)
+        new_tok = emitted.gather(1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
+        tok = torch.where(active == 1, new_tok, tok)
+        # 6. Per-row rollback to pos + n_emit (frozen rows: their index).
+        pos = pos + n_emit
+        _rollback(self._cache, pos)
+        _rollback(self._d_cache, pos)
+        remaining = remaining - n_emit
+        count = count + n_emit
+        # Verifier acceptance before EOS/budget truncation: the draft's
+        # quality, what num_draft is tuned against.
+        acc = acc + m * active
+        prop = prop + active * nd
+        stopped = (any_hit & (n_stop <= n_emit) & (active == 1)).to(torch.int32)
+        active = active * (remaining > 0).to(torch.int32) * (1 - stopped)
+        return tok, active, pos, remaining, count, buffer, acc, prop
+
+    def _spec_carry(self, tok, active, pos, remaining, width: int):
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
+                                           device=self._device)
+        return (tok, active, pos, remaining, zeros(self._b), zeros(self._b, width),
+                zeros(self._b), zeros(self._b))
+
+    def _decode_block_spec(self, weights, d_weights, tok, active, pos, remaining, rid):
+        """Speculative decode block: ``decode_block_steps`` rounds, each
+        emitting 1 to ``num_draft + 1`` tokens a row. ``pos`` is each row's
+        cache index (prompt + emitted - 1). → ``(buffer, count, acc, prop,
+        tok, pos, active, remaining)``: the buffer and counts are final
+        (EOS and budget truncate a round exactly)."""
+        carry = self._spec_carry(tok, active, pos, remaining,
+                                 self._block_steps * (self._num_draft + 1))
+        for _ in range(self._block_steps):
+            carry = self._spec_round(weights, d_weights, carry, rid)
+        tok, active, pos, remaining, count, buffer, acc, prop = carry
+        return buffer, count, acc, prop, tok, pos, active, remaining
+
+    def _mixed_step(self, weights, chunk, lengths, reset, reset_to, tok, active, remaining,
+                    rid):
+        """ONE fused link: every decoding row advances one token AND every
+        scheduled refill row pushes its budgeted chunk, in one model call.
+        Decode rows ride with length 1 (their pending token in column 0),
+        refill rows with their scheduled length, idle rows with 0: each row
+        computes what the split engine's programs compute for it. → ``(nxt,
+        tok, active, remaining)``; ``nxt`` holds the refill rows' first
+        tokens and the decode rows' next ones."""
+        if reset is not None:
+            self._reset(reset, reset_to)
+        dec = active == 1                    # decoding rows hold no pending tokens
+        eff_len = torch.where(dec, 1, lengths).to(torch.int32)
+        chunk[:, 0] = torch.where(dec, tok, chunk[:, 0])
+        logits = self._forward(weights, chunk, eff_len)
+        # Refill rows draw their stream's position 0, decode rows their
+        # current generated position: the split engine's keys.
+        pos = torch.where(dec, self._max_new - remaining, 0)
+        nxt = self._sample_rows(self._pick(logits, eff_len), rid, pos)
+        tok = torch.where(dec, nxt, tok)
+        remaining = remaining - dec.to(torch.int32)
+        if self._eos is not None:
+            active = active * torch.where(dec, (nxt != self._eos).to(torch.int32), 1)
+        active = active * torch.where(dec, (remaining > 0).to(torch.int32), 1)
+        return nxt, tok, active, remaining
+
+    def _spec_mixed_step(self, weights, d_weights, chunk, lengths, reset, reset_to, tok,
+                         active, pos, remaining, rid):
+        """The speculative fused link: the budgeted refill chunk through the
+        target and the draft (decoding rows ride with length 0), then ONE
+        draft-verify round. Refill rows' ``pos`` advance by their chunk
+        length first, so the round's rollback re-asserts their advance. →
+        ``(first_tok, buffer, count, acc, prop, tok, pos, active,
+        remaining)``."""
+        if reset is not None:
+            self._reset(reset, reset_to)
+        logits = self._forward(weights, chunk, lengths)
+        self._d_forward(d_weights, chunk, lengths)
+        first_tok = self._sample_rows(self._pick(logits, lengths), rid, torch.zeros_like(rid))
+        carry = self._spec_carry(tok, active, pos + lengths, remaining, self._num_draft + 1)
+        tok, active, pos, remaining, count, buffer, acc, prop = self._spec_round(
+            weights, d_weights, carry, rid)
+        return first_tok, buffer, count, acc, prop, tok, pos, active, remaining
+
+    # --- dispatches --------------------------------------------------------
+
+    def _rid_arr(self) -> torch.Tensor:
+        return self._to_device(np.maximum(np.asarray(self._req, np.int64), 0).astype(np.int32))
+
+    def _first_token(self, slot: int, t: int, now: float, retired: list[int]):
+        # Prompt complete: its first token came from the chunk that ended it.
+        self._out[slot].append(t)
+        self._emitted[slot] = 1
+        self._tok[slot] = t
+        self._slot_req[slot].first_token_t = now
+        self._ttimes[slot].append(now)
+        if (self._eos is not None and t == self._eos) or self._max_new == 1:
+            self._retire(slot, now, retired)
+        else:
+            self._active[slot] = True
+
+    def _preempt_or_raise(self, slot: int):
+        # Called in the handler of the pool's RuntimeError. Backpressure
+        # instead of a wedge: while another slot is in flight its retirement
+        # will free pages, so requeue this request (recompute preemption);
+        # re-raise only when it is alone.
+        if not any(self._req[s] >= 0 for s in range(self._b) if s != slot):
+            raise
+        self._unadmit(slot)
+        self._win["preemptions"] += 1
+
+    def _refill_dispatch(self, weights, d_weights, retired: list[int]) -> bool:
         # One refill chunk for every slot with pending prompt tokens;
         # decoding rows ride along with length 0. Up to ``decode_chain``
-        # chunks back to back, one host sync per chunk at the end: chunk
-        # contents are host-known, so no chunk waits on another's readback.
+        # chunks back to back, one host sync at the end: chunk contents are
+        # host-known, so no chunk waits on another's readback.
         b = self._b
         segs = []
         for _ in range(self.decode_chain):
@@ -795,24 +1148,16 @@ class ContinuousEngine:
                     try:
                         self._ensure(slot, consumed + int(lengths[slot]))
                     except RuntimeError:
-                        # Backpressure instead of a wedge: while another slot
-                        # is in flight its retirement will free pages, so
-                        # requeue this request; raise only when it is alone.
-                        if not any(self._req[s] >= 0 for s in range(b) if s != slot):
-                            raise
-                        self._unadmit(slot)
-                        self._win["preemptions"] += 1
+                        self._preempt_or_raise(slot)
                         lengths[slot] = 0
                         chunk[slot, :] = 0
                 if not lengths.any():
                     break
-            if self._cache is None:
-                self._cache = self._model.init_cache(b)
-                self.cache_creations += 1
+            self._ensure_cache()
             if self._paged:
                 self._set_tables()
-            tok_new = self._refill_step(weights, chunk, lengths, self._needs_reset,
-                                        self._reset_to)
+            tok_new = self._refill_step(weights, d_weights, chunk, lengths, self._needs_reset,
+                                        self._reset_to, self._rid_arr())
             # The dispatch has its own copy of the admission resets; every
             # flagged row had pending tokens and rode this chunk.
             self._needs_reset[:] = False
@@ -826,24 +1171,39 @@ class ContinuousEngine:
             segs.append((tok_new, completes))
         if not segs:
             return False
-        for tok_new, completes in segs:
-            tok_new = tok_new.cpu().numpy()        # each chunk's own sync
-            now = time.perf_counter()              # its host-visibility time
+        toks = torch.stack([t for t, _ in segs]).cpu().numpy()   # ONE sync
+        now = time.perf_counter()
+        for tok_new, (_, completes) in zip(toks, segs):
             for slot in completes:
-                # Prompt complete: its first token came from this chunk.
-                t = int(tok_new[slot])
-                self._out[slot].append(t)
-                self._emitted[slot] = 1
-                self._tok[slot] = t
-                self._slot_req[slot].first_token_t = now
-                self._ttimes[slot].append(now)
-                if (self._eos is not None and t == self._eos) or self._max_new == 1:
-                    self._retire(slot, now, retired)
-                else:
-                    self._active[slot] = True
+                self._first_token(slot, int(tok_new[slot]), now, retired)
         return True
 
-    def _decode_dispatch(self, weights, retired: list[int]) -> bool:
+    def _remaining(self) -> np.ndarray:
+        return np.asarray([max(0, self._max_new - e) for e in self._emitted], np.int32)
+
+    def _decode_pos(self) -> np.ndarray:
+        # Each decoding row's cache index: prompt + emitted - 1 (its pending
+        # token is not in the cache yet).
+        return np.asarray([max(0, p + e - 1) for p, e in zip(self._plen, self._emitted)],
+                          np.int32)
+
+    def _map_decode(self, remaining: np.ndarray, tokens: int):
+        """Map every position a decoding row can write in its next
+        ``tokens`` tokens, capped by its remaining budget (speculative: plus
+        the verify chunk's headroom), with recompute preemption."""
+        for slot in range(self._b):
+            if not self._active[slot]:
+                continue
+            pos = self._plen[slot] + self._emitted[slot] - 1
+            span = min(int(remaining[slot]), tokens)
+            if self._speculative:
+                span += self._num_draft + 1
+            try:
+                self._ensure(slot, pos + span)
+            except RuntimeError:
+                self._preempt_or_raise(slot)
+
+    def _decode_dispatch(self, weights, d_weights, retired: list[int]) -> bool:
         # Up to ``decode_chain`` decode blocks back to back, the carries
         # flowing device to device, ONE host sync at the end. A retiring
         # slot idles until that sync (admission coarsens by up to a chain);
@@ -851,79 +1211,386 @@ class ContinuousEngine:
         if not self._active.any():
             return False
         b = self._b
-        remaining = np.asarray([max(0, self._max_new - e) for e in self._emitted], np.int32)
+        spec = self._speculative
+        remaining = self._remaining()
         # Never dispatch blocks that cannot emit: cap the chain at what the
         # longest-running active row can still use.
+        per_block = self._block_steps * ((self._num_draft + 1) if spec else 1)
         worst = int(remaining[self._active].max())
-        chain = min(self.decode_chain, -(-worst // self._block_steps))
+        chain = min(self.decode_chain, -(-worst // per_block))
         if self._paged:
-            # Map every position this chain can write: chain·K new tokens a
-            # row, capped by its remaining budget.
-            for slot in range(b):
-                if not self._active[slot]:
-                    continue
-                pos = self._plen[slot] + self._emitted[slot] - 1
-                span = min(int(remaining[slot]), chain * self._block_steps)
-                try:
-                    self._ensure(slot, pos + span)
-                except RuntimeError:
-                    # Decode-time recompute preemption, unless this row is
-                    # the only request holding pages (it can never fit).
-                    if not any(self._req[s] >= 0 for s in range(b) if s != slot):
-                        raise
-                    self._unadmit(slot)
-                    self._win["preemptions"] += 1
+            self._map_decode(remaining, chain * per_block)
             if not self._active.any():
                 return False
             self._set_tables()
             # Re-cap the chain from the surviving rows.
             worst = int(remaining[self._active].max())
-            chain = min(self.decode_chain, -(-worst // self._block_steps))
+            chain = min(self.decode_chain, -(-worst // per_block))
         tok = self._to_device(self._tok)
         active = self._to_device(self._active.astype(np.int32))
         remaining_d = self._to_device(remaining)
+        rid = self._rid_arr()
         segs = []
-        for _ in range(chain):
-            toks, active, remaining_d = self._decode_block(weights, tok, active, remaining_d)
-            # Next block's pending token: each row's last emitted (frozen
-            # rows repeat theirs).
-            tok = toks[:, -1]
-            segs.append(toks)
-        segs = [t.cpu().numpy() for t in segs]     # ONE sync
+        if spec:
+            pos_d = self._to_device(self._decode_pos())
+            for _ in range(chain):
+                buffer, counts, acc, prop, tok, pos_d, active, remaining_d = (
+                    self._decode_block_spec(weights, d_weights, tok, active, pos_d,
+                                            remaining_d, rid))
+                segs.append(torch.cat([counts[:, None], acc[:, None], prop[:, None], buffer],
+                                      dim=1))
+        else:
+            for _ in range(chain):
+                toks, active, remaining_d = self._decode_block(weights, tok, active,
+                                                               remaining_d, rid)
+                # Next block's pending token: each row's last emitted (frozen
+                # rows repeat theirs).
+                tok = toks[:, -1]
+                segs.append(toks)
+        segs = torch.stack(segs).cpu().numpy()     # ONE sync
         now = time.perf_counter()
         was_active = self._active.copy()
-        for toks in segs:
+        for seg in segs:
+            if spec:
+                self._win["spec_acc"] += int(seg[:, 1].sum())
+                self._win["spec_prop"] += int(seg[:, 2].sum())
             for slot in range(b):
                 # A slot retired in an earlier block emits nothing real in
                 # later ones: its lane froze on the device.
                 if was_active[slot] and self._req[slot] >= 0:
-                    self._consume(slot, toks[slot].tolist(), now, retired)
+                    toks = seg[slot, 3:3 + seg[slot, 0]] if spec else seg[slot]
+                    self._consume(slot, toks.tolist(), now, retired)
         return True
+
+    def _link_budget(self, n_active: int, per_link: int) -> int:
+        # Decode rows are funded first at their true per-link consumption
+        # (1 token, or the num_draft + 1 verify positions); refill takes the
+        # remainder, uncapped when nothing is decoding.
+        if n_active:
+            return max(0, self.token_budget - n_active * per_link)
+        return self._b * self._refill_chunk
+
+    def _mixed_dispatch(self, weights, d_weights, retired: list[int]):
+        # The FUSED iteration: up to ``decode_chain`` mixed links (or, with
+        # ``horizon > 1``, one planned horizon) back to back, each advancing
+        # every decoding row by one token or one round AND pushing budgeted
+        # refill chunks; carries flow device to device; ONE host sync at the
+        # end. Returns the program class that ran ("mixed", or "refill" /
+        # "decode" for the fallthroughs) or False when nothing dispatched.
+        if self._cache is None:
+            # Cache creation routes through the refill path.
+            return "refill" if self._refill_dispatch(weights, d_weights, retired) else False
+        if not any(p.size for p in self._pending):
+            # PURE-DECODE phase: nothing to fuse, so the K-step decode block
+            # runs (a fused link costs one dispatch a token and exists to
+            # overlap refill).
+            return "decode" if self._decode_dispatch(weights, d_weights, retired) else False
+        if self._speculative and not self._active.any():
+            # PURE-REFILL phase in speculative mode: a fused link would pay a
+            # full draft-verify round with every row frozen. Outputs do not
+            # depend on the schedule, so refill runs split until a row
+            # decodes.
+            return "refill" if self._refill_dispatch(weights, d_weights, retired) else False
+        b = self._b
+        per_link = (self._num_draft + 1) if self._speculative else 1
+        horizon = int(self.horizon)
+        n_links = horizon if horizon > 1 else max(1, self.decode_chain)
+
+        def chain_cap(remaining, active):
+            # Links the longest-running decoding row can still use
+            # (optimistic for speculative rounds).
+            if not active.any():
+                return 0
+            return -(-int(remaining[active].max()) // per_link)
+
+        remaining = self._remaining()
+        chain_dec = chain_cap(remaining, self._active)
+        if self._paged and self._active.any():
+            self._map_decode(remaining, min(n_links, max(chain_dec, 1)) * per_link)
+            remaining = self._remaining()
+            chain_dec = chain_cap(remaining, self._active)
+        was_active = self._active.copy()
+        n_active = int(was_active.sum())
+        tok = self._to_device(self._tok)
+        active = self._to_device(was_active.astype(np.int32))
+        remaining_d = self._to_device(remaining)
+        rid = self._rid_arr()
+        pos_d = None
+        if self._speculative:
+            # Every row's CURRENT cache index: decoding rows at prompt +
+            # emitted - 1, refilling rows at their consumed count (the
+            # round's rollback must re-assert, never rewind, a refill
+            # advance; each link adds its chunk lengths on top).
+            pos_d = self._to_device(np.asarray(
+                [max(0, self._plen[s] + self._emitted[s] - 1) if was_active[s]
+                 else (self._plen[s] - self._pending[s].size if self._req[s] >= 0 else 0)
+                 for s in range(b)], np.int32))
+        carry = (tok, active, pos_d, remaining_d)
+        if horizon > 1:
+            return self._multi_dispatch(weights, d_weights, retired, n_links=n_links,
+                                        per_link=per_link, chain_dec=chain_dec,
+                                        was_active=was_active, n_active=n_active,
+                                        carry=carry, rid=rid)
+        links = []
+        for link in range(max(1, self.decode_chain)):
+            # Each link's schedule is planned after the previous link took
+            # its tokens: the horizon's plan, one link at a time.
+            planned, offs = self._plan_horizon_links(1, n_active, per_link, chain_dec - link,
+                                                     allow_preempt=True)
+            if not planned:
+                break
+            self._take_pending(offs)
+            if self._paged:
+                self._set_tables()
+            # Link 0 carries every pending admission reset, rows the budget
+            # starved included: a counter reset is idempotent and nothing
+            # advances a row before its first chunk.
+            reset = None
+            if self._needs_reset.any():
+                reset = (self._to_device(self._needs_reset), self._to_device(self._reset_to))
+                self._needs_reset[:] = False
+                self._reset_to[:] = 0
+            chunk, lengths, _ = planned[0]
+            links += planned
+            carry = self._run_link(weights, d_weights, self._to_device(chunk),
+                                   self._to_device(lengths), reset, carry, rid)
+        if not links:
+            return False
+        self._consume_links(self._read_links(), links, was_active, retired)
+        return "mixed"
+
+    def _take_pending(self, offs):
+        # Commit a dispatched plan's advance of the pending prompt views.
+        for slot, n in enumerate(offs):
+            if n:
+                self._pending[slot] = self._pending[slot][n:]
+
+    def _run_link(self, weights, d_weights, chunk, lengths, reset, carry, rid):
+        """One mixed link on the device. Its outputs go to ``self._link_out``
+        (one ``(B, ...)`` int32 row block a link) until the host reads them
+        all at once; → the next link's carry."""
+        tok, active, pos, remaining = carry
+        reset, reset_to = reset if reset is not None else (None, None)
+        if self._speculative:
+            first, buffer, count, acc, prop, tok, pos, active, remaining = (
+                self._spec_mixed_step(weights, d_weights, chunk, lengths, reset, reset_to,
+                                      tok, active, pos, remaining, rid))
+            self._link_out.append(torch.cat(
+                [first[:, None], count[:, None], acc[:, None], prop[:, None], buffer], dim=1))
+        else:
+            first, tok, active, remaining = self._mixed_step(
+                weights, chunk, lengths, reset, reset_to, tok, active, remaining, rid)
+            self._link_out.append(first[:, None])
+        return tok, active, pos, remaining
+
+    def _read_links(self) -> np.ndarray:
+        out, self._link_out = self._link_out, []
+        return torch.stack(out).cpu().numpy()      # ONE sync for every link
+
+    def _consume_links(self, outs: np.ndarray, links, was_active: np.ndarray,
+                       retired: list[int]):
+        """Each link's completions (first tokens) and decode tokens, in link
+        order, for the rows decoding at the dispatch's start that are still
+        live (a row retired at an earlier link froze on the device)."""
+        now = time.perf_counter()
+        for out, (_, _, completes) in zip(outs, links):
+            for slot in completes:
+                self._first_token(slot, int(out[slot, 0]), now, retired)
+            if self._speculative:
+                self._win["spec_acc"] += int(out[:, 2].sum())
+                self._win["spec_prop"] += int(out[:, 3].sum())
+            for slot in range(self._b):
+                if was_active[slot] and self._req[slot] >= 0:
+                    toks = out[slot, 4:4 + out[slot, 1]] if self._speculative else out[slot, :1]
+                    self._consume(slot, toks.tolist(), now, retired)
+
+    def _plan_horizon_links(self, n_links, n_active, per_link, chain_dec, *, allow_preempt):
+        """The mixed scheduler's refill plan of up to ``n_links`` fused links
+        (the JAX engine's ``_schedule_refill`` policy, one link at a time,
+        and its ``_plan_horizon_links``): FCFS over slots with pending prompt
+        tokens in admission order (arrival breaks ties; a preempted request
+        keeps its place), each taking ``min(pending, refill_chunk, budget
+        left)``, over a VIRTUAL pending advance (per-slot offsets;
+        ``self._pending`` is not consumed: the caller commits when the plan
+        dispatches). A link is planned while it has refill tokens or the
+        decode cap ``chain_dec`` reaches it. → ``(links, offs)``, each link
+        ``(chunk, lengths, completes)``, or None when ``allow_preempt=False``
+        (the in-flight planner) and the pool cannot cover the plan:
+        preemption is a boundary decision."""
+        b = self._b
+        offs = [0] * b
+        links = []
+        for link in range(n_links):
+            budget = self._link_budget(n_active, per_link)
+            lengths = np.zeros((b,), np.int32)
+            chunk = np.zeros((b, self._refill_chunk), np.int32)
+            completes = []
+            order = sorted((s for s in range(b) if self._pending[s].size - offs[s] > 0),
+                           key=lambda s: (self._slot_req[s].admit_t,
+                                          self._slot_req[s].arrival_t))
+            for slot in order:
+                if budget <= 0:
+                    continue
+                n = min(self._pending[slot].size - offs[slot], self._refill_chunk, budget)
+                if self._paged:
+                    consumed = self._plen[slot] - self._pending[slot].size + offs[slot]
+                    try:
+                        self._ensure(slot, consumed + n)
+                    except RuntimeError:
+                        if not allow_preempt:
+                            return None
+                        self._preempt_or_raise(slot)
+                        # Nothing dispatched yet: scrub the requeued request
+                        # from the earlier planned links.
+                        offs[slot] = 0
+                        for ch2, ln2, comp2 in links:
+                            ln2[slot] = 0
+                            ch2[slot, :] = 0
+                            if slot in comp2:
+                                comp2.remove(slot)
+                        continue
+                chunk[slot, :n] = self._pending[slot][offs[slot]:offs[slot] + n]
+                lengths[slot] = n
+                offs[slot] += n
+                budget -= n
+                if offs[slot] == self._pending[slot].size and self._req[slot] >= 0:
+                    completes.append(slot)
+            has_decode = n_active > 0 and link < chain_dec
+            if not lengths.any() and not has_decode:
+                break
+            links.append((chunk, lengths, completes))
+        return links, offs
+
+    def _boundary_fingerprint(self, n_links, n_active, per_link, chain_dec):
+        # Everything _plan_horizon_links reads: slot occupancy, pending sizes
+        # (contents are fixed between admissions, so sizes and request ids
+        # pin them), and the budget and cap inputs.
+        return (tuple(self._req), tuple(int(p.size) for p in self._pending), int(n_active),
+                int(chain_dec), int(n_links), int(per_link), int(self.token_budget))
+
+    def _take_staged_plan(self, n_links, n_active, per_link, chain_dec):
+        """The staged plan iff the boundary state matches its prediction
+        exactly (a retirement, admission, preemption or knob change misses
+        and the boundary plans live): staging moves host work off the
+        boundary and never changes what dispatches."""
+        staged, self._staged_plan = self._staged_plan, None
+        if staged is None:
+            return None
+        fp, plan = staged
+        if fp != self._boundary_fingerprint(n_links, n_active, per_link, chain_dec):
+            return None
+        self._win["plan_reused"] += 1
+        return plan
+
+    def _multi_dispatch(self, weights, d_weights, retired, *, n_links, per_link, chain_dec,
+                        was_active, n_active, carry, rid):
+        # The multi-step horizon: plan up to ``n_links`` links on the host,
+        # queue every planned link with the carries on the device, stage the
+        # next horizon's plan while the device works, then sync ONCE and
+        # consume every link as the link loop does. A link the host did not
+        # plan is not run; a planned link with no active row runs with every
+        # length 0, advancing no row.
+        plan = self._take_staged_plan(n_links, n_active, per_link, chain_dec)
+        if plan is None:
+            plan = self._plan_horizon_links(n_links, n_active, per_link, chain_dec,
+                                            allow_preempt=True)
+        links, offs = plan
+        if not links:
+            return False
+        self._take_pending(offs)           # the plan is final
+        if self._paged:
+            # The plan (refill) and the preamble (decode) allocated every
+            # page of the horizon: one table push.
+            self._set_tables()
+        chunks = self._to_device(np.stack([c for c, _, _ in links]))
+        lengths = self._to_device(np.stack([ln for _, ln, _ in links]))
+        reset = None
+        if self._needs_reset.any():
+            reset = (self._to_device(self._needs_reset), self._to_device(self._reset_to))
+        self._needs_reset[:] = False
+        self._reset_to[:] = 0
+        for i in range(len(links)):
+            carry = self._run_link(weights, d_weights, chunks[i], lengths[i],
+                                   reset if i == 0 else None, carry, rid)
+        self._win["multi_n"] += 1
+        self._win["multi_links"] += len(links)
+        # The planner's window: the links are queued and nothing below needs
+        # their results yet.
+        self._plan_next_horizon(n_links, per_link, chain_dec, links)
+        self._consume_links(self._read_links(), links, was_active, retired)
+        return "mixed"
+
+    def _plan_next_horizon(self, n_links, per_link, chain_dec, links):
+        """Stage the NEXT horizon's refill plan (page reservations included)
+        against a PREDICTED boundary state, while the device runs this one:
+        host state only, no readback. Every active row is predicted to
+        advance its minimum (one token or round a decode link) with no EOS;
+        the next dispatch takes the plan only on an exact fingerprint
+        match."""
+        self._staged_plan = None
+        b = self._b
+        n_dec = min(len(links), max(0, chain_dec))
+        rem = self._remaining()
+        act = self._active.copy()
+        surv = act & (rem > n_dec)
+        rem_pred = rem.copy()
+        rem_pred[act] = np.maximum(rem_pred[act] - n_dec, 0)
+        req_pred = list(self._req)
+        for s in range(b):
+            if act[s] and not surv[s]:
+                req_pred[s] = -1
+        for _c, _l, comp in links:
+            for s in comp:
+                # A prompt completing this horizon decodes at the boundary
+                # (unless max_new_tokens == 1 retires it at its first token).
+                if self._max_new > 1:
+                    surv[s] = True
+                    rem_pred[s] = self._max_new - 1
+                else:
+                    req_pred[s] = -1
+        n_active_pred = int(surv.sum())
+        chain_pred = -(-int(rem_pred[surv].max()) // per_link) if surv.any() else 0
+        plan = self._plan_horizon_links(n_links, n_active_pred, per_link, chain_pred,
+                                        allow_preempt=False)
+        if plan is None or not plan[0]:
+            return
+        fp = (tuple(req_pred), tuple(int(p.size) for p in self._pending), n_active_pred,
+              chain_pred, int(n_links), int(per_link), int(self.token_budget))
+        self._staged_plan = (fp, plan)
+        self._win["plan_staged"] += 1
 
     def step(self, params=None, draft_params=None) -> list[int]:
         """ONE scheduler iteration: admit queued requests into idle slots,
         then one dispatch: a refill if any slot has pending prompt tokens,
-        else a decode block if any row is active, else nothing. Returns the
-        ids of the requests that finished in this step (their outputs wait
-        in ``pop_finished()``)."""
+        else a decode block if any row is active, else nothing; with
+        ``mixed=True`` the fused links instead. Returns the ids of the
+        requests that finished in this step (their outputs wait in
+        ``pop_finished()``)."""
         if params is None:
             raise TypeError("step() without params: pass the params to serve")
         self._check_draft_args(draft_params)
-        weights = self._cast_params(params)
+        weights, d_weights = self._cast_params(params, draft_params)
         retired: list[int] = []
         with torch.no_grad():
             self._admit()
+            # A dispatch stalls decode when rows were decoding but it
+            # advanced none of them (the split engine's refill).
             had_active = bool(self._active.any())
             t0 = time.perf_counter()
-            if self._refill_dispatch(weights, retired):
+            if self._mixed:
+                kind = self._mixed_dispatch(weights, d_weights, retired)
+            elif self._refill_dispatch(weights, d_weights, retired):
+                kind = "refill"
+            elif self._decode_dispatch(weights, d_weights, retired):
+                kind = "decode"
+            else:
+                kind = False
+            if kind:
                 dt = time.perf_counter() - t0
-                self._win["refill_s"] += dt
-                self._win["refill_n"] += 1
-                if had_active:     # decoding rows sat idle behind this refill
+                self._win[f"{kind}_s"] += dt
+                self._win[f"{kind}_n"] += 1
+                if kind == "refill" and had_active:
                     self._win["stall_s"] += dt
-            elif self._decode_dispatch(weights, retired):
-                self._win["decode_s"] += time.perf_counter() - t0
-                self._win["decode_n"] += 1
         return retired
 
     # --- stats -------------------------------------------------------------
@@ -949,14 +1616,25 @@ class ContinuousEngine:
         out.update(pcts(self._itl, "itl"))
         out.update(pcts([c["e2e"] for c in comp], "e2e"))
         w = self._win
-        busy = w["refill_s"] + w["decode_s"]
+        busy = w["refill_s"] + w["decode_s"] + w["mixed_s"]
         out.update(
-            refill_s=w["refill_s"], decode_s=w["decode_s"],
+            refill_s=w["refill_s"], decode_s=w["decode_s"], mixed_s=w["mixed_s"],
             refill_frac=w["refill_s"] / busy if busy else None,
+            # The share of dispatch time that parked decoding rows behind
+            # another slot's refill: what the mixed engine drives to ~0.
             decode_stall_s=w["stall_s"],
             decode_stall_share=w["stall_s"] / busy if busy else None,
             refill_dispatches=w["refill_n"], decode_dispatches=w["decode_n"],
+            mixed_dispatches=w["mixed_n"],
         )
+        if w["multi_n"]:
+            # The horizon: links fused a dispatch, and how often the staged
+            # plan was taken.
+            out.update(
+                multi_dispatches=w["multi_n"],
+                steps_per_dispatch=w["multi_links"] / w["multi_n"],
+                plan_reuse_rate=w["plan_reused"] / max(1, w["plan_staged"]),
+            )
         if self._paged and self._prefix:
             out["prefix_hit_rate"] = w["prefix_hits"] / w["requests"] if w["requests"] else 0.0
         return out
@@ -970,14 +1648,21 @@ class ContinuousEngine:
                 stats.update(prefix_hits=self._win["prefix_hits"],
                              prefix_pages_reused=self._win["prefix_pages_reused"],
                              prefix_pages_retained=len(self._cached_lru))
+        if self._speculative:
+            stats = stats or {}
+            acc, prop = self._win["spec_acc"], self._win["spec_prop"]
+            stats.update(spec_accepted=acc, spec_proposed=prop,
+                         spec_accept_rate=acc / prop if prop else None)
         self.last_stats = stats
         self.last_latency = self.latency_stats()
 
     def serve(self, params, prompts, rng=None, draft_params=None) -> list:
         """Drain a whole queue: outputs in queue order, requests numbered by
-        queue index. Requires an idle engine; the cache, pool and prefix
-        registry carry over between calls. ``rng`` is accepted for the JAX
-        signature; greedy decoding draws nothing."""
+        queue index (the sampling streams' identity). Requires an idle
+        engine; the cache, pool and prefix registry carry over between calls.
+        ``rng`` (an int seed or two-word key data; ``jax.random.key(0)``'s
+        when None) becomes the engine's key, for this call and for later
+        streaming, as the JAX engine's ``serve`` sets it."""
         self._check_draft_args(draft_params)
         if self.has_work():
             raise RuntimeError(
@@ -989,6 +1674,7 @@ class ContinuousEngine:
         # raise without costing the engine its prefix registry.
         for p in prompts:
             self._validate_prompt(p)
+        self.rng = prng.as_key(0 if rng is None else rng, self._device)
         self.reset_stats()
         # The per-call ids 0..n-1 must not collide with un-popped streaming
         # results: stash them and restore them after.
@@ -998,7 +1684,7 @@ class ContinuousEngine:
             for i, p in enumerate(prompts):
                 self.add_request(p, rid=i)
             while self.has_work():
-                self.step(params)
+                self.step(params, draft_params)
             ok = True
         finally:
             # The stats reflect this call even when it raises.

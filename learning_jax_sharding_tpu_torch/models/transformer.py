@@ -394,14 +394,16 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.tok_embed.weight.device
 
-    def init_cache(self, batch: int) -> DecodeCache:
-        """Zeroed decode caches for ``batch`` rows (decode configs only)."""
+    def init_cache(self, batch: int, block_table: torch.Tensor | None = None) -> DecodeCache:
+        """Zeroed decode caches for ``batch`` rows (decode configs only).
+        Paged: every layer reads one block table, ``block_table`` when given
+        (a draft model's cache pages through its target's table)."""
         cfg = self.config
         if not cfg.decode:
             raise ValueError("init_cache requires a decode config (decode=True)")
         layers: list[KVCache] = []
         for blk in self.blocks:
-            table = layers[0].block_table if layers else None
+            table = layers[0].block_table if layers else block_table
             layers.append(blk.attn.init_cache(batch, self.device, block_table=table))
         return DecodeCache(
             layers=layers,

@@ -325,8 +325,7 @@ def test_construction_errors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(temperature=1.0), dict(mixed=True), dict(token_budget=8), dict(horizon=2),
-    dict(draft_config=CONFIG_TINY), dict(deadline_s=1.0), dict(max_queue=4),
+    dict(deadline_s=1.0), dict(max_queue=4),
     dict(degradation=object()), dict(adapter_pool=object()), dict(comm_compression=True),
     dict(registry=object()), dict(tracer=object()),
 ], ids=lambda kw: next(iter(kw)))
@@ -334,6 +333,35 @@ def test_unported_arguments_raise(kw):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=name):
         ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(horizon=2), "horizon > 1 requires mixed=True"),
+    (dict(horizon=0, mixed=True), "horizon must be >= 1"),
+    (dict(token_budget=8), "token_budget requires mixed=True"),
+    (dict(token_budget=0, mixed=True), "token_budget must be >= 1"),
+    (dict(draft_config=CONFIG_TINY, num_draft=0), "num_draft must be >= 1"),
+    (dict(draft_config=dataclasses.replace(CONFIG_TINY, vocab_size=128)),
+     "target vocab 256 != draft vocab 128"),
+    (dict(draft_dequantize=True), "draft_dequantize requires draft_config"),
+], ids=["horizon_without_mixed", "horizon_0", "budget_without_mixed", "budget_0",
+        "num_draft_0", "draft_vocab", "draft_dequantize_alone"])
+def test_mode_validation_errors(kw, match):
+    """The decoding modes' construction errors, with the JAX engine's words."""
+    with pytest.raises(ValueError, match=match):
+        ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+
+
+@pytest.mark.parametrize("speculative", [False, True], ids=["plain", "speculative"])
+def test_draft_params_must_match_draft_config(speculative):
+    """``draft_params`` without ``draft_config`` raises, and so does a
+    speculative engine served without them, as the JAX engine's do."""
+    kw = dict(draft_config=CONFIG_TINY) if speculative else {}
+    serve = make_continuous_engine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+    match = "pass draft_params" if speculative else "draft_params requires draft_config"
+    with pytest.raises(ValueError, match=match):
+        serve(_params(), [np.ones((2,), np.int32)],
+              draft_params=None if speculative else _params())
 
 
 def test_default_device_is_cuda():
