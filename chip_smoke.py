@@ -70,7 +70,16 @@ train call and the float and int4-fused generates of
 calls (losses, teacher-forced tokens, every rank's launches); and ``[mesh]
 shards``, every shard of a (2, 2) and a (2, 4) layout of the mesh paths'
 main shapes through the kernels, stitched and held to the whole, each
-shard's launch held to the design rule at its shape. Each path's kernel
+shard's launch held to the design rule at its shape. ``[engine] mesh``
+(slice 16): the 125M engine over a one-rank cuda mesh against no mesh
+(the same launches and tokens, the host time a model call added), then
+four thread ranks on a (2, 2) mesh serving split, paged + prefix (cold,
+warm) and self-draft speculative (every rank's tokens and stats equal,
+decode attention once a layer per model call on each rank, warm prefix
+hits, teacher-forced gaps), and decode attention at the shard shapes the
+ranks launched held to its plain version in every design and split, then
+timed.
+Each path's kernel
 launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
 last the JSON ``{"ok": true, "device": ...}``. Every phase raises on
@@ -472,11 +481,12 @@ def check_kernel(gen, *, int8=False):
 
 
 def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, shared,
-               fold=False, window=None, int8=False):
+               fold=False, window=None, int8=False, variants=None):
     """The paged kernel against its plain version, and against the
     contiguous kernel on the same values permuted into pages, through the
-    public call and in every ``decode_variants`` launch → the largest max
-    abs error against the plain version. Row indices are drawn from [lo, hi).
+    public call and in every ``decode_variants`` launch (or each ``(design,
+    splits)`` of ``variants``) → the largest max abs error against the
+    plain version. Row indices are drawn from [lo, hi).
     Rows 0 and 1 share their first ``shared`` pages (a prefix cache); every
     other mapped page is private, in a shuffled order; table entries past a
     row's frontier name the scratch page 0, and unmapped pool pages hold
@@ -536,7 +546,7 @@ def paged_case(name, gen, dtype, *, b, s, n, n_kv, h, page, t_cap, lo, hi, share
     ref = run(decode_attention_reference, ref_pools, block_table=table)
     label = f"paged {name}{' int8' if int8 else ''} {str(dtype)[6:]}"
     errs = {}
-    for design, splits in [(None, None)] + decode_variants(dtype):
+    for design, splits in [(None, None)] + (variants or decode_variants(dtype)):
         vname = variant_name(design, splits)
         variant = dict(design=design, splits=splits)
         bufs = {k: v.clone() for k, v in pools.items()}
@@ -1426,26 +1436,26 @@ def time_designs(args, kw, shape):
                 split_sweep_ms=sweep, plain_ms=plain_ms * 1e3), late + old_late
 
 
-def time_shape(gen, name, *, s, index, card, n=12, h=64, length=1024):
-    """Decode attention at one generate shape (b=8, by default 12 heads,
+def time_shape(gen, name, *, s, index, card, n=12, h=64, length=1024, b=B):
+    """Decode attention at one generate shape (by default b=8 and 12 heads;
     H=64, bf16 1024-slot caches, one index), queued (device time): the
     public call, the first design on the same inputs, the split sweep, the
     plain version, SDPA on the valid prefix (causal for a chunk) and the
     bound (bytes: the valid K/V prefix, q and out)."""
     dtype = torch.bfloat16
-    q = randn(gen, B, s, n, h, dtype=dtype)
-    kc = randn(gen, B, n, length, h, dtype=dtype)
-    vc = randn(gen, B, n, length, h, dtype=dtype)
+    q = randn(gen, b, s, n, h, dtype=dtype)
+    kc = randn(gen, b, n, length, h, dtype=dtype)
+    vc = randn(gen, b, n, length, h, dtype=dtype)
     idx = torch.full((), index, dtype=torch.int32, device="cuda")
-    row, late = time_designs((q, kc, vc, idx), {}, (B, s, n, n, h, length))
+    row, late = time_designs((q, kc, vc, idx), {}, (b, s, n, n, h, length))
     valid = index + s
     qt, kt, vt = q.transpose(1, 2).contiguous(), kc[:, :, :valid], vc[:, :, :valid]
     library_ms, _ = queued_time(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
                                 is_causal=s > 1)
     itemsize = q.element_size()
-    nbytes = 2 * q.numel() * itemsize + 2 * B * n * valid * h * itemsize
+    nbytes = 2 * q.numel() * itemsize + 2 * b * n * valid * h * itemsize
     pairs = s * index + s * (s + 1) // 2        # (query, key) pairs per (b, head)
-    ops = 4 * h * pairs * B * n
+    ops = 4 * h * pairs * b * n
     bound_ms, bound_by = bound(nbytes, ops)
     row.update(bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms * 1e3, bytes=nbytes,
                ops=ops, late_samples=late)
@@ -1641,7 +1651,7 @@ def time_decode_int8(gen, card):
     return rows
 
 
-def time_paged(gen, card):
+def time_paged(gen, card, n=12, shapes=("decode", "prefill")):
     """Decode attention over page pools at the engine's token-step shape
     (b=8, S=1, rows at 544-575, 64-slot pages) and refill shape (S=64 at
     512), bf16, queued (device time): the public call, the first design
@@ -1649,13 +1659,16 @@ def time_paged(gen, card):
     of the same values, the plain paged version, the bound (bytes: each
     row's valid K/V prefix read once, q, out, the index and the table) and
     SDPA on the same bf16 values (each row's valid prefix as a boolean
-    mask) as the yardstick."""
-    n, h, page, t_cap = 12, 64, 64, 16
+    mask) as the yardstick. ``n`` heads (12, or a shard's); ``shapes``: the
+    ones to time."""
+    h, page, t_cap = 64, 64, 16
     length = page * t_cap
     n_pages = 1 + B * t_cap
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, s, lo, hi in (("decode", 1, 544, 576), ("prefill", PAGED_CHUNK, 512, 513)):
+        if name not in shapes:
+            continue
         idx = torch.randint(lo, hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
         q = randn(gen, B, s, n, h, dtype=torch.bfloat16)
         kc, vc = (randn(gen, B, n, length, h, dtype=torch.bfloat16) for _ in range(2))
@@ -3566,6 +3579,277 @@ def run_mesh_threads(card):
     return result
 
 
+# The engine over a mesh (``[engine] mesh``): the first eight requests of
+# engine_prompts() (one wave of the 8 slots), ENGINE_COMMON otherwise; the
+# (2, 2) variants as four thread ranks of this process on the one card,
+# +8 tokens a request in decode blocks of 8: a thread-rank model call
+# takes far longer than a one-rank one (DTensor's dispatch of four ranks in
+# one interpreter), and at ENGINE_COMMON's +32 the phase outgrew its 150 s.
+MESH_ENGINE_REQUESTS = 8
+MESH_ENGINE_SHAPE = (2, 2)
+MESH_ENGINE_NEW = 8
+
+
+def check_mesh_shards(gen):
+    """Decode attention against its plain version at the shard shapes the
+    ``[engine] mesh`` phase launches on its (2, 2) ranks (the 125M's 12
+    heads over ``model``, 6 a shard; H=64, 1024-slot caches): under
+    ``RULES_DP_TP`` (4 rows a shard) the split engine's refill chunk
+    (S=64), its folded token step (S=1, one row's write disabled) and the
+    speculative verify chunk (S = ``MODES_DRAFT`` + 1); under
+    ``RULES_TP_SERVING`` (8 rows) the paged token step (a folded write at
+    544-575, two rows sharing an 8-page prefix) and refill chunk (S=64 at
+    512) over 64-slot pages. Ragged row indices; fp32 and bf16, each through
+    the public call, every ``decode_variants`` launch and the public design
+    at every ``SPLIT_SWEEP`` split, within ``TOL`` → {shape: {dtype: the
+    largest max abs error}}."""
+    rows, heads = B // MESH_ENGINE_SHAPE[0], CONFIG_125M.num_heads // MESH_ENGINE_SHAPE[1]
+    h, length = CONFIG_125M.head_dim, CONFIG_125M.max_seq_len
+    start = ENGINE_SYSTEM + ENGINE_OWN
+    mha = dict(n=heads, n_kv=heads, h=h)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def sweep(b, s):
+            design = public_split(b, s, heads, heads, h, length, dtype)[0]
+            return list(dict.fromkeys(decode_variants(dtype)
+                                      + [(design, sp) for sp in SPLIT_SWEEP]))
+
+        def ragged(lo, hi):
+            return torch.randint(lo, hi, (rows,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        enable = torch.ones(rows, dtype=torch.int32, device="cuda")
+        enable[rows // 2] = 0
+        spec_s = MODES_DRAFT + 1
+        paged = dict(page=ENGINE_PAGE, t_cap=length // ENGINE_PAGE, shared=8, **mha)
+        got = {
+            f"refill chunk ({rows}, {PAGED_CHUNK}, {heads}, {h})": kernel_case(
+                "(2, 2) shard refill chunk", gen, dtype, b=rows, s=PAGED_CHUNK,
+                length=length, index=ragged(0, ENGINE_SYSTEM + 1),
+                variants=sweep(rows, PAGED_CHUNK), **mha),
+            f"folded token step ({rows}, 1, {heads}, {h})": kernel_case(
+                "(2, 2) shard folded token step", gen, dtype, b=rows, s=1, length=length,
+                index=ragged(start, start + 32), fold=True, write_enable=enable,
+                variants=sweep(rows, 1), **mha),
+            f"verify chunk ({rows}, {spec_s}, {heads}, {h})": kernel_case(
+                "(2, 2) shard verify chunk", gen, dtype, b=rows, s=spec_s, length=length,
+                index=ragged(start, length - spec_s), variants=sweep(rows, spec_s), **mha),
+            f"paged token step ({B}, 1, {heads}, {h})": paged_case(
+                "(2, 2) shard token step p64", gen, dtype, b=B, s=1, lo=start, hi=start + 32,
+                fold=True, variants=sweep(B, 1), **paged),
+            f"paged refill chunk ({B}, {PAGED_CHUNK}, {heads}, {h})": paged_case(
+                "(2, 2) shard refill chunk p64", gen, dtype, b=B, s=PAGED_CHUNK,
+                lo=ENGINE_SYSTEM, hi=ENGINE_SYSTEM + 1, variants=sweep(B, PAGED_CHUNK),
+                **paged),
+        }
+        for shape, err in got.items():
+            errs.setdefault(shape, {})[str(dtype)[6:]] = err
+    return errs
+
+
+def run_engine_mesh(gen, card):
+    """``[engine] mesh``: the 125M continuous engine (bf16, blocked, seeded
+    random weights) over a mesh on ``MESH_ENGINE_REQUESTS`` requests of the
+    engine queue. (a) A one-rank cuda mesh under ``RULES_DP_TP`` against
+    ``mesh=None``: the same launches of every kernel and the same tokens;
+    both serves timed interleaved (the host ms a model call the mesh adds)
+    and the mesh serve profiled a model call. (b) Four thread ranks on a
+    (2, 2) mesh: split under ``RULES_DP_TP``, paged + prefix under
+    ``RULES_TP_SERVING`` (cold, then warm), self-draft speculation
+    (``MODES_DRAFT`` proposals, ``MODES_SPEC_ROUNDS`` rounds a block) under
+    ``RULES_DP_TP``, each +``MESH_ENGINE_NEW`` tokens a request. Gates:
+    every rank served the same tokens and stats; each rank launched decode
+    attention once a layer per model call (target and draft), and the
+    kernel's counters (reset before, read after) hold the four ranks'
+    launches; warm prefix hits 8/8; every variant's
+    requests teacher-forced within ``TF_GAP`` of the dense bf16 forward
+    (bf16 sums over a (2, 2) mesh round otherwise than on one device, so
+    tokens are not held bit-equal there). Wall time only: the ranks take
+    turns on one card and one interpreter, so no tensor-parallel speed-up
+    is measured. Then decode attention at the shard shapes held to its
+    plain version (``check_mesh_shards``) and timed."""
+    import torch.distributed as dist
+
+    from learning_jax_sharding_tpu_torch.models import attention as attn_mod
+    from learning_jax_sharding_tpu_torch.parallel import (
+        logical,
+        run_on_threads,
+        single_device_mesh,
+    )
+
+    cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
+    params = Transformer(CONFIG_125M, device="cuda", seed=0).state_dict()
+    prompts = engine_prompts()[:MESH_ENGINE_REQUESTS]
+    out = {"one_rank": {}, "threads": {}}
+
+    # (a) A one-rank mesh against no mesh.
+    mesh = single_device_mesh(device_type="cuda")
+    serves = {"mesh": make_continuous_engine(cfg, mesh, logical.RULES_DP_TP, **ENGINE_COMMON),
+              "one": make_continuous_engine(cfg, **ENGINE_COMMON)}
+    toks, launches, calls = {}, {}, {}
+    for name, serve in serves.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        forwards = serve.engine.model_forwards
+        toks[name] = serve(params, prompts)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        calls[name] = serve.engine.model_forwards - forwards
+    same = [np.array_equal(a, b) for a, b in zip(toks["mesh"], toks["one"])]
+    log(f"[engine] mesh 1x1 split (RULES_DP_TP): {calls['mesh']} model calls (no mesh "
+        f"{calls['one']}), tokens equal to the engine without a mesh in {sum(same)} of "
+        f"{len(same)} requests; launches {({k: v for k, v in launches['mesh'].items() if v})}")
+    if (launches["mesh"] != launches["one"] or calls["mesh"] != calls["one"] or not all(same)
+            or launches["mesh"]["decode_attention"] != cfg.num_layers * calls["mesh"]):
+        raise AssertionError(f"[engine] mesh 1x1: launches {launches}, model calls {calls}, "
+                             f"equal requests {same}")
+    secs = interleaved_seconds({name: functools.partial(serve, params, prompts)
+                                for name, serve in serves.items()})
+    ms = {name: statistics.median(t) * 1e3 / calls[name] for name, t in secs.items()}
+    profile = profile_summary(f"125M engine serve over a one-rank mesh, per model call "
+                              f"({calls['mesh']} a serve)",
+                              functools.partial(serves["mesh"], params, prompts), calls["mesh"],
+                              ms["mesh"])
+    out["one_rank"] = dict(model_calls=calls["mesh"], launches=launches["mesh"],
+                           ms_per_model_call=ms, host_ms_added=ms["mesh"] - ms["one"],
+                           seconds=secs, profile=profile, tokens_equal=sum(same))
+    log(f"[time] [engine] mesh 1x1 split serve (interleaved, medians of 3): mesh "
+        f"{ms['mesh']:.3f} ms a model call, no mesh {ms['one']:.3f}; the mesh adds "
+        f"{ms['mesh'] - ms['one']:.3f} ms of host time a model call on {card}")
+    one_toks = toks["one"]
+    del serves
+    torch.cuda.empty_cache()
+
+    # (b) Four thread ranks on a (2, 2) mesh.
+    new = MESH_ENGINE_NEW
+    common = dict(ENGINE_COMMON, max_new_tokens=new, decode_block_steps=new)
+    paged = dict(paged_pages=ENGINE_PAGES, page_size=ENGINE_PAGE, prefix_cache=True)
+    spec = dict(draft_config=cfg, num_draft=MODES_DRAFT, decode_block_steps=MODES_SPEC_ROUNDS)
+    variants = {"split": ("RULES_DP_TP", {}, 1),
+                "paged+prefix": ("RULES_TP_SERVING", paged, 2),
+                "self-draft spec": ("RULES_DP_TP", spec, 1)}
+    per_rank = [0] * math.prod(MESH_ENGINE_SHAPE)
+    inner = attn_mod.decode_attention
+
+    def counted(*args, **kwargs):
+        # Each rank's own calls of the kernel wrapper (a rank is a thread).
+        per_rank[dist.get_rank()] += 1
+        return inner(*args, **kwargs)
+
+    def body(mesh):
+        results = {}
+        for name, (rules, kw, serves_n) in variants.items():
+            serve = make_continuous_engine(cfg, mesh, getattr(logical, rules), **{**common, **kw})
+            eng = serve.engine
+            for call in range(serves_n):
+                label = name if serves_n == 1 else f"{name} {('cold', 'warm')[call]}"
+                fwd, dfwd = eng.model_forwards, eng.draft_forwards
+                dist.barrier()
+                if dist.get_rank() == 0:
+                    reset_launches()
+                    per_rank[:] = [0] * len(per_rank)
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = serve(params, prompts, draft_params=params if "draft_config" in kw
+                             else None)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                dist.barrier()
+                results[label] = dict(
+                    rules=rules, tokens=[o.tolist() for o in outs], stats=serve.last_stats,
+                    model_calls=eng.model_forwards - fwd, draft_calls=eng.draft_forwards - dfwd,
+                    rank_launches=per_rank[dist.get_rank()], seconds=seconds,
+                    ttft_p50=serve.last_latency["ttft_p50"],
+                    launches=read_launches() if dist.get_rank() == 0 else None)
+                dist.barrier()
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, {k: {f: v[f] for f in ("tokens", "stats", "model_calls",
+                                                             "draft_calls", "rank_launches")}
+                                        for k, v in results.items()})
+        return results, ranks
+
+    attn_mod.decode_attention = counted
+    t0 = time.perf_counter()
+    try:
+        results, ranks = run_on_threads(body, MESH_ENGINE_SHAPE, device_type="cuda")
+    finally:
+        attn_mod.decode_attention = inner
+    wall = time.perf_counter() - t0
+    dense = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                        seed=1).eval()
+    dense.load_state_dict(params)
+    bad = []
+    for label, r in results.items():
+        outs = [np.asarray(t, np.int32) for t in r["tokens"]]
+        gap = engine_gap(dense, outs)
+        ref = [o[:len(p) + new] for o, p in zip(one_toks, prompts)]
+        calls_n = r["model_calls"] + r["draft_calls"]
+        want = cfg.num_layers * calls_n
+        same = sum(np.array_equal(a, b) for a, b in zip(outs, ref))
+        row = dict(tok_s=len(prompts) * new / r["seconds"], seconds=r["seconds"],
+                   ttft_p50=r["ttft_p50"], model_calls=r["model_calls"],
+                   draft_calls=r["draft_calls"], ms_per_model_call=r["seconds"] * 1e3 / calls_n,
+                   teacher_forced_max_gap=gap, stats=r["stats"], launches=r["launches"],
+                   rank_launches=[x[label]["rank_launches"] for x in ranks],
+                   tokens_equal_to_one_device=same)
+        out["threads"][label] = row
+        log(f"[engine] mesh 2x2 {label} ({r['rules']}, {len(ranks)} thread ranks): "
+            f"{row['tok_s']:.1f} generated tok/s, TTFT p50 "
+            f"{row['ttft_p50'] * 1e3:.1f} ms, {r['model_calls']} model calls + "
+            f"{r['draft_calls']} draft calls, {row['ms_per_model_call']:.3f} ms a model call "
+            f"(wall, the ranks taking turns on one card); decode attention a rank "
+            f"{row['rank_launches']} (want {want}), all ranks {r['launches']['decode_attention']} "
+            f"({r['launches']['decode_attention_paged']} paged, "
+            f"{r['launches']['decode_attention_tensor_core']} tensor-core, "
+            f"{r['launches']['decode_attention_split']} split); teacher-forced gap {gap:.4f} "
+            f"(limit {TF_GAP}); tokens equal to the one-device engine's in {same} of "
+            f"{len(outs)} requests; stats {r['stats']} on {card}")
+        if any(x[label] != ranks[0][label] for x in ranks):
+            bad.append(f"{label}: the ranks served different tokens or stats")
+        if any(n != want for n in row["rank_launches"]):
+            bad.append(f"{label}: decode attention a rank {row['rank_launches']}, want {want}")
+        if r["launches"]["decode_attention"] != sum(row["rank_launches"]):
+            bad.append(f"{label}: the kernel counted {r['launches']['decode_attention']} "
+                       f"launches, the ranks {sum(row['rank_launches'])}")
+        if not gap <= TF_GAP:
+            bad.append(f"{label}: teacher-forced gap {gap} > {TF_GAP}")
+        for o, p in zip(outs, prompts):
+            if o.shape != (len(p) + new,) or not np.array_equal(o[: len(p)], p):
+                bad.append(f"{label}: an output is not its prompt + {new} tokens")
+    warm = out["threads"]["paged+prefix warm"]["stats"]
+    if warm["prefix_hits"] != len(prompts):
+        bad.append(f"paged+prefix warm: prefix hits {warm['prefix_hits']}, want {len(prompts)}")
+    del dense
+    torch.cuda.empty_cache()
+    log(f"[engine] mesh 2x2: {wall:.1f} s wall for the {len(results)} serves on {card}")
+    if bad:
+        raise AssertionError(f"[engine] mesh: {'; '.join(bad)}")
+
+    # The shard shapes this phase launched, held to the plain version, then
+    # timed.
+    checks = check_mesh_shards(gen)
+    log(f"[engine] mesh shard shapes: decode attention within {TOL[torch.float32]:g} (fp32) "
+        f"and {TOL[torch.bfloat16]:g} (bf16) of its plain version in every launch; max abs err "
+        + "; ".join(f"{shape} {e}" for shape, e in checks.items()))
+    shard = MESH_ENGINE_SHAPE
+    b_shard, n_shard = B // shard[0], CONFIG_125M.num_heads // shard[1]
+    out["shard_shapes"] = {
+        f"refill chunk ({b_shard}, {PAGED_CHUNK}, {n_shard}, 64)": time_shape(
+            gen, "(2, 2) shard refill chunk", s=PAGED_CHUNK, index=ENGINE_SYSTEM, card=card,
+            n=n_shard, b=b_shard),
+        f"verify chunk ({b_shard}, {MODES_DRAFT + 1}, {n_shard}, 64)": time_shape(
+            gen, "(2, 2) shard verify chunk", s=MODES_DRAFT + 1, index=VERIFY_INDEX, card=card,
+            n=n_shard, b=b_shard),
+        f"paged token step ({B}, 1, {n_shard}, 64)": time_paged(
+            gen, card, n=n_shard, shapes=("decode",))["decode"],
+    }
+    for shape, row in out["shard_shapes"].items():
+        row["max_abs_err"] = checks[shape]
+    out["shard_checks"] = checks
+    out["wall_s"] = wall
+    return out
+
+
 def _shards(layout):
     """The (data, model) coordinates of a layout, rank order."""
     return [(i, j) for i in range(layout[0]) for j in range(layout[1])]
@@ -3964,6 +4248,9 @@ def main() -> int:
     mesh_threads = run_mesh_threads(card)
     torch.cuda.empty_cache()
     mark("[mesh] 2x2 on one card")
+    engine_mesh = run_engine_mesh(gen, card)
+    torch.cuda.empty_cache()
+    mark("[engine] mesh")
     mesh_shards = run_mesh_shards(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] shards")
@@ -4014,6 +4301,9 @@ def main() -> int:
         engine_modes=dict(verify=modes["verify"], launches={
             name: dict(total=r["decode_attention"], paged=r["decode_attention_paged"],
                        by_shape_and_design=r["designs"]) for name, r in modes["runs"].items()}),
+        # The engine over a mesh: the shard shapes its (2, 2) ranks launch,
+        # each timed in its public design and split.
+        mesh_shard_shapes=engine_mesh["shard_shapes"],
     )]
     # The paged mode: its checks over every PAGED_CASES shape, its launches in
     # the warm paged + prefix serve, its queued time at the engine's decode
@@ -4193,7 +4483,10 @@ def main() -> int:
     mesh_runs = {"1x1 train (8-step call)": mesh_1x1["train"]["launches"],
                  **{f"1x1 generate {k}": v["launches"]
                     for k, v in mesh_1x1["generate"].items()},
-                 "2x2 train + generates (4 ranks)": mesh_threads["launches"]}
+                 "2x2 train + generates (4 ranks)": mesh_threads["launches"],
+                 "engine 1x1 split": engine_mesh["one_rank"]["launches"],
+                 **{f"engine 2x2 {k} (4 ranks)": v["launches"]
+                    for k, v in engine_mesh["threads"].items()}}
     for entry in entries:
         keys = {"fused_norm_fwd": ("fused_norm_fwd", "fused_norm_fwd_nostats")}.get(
             entry["name"], (entry["name"],))
@@ -4219,6 +4512,7 @@ def main() -> int:
                       "flash_ceiling": probe_paths["flash_ceiling"],
                       "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b,
                       "mesh_1x1": mesh_1x1, "mesh_threads": mesh_threads,
+                      "engine_mesh": engine_mesh,
                       "mesh_shards": mesh_shards}, default=str))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))

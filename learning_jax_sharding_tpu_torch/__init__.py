@@ -23,19 +23,20 @@ CUDA kernel under ``csrc/``:
 * int8 KV caches (``TransformerConfig(kv_cache_dtype=torch.int8)``): decode
   attention's int8 mode, with per-(token, head) scales;
 * the continuous-batching engine (``models/serving.py``:
-  ``ContinuousEngine``, ``make_continuous_engine``) with greedy decoding,
-  and its paged KV cache and prefix cache: decode attention's paged mode,
-  the block table read by the same kernel.
+  ``ContinuousEngine``, ``make_continuous_engine``): greedy and keyed
+  sampled decoding, speculative decoding, the mixed scheduler and the
+  multi-step horizon, its paged KV cache and prefix cache (decode
+  attention's paged mode, the block table read by the same kernel).
 
 Over a mesh (``parallel/``: ``DeviceMesh`` and DTensor placements by the
-JAX package's logical-axis rules; the collective matmuls): the train step
-and tensor-parallel generate, every kernel on its rank's shard, and the
-sharding lessons' cases (``cases/``).
+JAX package's logical-axis rules; the collective matmuls): the train step,
+tensor-parallel generate (rectangular, ragged and speculative) and the
+continuous engine in every mode above, every kernel on its rank's shard,
+and the sharding lessons' cases (``cases/``, case 17 the engine).
 
 Not ported yet: MoE, ``scan_layers``, ``remat``, the hybrid mesh, ZeRO-1,
-and the engine over a mesh, its sampling, mixed and multi-step
-schedulers, speculative decoding, recovery policies, fleet handoff and
-tenancy (each raises ``NotImplementedError``).
+the engine's recovery policies, weight swaps and page spills, telemetry
+objects, fleet handoff and tenancy (each raises ``NotImplementedError``).
 """
 
 import torch

@@ -37,6 +37,7 @@ only the valid prefix it reads.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -50,7 +51,10 @@ from learning_jax_sharding_tpu_torch.ops.attention import (
     dot_product_attention,
     sliding_window_mask,
 )
-from learning_jax_sharding_tpu_torch.ops.decode_attention import decode_attention
+from learning_jax_sharding_tpu_torch.ops.decode_attention import (
+    check_paged_batch,
+    decode_attention,
+)
 from learning_jax_sharding_tpu_torch.ops.int4_matmul import int4_matmul3
 from learning_jax_sharding_tpu_torch.ops.rope import apply_rope
 from learning_jax_sharding_tpu_torch.parallel.logical import (
@@ -66,6 +70,7 @@ from learning_jax_sharding_tpu_torch.parallel.logical import (
     on_whole_shards,
     whole_call,
 )
+from learning_jax_sharding_tpu_torch.parallel.sharding import local_rows
 
 
 def _local(t):
@@ -393,30 +398,28 @@ class MultiHeadAttention(nn.Module):
         store = self.kv_cache_dtype if self.kv_cache_dtype is not None else self.dtype
         n_kv, h, length = self.kv_heads, self.head_dim, self.max_decode_len
         blocked = resolve_decode_backend(self.decode_attention, device) == "blocked"
+        mesh, rules = active_mesh()
         if self.decode_paged:
             page = self._check_paged(blocked)
             if block_table is None:
                 block_table = torch.zeros(
                     (batch, length // page), dtype=torch.int32, device=device
                 )
-            return KVCache.create(
-                (self.decode_page_count, n_kv, page, h), store, ragged=True,
-                device=device, batch=batch, block_table=block_table,
-            )
-        shape = (batch, n_kv, length, h) if blocked else (batch, length, n_kv, h)
-        mesh, rules = active_mesh()
+            shape, axes = (self.decode_page_count, n_kv, page, h), (None, HEADS, None, KV)
+        elif blocked:
+            shape, axes = (batch, n_kv, length, h), (BATCH, HEADS, None, KV)
+        else:
+            shape, axes = (batch, length, n_kv, h), (BATCH, None, HEADS, KV)
+        ragged = self.decode_ragged
         if mesh is None:
-            return KVCache.create(shape, store, ragged=self.decode_ragged, device=device)
-        # Over a mesh each rank holds its (batch, heads) shard of the
-        # buffers, as the JAX module constrains them (``kv_axes``).
-        if self.decode_ragged:
-            raise NotImplementedError(
-                "ragged decode over a mesh: ported with the engine over a mesh (item 10)"
-            )
-        axes = (BATCH, HEADS, None, KV) if blocked else (BATCH, None, HEADS, KV)
+            return KVCache.create(shape, store, ragged=ragged, device=device, batch=batch,
+                                  block_table=block_table)
+        # Over a mesh each rank holds its shard of the buffers, as the JAX
+        # module constrains them (``kv_axes``; page pools over heads only).
+        # The per-row index and the block table stay whole on every rank.
         placements = logical_placements(mesh, rules, axes)
-        local = KVCache.create(_local_shape(shape, mesh, placements), store, ragged=False,
-                               device=device)
+        local = KVCache.create(_local_shape(shape, mesh, placements), store, ragged=ragged,
+                               device=device, batch=batch, block_table=block_table)
         wrap = lambda t, pl: DTensor.from_local(  # noqa: E731
             t, mesh, pl, run_check=False,
             shape=torch.Size(shape[:t.ndim]), stride=_contiguous_stride(shape[:t.ndim]))
@@ -574,12 +577,13 @@ class MultiHeadAttention(nn.Module):
             return self._blocked_cached_attention(q, k, v, cache, chunk_lengths)
         return self._dense_cached_attention(q, k, v, cache, chunk_lengths)
 
-    def _dense_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+    def _dense_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths, idx=None):
         """Write the chunk into the ``(B, L, N_kv, H)`` buffers, then attend
-        the whole buffer under a mask."""
+        the whole buffer under a mask. ``idx``: the write position, where the
+        caller has advanced the index itself (a mesh shard's rows)."""
         _, s, n, _ = q.shape
         length = cache.key.shape[1]
-        idx = self._advance(cache, s, chunk_lengths)
+        idx = self._advance(cache, s, chunk_lengths) if idx is None else idx
         for buf, sc_buf, chunk in ((cache.key, cache.key_scale, k),
                                    (cache.value, cache.value_scale, v)):
             chunk, sc = self._store(chunk, buf.dtype)
@@ -616,26 +620,36 @@ class MultiHeadAttention(nn.Module):
         (``ops.decode_attention.make_decode_attn_fn`` is the same per-shard
         call for a caller holding DTensors)."""
         if self.decode_paged:
-            raise NotImplementedError(
-                "paged decode over a mesh: ported with the engine over a mesh (item 10)"
-            )
+            check_paged_batch(mesh, rules)
         spec = (BATCH, None, HEADS, KV)
         placements = logical_placements(mesh, rules, spec)
         q, k, v = (constrain(t, *spec) for t in (q, k, v))
         local = dataclasses.replace(
             cache, **{f: _local(getattr(cache, f))
                       for f in ("key", "value", "key_scale", "value_scale")})
+        idx = None
+        if self.decode_ragged:
+            # The per-row counters, the chunk lengths and the block table
+            # stay whole on every rank (the host resets and rolls them back
+            # alike on each): advance the whole index here, and hand the
+            # shard's attention its batch rows of each.
+            rows = functools.partial(local_rows, mesh=mesh, placements=placements)
+            idx = rows(self._advance(cache, q.shape[1], chunk_lengths))
+            local = dataclasses.replace(
+                local, block_table=None if cache.block_table is None else rows(cache.block_table))
+            chunk_lengths = None if chunk_lengths is None else rows(chunk_lengths)
         attend = self._blocked_cached_attention if blocked else self._dense_cached_attention
-        out = attend(q.to_local(), k.to_local(), v.to_local(), local, chunk_lengths)
+        out = attend(q.to_local(), k.to_local(), v.to_local(), local, chunk_lengths, idx=idx)
         return DTensor.from_local(out.contiguous(), mesh, placements, run_check=False,
                                   shape=q.shape, stride=_contiguous_stride(q.shape))
 
-    def _blocked_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths):
+    def _blocked_cached_attention(self, q, k, v, cache: KVCache, chunk_lengths, idx=None):
         """The length-aware kernel over the ``(B, N_kv, L, H)`` cache (or the
         page pools through the block table). Ragged single-token steps fold
-        the write into the kernel; other chunks are written first."""
+        the write into the kernel; other chunks are written first. ``idx`` as
+        in ``_dense_cached_attention``."""
         s = q.shape[1]
-        idx = self._advance(cache, s, chunk_lengths)
+        idx = self._advance(cache, s, chunk_lengths) if idx is None else idx
 
         def seq_major(chunk):                       # (B, N_kv, S, H), (B, N_kv, S)
             chunk, sc = self._store(chunk, cache.key.dtype)

@@ -9,7 +9,9 @@ Port of ``learning_jax_sharding_tpu/models/decoding.py``:
   ``inference_dtype``, leaving quantized nodes as they are;
 * :func:`make_cached_apply` — the model call every decoder loops over,
   optionally dequantizing an int8/int4 state dict inside each call;
-* :func:`check_sequence_budget` — the prompt + new vs ``max_seq_len`` guard.
+* :func:`check_sequence_budget` — the prompt + new vs ``max_seq_len`` guard;
+* :func:`whole_logits` — a model call's logits whole on every rank of a
+  mesh, at each row's picked position.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 from typing import Callable, Mapping
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from learning_jax_sharding_tpu_torch.models.quantize import dequantize_tree, map_unquantized
 from learning_jax_sharding_tpu_torch.models.transformer import (
@@ -25,6 +28,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.parallel.sharding import local_rows
 
 
 def derive_decode_config(
@@ -129,3 +133,36 @@ def check_sequence_budget(needed: int, max_seq_len: int, what: str) -> None:
     """Raise if a decode plan would write past the KV caches."""
     if needed > max_seq_len:
         raise ValueError(f"{what} ({needed}) exceeds max_seq_len ({max_seq_len})")
+
+
+def whole_logits(logits: torch.Tensor, pos: torch.Tensor | None = None) -> torch.Tensor:
+    """``(B, S, V)`` logits as one plain tensor, or with ``pos`` (``(B,)``
+    positions) each row's ``(B, V)`` logits at its position.
+
+    Over a mesh (a DTensor: the vocabulary split over ``model``, the batch
+    perhaps over ``data``) each rank first takes its own rows' positions
+    from its shard, then the picked rows are gathered whole on every rank.
+    The samplers run on whole rows: of the two ways to keep JAX's tokens
+    over vocab-sharded logits this takes the gather before the pick (not a
+    draw on each vocab shard from the partitionable threefry counter offset
+    by the shard's first column), so every rank draws the same token from
+    the same key, bit-equal to one device."""
+    if not isinstance(logits, DTensor):
+        if pos is None:
+            return logits
+        return logits[torch.arange(logits.shape[0], device=logits.device), pos.long()]
+    if pos is None:
+        return logits.full_tensor()
+    mesh = logits.device_mesh
+    # Partial sums reduced and a split sequence gathered: each rank holds
+    # every position of its rows.
+    pl = tuple(Replicate() if isinstance(p, Partial) or (isinstance(p, Shard) and p.dim == 1)
+               else p for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    local = logits.to_local()
+    rows = local_rows(pos, mesh, pl).long()
+    picked = local[torch.arange(local.shape[0], device=local.device), rows]
+    b, _, v = logits.shape
+    out_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in pl]
+    return DTensor.from_local(picked.contiguous(), mesh, out_pl, run_check=False,
+                              shape=torch.Size((b, v)), stride=(v, 1)).full_tensor()

@@ -28,6 +28,7 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     derive_decode_config,
     make_cached_apply,
     make_param_caster,
+    whole_logits,
 )
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.quantize import dequantize_tree
@@ -198,7 +199,8 @@ def make_generate_fn(
     are gathered whole, so every rank picks the same tokens and returns the
     whole result. The mesh's device is the default ``device``. Over a mesh ``dequantize=True``
     dequantizes the state dict once a call (the same weights a model call
-    would see); ``ragged`` runs with the engine over a mesh (item 10).
+    would see). Ragged over a mesh keeps the per-row lengths and cache
+    counters whole on every rank; each rank's attention takes its rows.
     """
     if ragged and prefill_chunk_size is not None:
         raise ValueError(
@@ -210,10 +212,6 @@ def make_generate_fn(
     if mesh is not None:
         if rules is None:
             raise ValueError("rules are required when a mesh is given")
-        if ragged:
-            raise NotImplementedError(
-                "ragged generate over a mesh: ported with the engine over a mesh (item 10)"
-            )
         device = mesh.device_type if device is None else device
     device = resolve_device(device)
     cfg = derive_decode_config(config, inference_dtype)
@@ -278,7 +276,7 @@ def make_generate_fn(
             # now and overwritten as the row generates; the first logits come
             # from each row's own last valid position.
             logits_all, cache = apply(None, prompt, lengths)
-            logits = logits_all[rows, lengths.long() - 1]
+            logits = whole_logits(logits_all, lengths - 1)
         else:
             chunk = prefill_chunk_size or prompt_len
             cache = None

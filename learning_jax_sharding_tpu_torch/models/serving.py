@@ -1,7 +1,8 @@
 """Continuous batching: a persistent engine serving requests over time.
 
-Port of ``learning_jax_sharding_tpu/models/serving.py`` on one device:
-:class:`ContinuousEngine` and :func:`make_continuous_engine` with greedy or
+Port of ``learning_jax_sharding_tpu/models/serving.py``, on one device or
+over a mesh: :class:`ContinuousEngine` and :func:`make_continuous_engine`
+with greedy or
 keyed sampled decoding, speculative decoding, the split and the mixed
 refill+decode schedulers, the multi-step horizon, the paged KV cache and
 the prefix cache. The names, arguments, errors and bookkeeping follow the
@@ -63,6 +64,15 @@ table) and the sampling draws; everything else here is host bookkeeping.
 Host arrays reach the card through pinned buffers without blocking, so a
 chain of dispatches queues back to back.
 
+Over a mesh (``mesh``/``rules``, the JAX engine's signature) every rank runs
+the same engine: the weights lie over the mesh by their logical axes, each
+rank holds its shard of the KV caches (page pools over heads only), and the
+model calls run every kernel on each rank's shards. Each call's logits come
+back whole on every rank (``models/decoding.py::whole_logits``); the
+per-row counters and the block table stay whole on every rank. So every
+tensor the host reads is whole and equal on every rank, and so is every
+host decision; see :class:`ContinuousEngine`.
+
 Not ported yet, each raising ``NotImplementedError`` naming what brings it:
 the recovery policies, multi-LoRA adapters, communication compression and
 the telemetry objects (registry, tracer, SLO monitor, flight recorder).
@@ -71,7 +81,9 @@ the telemetry objects (registry, tracer, SLO monitor, flight recorder).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any
@@ -90,8 +102,11 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     derive_decode_config,
     make_cached_apply,
     make_param_caster,
+    whole_logits,
 )
+from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
+from learning_jax_sharding_tpu_torch.models.quantize import dequantize_tree
 from learning_jax_sharding_tpu_torch.models.speculative import (
     _greedy as greedy_pick,
     _rollback,
@@ -104,6 +119,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.parallel.logical import activate
 from learning_jax_sharding_tpu_torch.utils import prng
 
 
@@ -155,6 +171,9 @@ class _Request:
     prompt: np.ndarray
     arrival_t: float
     admit_t: float | None = None
+    seq: int = 0                          # add order: the refill queue's last tie-break
+    order_t: float = 0.0                  # the refill queue's arrival stamp (add_request)
+    admit_pass: int | None = None         # the admission pass that first took it
     first_token_t: float | None = None
     finish_t: float | None = None
     tokens: np.ndarray | None = None      # final [prompt, generated...]
@@ -169,7 +188,7 @@ _WINDOW = ("requests", "preemptions", "prefix_hits", "prefix_pages_reused",
 
 
 class ContinuousEngine:
-    """A persistent continuous-batching engine on one device.
+    """A persistent continuous-batching engine, on one device or over a mesh.
 
     Construction builds the decode model(s) and validates the
     configuration; the engine then serves any number of workloads, one-shot
@@ -212,6 +231,19 @@ class ContinuousEngine:
     ``horizon`` (public, read at each dispatch; > 1 requires ``mixed``) is
     the links one dispatch plans and runs.
 
+    ``mesh``/``rules``: the engine over a ``DeviceMesh`` (SPMD: every rank
+    constructs the same engine and makes the same calls, ``serve`` or
+    ``add_request``/``step``, with the same arguments). Each rank's host
+    loop decides admission, refill chunks, chains, horizon plans, page
+    allocation, prefix hashing, retirement and preemption from values equal
+    on every rank only: the whole logits every model call hands back, the
+    whole per-row counters, and counters of its own (the refill queue orders
+    by admission pass, the caller's ``arrival_t`` and add order, never by a
+    clock). So every rank serves
+    the same tokens and ``last_stats``, and issues the same collectives in
+    the same order. Paged serving under rules that split the batch raises
+    ``ValueError`` (any row may read any page), as the JAX engine does.
+
     ``model_forwards`` counts the target model calls the engine issued and
     ``draft_forwards`` the draft's, each a launch of decode attention per
     layer on the blocked backend.
@@ -231,6 +263,8 @@ class ContinuousEngine:
     def __init__(
         self,
         config: TransformerConfig,
+        mesh=None,
+        rules=None,
         *,
         batch_size: int,
         max_new_tokens: int,
@@ -316,6 +350,10 @@ class ContinuousEngine:
             raise ValueError("draft_dequantize requires draft_config")
         if vocab_limit is not None and vocab_limit < 1:
             raise ValueError(f"vocab_limit must be >= 1, got {vocab_limit}")
+        if mesh is not None:
+            if rules is None:
+                raise ValueError("rules are required when a mesh is given")
+            device = mesh.device_type if device is None else device
         device = resolve_device(device)
         paged = paged_pages is not None
         if prefix_cache and not paged:
@@ -348,12 +386,15 @@ class ContinuousEngine:
             check_paged("target", config)
         cfg = dataclasses.replace(derive_decode_config(config, inference_dtype),
                                   decode_ragged=True)
-        cfg, fused = apply_dequantize_policy(cfg, dequantize)
+        cfg, fused = apply_dequantize_policy(cfg, dequantize, mesh, rules)
         if paged:
             cfg = pagedify(cfg)
+        self._mesh, self._rules = mesh, rules
         self._model = Transformer(cfg, device=device).eval()
-        self._in_apply = bool(dequantize) and not fused
-        self._apply = make_cached_apply(self._model, dequantize=self._in_apply,
+        # A non-fused dequantize mode dequantizes inside each model call on
+        # one device, and once a cast over a mesh (``_load``).
+        self._dequant = bool(dequantize) and not fused
+        self._apply = make_cached_apply(self._model, dequantize=self._dequant and mesh is None,
                                         dequant_dtype=cfg.param_dtype)
         self._maybe_cast = make_param_caster(inference_dtype, device,
                                              dequantize=bool(dequantize))
@@ -371,11 +412,12 @@ class ContinuousEngine:
                                         decode_ragged=True)
             if paged:
                 d_cfg = pagedify(d_cfg)
-            # A quantized draft is dequantized inside each draft call (the
-            # non-fused policy: a draft is small).
+            # A quantized draft is dequantized inside each draft call (once a
+            # cast over a mesh): the non-fused policy, as a draft is small.
             self._d_model = Transformer(d_cfg, device=device).eval()
-            self._d_in_apply = bool(draft_dequantize)
-            self._d_apply = make_cached_apply(self._d_model, dequantize=self._d_in_apply,
+            self._d_dequant = bool(draft_dequantize)
+            self._d_apply = make_cached_apply(self._d_model,
+                                              dequantize=self._d_dequant and mesh is None,
                                               dequant_dtype=d_cfg.param_dtype)
             self._d_cast = make_param_caster(inference_dtype, device,
                                              dequantize=bool(draft_dequantize))
@@ -417,6 +459,8 @@ class ContinuousEngine:
         self._queue: deque[_Request] = deque()
         self._finished: dict[int, _Request] = {}
         self._next_rid = 0
+        self._n_added = 0                      # add_request calls: each request's seq
+        self._n_admits = 0                     # admission passes
         self._cast_src: tuple | None = None
         self._cast_key: list | None = None
         self._cast_out: tuple | None = None
@@ -668,19 +712,31 @@ class ContinuousEngine:
         if (self._cast_src is not None and self._cast_src[0] is params
                 and self._cast_src[1] is draft_params and _same_tensors(key, self._cast_key)):
             return self._cast_out
-        weights = self._maybe_cast(params)
-        if not self._in_apply:
-            self._model.load_state_dict(weights)
-            weights = None
+        weights = self._load(self._model, self._maybe_cast(params), self._dequant, self._cfg)
         d_weights = None
         if draft_params is not None:
-            d_weights = self._d_cast(draft_params)
-            if not self._d_in_apply:
-                self._d_model.load_state_dict(d_weights)
-                d_weights = None
+            d_weights = self._load(self._d_model, self._d_cast(draft_params), self._d_dequant,
+                                   self._d_cfg)
         self._cast_src, self._cast_key = (params, draft_params), key
         self._cast_out = (weights, d_weights)
         return self._cast_out
+
+    def _load(self, model, weights, dequant, cfg):
+        """Load cast ``weights`` into ``model`` → None. A tree of a non-fused
+        dequantize mode (``dequant``) is, on one device, not loaded but
+        returned: the tree every model call takes and dequantizes; over a
+        mesh it is dequantized once here, so the mesh engine holds the
+        full-precision weights. Over a mesh the weights are laid out by their
+        logical axes."""
+        if self._mesh is None:
+            if dequant:
+                return weights
+            model.load_state_dict(weights)
+        else:
+            if dequant:
+                weights = dequantize_tree(weights, cfg.param_dtype)
+            shard_params(model, self._mesh, self._rules, weights)
+        return None
 
     def add_request(self, prompt, *, rid: int | None = None, arrival_t: float | None = None,
                     deadline_s: float | None = None, adapter: str | None = None,
@@ -688,7 +744,11 @@ class ContinuousEngine:
         """Enqueue one request and return its id, the key ``pop_finished()``
         reports it under; admission happens in a later ``step()``.
         ``arrival_t`` (a ``time.perf_counter`` stamp) keeps an earlier
-        arrival clock for the latency telemetry."""
+        arrival clock for the latency telemetry, and places the request in
+        the refill queue among those of its admission pass, as in the JAX
+        engine. Unstamped, it is placed by the clock at this call on one
+        device; over a mesh, where the clock differs by rank, after every
+        stamped request of its pass, in add order."""
         for name, value, where in (("deadline_s", deadline_s, "the recovery policies"),
                                    ("adapter", adapter, "tenancy (swaps and adapters)"),
                                    ("tenant", tenant, "slice E (telemetry)")):
@@ -707,8 +767,10 @@ class ContinuousEngine:
                 raise ValueError(f"request id {rid} already in use")
             self._next_rid = max(self._next_rid, rid + 1)
         now = time.perf_counter()
-        self._queue.append(_Request(rid=rid, prompt=p,
+        order_t = arrival_t if arrival_t is not None else now if self._mesh is None else math.inf
+        self._queue.append(_Request(rid=rid, prompt=p, seq=self._n_added, order_t=order_t,
                                     arrival_t=now if arrival_t is None else arrival_t))
+        self._n_added += 1
         self._win["requests"] += 1
         return rid
 
@@ -820,6 +882,7 @@ class ContinuousEngine:
 
     def _admit(self):
         now = time.perf_counter()
+        self._n_admits += 1
         for slot in range(self._b):
             if self._req[slot] >= 0 or not self._queue:
                 continue
@@ -828,7 +891,7 @@ class ContinuousEngine:
             # its prefix hit once.
             first_admission = r.admit_t is None
             if first_admission:
-                r.admit_t = now
+                r.admit_t, r.admit_pass = now, self._n_admits
             prompt = r.prompt
             self._slot_req[slot] = r
             self._req[slot] = r.rid
@@ -867,25 +930,38 @@ class ContinuousEngine:
 
     # --- device programs ---------------------------------------------------
 
+    def _scope(self):
+        """The mesh and rules around model work (nothing on one device)."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return activate(self._mesh, self._rules)
+
     def _ensure_cache(self):
         if self._cache is None:
-            self._cache = self._model.init_cache(self._b)
-            if self._speculative:
-                self._d_cache = self._d_model.init_cache(self._b,
-                                                         block_table=self._cache.block_table)
+            with self._scope():
+                self._cache = self._model.init_cache(self._b)
+                if self._speculative:
+                    self._d_cache = self._d_model.init_cache(
+                        self._b, block_table=self._cache.block_table)
             self.cache_creations += 1
 
-    def _forward(self, weights, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """One target model call over the engine's cache → fp32 logits."""
-        logits, _ = self._apply(self._cache, tokens, lengths, params=weights)
+    def _forward(self, weights, tokens: torch.Tensor, lengths: torch.Tensor,
+                 pick: torch.Tensor | None = None) -> torch.Tensor:
+        """One target model call over the engine's cache → fp32 logits, whole
+        on every rank: ``(B, S, V)``, or each row's ``(B, V)`` at ``pick``."""
+        with self._scope():
+            logits, _ = self._apply(self._cache, tokens, lengths, params=weights)
         self.model_forwards += 1
-        return logits
+        return whole_logits(logits, pick)
 
-    def _d_forward(self, d_weights, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """One draft model call over the draft's cache → fp32 logits."""
-        logits, _ = self._d_apply(self._d_cache, tokens, lengths, params=d_weights)
+    def _d_forward(self, d_weights, tokens: torch.Tensor, lengths: torch.Tensor, *,
+                   read: bool = True) -> torch.Tensor | None:
+        """One draft model call over the draft's cache → its fp32 logits
+        whole (``read=False``: a feed whose logits nobody reads → None)."""
+        with self._scope():
+            logits, _ = self._d_apply(self._d_cache, tokens, lengths, params=d_weights)
         self.draft_forwards += 1
-        return logits
+        return whole_logits(logits) if read else None
 
     def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
         return greedy_pick(logits, self._vocab_limit)
@@ -915,10 +991,10 @@ class ContinuousEngine:
         return prng.categorical(self._row_keys(rid, pos),
                                 self._to_flogits(logits)).to(torch.int32)
 
-    def _pick(self, logits: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """Each row's logits at its chunk's last valid position."""
-        rows = torch.arange(self._b, device=self._device)
-        return logits[rows, (lengths.long() - 1).clamp(min=0)]
+    @staticmethod
+    def _last(lengths: torch.Tensor) -> torch.Tensor:
+        """Each row's chunk's last valid position (0 for an empty row)."""
+        return (lengths.long() - 1).clamp(min=0)
 
     def _reset(self, reset: torch.Tensor, reset_to: torch.Tensor):
         _reset_rows(self._cache, reset, reset_to)
@@ -934,10 +1010,10 @@ class ContinuousEngine:
         lengths = self._to_device(lengths)
         self._reset(self._to_device(reset), self._to_device(reset_to))
         chunk = self._to_device(chunk)
-        logits = self._forward(weights, chunk, lengths)
+        logits = self._forward(weights, chunk, lengths, self._last(lengths))
         if self._speculative:
-            self._d_forward(d_weights, chunk, lengths)
-        return self._sample_rows(self._pick(logits, lengths), rid, torch.zeros_like(rid))
+            self._d_forward(d_weights, chunk, lengths, read=False)
+        return self._sample_rows(logits, rid, torch.zeros_like(rid))
 
     def _decode_block(self, weights, tok, active, remaining, rid):
         """``decode_block_steps`` steps, on the device with no host sync. Rows
@@ -984,7 +1060,7 @@ class ContinuousEngine:
             drafts.append(prev)
         drafts = torch.stack(drafts, dim=1)
         # One more feed puts the last proposal's K/V in the draft cache.
-        self._d_forward(d_weights, prev[:, None], active)
+        self._d_forward(d_weights, prev[:, None], active, read=False)
         # 2. One chunked target verify.
         chunk = torch.cat([tok[:, None], drafts], dim=1)
         t_logits = self._forward(weights, chunk, active * width)
@@ -1066,11 +1142,11 @@ class ContinuousEngine:
         dec = active == 1                    # decoding rows hold no pending tokens
         eff_len = torch.where(dec, 1, lengths).to(torch.int32)
         chunk[:, 0] = torch.where(dec, tok, chunk[:, 0])
-        logits = self._forward(weights, chunk, eff_len)
+        logits = self._forward(weights, chunk, eff_len, self._last(eff_len))
         # Refill rows draw their stream's position 0, decode rows their
         # current generated position: the split engine's keys.
         pos = torch.where(dec, self._max_new - remaining, 0)
-        nxt = self._sample_rows(self._pick(logits, eff_len), rid, pos)
+        nxt = self._sample_rows(logits, rid, pos)
         tok = torch.where(dec, nxt, tok)
         remaining = remaining - dec.to(torch.int32)
         if self._eos is not None:
@@ -1088,9 +1164,9 @@ class ContinuousEngine:
         remaining)``."""
         if reset is not None:
             self._reset(reset, reset_to)
-        logits = self._forward(weights, chunk, lengths)
-        self._d_forward(d_weights, chunk, lengths)
-        first_tok = self._sample_rows(self._pick(logits, lengths), rid, torch.zeros_like(rid))
+        logits = self._forward(weights, chunk, lengths, self._last(lengths))
+        self._d_forward(d_weights, chunk, lengths, read=False)
+        first_tok = self._sample_rows(logits, rid, torch.zeros_like(rid))
         carry = self._spec_carry(tok, active, pos + lengths, remaining, self._num_draft + 1)
         tok, active, pos, remaining, count, buffer, acc, prop = self._spec_round(
             weights, d_weights, carry, rid)
@@ -1416,7 +1492,10 @@ class ContinuousEngine:
         decode cap ``chain_dec`` reaches it. → ``(links, offs)``, each link
         ``(chunk, lengths, completes)``, or None when ``allow_preempt=False``
         (the in-flight planner) and the pool cannot cover the plan:
-        preemption is a boundary decision."""
+        preemption is a boundary decision. Admission order is the admission
+        pass (the JAX engine's admission stamp, a counter equal on every
+        rank of a mesh), then the arrival stamp ``add_request`` set, then the
+        add order."""
         b = self._b
         offs = [0] * b
         links = []
@@ -1426,8 +1505,8 @@ class ContinuousEngine:
             chunk = np.zeros((b, self._refill_chunk), np.int32)
             completes = []
             order = sorted((s for s in range(b) if self._pending[s].size - offs[s] > 0),
-                           key=lambda s: (self._slot_req[s].admit_t,
-                                          self._slot_req[s].arrival_t))
+                           key=lambda s: (self._slot_req[s].admit_pass,
+                                          self._slot_req[s].order_t, self._slot_req[s].seq))
             for slot in order:
                 if budget <= 0:
                     continue
@@ -1709,14 +1788,9 @@ def make_continuous_engine(config: TransformerConfig, mesh=None, rules=None, **k
     entry ``serve(params, prompts, rng=None, draft_params=None) ->
     list[np.ndarray]``. The engine is ``serve.engine``; after each call
     ``serve.last_stats`` / ``serve.last_latency`` mirror the engine's.
-    ``mesh``/``rules`` (the engine over a mesh) are ported with the rest of
-    the engine (item 10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the continuous engine over a mesh: ported with the rest of the engine (item 10)"
-        )
-    del rules
-    engine = ContinuousEngine(config, **kwargs)
+    ``mesh``/``rules``: the engine over a mesh (every rank builds and calls
+    it alike; see :class:`ContinuousEngine`)."""
+    engine = ContinuousEngine(config, mesh, rules, **kwargs)
 
     def serve(params, prompts, rng=None, draft_params=None):
         try:

@@ -23,11 +23,18 @@ greedy decode.
 
 The JAX loops are ``lax.while_loop``/``scan`` on the device; here they are
 Python loops of eager calls that read the round's acceptance on the host
-(one sync a round). A mesh is not taken yet.
+(one sync a round).
+
+Over a mesh (``mesh``/``rules``) the target and the draft are laid out on
+the same mesh under the same rules, every model call runs on each rank's
+shards, and each call's logits come back whole on every rank
+(``models/decoding.py::whole_logits``): acceptance, rollback and every draw
+run on whole tensors, alike on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -40,13 +47,16 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     derive_decode_config,
     make_cached_apply,
     make_param_caster,
+    whole_logits,
 )
+from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.generate import filtered_logits, vocab_limit_filter
 from learning_jax_sharding_tpu_torch.models.transformer import (
     DecodeCache,
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.parallel.logical import activate
 from learning_jax_sharding_tpu_torch.utils import prng
 
 
@@ -153,7 +163,11 @@ def make_speculative_generate_fn(
     (row, position, tag), and row b of the result is ``[prompt_b,
     generated..., 0-fill]`` with the generated span at ``lengths[b]``.
     ``return_stats`` (ragged only) also returns ``{"accepted", "rounds",
-    "emitted"}``. Runs on ``cuda`` unless ``device`` says otherwise."""
+    "emitted"}``. Runs on ``cuda`` unless ``device`` says otherwise.
+
+    ``mesh``/``rules``: the target and the draft run over the mesh, as
+    ``make_generate_fn``'s mesh path runs one model; every rank calls
+    ``run`` with the same arguments and returns the whole result."""
     if target_config.vocab_size != draft_config.vocab_size:
         raise ValueError(
             f"target vocab {target_config.vocab_size} != draft vocab "
@@ -162,10 +176,9 @@ def make_speculative_generate_fn(
     if num_draft < 1:
         raise ValueError(f"num_draft must be >= 1, got {num_draft}")
     if mesh is not None:
-        raise NotImplementedError(
-            "speculative decoding over a mesh: ported with the engine over a mesh (item 10)"
-        )
-    del rules
+        if rules is None:
+            raise ValueError("rules are required when a mesh is given")
+        device = mesh.device_type if device is None else device
     device = resolve_device(device)
     t_cfg = derive_decode_config(target_config, inference_dtype)
     d_cfg = derive_decode_config(draft_config, inference_dtype)
@@ -174,7 +187,21 @@ def make_speculative_generate_fn(
         d_cfg = dataclasses.replace(d_cfg, decode_ragged=True)
     target = Transformer(t_cfg, device=device).eval()
     draft = Transformer(d_cfg, device=device).eval()
-    t_apply, d_apply = make_cached_apply(target), make_cached_apply(draft)
+    scope = (lambda: activate(mesh, rules)) if mesh is not None else contextlib.nullcontext
+
+    def whole_apply(model):
+        # One model call (under the mesh) → its logits whole, or at each
+        # row's ``pick`` position; a draft prefill's, never read, stays put.
+        apply = make_cached_apply(model)
+
+        def call(cache, tokens, lengths=None, *, pick=None, read=True):
+            with scope():
+                logits, cache = apply(cache, tokens, lengths)
+            return (whole_logits(logits, pick) if read else None), cache
+
+        return call
+
+    t_apply, d_apply = whole_apply(target), whole_apply(draft)
     maybe_cast = make_param_caster(inference_dtype, device)
     width = num_draft + 1
     buf_len = max_new_tokens + width
@@ -209,7 +236,7 @@ def make_speculative_generate_fn(
                 q_all.append(torch.softmax(fl, dim=-1))
             prev = nxt if lengths is None else torch.where(lengths > 0, nxt, prev)
             drafts.append(prev)
-        d_apply(d_cache, prev[:, None], lengths)
+        d_apply(d_cache, prev[:, None], lengths, read=False)
         return torch.stack(drafts, dim=1), (torch.stack(q_all, dim=1) if q_all else None)
 
     def generate(prompt, rng):
@@ -218,13 +245,14 @@ def make_speculative_generate_fn(
         (greedy choices, or position-keyed draws)."""
         sampled = temperature != 0.0
         b, prompt_len = prompt.shape
-        t_logits, t_cache = t_apply(None, prompt)
-        _, d_cache = d_apply(None, prompt)
+        last = torch.full((b,), prompt_len - 1, device=device)
+        t_last, t_cache = t_apply(None, prompt, pick=last)
+        _, d_cache = d_apply(None, prompt, read=False)
         if sampled:
             # Generated position 0 from the target's prefill distribution.
-            t_cur = prng.categorical(_pos_key(rng, 0, 2), to_flogits(t_logits[:, -1]))
+            t_cur = prng.categorical(_pos_key(rng, 0, 2), to_flogits(t_last))
         else:
-            t_cur = _greedy(t_logits[:, -1], vocab_limit)
+            t_cur = _greedy(t_last, vocab_limit)
         t_cur = t_cur.to(torch.int32)
         buffer = torch.zeros((b, buf_len), dtype=torch.int32, device=device)
         buffer[:, 0] = t_cur
@@ -287,10 +315,9 @@ def make_speculative_generate_fn(
         frozen row is its current index, so one rollback serves all rows."""
         sampled = temperature != 0.0
         b, _ = prompt.shape
-        t_all, t_cache = t_apply(None, prompt, lengths)
-        _, d_cache = d_apply(None, prompt, lengths)
+        first, t_cache = t_apply(None, prompt, lengths, pick=lengths - 1)
+        _, d_cache = d_apply(None, prompt, lengths, read=False)
         rows = torch.arange(b, device=device)
-        first = t_all[rows, lengths.long() - 1]
         if sampled:
             zeros = torch.zeros((b,), dtype=torch.int64, device=device)
             t_cur = prng.categorical(row_keys(rng, zeros, 2), to_flogits(first))
@@ -345,8 +372,11 @@ def make_speculative_generate_fn(
             raise ValueError("return_stats requires ragged=True")
         prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
         check_budget(prompt.shape[1])
-        target.load_state_dict(maybe_cast(t_params))
-        draft.load_state_dict(maybe_cast(d_params))
+        for model, params in ((target, t_params), (draft, d_params)):
+            if mesh is not None:
+                shard_params(model, mesh, rules, maybe_cast(params))
+            else:
+                model.load_state_dict(maybe_cast(params))
         key = prng.as_key(0 if rng is None else rng, device)
         if ragged:
             lengths = torch.as_tensor(lengths, device=device).to(torch.int32)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -593,17 +594,37 @@ decode_attention.tensor_core_launches = 0
 decode_attention.split_launches = 0
 
 
+def check_paged_batch(mesh, rules) -> None:
+    """Raise the JAX wrapper's ``ValueError`` when ``rules`` split the batch
+    of a paged cache over more than one rank: page pools lead with the
+    shared page axis and any row may read any page, so paged serving runs
+    tensor parallelism over heads only."""
+    from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, logical_to_mesh_axes
+
+    axes = logical_to_mesh_axes((BATCH,), tuple(rules))[0]
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    names = mesh.mesh_dim_names
+    if math.prod(mesh.size(names.index(a)) for a in axes) > 1:
+        raise ValueError(
+            "paged serving cannot shard the batch (any row may read any page): use "
+            "rules that leave BATCH unmapped (TP over heads) or a batch mesh axis of size 1"
+        )
+
+
 def make_decode_attn_fn(mesh, rules, **kwargs):
     """A mesh-aware :func:`decode_attention` for multi-device serving (the
     JAX package's, there under ``shard_map``): the kernel runs on each
     rank's shard, batch and heads split as the logical ``rules`` place them.
     ``q`` ``(B, S, N, H)``, the caches ``(B, N_kv, L, H)`` and their int8
-    scales are DTensors (or full tensors); a scalar ``index`` is replicated.
-    Each shard's launch takes the design and split its own shape gives
-    (``_plan`` on ``b / data`` rows and ``n / model`` heads). Call-time
-    keywords (``window``, ``block_k``, ...) override those given here.
-    The folded write and paged pools serve the engine, whose mesh path is
-    ported with item 10."""
+    scales are DTensors (or full tensors). A scalar ``index`` is replicated;
+    a per-row ``(B,)`` one, ``write_enable`` and the folded write's new k/v
+    and scales shard with the batch. Paged pools ``(P, N_kv, page, H)``
+    shard over heads only, their block table per row; rules that split the
+    batch raise ``ValueError`` in paged mode. Each shard's launch takes the
+    design and split its own shape gives (``_plan`` on ``b / data`` rows and
+    ``n / model`` heads). Call-time keywords (``window``, ``block_k``, ...)
+    override those given here. The folded write returns the caches (and
+    scales) beside the output, each laid out as its input."""
     from learning_jax_sharding_tpu_torch.parallel.logical import (
         BATCH,
         HEADS,
@@ -613,32 +634,44 @@ def make_decode_attn_fn(mesh, rules, **kwargs):
 
     rules = tuple(rules)
     q_spec = (BATCH, None, HEADS, None)
-    kv_spec = (BATCH, HEADS, None, None)
+    chunk_spec = (BATCH, HEADS, None, None)
     sc_spec = (BATCH, HEADS, None)
 
     def attn_fn(q, k_cache, v_cache, index, *, k_scale=None, v_scale=None, k_new=None,
-                block_table=None, write_enable=None, **call_kwargs):
-        if k_new is not None or block_table is not None or write_enable is not None:
-            raise NotImplementedError(
-                "the folded write and paged pools over a mesh: ported with the "
-                "engine over a mesh (item 10)"
-            )
-        if torch.as_tensor(index).ndim:
-            raise NotImplementedError(
-                "per-row indices over a mesh: ported with the engine over a mesh (item 10)"
-            )
-        kw = {**kwargs, **call_kwargs}
+                v_new=None, ks_new=None, vs_new=None, write_enable=None, block_table=None,
+                **call_kwargs):
+        paged = block_table is not None
+        if paged:
+            check_paged_batch(mesh, rules)
+        fold = k_new is not None
         quantized = k_scale is not None
+        kv_spec = (None, HEADS, None, None) if paged else chunk_spec
+        cache_sc_spec = (None, HEADS, None) if paged else sc_spec
+        index = torch.as_tensor(index)
+        # The new-token chunks (and their scales) are per row even in paged
+        # mode: only the pools lose their batch axis.
+        named = {
+            "k_scale": (k_scale, cache_sc_spec), "v_scale": (v_scale, cache_sc_spec),
+            "k_new": (k_new, chunk_spec), "v_new": (v_new, chunk_spec),
+            "ks_new": (ks_new if fold and quantized else None, sc_spec),
+            "vs_new": (vs_new if fold and quantized else None, sc_spec),
+            "write_enable": (write_enable, (BATCH,)),
+            "block_table": (block_table, (BATCH, None)),
+        }
+        keys = [k for k, (t, _) in named.items() if t is not None]
+        args = (q, k_cache, v_cache, index) + tuple(named[k][0] for k in keys)
+        specs = (q_spec, kv_spec, kv_spec, (BATCH,) if index.ndim else None) + tuple(
+            named[k][1] for k in keys)
+        out_specs = q_spec
+        if fold:
+            out_specs = (q_spec, kv_spec, kv_spec) + (
+                (cache_sc_spec, cache_sc_spec) if quantized else ())
+        kw = {**kwargs, **call_kwargs}
 
-        def body(q_, kc, vc, ks, vs):
-            return decode_attention(q_, kc, vc, index, k_scale=ks, v_scale=vs, **kw)
+        def body(q_, kc, vc, idx, *rest):
+            return decode_attention(q_, kc, vc, idx, **dict(zip(keys, rest)), **kw)
 
         with activate(mesh, rules):
-            return local_call(
-                body, (q, k_cache, v_cache, k_scale, v_scale),
-                (q_spec, kv_spec, kv_spec, sc_spec if quantized else None,
-                 sc_spec if quantized else None),
-                q_spec,
-            )
+            return local_call(body, args, specs, out_specs)
 
     return attn_fn

@@ -152,6 +152,14 @@ def local_slice(x: torch.Tensor, mesh: DeviceMesh, placements: Sequence[Placemen
     return x
 
 
+def local_rows(x: torch.Tensor, mesh: DeviceMesh, placements: Sequence[Placement]) -> torch.Tensor:
+    """This rank's rows of a whole per-row tensor ``x``: dim 0 sliced as
+    ``placements`` split dim 0 of the tensor they lay out (splits of its
+    other dims take every row)."""
+    return local_slice(x, mesh, [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                                 for pl in placements])
+
+
 def put(x, sharding: NamedSharding | Sequence[Placement], mesh: DeviceMesh | None = None) -> DTensor:
     """``jax.device_put``: the full array ``x`` (numpy or a tensor, the same
     on every rank) → a DTensor on the mesh's device. Each rank keeps its own

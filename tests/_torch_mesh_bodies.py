@@ -1,11 +1,13 @@
 """Rank bodies of the port's mesh tests (not a test module).
 
 ``parallel.run_on_mesh`` spawns one process a rank and runs a function of
-this module there, so it imports torch and the port only (no JAX): the test
-modules compute the JAX side in their own process and compare with what
-rank 0 returns here.
+this module there (``parallel.run_on_threads`` runs it on thread ranks of
+the test process), so it imports torch and the port only (no JAX): the
+test modules compute the JAX side in their own process and compare with
+what rank 0 returns here.
 """
 
+import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch.parallel import (
@@ -178,3 +180,125 @@ def failing_body(mesh):
     if dist.get_rank() == 1:
         raise ValueError("rank one's own failure")
     dist.barrier()
+
+
+def _lists(tokens):
+    return [np.asarray(t).tolist() for t in tokens]
+
+
+def stamped_stream(eng, params, prompts, stamps):
+    """Add ``prompts`` under ids 0, 1, ... with the arrival stamps ``stamps``
+    (None: unstamped), then step ``eng`` (the port's engine or JAX's) until
+    it is idle → (the ids each step retired, {id: tokens})."""
+    for rid, (p, t) in enumerate(zip(prompts, stamps)):
+        eng.add_request(p, rid=rid, arrival_t=t)
+    steps, done = [], {}
+    while eng.has_work():
+        steps.append(sorted(eng.step(params)))
+        done.update(eng.pop_finished())
+    return steps, {rid: np.asarray(t).tolist() for rid, t in sorted(done.items())}
+
+
+def serve_cases(mesh, cases, trees, queues):
+    """Serve each case's queue through one port engine, over ``mesh`` (under
+    the case's rules) or on the CPU (``mesh=None``) → ``{case: {"tokens",
+    "stats", "forwards", "dispatches"}}``, one entry a ``serve`` call for
+    the tokens, stats and dispatch counts. A case is a dict of ``rules``
+    (a ``parallel.logical`` name), ``queue``, ``cfg`` (config fields),
+    ``engine`` (engine arguments), ``tree`` (a key of ``trees``), ``draft``
+    (``None``, ``"self"`` or a key of ``trees``), ``rng`` and ``calls``."""
+    import dataclasses
+
+    from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+
+    out = {}
+    for name, case in cases.items():
+        cfg = dataclasses.replace(CONFIG_TINY, **case["cfg"])
+        engine = dict(case["engine"])
+        draft = case.get("draft")
+        if draft is not None:
+            engine["draft_config"] = cfg if draft == "self" else dataclasses.replace(
+                cfg, **case["draft_cfg"])
+        rules = None if mesh is None else getattr(logical, case["rules"])
+        serve = make_continuous_engine(cfg, mesh, rules, device="cpu" if mesh is None else None,
+                                       **engine)
+        params = trees[case["tree"]]
+        d_params = None if draft is None else params if draft == "self" else trees[draft]
+        got = {"tokens": [], "stats": [], "dispatches": []}
+        for _ in range(case.get("calls", 1)):
+            got["tokens"].append(_lists(serve(params, queues[case["queue"]], rng=case.get("rng"),
+                                              draft_params=d_params)))
+            got["stats"].append(serve.last_stats)
+            lat = serve.last_latency
+            got["dispatches"].append({k: lat[k] for k in ("refill_dispatches",
+                                                          "decode_dispatches",
+                                                          "mixed_dispatches")})
+        got["forwards"] = (serve.engine.model_forwards, serve.engine.draft_forwards)
+        out[name] = got
+    return out
+
+
+def mesh_serving_body(mesh, cases, trees, queues, generate, stamped):
+    """The engine cases over the mesh; ``stamped_stream`` under
+    ``RULES_DP_TP`` through an engine of ``stamped["engine"]`` arguments;
+    paged serving under ``RULES_DP_TP`` (which must raise ``ValueError``);
+    ragged greedy ``make_generate_fn`` and ragged speculative generate over
+    the mesh. Every rank's results are gathered: → ``(rank 0's results,
+    every rank's engine and stamped results)``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
+    from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
+    from learning_jax_sharding_tpu_torch.models.speculative import make_speculative_generate_fn
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+
+    out = {"engine": serve_cases(mesh, cases, trees, queues)}
+    cfg = dataclasses.replace(CONFIG_TINY, **generate["cfg"])
+    eng = make_continuous_engine(cfg, mesh, logical.RULES_DP_TP, **stamped["engine"]).engine
+    out["stamped"] = stamped_stream(eng, trees["float"], stamped["prompts"], stamped["stamps"])
+    serve = make_continuous_engine(cfg, mesh, logical.RULES_DP_TP, paged_pages=9, page_size=16,
+                                   **generate["engine"])
+    try:
+        serve(trees["float"], queues["mixed"])
+        out["paged_dp_tp"] = None
+    except ValueError as exc:
+        out["paged_dp_tp"] = str(exc)
+    prompt, lengths = (torch.from_numpy(generate[k]) for k in ("prompt", "lengths"))
+    gen = make_generate_fn(cfg, mesh, logical.RULES_DP_TP, max_new_tokens=generate["new"],
+                           ragged=True)
+    out["ragged"] = gen(trees["float"], prompt, lengths=lengths).numpy()
+    spec = make_speculative_generate_fn(
+        cfg, dataclasses.replace(cfg, **generate["draft_cfg"]), mesh, logical.RULES_DP_TP,
+        max_new_tokens=generate["new"], num_draft=2, ragged=True)
+    out["spec_ragged"] = spec(trees["float"], trees["draft"], prompt, lengths=lengths).numpy()
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {**out["engine"], "stamped": out["stamped"]})
+    return out, ranks
+
+
+def mesh_decode_attention_body(mesh, calls):
+    """``make_decode_attn_fn`` over the mesh on each call's numpy inputs
+    (``{"rules", "args", "kwargs"}``; the folded write's caches are passed as
+    full tensors) → ``{name: (outputs, specs)}``: the outputs whole and the
+    ``PartitionSpec`` each is laid out as; a call that raises ``ValueError``
+    gives its message."""
+    from learning_jax_sharding_tpu_torch.ops import decode_attention as da
+    from learning_jax_sharding_tpu_torch.parallel.sharding import placements_to_spec
+
+    out = {}
+    for name, call in calls.items():
+        fn = da.make_decode_attn_fn(mesh, getattr(logical, call["rules"]))
+        args = [torch.from_numpy(np.asarray(a)) for a in call["args"]]
+        kwargs = {k: torch.from_numpy(np.asarray(v)) for k, v in call["kwargs"].items()}
+        try:
+            got = fn(*args, **kwargs)
+        except ValueError as exc:
+            out[name] = str(exc)
+            continue
+        got = got if isinstance(got, tuple) else (got,)
+        out[name] = ([_fulls(g) for g in got],
+                     [tuple(placements_to_spec(mesh, g.placements, g.ndim)) for g in got])
+    return out

@@ -41,6 +41,7 @@ from learning_jax_sharding_tpu.parallel.logical import RULES_TP_SERVING
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+from tests import _torch_mesh_bodies as bodies
 
 torch.set_num_threads(1)
 
@@ -284,6 +285,26 @@ def test_streaming_mid_admits(kw):
     got = _stream(eng, prompts, range(len(prompts)), _params(), dparams)
     for rid, w in enumerate(want[0]):
         np.testing.assert_array_equal(got[rid], w, err_msg=f"request {rid}")
+
+
+def test_arrival_stamps_order_the_refill_queue():
+    """Requests stamped out of add order (``add_request(arrival_t=...)``, the
+    first unstamped: the clock, later than every stamp) under a starving
+    token budget: the refill queue streams them in stamp order, so each
+    request retires at the step JAX's engine retires it, with its tokens."""
+    prompts = _queue("mixed")[:4]
+    stamps = (None, 3.0, 1.0, 2.0)
+    kw = dict(COMMON, mixed=True, token_budget=3, batch_size=4)
+    mesh = build_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    jax_eng = jax_engine(dataclasses.replace(JAX_F32, decode_attention="dense"), mesh,
+                         RULES_TP_SERVING, **kw).engine
+    want = bodies.stamped_stream(jax_eng, _jax_params(), prompts, stamps)
+    eng = make_continuous_engine(dataclasses.replace(CONFIG_TINY, decode_attention="dense"),
+                                 device="cpu", **kw).engine
+    assert bodies.stamped_stream(eng, _params(), prompts, stamps) == want
+    unstamped = make_continuous_engine(
+        dataclasses.replace(CONFIG_TINY, decode_attention="dense"), device="cpu", **kw).engine
+    assert bodies.stamped_stream(unstamped, _params(), prompts, (None,) * 4)[0] != want[0]
 
 
 def test_sampled_schedule_independence():

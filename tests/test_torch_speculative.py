@@ -246,7 +246,7 @@ def test_validation():
     with pytest.raises(ValueError, match="num_draft"):
         make_speculative_generate_fn(CONFIG_TINY, DRAFT, max_new_tokens=4, num_draft=0,
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="rules are required when a mesh is given"):
         make_speculative_generate_fn(CONFIG_TINY, DRAFT, object(), None, max_new_tokens=4,
                                      device="cpu")
     gen, t, d = _port(max_new_tokens=CONFIG_TINY.max_seq_len, num_draft=2)
