@@ -78,7 +78,14 @@ warm) and self-draft speculative (every rank's tokens and stats equal,
 decode attention once a layer per model call on each rank, warm prefix
 hits, teacher-forced gaps), and decode attention at the shard shapes the
 ranks launched held to its plain version in every design and split, then
-timed.
+timed. ``[engine] policies`` (slice 17): the engine with its telemetry
+attached (registry, tracer, flight recorder, SLO monitor, trace sink) on
+the first 8 requests, paged + prefix: tokens equal to the ``[engine]``
+phase's, decode attention once a layer per model call, the goodput
+ledger's reconciliation, its buckets and telemetry share, a
+``utils/profiling.trace`` capture holding the engine's ranges; then the
+recovery policies: a deadline eviction, a shed, a sticky-fault quarantine
+(batchmates bit-equal) and degraded speculation under an unreachable SLO.
 Each path's kernel
 launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -1936,7 +1943,7 @@ def run_engine_path(params, q4, card):
                for label, r in runs.items()}
     del engines
     return dict(runs=summary, teacher_forced_max_gap=gaps, timing=timing, profile=profile,
-                int4_profiles=int4_profiles,
+                int4_profiles=int4_profiles, ref_outs=runs["unpaged"]["outs"][:B],
                 paged_launches=runs["paged+prefix warm"]["launches"]["decode_attention_paged"])
 
 
@@ -3409,7 +3416,11 @@ MESH_RULES_TRAIN = "RULES_DP_TP_SP"
 MESH_RULES_GENERATE = "RULES_DP_TP"
 MESH_LOSS_RTOL = 1e-5
 MESH_LAYOUTS = ((2, 2), (2, 4))
-MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 32
+MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 16
+# The one-rank mesh generates: +32 tokens (the unsharded ones +128): a mesh
+# token step is host-bound at 4-8x the unsharded one, and at +128 the three
+# generates took 100 s of the run on a slow host.
+MESH_1X1_NEW = 32
 
 
 def _kernel_launches() -> dict:
@@ -3484,9 +3495,9 @@ def run_mesh_1x1(gen, card):
     for mode in (False, "fused", "fused_w4a8"):
         label = mode or "float"
         tree = q4 if mode else params
-        fns = {"mesh": make_generate_fn(CONFIG_125M, mesh, rules_g, max_new_tokens=NEW,
+        fns = {"mesh": make_generate_fn(CONFIG_125M, mesh, rules_g, max_new_tokens=MESH_1X1_NEW,
                                         inference_dtype=torch.bfloat16, dequantize=mode),
-               "one": make_generate_fn(CONFIG_125M, max_new_tokens=NEW,
+               "one": make_generate_fn(CONFIG_125M, max_new_tokens=MESH_1X1_NEW,
                                        inference_dtype=torch.bfloat16, dequantize=mode)}
         toks, launches = {}, {}
         for name, fn in fns.items():
@@ -3497,7 +3508,7 @@ def run_mesh_1x1(gen, card):
             launches[name] = _kernel_launches()
         same = bool(torch.equal(toks["mesh"], toks["one"]))
         log(f"[mesh] 1x1 125M generate {label} ({MESH_RULES_GENERATE}) b={B} prompt {PROMPT} "
-            f"+{NEW}: tokens equal to the unsharded generate's: {same}; launches "
+            f"+{MESH_1X1_NEW}: tokens equal to the unsharded generate's: {same}; launches "
             f"{ {k: v for k, v in launches['mesh'].items() if v} }")
         if launches["mesh"] != launches["one"]:
             raise AssertionError(f"[mesh] 1x1 generate {label} launched {launches['mesh']}, the "
@@ -3509,7 +3520,7 @@ def run_mesh_1x1(gen, card):
         # generates are host-bound at 4-8x the unsharded time.
         times = interleaved_seconds({name: functools.partial(fn, tree, prompt)
                                      for name, fn in fns.items()}, rounds=1)
-        ms = {name: statistics.median(t) / NEW * 1e3 for name, t in times.items()}
+        ms = {name: statistics.median(t) / MESH_1X1_NEW * 1e3 for name, t in times.items()}
         log(f"[time] [mesh] 1x1 125M generate {label} (interleaved, one call each): mesh "
             f"{ms['mesh']:.3f} ms/token-step, unsharded {ms['one']:.3f}; DTensor dispatch "
             f"{ms['mesh'] - ms['one']:.3f} ms/token-step on {card}")
@@ -3530,7 +3541,8 @@ def run_mesh_1x1(gen, card):
     out["shard_params_ms"] = statistics.median(lay) * 1e3
     log(f"[time] [mesh] 1x1 shard_params of the 125M bf16 weights: "
         f"{out['shard_params_ms']:.3f} ms a generate call (median of 3), "
-        f"{out['shard_params_ms'] / NEW:.3f} ms a token step at {NEW} new tokens, on {card}")
+        f"{out['shard_params_ms'] / MESH_1X1_NEW:.3f} ms a token step at {MESH_1X1_NEW} new "
+        f"tokens, on {card}")
     return out
 
 
@@ -3582,12 +3594,18 @@ def run_mesh_threads(card):
 # The engine over a mesh (``[engine] mesh``): the first eight requests of
 # engine_prompts() (one wave of the 8 slots), ENGINE_COMMON otherwise; the
 # (2, 2) variants as four thread ranks of this process on the one card,
-# +8 tokens a request in decode blocks of 8: a thread-rank model call
-# takes far longer than a one-rank one (DTensor's dispatch of four ranks in
-# one interpreter), and at ENGINE_COMMON's +32 the phase outgrew its 150 s.
+# +4 tokens a request in decode blocks of 4, the speculative variant +8 in
+# blocks of two rounds (a request's two verify rounds in one block, so the
+# state carried from round to round runs over the mesh): a thread-rank
+# model call takes far longer than a one-rank one (DTensor's dispatch of
+# four ranks in one interpreter); at ENGINE_COMMON's +32 the phase outgrew
+# its 150 s, and at +8 everywhere (8 rounds a speculative block) it took
+# 200 s of the run on a slow host.
 MESH_ENGINE_REQUESTS = 8
 MESH_ENGINE_SHAPE = (2, 2)
-MESH_ENGINE_NEW = 8
+MESH_ENGINE_NEW = 4
+MESH_SPEC_NEW = 8
+MESH_SPEC_ROUNDS = 2   # the (2, 2) speculative variant's rounds a decode block
 
 
 def check_mesh_shards(gen):
@@ -3655,12 +3673,14 @@ def run_engine_mesh(gen, card):
     and the mesh serve profiled a model call. (b) Four thread ranks on a
     (2, 2) mesh: split under ``RULES_DP_TP``, paged + prefix under
     ``RULES_TP_SERVING`` (cold, then warm), self-draft speculation
-    (``MODES_DRAFT`` proposals, ``MODES_SPEC_ROUNDS`` rounds a block) under
-    ``RULES_DP_TP``, each +``MESH_ENGINE_NEW`` tokens a request. Gates:
+    (``MODES_DRAFT`` proposals, ``MESH_SPEC_ROUNDS`` rounds a block) under
+    ``RULES_DP_TP``, +``MESH_SPEC_NEW`` tokens a request, the others
+    +``MESH_ENGINE_NEW``. Gates:
     every rank served the same tokens and stats; each rank launched decode
     attention once a layer per model call (target and draft), and the
     kernel's counters (reset before, read after) hold the four ranks'
-    launches; warm prefix hits 8/8; every variant's
+    launches; warm prefix hits 8/8; two verify rounds a speculative
+    request or more; every variant's
     requests teacher-forced within ``TF_GAP`` of the dense bf16 forward
     (bf16 sums over a (2, 2) mesh round otherwise than on one device, so
     tokens are not held bit-equal there). Wall time only: the ranks take
@@ -3720,10 +3740,11 @@ def run_engine_mesh(gen, card):
     torch.cuda.empty_cache()
 
     # (b) Four thread ranks on a (2, 2) mesh.
-    new = MESH_ENGINE_NEW
-    common = dict(ENGINE_COMMON, max_new_tokens=new, decode_block_steps=new)
+    common = dict(ENGINE_COMMON, max_new_tokens=MESH_ENGINE_NEW,
+                  decode_block_steps=MESH_ENGINE_NEW)
     paged = dict(paged_pages=ENGINE_PAGES, page_size=ENGINE_PAGE, prefix_cache=True)
-    spec = dict(draft_config=cfg, num_draft=MODES_DRAFT, decode_block_steps=MODES_SPEC_ROUNDS)
+    spec = dict(draft_config=cfg, num_draft=MODES_DRAFT, max_new_tokens=MESH_SPEC_NEW,
+                decode_block_steps=MESH_SPEC_ROUNDS)
     variants = {"split": ("RULES_DP_TP", {}, 1),
                 "paged+prefix": ("RULES_TP_SERVING", paged, 2),
                 "self-draft spec": ("RULES_DP_TP", spec, 1)}
@@ -3780,6 +3801,7 @@ def run_engine_mesh(gen, card):
     dense.load_state_dict(params)
     bad = []
     for label, r in results.items():
+        new = MESH_SPEC_NEW if label == "self-draft spec" else MESH_ENGINE_NEW
         outs = [np.asarray(t, np.int32) for t in r["tokens"]]
         gap = engine_gap(dense, outs)
         ref = [o[:len(p) + new] for o, p in zip(one_toks, prompts)]
@@ -3819,6 +3841,14 @@ def run_engine_mesh(gen, card):
     warm = out["threads"]["paged+prefix warm"]["stats"]
     if warm["prefix_hits"] != len(prompts):
         bad.append(f"paged+prefix warm: prefix hits {warm['prefix_hits']}, want {len(prompts)}")
+    # Two verify rounds a request at least: the draft proposes MODES_DRAFT
+    # tokens a row in every round.
+    spec_rounds = (out["threads"]["self-draft spec"]["stats"]["spec_proposed"]
+                   / (MODES_DRAFT * len(prompts)))
+    out["threads"]["self-draft spec"]["verify_rounds_a_request"] = spec_rounds
+    log(f"[engine] mesh 2x2 self-draft spec: {spec_rounds:g} verify rounds a request")
+    if spec_rounds < 2:
+        bad.append(f"self-draft spec: {spec_rounds:g} verify rounds a request, want 2 or more")
     del dense
     torch.cuda.empty_cache()
     log(f"[engine] mesh 2x2: {wall:.1f} s wall for the {len(results)} serves on {card}")
@@ -3847,6 +3877,243 @@ def run_engine_mesh(gen, card):
         row["max_abs_err"] = checks[shape]
     out["shard_checks"] = checks
     out["wall_s"] = wall
+    return out
+
+
+# The [engine] policies phase: its SLO targets for the telemetry serve (an
+# objective a 125M serve meets), the request its sticky fault poisons.
+POLICY_SLO = (("ttft", 1.0, 0.99), ("itl", 0.5, 0.99), ("e2e", 5.0, 0.99))
+POLICY_POISON = 1
+
+
+def run_engine_policies(ref_outs, card):
+    """``[engine] policies`` (slice 17): the 125M engine with its telemetry
+    and recovery policies, on the ``[engine]`` phase's weights (seed 0) and
+    its first ``B`` prompts, bf16, ``ENGINE_COMMON``. (1) Telemetry attached:
+    a paged + prefix serve (cold) with its own registry, tracer, flight
+    recorder, SLO monitor and a trace sink, counted: tokens equal to those
+    the ``[engine]`` phase served for the same prompts (``ref_outs``),
+    decode attention once a layer per model call (what that phase gates:
+    the telemetry adds no launch), ``reconcile()`` within ε; the ledger's
+    window report, its telemetry share and the host ms a model call it
+    books; the serve profiled a model call; then two streaming steps under
+    ``utils/profiling.trace``, whose capture must hold the engine's
+    ``engine.refill_step`` and ``engine.decode_block`` ranges. (2) The
+    policies, each a gate: a request with ``deadline_s=1e-6`` ends
+    ``"deadline"``; ``max_queue=2`` raises ``AdmissionError`` with
+    ``engine_shed_total`` 1; a sticky ``Fault("engine.dispatch", "hang",
+    rid=k, count=-1)`` ends ``"poisoned"`` with ``engine_quarantined_total``
+    1 while its batchmates' tokens are bit-equal to the clean serve; a
+    self-draft speculative engine with ``SLOMonitor([SLOTarget("ttft",
+    1e-9, objective=0.5)])`` and ``DegradationLadder(patience=1)`` over two
+    waves of the prompts reaches level >= 1, its second wave (decoded with
+    speculation off) bit-equal to the greedy reference and its first
+    teacher-forced within ``TF_GAP``."""
+    import shutil
+    import tempfile
+
+    from learning_jax_sharding_tpu_torch.models.serving import AdmissionError
+    from learning_jax_sharding_tpu_torch.robustness import (
+        ChaosInjector,
+        DegradationLadder,
+        Fault,
+    )
+    from learning_jax_sharding_tpu_torch.telemetry import (
+        FlightRecorder,
+        MetricsRegistry,
+        SLOMonitor,
+        SLOTarget,
+        TraceStore,
+        Tracer,
+    )
+    from learning_jax_sharding_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
+    params = Transformer(CONFIG_125M, device="cuda", seed=0).state_dict()
+    prompts = engine_prompts()[:B]
+    ref = [np.asarray(o) for o in ref_outs[:B]]
+    out, bad = {}, []
+
+    def same_as_ref(outs, rids=None):
+        rids = range(len(ref)) if rids is None else rids
+        return [i for i in rids if not np.array_equal(np.asarray(outs[i]), ref[i])]
+
+    # (1) Telemetry attached.
+    slo = SLOMonitor([SLOTarget(m, t, objective=o) for m, t, o in POLICY_SLO])
+    serve = make_continuous_engine(cfg, **ENGINE_COMMON, paged_pages=ENGINE_PAGES,
+                                   page_size=ENGINE_PAGE, prefix_cache=True,
+                                   registry=MetricsRegistry(), tracer=Tracer(),
+                                   recorder=FlightRecorder(), slo=slo)
+    eng = serve.engine
+    serve(params, prompts)                              # warm-up
+    eng.flush_prefix_cache()
+    # A serve numbers its requests 0..n-1: a fresh trace sink holds this
+    # serve's journeys alone.
+    eng.trace_sink = TraceStore(registry=eng.registry)
+    torch.cuda.synchronize()
+    reset_launches()
+    forwards = eng.model_forwards
+    outs = serve(params, prompts)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls = eng.model_forwards - forwards
+    rec = eng.ledger.reconcile()
+    rep = eng.ledger.window_report()
+    b = rep["buckets"]
+    host_ms = (rep["busy_s"] - b["device"] - b["compile"]) * 1e3 / calls
+    paths = eng.trace_sink.completed()
+    eng.trace_sink = None
+    differ = same_as_ref(outs)
+    want = cfg.num_layers * calls
+    tele = dict(model_calls=calls, launches=launches, reconcile={k: rec[k] for k in (
+        "ok", "wall_s", "sum_s", "residual_s", "eps")}, window_report=rep,
+        telemetry_share=rep["telemetry_share"], host_ms_per_model_call=host_ms,
+        device_ms_per_model_call=b["device"] * 1e3 / calls, tokens_equal=len(ref) - len(differ),
+        stats=serve.last_stats, latency=serve.last_latency, slo=slo.snapshot()["targets"],
+        critical_path_mean_s={st: statistics.mean(p["stages"][st] for p in paths)
+                              for st in ("queue", "prefill", "decode", "stall")},
+        recorder_events=len(eng.recorder.events()), tracer_events=len(eng.tracer.events))
+    log(f"[engine] policies telemetry: paged + prefix (cold) serve, {calls} model calls, "
+        f"decode attention {launches['decode_attention']} launches "
+        f"({launches['decode_attention_paged']} paged; want {want}); tokens equal to the "
+        f"[engine] phase's in {tele['tokens_equal']} of {len(ref)} requests; reconcile "
+        f"{tele['reconcile']}; ledger buckets (s) "
+        f"{ {k: round(v, 6) for k, v in b.items()} }, busy {rep['busy_s']:.6f} of wall "
+        f"{rep['wall_s']:.6f} s, host share {rep['host_share']:.4f}, telemetry share "
+        f"{rep['telemetry_share']:.6f}; the ledger books {host_ms:.3f} host ms and "
+        f"{tele['device_ms_per_model_call']:.3f} device ms a model call; critical path means "
+        f"(s) {tele['critical_path_mean_s']} on {card}")
+    if differ:
+        bad.append(f"telemetry serve: requests {differ} differ from the [engine] phase's")
+    if (launches["decode_attention"] != want or launches["decode_attention_paged"] != want):
+        bad.append(f"telemetry serve: decode attention {launches}, want {want} (all paged)")
+    if not rec["ok"]:
+        bad.append(f"telemetry serve: the ledger does not reconcile: {rec}")
+    tele["profile"] = profile_summary(
+        f"125M engine serve with telemetry, paged + prefix, per model call ({calls} a serve)",
+        lambda: (eng.flush_prefix_cache(), serve(params, prompts)), calls,
+        rep["wall_s"] * 1e3 / calls)
+    logdir = tempfile.mkdtemp(prefix="engine_trace_")
+    try:
+        eng.flush_prefix_cache()
+        for p in prompts:
+            eng.add_request(p)
+        with profiling.trace(logdir) as prof:
+            eng.step(params)
+            eng.step(params)
+            torch.cuda.synchronize()
+        while eng.has_work():
+            eng.step(params)
+        eng.pop_finished()
+        text = open(f"{logdir}/trace.json").read()
+        ranges = sorted({e.key for e in prof.key_averages() if e.key.startswith("engine.")})
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    tele["trace_ranges"] = ranges
+    log(f"[engine] policies: profiling.trace of two steps holds the ranges {ranges}")
+    for name in ("engine.refill_step", "engine.decode_block"):
+        if name not in ranges or name not in text:
+            bad.append(f"profiling.trace: no {name} range in the capture ({ranges})")
+    out["telemetry"] = tele
+    del serve, eng
+    torch.cuda.empty_cache()
+
+    # (2) The policies.
+    pol = {}
+    serve = make_continuous_engine(cfg, **ENGINE_COMMON)
+    eng = serve.engine
+    eng.add_request(prompts[0], rid=0, deadline_s=1e-6)
+    eng.add_request(prompts[1], rid=1)
+    done = {}
+    while eng.has_work():
+        eng.step(params)
+        done.update(eng.pop_finished())
+    status = {rid: getattr(r, "status", "ok") for rid, r in done.items()}
+    pol["deadline"] = dict(status=status, evictions=eng.registry.get(
+        "engine_deadline_evictions_total").value,
+        deadline_miss_rate=eng.latency_stats()["deadline_miss_rate"])
+    if status != {0: "deadline", 1: "ok"} or same_as_ref(done, [1]):
+        bad.append(f"deadline: statuses {status}, request 1 equal to the reference: "
+                   f"{not same_as_ref(done, [1])}")
+
+    shed_eng = make_continuous_engine(cfg, **ENGINE_COMMON, max_queue=2).engine
+    shed_eng.add_request(prompts[0])
+    shed_eng.add_request(prompts[1])
+    try:
+        shed_eng.add_request(prompts[2])
+        shed = None
+    except AdmissionError as exc:
+        shed = str(exc)
+    shed_eng.close()
+    pol["shed"] = dict(error=shed, shed_total=shed_eng.registry.get("engine_shed_total").value)
+    if shed is None or pol["shed"]["shed_total"] != 1:
+        bad.append(f"max_queue=2: {pol['shed']}")
+    del shed_eng
+
+    rec = FlightRecorder()
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, rid=100 + rid)
+    poison = 100 + POLICY_POISON
+    t0 = time.perf_counter()
+    with ChaosInjector(Fault("engine.dispatch", "hang", rid=poison, count=-1),
+                       recorder=rec) as inj:
+        done = {}
+        while eng.has_work():
+            eng.step(params)
+            done.update(eng.pop_finished())
+    seconds = time.perf_counter() - t0
+    status = {rid: getattr(r, "status", "ok") for rid, r in done.items()}
+    mates = {rid - 100: r for rid, r in done.items() if rid != poison}
+    differ = same_as_ref(mates, sorted(mates))
+    pol["quarantine"] = dict(
+        status=status, quarantined=eng.registry.get("engine_quarantined_total").value,
+        dispatch_faults=eng.registry.get("engine_dispatch_faults_total").value,
+        injections=len(inj.injections), seconds=seconds,
+        recovery_s=eng.ledger.window_buckets()["recovery"],
+        batchmates_equal=len(mates) - len(differ))
+    if (status[poison] != "poisoned" or pol["quarantine"]["quarantined"] != 1
+            or any(v != "ok" for r, v in status.items() if r != poison) or differ):
+        bad.append(f"quarantine: {pol['quarantine']}, batchmates differing {differ}")
+    del serve, eng
+    torch.cuda.empty_cache()
+
+    spec = dict(ENGINE_COMMON, draft_config=cfg, num_draft=MODES_DRAFT,
+                decode_block_steps=MODES_SPEC_ROUNDS)
+    eng = make_continuous_engine(
+        cfg, **spec, slo=SLOMonitor([SLOTarget("ttft", 1e-9, objective=0.5)]),
+        degradation=DegradationLadder(patience=1)).engine
+    for rid, p in enumerate(prompts + prompts):      # two waves
+        eng.add_request(p, rid=rid)
+    done, levels = {}, []
+    while eng.has_work():
+        eng.step(params, params)
+        levels.append(eng.degradation_level)
+        done.update(eng.pop_finished())
+    wave1 = [done[i] for i in range(len(prompts))]
+    wave2 = {i: done[i + len(prompts)] for i in range(len(prompts))}
+    differ2 = same_as_ref(wave2)
+    dense = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                        seed=1).eval()
+    dense.load_state_dict(params)
+    gap1 = engine_gap(dense, wave1)
+    del dense
+    pol["degraded"] = dict(levels=levels, level=eng.degradation_level,
+                           spec_disabled=eng._spec_disabled,
+                           wave2_equal=len(prompts) - len(differ2),
+                           wave1_equal=len(prompts) - len(same_as_ref(wave1)),
+                           wave1_teacher_forced_gap=gap1, last_stats=eng.last_stats)
+    if eng.degradation_level < 1 or not eng._spec_disabled or differ2 or not gap1 <= TF_GAP:
+        bad.append(f"degraded speculation: {pol['degraded']}, second wave differing {differ2}")
+    out["policies"] = pol
+    log(f"[engine] policies: deadline {pol['deadline']}; shed {pol['shed']}; quarantine "
+        f"{pol['quarantine']}; degraded speculation levels {levels}, speculation off "
+        f"{eng._spec_disabled}, second wave equal to the greedy reference in "
+        f"{pol['degraded']['wave2_equal']} of {len(prompts)}, first wave (speculative) in "
+        f"{pol['degraded']['wave1_equal']}, its teacher-forced gap {gap1:.4f} on {card}")
+    del eng
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"[engine] policies: {'; '.join(bad)}")
     return out
 
 
@@ -4224,6 +4491,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("int4 generate paths")
     engine = run_engine_path(params, q4, card)
+    engine_ref_outs = engine.pop("ref_outs")
     mark("engine")
     modes = run_engine_modes(params, gen, card)
     torch.cuda.empty_cache()
@@ -4251,6 +4519,9 @@ def main() -> int:
     engine_mesh = run_engine_mesh(gen, card)
     torch.cuda.empty_cache()
     mark("[engine] mesh")
+    engine_policies = run_engine_policies(engine_ref_outs, card)
+    torch.cuda.empty_cache()
+    mark("[engine] policies")
     mesh_shards = run_mesh_shards(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] shards")
@@ -4495,6 +4766,9 @@ def main() -> int:
         per_shard = {layout: shard_rows(entry["name"], rows)
                      for layout, rows in mesh_shards.items()}
         entry["mesh_per_shard"] = per_shard if any(per_shard.values()) else None
+        # The [engine] policies phase's counted serve (telemetry attached).
+        n = engine_policies["telemetry"]["launches"].get(entry["name"], 0)
+        entry["policies_launches"] = n or None
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -4512,7 +4786,7 @@ def main() -> int:
                       "flash_ceiling": probe_paths["flash_ceiling"],
                       "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b,
                       "mesh_1x1": mesh_1x1, "mesh_threads": mesh_threads,
-                      "engine_mesh": engine_mesh,
+                      "engine_mesh": engine_mesh, "engine_policies": engine_policies,
                       "mesh_shards": mesh_shards}, default=str))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))

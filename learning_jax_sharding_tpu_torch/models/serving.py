@@ -73,10 +73,26 @@ per-row counters and the block table stay whole on every rank. So every
 tensor the host reads is whole and equal on every rank, and so is every
 host decision; see :class:`ContinuousEngine`.
 
-Not ported yet, each raising ``NotImplementedError`` naming what brings it:
-the recovery policies, multi-LoRA adapters, communication compression and
-the telemetry objects (registry, tracer, SLO monitor, flight recorder).
-``last_stats`` and ``last_latency`` come from plain host counters.
+The engine meters itself as the JAX engine does: a
+:class:`~learning_jax_sharding_tpu_torch.telemetry.MetricsRegistry`
+(``engine.registry``; ``last_stats`` and ``last_latency`` are windows over
+its cumulative counters), a
+:class:`~learning_jax_sharding_tpu_torch.telemetry.Tracer`
+(``engine.tracer``), the process's flight recorder (``engine.recorder``),
+a goodput ledger (``engine.ledger``: every second of the loop's wall clock
+in one bucket) and an optional request trace store (``engine.trace_sink``).
+The recovery policies are the JAX engine's: request deadlines, a bounded
+queue, the SLO-driven degradation ladder and the quarantine of requests
+whose dispatches fault (see :class:`ContinuousEngine`).
+
+Not ported yet, each raising ``NotImplementedError`` naming its part:
+multi-LoRA adapters (``adapter_pool``, ``add_request(adapter=)``),
+communication compression (``comm_compression``), the drain and the KV
+handoff (``drain_requests``, ``export_kv`` / ``ingest_kv``, ``spill_page``
+/ ``fill_page``), weight swaps (``swap_weights``) and the introspection
+of slice G (``compile_counts``, ``collective_inventory``, ``program_hlo``,
+``check_contracts``, ``explain_collectives``, ``overlap_report``,
+``comm_report``, ``collective_axis_volume``, ``dump_diagnostics``).
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.attention import (
@@ -119,19 +136,43 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.ops import _build
 from learning_jax_sharding_tpu_torch.parallel.logical import activate
+from learning_jax_sharding_tpu_torch.robustness.chaos import (
+    InjectedFault,
+    chaos_active,
+    chaos_hook,
+)
+from learning_jax_sharding_tpu_torch.telemetry import (
+    GoodputLedger,
+    MetricsRegistry,
+    Tracer,
+    default_flight_recorder,
+)
 from learning_jax_sharding_tpu_torch.utils import prng
+from learning_jax_sharding_tpu_torch.utils.profiling import annotate
+
+#: Dispatch failures the quarantine recovers from (an injected hang or
+#: abort, a NaN trap); anything else propagates.
+_RECOVERABLE_DISPATCH = (InjectedFault, FloatingPointError)
+
+
+class AdmissionError(RuntimeError):
+    """Admission control rejected the request (bounded queue full, or the
+    degradation ladder at its shedding level). Nothing was enqueued."""
 
 
 @dataclasses.dataclass
 class RequestFailure:
-    """A request that retired without completing (status ``"shutdown"``:
-    :meth:`ContinuousEngine.close` drained it), surfaced through
-    ``pop_finished``; ``tokens`` holds the partial ``[prompt,
-    generated...]`` output when it had been admitted."""
+    """A request that retired without completing, surfaced through
+    ``pop_finished``: status ``"deadline"`` (its TTL passed), ``"poisoned"``
+    (quarantined after repeated dispatch faults), ``"malformed"`` (its
+    prompt failed the admission check) or ``"shutdown"``
+    (:meth:`ContinuousEngine.close` drained it). ``tokens`` holds the
+    partial ``[prompt, generated...]`` output when it had been admitted."""
 
     rid: int
-    status: str
+    status: str              # deadline|poisoned|malformed|shutdown
     error: str | None = None
     tokens: np.ndarray | None = None
 
@@ -177,14 +218,59 @@ class _Request:
     first_token_t: float | None = None
     finish_t: float | None = None
     tokens: np.ndarray | None = None      # final [prompt, generated...]
-    status: str = "ok"                    # or shutdown
+    status: str = "ok"                    # or deadline|poisoned|malformed|shutdown
     error: str | None = None
+    deadline_s: float | None = None       # per-request TTL override
+    strikes: int = 0                      # dispatch faults while admitted
+    enqueue_t: float | None = None        # when this engine queued it
+    tenant: str | None = None             # SLO / trace label
 
 
-#: Counters of one stats window (``reset_stats`` starts one).
-_WINDOW = ("requests", "preemptions", "prefix_hits", "prefix_pages_reused",
-           "refill_s", "decode_s", "mixed_s", "stall_s", "refill_n", "decode_n", "mixed_n",
-           "spec_acc", "spec_prop", "multi_n", "multi_links", "plan_staged", "plan_reused")
+#: The JAX engine's counters of parts not ported yet (the KV handoff and
+#: tier, compression, the prefix router, swaps, adapters): registered at
+#: zero so the engine exports the same series.
+_UNPORTED_COUNTERS = (
+    ("engine_kv_exports_total", "retired-request KV rows exported for disaggregated handoff"),
+    ("engine_kv_ingests_total",
+     "externally prefilled requests ingested (disaggregated handoff)"),
+    ("engine_kv_page_spills_total",
+     "retained prefix pages demoted (spilled) out of HBM to a host tier"),
+    ("engine_kv_page_fills_total", "prefix pages promoted (filled) back into HBM from a tier"),
+    ("engine_kv_page_spill_bytes_total", "bytes moved HBM → host demoting prefix pages"),
+    ("engine_kv_page_fill_bytes_total", "bytes moved host → HBM promoting prefix pages"),
+    ("engine_kv_raw_bytes_total",
+     "pre-codec bytes of counted KV/page/swap host transfers — the *_bytes_total counters "
+     "book WIRE bytes, so the gap to this counter is what the codec saved"),
+    ("engine_comp_drift_probes_total", "compressed-vs-plain-oracle drift probes run"),
+    ("engine_comp_drift_disagreements_total",
+     "active rows whose greedy pick diverged from the plain oracle during a drift probe"),
+    ("engine_comp_drift_trips_total",
+     "drift-budget breaches that auto-disabled the quantized serving collectives (one-way "
+     "until an operator re-enables)"),
+    ("engine_prefix_expected_total", "admissions the router placed expecting a prefix hit"),
+    ("engine_tier_misses_total",
+     "admissions whose realized prefix hit fell short of the router's prediction (page "
+     "evicted/raced away mid-route) — the request gracefully re-prefilled the missing tokens"),
+    ("engine_swap_staged_total",
+     "weight swaps staged (resharded into the serving layout off the hot path)"),
+    ("engine_swap_commits_total", "weight swaps atomically committed between dispatches"),
+    ("engine_swap_aborted_total",
+     "weight swaps aborted during staging — the engine kept the old version, in-flight "
+     "requests unaffected"),
+    ("engine_swap_bytes_total",
+     "bytes moved staging swapped weight trees into the serving layout"),
+    ("engine_adapter_dispatches_total", "fused dispatches that gathered per-row adapters"),
+    ("engine_adapter_rows_total", "occupied row-dispatches served under a non-base adapter"),
+)
+
+
+def _not_ported(name: str, where: str):
+    """An engine method of a part not ported yet: raises naming the part."""
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(f"{name}: ported with {where}")
+    method.__name__ = method.__qualname__ = name
+    method.__doc__ = f"Not ported yet: comes with {where}."
+    return method
 
 
 class ContinuousEngine:
@@ -256,8 +342,56 @@ class ContinuousEngine:
     ``spec_accepted`` / ``spec_proposed`` / ``spec_accept_rate`` (``None``
     when no mode is on); ``last_latency`` the TTFT, TPOT, ITL, queue-wait
     and end-to-end p50/p99 in seconds, the refill share and the decode
-    stall share of dispatch time, and with a horizon the dispatches, links
-    a dispatch and staged-plan reuse.
+    stall share of dispatch time, the shed and deadline-miss rates, and
+    with a horizon the dispatches, links a dispatch and staged-plan reuse.
+    Both are windows (``reset_stats``) over the cumulative counters of
+    ``registry`` (engine-local unless one is passed in).
+
+    Telemetry: ``registry``, ``tracer`` (a per-request timeline, arrival →
+    admit → first token → finish, and a span a dispatch), ``recorder`` (the
+    process's flight recorder unless one is passed: arrivals, admissions,
+    preemptions, retirements, faults, degradation), ``ledger`` (a
+    :class:`~learning_jax_sharding_tpu_torch.telemetry.GoodputLedger`:
+    ``step()`` is its top-level frame; model-call launches and the host
+    reads that wait for them book ``device``, or ``compile`` when a kernel
+    library was built or loaded meanwhile), ``slo`` (an optional
+    :class:`~learning_jax_sharding_tpu_torch.telemetry.SLOMonitor` fed
+    TTFT, TPOT, ITL, queue wait, end-to-end latency and the decode stall
+    per dispatch) and ``trace_sink`` (an optional
+    :class:`~learning_jax_sharding_tpu_torch.telemetry.TraceStore`, legs
+    recorded at retirement). Every dispatch runs inside a
+    ``torch.profiler.record_function`` range named ``engine.<program>``.
+
+    Recovery policies, the JAX engine's:
+
+    * ``deadline_s`` (the engine's TTL; ``add_request(deadline_s=)``
+      overrides it): a request older than its TTL, queued or in flight,
+      retires with status ``"deadline"``;
+    * ``max_queue``: an arrival past the bound raises
+      :class:`AdmissionError` (nothing enqueued; ``engine_shed_total``);
+    * ``degradation=DegradationLadder(...)`` (needs ``slo``): the monitor's
+      burn rate walks speculation off (level 1), ``token_budget`` halved
+      (level 2, mixed engines) and shedding new admits (level 3), with
+      hysteresis; ``degradation_level`` reads the level;
+    * quarantine: a dispatch that raises a recoverable fault (an injected
+      hang or abort, a NaN trap; ``robustness/chaos.py``'s
+      ``engine.dispatch`` seam) strikes every request in flight; a request
+      at ``max_dispatch_strikes`` retires ``"poisoned"``, the others are
+      requeued and readmitted one at a time (probation), recomputing their
+      tokens exactly.
+
+    Over a mesh of more than one rank the decisions that read a clock are
+    taken on the mesh's first rank and broadcast (the expired requests, the
+    ladder's level), and, while a chaos injector is installed, a fault at
+    the dispatch seam on any rank is a fault on every rank (a MAX
+    reduction before the dispatch's work), so every rank takes the same
+    decisions. These collectives run in the mesh's own groups: ranks
+    outside the mesh take no part. An injector must be installed alike on
+    every rank, and its other faults must fire alike on every rank (a
+    sticky fault, ``rid=k, count=-1``). A fault raised in the middle of a
+    dispatch over such a mesh (a NaN trap of ``utils/profiling.checking``
+    on one rank's shard) is not recovered: the other ranks may wait in the
+    dispatch's next collective, so it propagates.
     """
 
     def __init__(
@@ -300,17 +434,20 @@ class ContinuousEngine:
         comm_compression: Any | None = None,
         device=None,
     ):
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if max_dispatch_strikes < 1:
+            raise ValueError(f"max_dispatch_strikes must be >= 1, got {max_dispatch_strikes}")
+        if degradation is not None and slo is None:
+            raise ValueError(
+                "degradation needs slo=SLOMonitor(...): the ladder is "
+                "driven by the monitor's burn rate"
+            )
         later = {
-            "deadline_s": (deadline_s is not None, "the recovery policies"),
-            "max_queue": (max_queue is not None, "the recovery policies"),
-            "degradation": (degradation is not None, "the recovery policies"),
-            "max_dispatch_strikes": (max_dispatch_strikes != 2, "the recovery policies"),
             "adapter_pool": (adapter_pool is not None, "tenancy (swaps and adapters)"),
             "comm_compression": (comm_compression is not None, "slice F (compression)"),
-            "registry": (registry is not None, "slice E (telemetry)"),
-            "tracer": (tracer is not None, "slice E (telemetry)"),
-            "slo": (slo is not None, "slice E (telemetry)"),
-            "recorder": (recorder is not None, "slice E (telemetry)"),
         }
         for name, (used, where) in later.items():
             if used:
@@ -443,6 +580,22 @@ class ContinuousEngine:
         self.horizon = horizon
         self._num_draft = num_draft
         self._speculative = speculative
+        # The recovery policies: request TTLs, admission control, the
+        # burn-rate degradation ladder and poison quarantine.
+        self._deadline_s = deadline_s
+        self._any_req_deadline = False
+        self._max_queue = max_queue
+        self._ladder = degradation
+        self._level = 0                        # the ladder level applied
+        self._max_strikes = max_dispatch_strikes
+        self._spec_disabled = False
+        self._shed_all = False
+        self._base_budget: int | None = None
+        # Over a mesh of more than one rank: the mesh the host decisions are
+        # agreed over, and the rank that takes the clock-driven ones.
+        self._agree_mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self._src = None if self._agree_mesh is None else int(mesh.mesh.flatten()[0])
+        self._seam_fault: BaseException | None = None  # the fault the seam raised
         self._paged = paged
         self._paged_pages = paged_pages
         self._page_size = page_size
@@ -468,13 +621,134 @@ class ContinuousEngine:
         # by the next horizon dispatch only when the boundary state matches.
         self._staged_plan = None
         self._link_out: list[torch.Tensor] = []    # queued link outputs, read at the sync
-        self._page_high = 0
+        self._init_telemetry(registry, tracer, slo, recorder)
         self._init_slots()
         if paged:
             self._init_pool()
         self.reset_stats()
 
     # --- state initialisation --------------------------------------------
+
+    def _init_telemetry(self, registry, tracer, slo, recorder):
+        # Engine-local by default; a shared registry aggregates engines (and
+        # then the window-derived last_stats include the others' counts).
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer()
+        # The flight recorder defaults to the process's ring; span closures
+        # ride it beside the lifecycle events.
+        self.recorder = recorder if recorder is not None else default_flight_recorder()
+        self.recorder.attach_tracer(self.tracer)
+        self.slo = slo
+        if slo is not None:
+            if slo.registry is None:
+                slo.registry = self.registry
+            if slo.recorder is None:
+                slo.recorder = self.recorder
+        # The JAX engine's metrics, names and help texts alike (those of
+        # parts not ported yet stay at zero), so a snapshot or a scrape reads
+        # the same series.
+        r = self.registry
+        c = r.counter
+        self._c_requests = c("engine_requests_total", "requests enqueued")
+        self._c_finished = c("engine_requests_finished_total", "requests retired")
+        self._c_tokens = c("engine_tokens_generated_total", "generated tokens emitted")
+        self._c_preempt = c("engine_preemptions_total",
+                            "recompute preemptions under page-pool pressure")
+        self._c_pfx_hits = c("engine_prefix_hits_total",
+                             "admissions that reused retained prefix pages")
+        self._c_pfx_pages = c("engine_prefix_pages_reused_total",
+                              "prefix pages mapped on admission")
+        self._c_spec_acc = c("engine_spec_accepted_total", "draft tokens accepted by the verifier")
+        self._c_spec_prop = c("engine_spec_proposed_total", "draft tokens proposed")
+        self._c_refill_s = c("engine_refill_seconds_total",
+                             "host-observed refill dispatch+sync seconds")
+        self._c_decode_s = c("engine_decode_seconds_total",
+                             "host-observed decode dispatch+sync seconds")
+        self._c_refill_n = c("engine_refill_dispatches_total", "refill dispatches")
+        self._c_decode_n = c("engine_decode_dispatches_total", "decode dispatches")
+        self._c_mixed_s = c("engine_mixed_seconds_total",
+                            "host-observed fused refill+decode dispatch+sync seconds")
+        self._c_mixed_n = c("engine_mixed_dispatches_total", "fused refill+decode dispatches")
+        self._c_stall_s = c("engine_decode_stall_seconds_total",
+                            "dispatch seconds during which decoding rows sat idle "
+                            "behind another slot's refill")
+        self._c_multi_n = c("engine_multi_dispatches_total",
+                            "fused multi-step dispatches (horizon > 1 — one scanned "
+                            "program advancing N engine iterations)")
+        self._c_multi_links = c("engine_multi_links_total",
+                                "engine iterations advanced inside multi-step dispatches "
+                                "(steps_per_dispatch = links / dispatches)")
+        self._c_plan_staged = c("engine_plan_staged_total",
+                                "next-horizon refill plans staged by the async planner "
+                                "while a multi-step program was in flight")
+        self._c_plan_reused = c("engine_plan_reused_total",
+                                "staged plans consumed at the next horizon boundary (the "
+                                "boundary state matched the planner's prediction)")
+        self._c_creations = c("engine_cache_creations_total", "cache-creating first refills")
+        self._c_shed = c("engine_shed_total",
+                         "arrivals rejected by admission control (bounded queue or "
+                         "degradation-ladder shedding)")
+        self._c_deadline = c("engine_deadline_evictions_total",
+                             "requests failed by their TTL deadline (queued or in-flight)")
+        self._c_quarantined = c("engine_quarantined_total",
+                                "requests failed as poison after repeated dispatch faults")
+        self._c_dispatch_faults = c("engine_dispatch_faults_total",
+                                    "dispatches aborted by a recoverable fault")
+        self._c_req_failed = c("engine_requests_failed_total",
+                               "requests retired with a non-ok terminal status")
+        self._c_rerouted = c("engine_rerouted_total",
+                             "requests drained with status 'rerouted' — failover/handoff "
+                             "requeue onto another fleet replica, never a lost request")
+        for name, help_text in _UNPORTED_COUNTERS:
+            c(name, help_text)
+        self._c_pfx_expected = r.get("engine_prefix_expected_total")
+        self._c_tier_miss = r.get("engine_tier_misses_total")
+        self._g_degraded = r.gauge("engine_degradation_level",
+                                   "current graceful-degradation ladder level (0 = normal)")
+        self._g_queue = r.gauge("engine_queue_depth", "requests waiting for a slot")
+        self._g_active = r.gauge("engine_active_slots", "slots actively decoding")
+        self._g_pages = r.gauge("engine_pages_live", "live (non-retained) pages held")
+        self._g_retained = r.gauge("engine_prefix_pages_retained",
+                                   "reference-free retained prefix pages")
+        r.gauge("engine_comm_compression_active",
+                "1 while quantized serving collectives are compiled in").set(0)
+        r.gauge("engine_kv_compression_ratio",
+                "raw/wire byte ratio of the most recent counted KV transfer batch (1.0 when "
+                "no codec is attached)").set(1.0)
+        h = r.histogram
+        self._h_ttft = h("engine_ttft_seconds", "arrival to first visible token")
+        self._h_tpot = h("engine_tpot_seconds", "per-request mean inter-token seconds")
+        self._h_itl = h("engine_itl_seconds", "raw host-visibility gaps")
+        self._h_wait = h("engine_queue_wait_seconds", "arrival to slot admission")
+        self._h_e2e = h("engine_e2e_seconds", "arrival to retirement")
+        h("engine_swap_stall_seconds", "stage-to-commit latency of weight swaps (drain or preempt)")
+        # The goodput ledger: step() is the top-level frame ("sched"), the
+        # regions inside claim their buckets, idle is derived.
+        self.ledger = GoodputLedger(registry=r)
+        # Request-scoped trace sink (a telemetry.TraceStore), attached by
+        # the caller: legs are recorded at retirement.
+        self.trace_sink = None
+        self.trace_replica = "engine"
+
+    @contextlib.contextmanager
+    def _led_device(self, family: str):
+        """Ledger frame for a dispatch's launches or the host read that waits
+        for them: ``device``, tagged with the program ``family``, unless a
+        kernel library was built or loaded inside the frame
+        (``ops/_build.py``'s count grew): then the frame paid for a build or
+        a load, not device work, and books ``compile``. A launch only queues
+        work, so a dispatch's device seconds land in the frame of its
+        read."""
+        before = _build.loads
+        with self.ledger.measure("device", family=family) as f:
+            yield f
+            if _build.loads > before:
+                f.rebucket("compile")
+
+    def _win_delta(self, counter) -> float:
+        # The stats window (reset_stats → snapshot) over a cumulative
+        # counter: its value minus its base at the last reset.
+        return counter.value - self._win_base.get(counter.name, 0.0)
 
     def _init_slots(self):
         b = self._b
@@ -512,15 +786,33 @@ class ContinuousEngine:
         self._refcnt: dict[int, int] = {}
         self._cached_lru: dict[int, None] = {}
         self._shared_count = [0] * b   # leading registry pages per slot
-        self._page_high = 0
+        self._g_pages.set(0)
+        self._g_retained.set(0)
 
     def reset_stats(self):
         """Start a stats window (``serve()`` calls this at entry; streaming
-        users call it to start a measurement window)."""
+        users call it to start a measurement window). The registry's
+        counters are cumulative and never zeroed: the window is a base
+        snapshot that ``last_stats`` and ``latency_stats`` subtract."""
         self._completed: list[dict] = []
         self._itl: list[float] = []
-        self._win = dict.fromkeys(_WINDOW, 0)
-        self._page_high = self._live_pages() if self._paged else 0
+        self._win_base = {
+            c.name: c.value
+            for c in (
+                self._c_preempt, self._c_pfx_hits, self._c_pfx_pages,
+                self._c_spec_acc, self._c_spec_prop, self._c_refill_s,
+                self._c_decode_s, self._c_mixed_s, self._c_stall_s,
+                self._c_refill_n, self._c_decode_n, self._c_mixed_n,
+                self._c_multi_n, self._c_multi_links,
+                self._c_plan_staged, self._c_plan_reused,
+                self._c_requests, self._c_finished, self._c_shed,
+                self._c_deadline, self._c_req_failed, self._c_rerouted,
+                self._c_pfx_expected, self._c_tier_miss,
+            )
+        }
+        # The page gauge's window high-water (its live value rides on).
+        self._g_pages.reset_high_water()
+        self.ledger.begin_window()
 
     def reset(self):
         """Abandon all in-flight work and return the engine to idle. Frees
@@ -540,15 +832,22 @@ class ContinuousEngine:
         next dispatch creates the cache again (``cache_creations`` counts
         it)."""
         now = time.perf_counter()
+        n = 0
         for slot in range(self._b):
             if self._slot_req[slot] is not None:
                 self._fail_slot(slot, "shutdown", "engine closed", now)
+                n += 1
         while self._queue:
             self._fail_request(self._queue.popleft(), "shutdown", "engine closed", now=now)
+            n += 1
+        self._g_queue.set(0)
+        self._g_active.set(0)
+        self.recorder.record("engine.drain", status="shutdown", n=n)
         self._cache = self._d_cache = None
         self._cast_src = self._cast_key = self._cast_out = None
         if self._paged:
             self._init_pool()
+        self.recorder.record("engine.close")
 
     def flush_prefix_cache(self):
         """Drop every retained prefix page: call between checkpoints, since
@@ -571,6 +870,9 @@ class ContinuousEngine:
     # --- page allocator ----------------------------------------------------
 
     def _take_page(self) -> int:
+        # Chaos seam: kind="oom" raises this allocator's own RuntimeError,
+        # driving the recompute-preemption path.
+        chaos_hook("engine.page_alloc", free=len(self._free_pages))
         if self._free_pages:
             return self._free_pages.pop()
         if self._cached_lru:
@@ -593,7 +895,10 @@ class ContinuousEngine:
         return (self._paged_pages - 1) - len(self._free_pages) - len(self._cached_lru)
 
     def _update_high_water(self):
-        self._page_high = max(self._page_high, self._live_pages())
+        # The gauge carries the live value (export) and the window maximum
+        # (last_stats["page_high_water"]).
+        self._g_pages.set(self._live_pages())
+        self._g_retained.set(len(self._cached_lru))
 
     def _ensure(self, slot: int, tokens_through: int):
         # Map positions [0, tokens_through) before the dispatch that writes
@@ -601,12 +906,13 @@ class ContinuousEngine:
         need = -(-int(tokens_through) // self._page_size)
         if len(self._held[slot]) >= need:
             return   # steady-state decode mostly allocates nothing
-        while len(self._held[slot]) < need:
-            p = self._take_page()
-            self._table_np[slot, len(self._held[slot])] = p
-            self._held[slot].append(p)
-            self._tables_dirty = True
-        self._update_high_water()
+        with self.ledger.measure("page_alloc"):
+            while len(self._held[slot]) < need:
+                p = self._take_page()
+                self._table_np[slot, len(self._held[slot])] = p
+                self._held[slot].append(p)
+                self._tables_dirty = True
+            self._update_high_water()
 
     def _release(self, slot: int, register: bool = True):
         # ``register=False``: the slot is being un-admitted or failed, so its
@@ -744,18 +1050,33 @@ class ContinuousEngine:
         """Enqueue one request and return its id, the key ``pop_finished()``
         reports it under; admission happens in a later ``step()``.
         ``arrival_t`` (a ``time.perf_counter`` stamp) keeps an earlier
-        arrival clock for the latency telemetry, and places the request in
-        the refill queue among those of its admission pass, as in the JAX
-        engine. Unstamped, it is placed by the clock at this call on one
-        device; over a mesh, where the clock differs by rank, after every
-        stamped request of its pass, in add order."""
-        for name, value, where in (("deadline_s", deadline_s, "the recovery policies"),
-                                   ("adapter", adapter, "tenancy (swaps and adapters)"),
-                                   ("tenant", tenant, "slice E (telemetry)")):
-            if value is not None:
-                raise NotImplementedError(f"{name}: ported with {where}")
+        arrival clock for the deadline and the latency telemetry, and places
+        the request in the refill queue among those of its admission pass,
+        as in the JAX engine. Unstamped, it is placed by the clock at this
+        call on one device; over a mesh, where the clock differs by rank,
+        after every stamped request of its pass, in add order.
+
+        ``deadline_s`` overrides the engine's TTL for this request (arrival
+        to retirement; past it the request retires ``"deadline"``).
+        ``tenant`` labels the request's SLO observations and trace. Raises
+        :class:`AdmissionError` when admission control sheds the arrival
+        (queue at ``max_queue``, or the ladder shedding): nothing is
+        enqueued."""
+        if adapter is not None:
+            raise NotImplementedError("adapter: ported with tenancy (swaps and adapters)")
         p = np.asarray(prompt, np.int32).reshape(-1)
         self._validate_prompt(p)
+        if self._shed_all or (self._max_queue is not None
+                              and len(self._queue) >= self._max_queue):
+            self._c_shed.inc()
+            why = ("degradation ladder is shedding" if self._shed_all
+                   else f"queue full ({self._max_queue})")
+            self.recorder.record("engine.shed", reason=why, queue_depth=len(self._queue))
+            raise AdmissionError(f"request shed: {why}")
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+            self._any_req_deadline = True
         if rid is None:
             rid = self._next_rid
             self._next_rid += 1
@@ -768,10 +1089,18 @@ class ContinuousEngine:
             self._next_rid = max(self._next_rid, rid + 1)
         now = time.perf_counter()
         order_t = arrival_t if arrival_t is not None else now if self._mesh is None else math.inf
-        self._queue.append(_Request(rid=rid, prompt=p, seq=self._n_added, order_t=order_t,
-                                    arrival_t=now if arrival_t is None else arrival_t))
+        r = _Request(rid=rid, prompt=p, seq=self._n_added, order_t=order_t,
+                     arrival_t=now if arrival_t is None else arrival_t, deadline_s=deadline_s,
+                     enqueue_t=now, tenant=tenant)
+        self._queue.append(r)
         self._n_added += 1
-        self._win["requests"] += 1
+        self._c_requests.inc()
+        self._g_queue.set(len(self._queue))
+        if self.trace_sink is not None:
+            self.trace_sink.mint(rid, arrival_t=r.arrival_t, tenant=tenant)
+        self.tracer.instant("request.arrival", rid=rid, prompt_len=int(p.size))
+        self.recorder.record("engine.arrival", rid=rid, prompt_len=int(p.size),
+                             queue_depth=len(self._queue))
         return rid
 
     def has_work(self) -> bool:
@@ -811,19 +1140,72 @@ class ContinuousEngine:
         r.finish_t = now
         n = self._emitted[slot]
         times = self._ttimes[slot]
-        self._itl.extend(b - a for a, b in zip(times, times[1:]))
-        self._completed.append(dict(
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        self._itl.extend(gaps)
+        rec = dict(
             rid=r.rid, prompt_len=int(r.prompt.size), generated=n,
             queue_wait=r.admit_t - r.arrival_t,
             ttft=r.first_token_t - r.arrival_t if r.first_token_t is not None else None,
             e2e=now - r.arrival_t,
             tpot=(now - r.first_token_t) / (n - 1) if n > 1 else None,
-        ))
+        )
+        self._completed.append(rec)
+        # The export histograms carry the same observations (the exact
+        # percentiles of latency_stats stay sample-based); all of this
+        # booking is the observability tax, the ledger's telemetry bucket.
+        with self.ledger.measure("telemetry"):
+            for g in gaps:
+                self._h_itl.observe(g)
+            self._c_finished.inc()
+            self._c_tokens.inc(n)
+            self._h_wait.observe(rec["queue_wait"])
+            self._h_e2e.observe(rec["e2e"])
+            if rec["ttft"] is not None:
+                self._h_ttft.observe(rec["ttft"])
+            if rec["tpot"] is not None:
+                self._h_tpot.observe(rec["tpot"])
+            self.tracer.async_end("request", r.rid, generated=n)
+            self.recorder.record("engine.retire", rid=r.rid, slot=slot, generated=n,
+                                 ttft=rec["ttft"], e2e=rec["e2e"])
+            if self.slo is not None:
+                ten = r.tenant
+                self.slo.observe("queue_wait", rec["queue_wait"], tenant=ten)
+                self.slo.observe("e2e", rec["e2e"], tenant=ten)
+                if rec["ttft"] is not None:
+                    self.slo.observe("ttft", rec["ttft"], tenant=ten)
+                if rec["tpot"] is not None:
+                    self.slo.observe("tpot", rec["tpot"], tenant=ten)
+                for g in gaps:
+                    self.slo.observe("itl", g, tenant=ten)
+            if self.trace_sink is not None:
+                self._record_trace_legs(r, now, generated=n)
+                if self.trace_sink.auto_complete:
+                    self.trace_sink.complete(r.rid, status="ok", finish_t=now)
         self._finished[r.rid] = r
         retired.append(r.rid)
         self._free_slot(slot)
         if self._paged:
             self._release(slot)
+
+    def _record_trace_legs(self, r: _Request, now: float, *, generated=0, status="ok"):
+        """Append this engine's legs of ``r``'s journey to the trace sink,
+        from the request's own stamps: queue from its enqueue to its
+        admission, prefill to its first token, decode to ``now``."""
+        ts, rep = self.trace_sink, self.trace_replica
+        q0 = r.enqueue_t if r.enqueue_t is not None else r.arrival_t
+        if r.admit_t is None:
+            # Never admitted: all wait.
+            ts.leg(r.rid, "queue", q0, now, replica=rep, status=status)
+            return
+        ts.leg(r.rid, "queue", q0, r.admit_t, replica=rep)
+        ft = r.first_token_t
+        if ft is None:
+            # Retired mid-prefill.
+            ts.leg(r.rid, "prefill", r.admit_t, now, replica=rep, status=status)
+            return
+        ts.leg(r.rid, "prefill", r.admit_t, ft, replica=rep, first_token_t=ft)
+        if now > ft:
+            ts.leg(r.rid, "decode", ft, now, replica=rep, generated=generated, status=status)
 
     def _free_slot(self, slot: int):
         self._slot_req[slot] = None
@@ -832,16 +1214,30 @@ class ContinuousEngine:
 
     def _fail_request(self, r: _Request, status: str, error: str, *, now=None, tokens=None):
         """Retire ``r`` with a terminal non-ok status, surfaced through
-        ``pop_finished`` as a :class:`RequestFailure`."""
+        ``pop_finished`` as a :class:`RequestFailure`: the recovery
+        policies' one exit (deadline, quarantine, malformed, shutdown)."""
+        now = time.perf_counter() if now is None else now
         r.status, r.error = status, error
-        r.finish_t = time.perf_counter() if now is None else now
+        r.finish_t = now
         if tokens is not None:
             r.tokens = tokens
+        with self.ledger.measure("telemetry"):
+            self._c_req_failed.inc()
+            self.recorder.record("engine.request_failed", rid=r.rid, status=status,
+                                 error=error)
+            if r.admit_t is not None:
+                # Close the span async_begin opened at first admission.
+                self.tracer.async_end("request", r.rid, status=status)
+            if self.trace_sink is not None:
+                self._record_trace_legs(r, now, status=status)
+                if self.trace_sink.auto_complete:
+                    self.trace_sink.complete(r.rid, status=status, finish_t=now)
         self._finished[r.rid] = r
 
     def _fail_slot(self, slot: int, status: str, error: str, now=None):
         """Fail the request in ``slot`` (partial output kept) and free it;
-        its pages are never registered."""
+        its pages are never registered (a deadline or poison eviction can
+        land mid-prefill, with pages partly written)."""
         self._fail_request(self._slot_req[slot], status, error, now=now,
                            tokens=np.asarray(self._out[slot], np.int32))
         if self._paged:
@@ -853,6 +1249,90 @@ class ContinuousEngine:
         self._pending[slot] = np.zeros((0,), np.int32)
         self._needs_reset[slot] = False
         self._reset_to[slot] = 0
+
+    def _sweep_deadlines(self):
+        """TTL eviction: fail every queued or in-flight request older than its
+        deadline (its own ``deadline_s``, else the engine's). Skipped at once
+        when no deadline is set anywhere. Over a mesh the first rank reads
+        its clock and broadcasts which requests expired."""
+        if self._deadline_s is None and not self._any_req_deadline:
+            return
+        if self._deadline_s is None:
+            # Only per-request deadlines: re-arm the skip once none is live.
+            if not any(r.deadline_s is not None for r in self._queue) and not any(
+                    r is not None and r.deadline_s is not None for r in self._slot_req):
+                self._any_req_deadline = False
+                return
+        with self.ledger.measure("admission"):
+            now = time.perf_counter()
+
+            def expired(r):
+                dl = r.deadline_s if r.deadline_s is not None else self._deadline_s
+                return dl is not None and now - r.arrival_t > dl
+
+            # Queued requests in queue order, then the slots.
+            flags = np.asarray([expired(r) for r in self._queue]
+                               + [r is not None and expired(r) for r in self._slot_req], bool)
+            flags = self._agree(flags.astype(np.int64)).astype(bool)
+            queued = flags[: len(self._queue)]
+            if queued.any():
+                keep = deque()
+                for r, gone in zip(self._queue, queued):
+                    if gone:
+                        self._c_deadline.inc()
+                        self._fail_request(r, "deadline", "deadline exceeded in queue", now=now)
+                    else:
+                        keep.append(r)
+                self._queue = keep
+                self._g_queue.set(len(self._queue))
+            for slot, gone in enumerate(flags[len(queued):]):
+                if gone:
+                    self._c_deadline.inc()
+                    self._fail_slot(slot, "deadline", "deadline exceeded in flight", now)
+
+    def _dispatch_seam(self, phase: str):
+        """The chaos seam before a dispatch's work, booked ``recovery`` (an
+        injected delay is never device time). While an injector is
+        installed, a recoverable fault raised here on any rank of a mesh is
+        raised on every rank (a MAX reduction of the flag), before anything
+        of the dispatch ran; without one the seam costs no collective."""
+        with self.ledger.measure("recovery"):
+            err = None
+            try:
+                chaos_hook("engine.dispatch", phase=phase, rids=[r for r in self._req if r >= 0])
+            except _RECOVERABLE_DISPATCH as e:
+                err = e
+            if (self._agree_mesh is not None and chaos_active()
+                    and self._any_rank(err is not None) and err is None):
+                err = InjectedFault("engine.dispatch", "remote",
+                                    "dispatch fault on another rank of the mesh")
+            if err is not None:
+                self._seam_fault = err
+                raise err
+
+    def _on_dispatch_fault(self, e: BaseException):
+        """A dispatch raised a recoverable fault. Every request in a slot
+        earns a strike; one at ``max_dispatch_strikes`` retires
+        ``"poisoned"``, the rest are requeued (recompute preemption, exact:
+        see ``_unadmit``) and readmitted one at a time (probation, see
+        ``_pop_admittable``). The device state needs no repair: admission
+        resets every per-row counter."""
+        with self.ledger.measure("recovery"):
+            self._c_dispatch_faults.inc()
+            self.recorder.record("engine.dispatch_fault", error=type(e).__name__,
+                                 message=str(e), rids=[r for r in self._req if r >= 0])
+            now = time.perf_counter()
+            for slot in range(self._b):
+                r = self._slot_req[slot]
+                if r is None:
+                    continue
+                r.strikes += 1
+                if r.strikes >= self._max_strikes:
+                    self._c_quarantined.inc()
+                    self.recorder.record("engine.quarantine", rid=r.rid, strikes=r.strikes)
+                    self._fail_slot(slot, "poisoned", str(e), now)
+                else:
+                    self._unadmit(slot)
 
     def _consume(self, slot: int, tokens, now: float, retired: list[int]):
         # Append a decode dispatch's tokens for one slot; retire at EOS or at
@@ -869,64 +1349,112 @@ class ContinuousEngine:
     # --- the scheduler -----------------------------------------------------
 
     def _unadmit(self, slot: int):
-        """Recompute preemption under pool pressure: push the slot's request
-        back to the queue head and free the slot. The request restarts from
-        scratch on a later admission and re-derives exactly the tokens it
-        had: greedy decoding is deterministic, and every draw is keyed by
-        (request id, generated position), never by the schedule."""
-        self._queue.appendleft(self._slot_req[slot])
+        """Recompute preemption under pool pressure, or after a dispatch
+        fault: push the slot's request back to the queue head and free the
+        slot. The request restarts from scratch on a later admission and
+        re-derives exactly the tokens it had: greedy decoding is
+        deterministic, and every draw is keyed by (request id, generated
+        position), never by the schedule."""
+        r = self._slot_req[slot]
+        self._queue.appendleft(r)
+        self.tracer.instant("request.preempted", rid=r.rid, slot=slot)
+        self.recorder.record("engine.preempt", rid=r.rid, slot=slot)
         if self._paged:
             self._release(slot, register=False)
         self._free_slot(slot)
         self._clear_admission(slot)
 
+    def _admission_ok(self, p: np.ndarray) -> str | None:
+        """The admission-time check of a queued prompt (it is not trusted
+        between ``add_request`` and admission): a malformed prompt fails the
+        request instead of wedging the slot. → the reason, or None."""
+        if p.ndim != 1 or p.dtype.kind not in "iu":
+            return f"malformed prompt (shape {p.shape}, dtype {p.dtype})"
+        try:
+            self._validate_prompt(p)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def _pop_admittable(self) -> _Request | None:
+        """The next request to admit, with PROBATION: while a request holding
+        dispatch strikes is in a slot nothing else admits, and suspects are
+        readmitted one at a time into an idle engine, so a poison request
+        trips its fault alone."""
+        if any(r is not None and r.strikes > 0 for r in self._slot_req):
+            return None             # a suspect is live: solo probation
+        si = next((i for i, r in enumerate(self._queue) if r.strikes > 0), None)
+        if si is None:
+            return self._queue.popleft()
+        if any(q >= 0 for q in self._req):
+            return None             # wait for idle before the next suspect
+        r = self._queue[si]
+        del self._queue[si]
+        return r
+
     def _admit(self):
-        now = time.perf_counter()
-        self._n_admits += 1
-        for slot in range(self._b):
-            if self._req[slot] >= 0 or not self._queue:
-                continue
-            r = self._queue.popleft()
-            # A preempted request keeps its first admission time and counts
-            # its prefix hit once.
-            first_admission = r.admit_t is None
-            if first_admission:
-                r.admit_t, r.admit_pass = now, self._n_admits
-            prompt = r.prompt
-            self._slot_req[slot] = r
-            self._req[slot] = r.rid
-            self._plen[slot] = prompt.size
-            self._pending[slot] = prompt
-            self._emitted[slot] = 0
-            self._out[slot] = list(prompt)
-            self._ttimes[slot] = []
-            self._needs_reset[slot] = True
-            self._reset_to[slot] = 0
-            if self._paged and self._prefix:
-                # The longest chain of retained pages whose token prefix
-                # matches; the last prompt token is always recomputed (its
-                # logits seed generation).
-                shared = []
-                for k in range(1, (prompt.size - 1) // self._page_size + 1):
-                    pid = self._prefix_registry.get(prompt[: k * self._page_size].tobytes())
-                    if pid is None:
-                        break
-                    shared.append(pid)
-                for j, pid in enumerate(shared):
-                    self._refcnt[pid] = self._refcnt.get(pid, 0) + 1
-                    self._cached_lru.pop(pid, None)
-                    self._table_np[slot, j] = pid
-                    self._held[slot].append(pid)
-                    self._tables_dirty = True
-                self._shared_count[slot] = len(shared)
-                if shared:
-                    s_len = len(shared) * self._page_size
-                    self._pending[slot] = prompt[s_len:]
-                    self._reset_to[slot] = s_len
-                    if first_admission:
-                        self._win["prefix_hits"] += 1
-                        self._win["prefix_pages_reused"] += len(shared)
-                    self._update_high_water()
+        with self.ledger.measure("admission"):
+            now = time.perf_counter()
+            self._n_admits += 1
+            for slot in range(self._b):
+                if self._req[slot] >= 0 or not self._queue:
+                    continue
+                r = self._pop_admittable()
+                if r is None:
+                    break
+                r.prompt = np.asarray(chaos_hook("engine.admit", value=r.prompt, rid=r.rid))
+                bad = self._admission_ok(r.prompt)
+                if bad is not None:
+                    self.recorder.record("engine.malformed", rid=r.rid, error=bad)
+                    self._fail_request(r, "malformed", bad, now=now)
+                    continue
+                # A preempted request keeps its first admission time and
+                # counts its prefix hit once.
+                first_admission = r.admit_t is None
+                if first_admission:
+                    r.admit_t, r.admit_pass = now, self._n_admits
+                    self.tracer.async_begin("request", r.rid, prompt_len=int(r.prompt.size),
+                                            slot=slot)
+                self.tracer.instant("request.admit", rid=r.rid, slot=slot)
+                self.recorder.record("engine.admit", rid=r.rid, slot=slot,
+                                     prompt_len=int(r.prompt.size),
+                                     readmission=not first_admission)
+                prompt = r.prompt
+                self._slot_req[slot] = r
+                self._req[slot] = r.rid
+                self._plen[slot] = prompt.size
+                self._pending[slot] = prompt
+                self._emitted[slot] = 0
+                self._out[slot] = list(prompt)
+                self._ttimes[slot] = []
+                self._needs_reset[slot] = True
+                self._reset_to[slot] = 0
+                if self._paged and self._prefix:
+                    # The longest chain of retained pages whose token prefix
+                    # matches; the last prompt token is always recomputed
+                    # (its logits seed generation).
+                    shared = []
+                    for k in range(1, (prompt.size - 1) // self._page_size + 1):
+                        pid = self._prefix_registry.get(prompt[: k * self._page_size].tobytes())
+                        if pid is None:
+                            break
+                        shared.append(pid)
+                    for j, pid in enumerate(shared):
+                        self._refcnt[pid] = self._refcnt.get(pid, 0) + 1
+                        self._cached_lru.pop(pid, None)
+                        self._table_np[slot, j] = pid
+                        self._held[slot].append(pid)
+                        self._tables_dirty = True
+                    self._shared_count[slot] = len(shared)
+                    if shared:
+                        s_len = len(shared) * self._page_size
+                        self._pending[slot] = prompt[s_len:]
+                        self._reset_to[slot] = s_len
+                        if first_admission:
+                            self._c_pfx_hits.inc()
+                            self._c_pfx_pages.inc(len(shared))
+                        self._update_high_water()
+            self._g_queue.set(len(self._queue))
 
     # --- device programs ---------------------------------------------------
 
@@ -936,6 +1464,35 @@ class ContinuousEngine:
             return contextlib.nullcontext()
         return activate(self._mesh, self._rules)
 
+    def _agree(self, values: np.ndarray) -> np.ndarray:
+        """``values`` as the mesh's first rank holds them, on every rank of
+        the mesh: a small tensor on the engine's device broadcast along
+        each axis in turn, from the rank at coordinate 0 of that axis, in
+        the mesh's own groups. On one rank ``values`` itself."""
+        mesh = self._agree_mesh
+        if mesh is None:
+            return values
+        t = torch.as_tensor(np.ascontiguousarray(values), device=self._device)
+        coord = mesh.get_coordinate()
+        for d in range(mesh.ndim):
+            if mesh.size(d) > 1:
+                # After axis d, every rank at coordinate 0 on the later
+                # axes holds the first rank's values.
+                src = list(coord)
+                src[d] = 0
+                dist.broadcast(t, src=int(mesh.mesh[tuple(src)]), group=mesh.get_group(d))
+        return t.cpu().numpy()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank of the mesh (a MAX reduction
+        along each axis in turn, in the mesh's own groups)."""
+        mesh = self._agree_mesh
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self._device)
+        for d in range(mesh.ndim):
+            if mesh.size(d) > 1:
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(d))
+        return bool(t.item())
+
     def _ensure_cache(self):
         if self._cache is None:
             with self._scope():
@@ -944,6 +1501,8 @@ class ContinuousEngine:
                     self._d_cache = self._d_model.init_cache(
                         self._b, block_table=self._cache.block_table)
             self.cache_creations += 1
+            self._c_creations.inc()
+            self.recorder.record("engine.cache_create", n=self.cache_creations)
 
     def _forward(self, weights, tokens: torch.Tensor, lengths: torch.Tensor,
                  pick: torch.Tensor | None = None) -> torch.Tensor:
@@ -1184,6 +1743,7 @@ class ContinuousEngine:
         self._tok[slot] = t
         self._slot_req[slot].first_token_t = now
         self._ttimes[slot].append(now)
+        self.tracer.instant("request.first_token", rid=self._req[slot])
         if (self._eos is not None and t == self._eos) or self._max_new == 1:
             self._retire(slot, now, retired)
         else:
@@ -1197,7 +1757,7 @@ class ContinuousEngine:
         if not any(self._req[s] >= 0 for s in range(self._b) if s != slot):
             raise
         self._unadmit(slot)
-        self._win["preemptions"] += 1
+        self._c_preempt.inc()
 
     def _refill_dispatch(self, weights, d_weights, retired: list[int]) -> bool:
         # One refill chunk for every slot with pending prompt tokens;
@@ -1216,6 +1776,7 @@ class ContinuousEngine:
                     lengths[slot] = n
             if not lengths.any():
                 break
+            self._dispatch_seam("refill")
             if self._paged:
                 for slot in range(b):
                     if not lengths[slot]:
@@ -1229,11 +1790,14 @@ class ContinuousEngine:
                         chunk[slot, :] = 0
                 if not lengths.any():
                     break
-            self._ensure_cache()
-            if self._paged:
-                self._set_tables()
-            tok_new = self._refill_step(weights, d_weights, chunk, lengths, self._needs_reset,
-                                        self._reset_to, self._rid_arr())
+            # The cache-creating chunk is the JAX engine's first_refill.
+            family = "first_refill" if self._cache is None else "refill_step"
+            with self._led_device(family), annotate(f"engine.{family}"):
+                self._ensure_cache()
+                if self._paged:
+                    self._set_tables()
+                tok_new = self._refill_step(weights, d_weights, chunk, lengths,
+                                            self._needs_reset, self._reset_to, self._rid_arr())
             # The dispatch has its own copy of the admission resets; every
             # flagged row had pending tokens and rode this chunk.
             self._needs_reset[:] = False
@@ -1247,7 +1811,8 @@ class ContinuousEngine:
             segs.append((tok_new, completes))
         if not segs:
             return False
-        toks = torch.stack([t for t, _ in segs]).cpu().numpy()   # ONE sync
+        with self._led_device(family):
+            toks = torch.stack([t for t, _ in segs]).cpu().numpy()   # ONE sync
         now = time.perf_counter()
         for tok_new, (_, completes) in zip(toks, segs):
             for slot in completes:
@@ -1263,16 +1828,17 @@ class ContinuousEngine:
         return np.asarray([max(0, p + e - 1) for p, e in zip(self._plen, self._emitted)],
                           np.int32)
 
-    def _map_decode(self, remaining: np.ndarray, tokens: int):
+    def _map_decode(self, remaining: np.ndarray, tokens: int, spec: bool):
         """Map every position a decoding row can write in its next
-        ``tokens`` tokens, capped by its remaining budget (speculative: plus
-        the verify chunk's headroom), with recompute preemption."""
+        ``tokens`` tokens, capped by its remaining budget (speculative
+        rounds, ``spec``: plus the verify chunk's headroom), with recompute
+        preemption."""
         for slot in range(self._b):
             if not self._active[slot]:
                 continue
             pos = self._plen[slot] + self._emitted[slot] - 1
             span = min(int(remaining[slot]), tokens)
-            if self._speculative:
+            if spec:
                 span += self._num_draft + 1
             try:
                 self._ensure(slot, pos + span)
@@ -1287,15 +1853,20 @@ class ContinuousEngine:
         if not self._active.any():
             return False
         b = self._b
-        spec = self._speculative
+        # Degradation level 1 turns the draft-verify rounds off: a
+        # speculative engine decodes through the plain decode block on the
+        # target's cache; the draft cache waits (on re-enable its stale K/V
+        # costs acceptance, never tokens: the verifier decides each one).
+        spec = self._speculative and not self._spec_disabled
         remaining = self._remaining()
         # Never dispatch blocks that cannot emit: cap the chain at what the
         # longest-running active row can still use.
         per_block = self._block_steps * ((self._num_draft + 1) if spec else 1)
         worst = int(remaining[self._active].max())
         chain = min(self.decode_chain, -(-worst // per_block))
+        self._dispatch_seam("decode")
         if self._paged:
-            self._map_decode(remaining, chain * per_block)
+            self._map_decode(remaining, chain * per_block, spec)
             if not self._active.any():
                 return False
             self._set_tables()
@@ -1307,29 +1878,32 @@ class ContinuousEngine:
         remaining_d = self._to_device(remaining)
         rid = self._rid_arr()
         segs = []
-        if spec:
-            pos_d = self._to_device(self._decode_pos())
-            for _ in range(chain):
-                buffer, counts, acc, prop, tok, pos_d, active, remaining_d = (
-                    self._decode_block_spec(weights, d_weights, tok, active, pos_d,
-                                            remaining_d, rid))
-                segs.append(torch.cat([counts[:, None], acc[:, None], prop[:, None], buffer],
-                                      dim=1))
-        else:
-            for _ in range(chain):
-                toks, active, remaining_d = self._decode_block(weights, tok, active,
-                                                               remaining_d, rid)
-                # Next block's pending token: each row's last emitted (frozen
-                # rows repeat theirs).
-                tok = toks[:, -1]
-                segs.append(toks)
-        segs = torch.stack(segs).cpu().numpy()     # ONE sync
+        family = "decode_block_spec" if spec else "decode_block"
+        with self._led_device(family), annotate(f"engine.{family}"):
+            if spec:
+                pos_d = self._to_device(self._decode_pos())
+                for _ in range(chain):
+                    buffer, counts, acc, prop, tok, pos_d, active, remaining_d = (
+                        self._decode_block_spec(weights, d_weights, tok, active, pos_d,
+                                                remaining_d, rid))
+                    segs.append(torch.cat([counts[:, None], acc[:, None], prop[:, None],
+                                           buffer], dim=1))
+            else:
+                for _ in range(chain):
+                    toks, active, remaining_d = self._decode_block(weights, tok, active,
+                                                                   remaining_d, rid)
+                    # Next block's pending token: each row's last emitted
+                    # (frozen rows repeat theirs).
+                    tok = toks[:, -1]
+                    segs.append(toks)
+        with self._led_device(family):
+            segs = torch.stack(segs).cpu().numpy()     # ONE sync
         now = time.perf_counter()
         was_active = self._active.copy()
         for seg in segs:
             if spec:
-                self._win["spec_acc"] += int(seg[:, 1].sum())
-                self._win["spec_prop"] += int(seg[:, 2].sum())
+                self._c_spec_acc.inc(int(seg[:, 1].sum()))
+                self._c_spec_prop.inc(int(seg[:, 2].sum()))
             for slot in range(b):
                 # A slot retired in an earlier block emits nothing real in
                 # later ones: its lane froze on the device.
@@ -1356,6 +1930,13 @@ class ContinuousEngine:
         if self._cache is None:
             # Cache creation routes through the refill path.
             return "refill" if self._refill_dispatch(weights, d_weights, retired) else False
+        if self._speculative and self._spec_disabled:
+            # Degradation level >= 1 on a speculative mixed engine: the split
+            # dispatches (the refill still feeds the draft cache, so turning
+            # speculation back on stays sound; decode runs the plain block).
+            if any(p.size for p in self._pending):
+                return "refill" if self._refill_dispatch(weights, d_weights, retired) else False
+            return "decode" if self._decode_dispatch(weights, d_weights, retired) else False
         if not any(p.size for p in self._pending):
             # PURE-DECODE phase: nothing to fuse, so the K-step decode block
             # runs (a fused link costs one dispatch a token and exists to
@@ -1382,7 +1963,8 @@ class ContinuousEngine:
         remaining = self._remaining()
         chain_dec = chain_cap(remaining, self._active)
         if self._paged and self._active.any():
-            self._map_decode(remaining, min(n_links, max(chain_dec, 1)) * per_link)
+            self._map_decode(remaining, min(n_links, max(chain_dec, 1)) * per_link,
+                             self._speculative)
             remaining = self._remaining()
             chain_dec = chain_cap(remaining, self._active)
         was_active = self._active.copy()
@@ -1402,6 +1984,7 @@ class ContinuousEngine:
                  else (self._plen[s] - self._pending[s].size if self._req[s] >= 0 else 0)
                  for s in range(b)], np.int32))
         carry = (tok, active, pos_d, remaining_d)
+        self._dispatch_seam("mixed")
         if horizon > 1:
             return self._multi_dispatch(weights, d_weights, retired, n_links=n_links,
                                         per_link=per_link, chain_dec=chain_dec,
@@ -1426,13 +2009,21 @@ class ContinuousEngine:
                 reset = (self._to_device(self._needs_reset), self._to_device(self._reset_to))
                 self._needs_reset[:] = False
                 self._reset_to[:] = 0
-            chunk, lengths, _ = planned[0]
+            chunk, lengths, _, _ = planned[0]
             links += planned
-            carry = self._run_link(weights, d_weights, self._to_device(chunk),
-                                   self._to_device(lengths), reset, carry, rid)
+            with self._led_device("mixed_step"), annotate("engine.mixed_step"):
+                carry = self._run_link(weights, d_weights, self._to_device(chunk),
+                                       self._to_device(lengths), reset, carry, rid)
         if not links:
             return False
-        self._consume_links(self._read_links(), links, was_active, retired)
+        self.recorder.record(
+            "engine.mixed_schedule", links=len(links), decode_rows=n_active,
+            refill_tokens=int(sum(ln.sum() for _, ln, _, _ in links)),
+            starved=sum(st for _, _, st, _ in links), budget=self.token_budget,
+            queue_depth=len(self._queue))
+        with self._led_device("mixed_step"):
+            outs = self._read_links()
+        self._consume_links(outs, links, was_active, retired)
         return "mixed"
 
     def _take_pending(self, offs):
@@ -1469,12 +2060,12 @@ class ContinuousEngine:
         order, for the rows decoding at the dispatch's start that are still
         live (a row retired at an earlier link froze on the device)."""
         now = time.perf_counter()
-        for out, (_, _, completes) in zip(outs, links):
+        for out, (_, _, _, completes) in zip(outs, links):
             for slot in completes:
                 self._first_token(slot, int(out[slot, 0]), now, retired)
             if self._speculative:
-                self._win["spec_acc"] += int(out[:, 2].sum())
-                self._win["spec_prop"] += int(out[:, 3].sum())
+                self._c_spec_acc.inc(int(out[:, 2].sum()))
+                self._c_spec_prop.inc(int(out[:, 3].sum()))
             for slot in range(self._b):
                 if was_active[slot] and self._req[slot] >= 0:
                     toks = out[slot, 4:4 + out[slot, 1]] if self._speculative else out[slot, :1]
@@ -1504,11 +2095,13 @@ class ContinuousEngine:
             lengths = np.zeros((b,), np.int32)
             chunk = np.zeros((b, self._refill_chunk), np.int32)
             completes = []
+            starved = 0
             order = sorted((s for s in range(b) if self._pending[s].size - offs[s] > 0),
                            key=lambda s: (self._slot_req[s].admit_pass,
                                           self._slot_req[s].order_t, self._slot_req[s].seq))
             for slot in order:
                 if budget <= 0:
+                    starved += 1
                     continue
                 n = min(self._pending[slot].size - offs[slot], self._refill_chunk, budget)
                 if self._paged:
@@ -1522,7 +2115,7 @@ class ContinuousEngine:
                         # Nothing dispatched yet: scrub the requeued request
                         # from the earlier planned links.
                         offs[slot] = 0
-                        for ch2, ln2, comp2 in links:
+                        for ch2, ln2, _, comp2 in links:
                             ln2[slot] = 0
                             ch2[slot, :] = 0
                             if slot in comp2:
@@ -1537,7 +2130,7 @@ class ContinuousEngine:
             has_decode = n_active > 0 and link < chain_dec
             if not lengths.any() and not has_decode:
                 break
-            links.append((chunk, lengths, completes))
+            links.append((chunk, lengths, starved, completes))
         return links, offs
 
     def _boundary_fingerprint(self, n_links, n_active, per_link, chain_dec):
@@ -1558,7 +2151,7 @@ class ContinuousEngine:
         fp, plan = staged
         if fp != self._boundary_fingerprint(n_links, n_active, per_link, chain_dec):
             return None
-        self._win["plan_reused"] += 1
+        self._c_plan_reused.inc()
         return plan
 
     def _multi_dispatch(self, weights, d_weights, retired, *, n_links, per_link, chain_dec,
@@ -1570,6 +2163,7 @@ class ContinuousEngine:
         # plan is not run; a planned link with no active row runs with every
         # length 0, advancing no row.
         plan = self._take_staged_plan(n_links, n_active, per_link, chain_dec)
+        reused = plan is not None
         if plan is None:
             plan = self._plan_horizon_links(n_links, n_active, per_link, chain_dec,
                                             allow_preempt=True)
@@ -1581,22 +2175,30 @@ class ContinuousEngine:
             # The plan (refill) and the preamble (decode) allocated every
             # page of the horizon: one table push.
             self._set_tables()
-        chunks = self._to_device(np.stack([c for c, _, _ in links]))
-        lengths = self._to_device(np.stack([ln for _, ln, _ in links]))
+        chunks = self._to_device(np.stack([c for c, _, _, _ in links]))
+        lengths = self._to_device(np.stack([ln for _, ln, _, _ in links]))
         reset = None
         if self._needs_reset.any():
             reset = (self._to_device(self._needs_reset), self._to_device(self._reset_to))
         self._needs_reset[:] = False
         self._reset_to[:] = 0
-        for i in range(len(links)):
-            carry = self._run_link(weights, d_weights, chunks[i], lengths[i],
-                                   reset if i == 0 else None, carry, rid)
-        self._win["multi_n"] += 1
-        self._win["multi_links"] += len(links)
+        with self._led_device("multi_step"), annotate("engine.multi_step"):
+            for i in range(len(links)):
+                carry = self._run_link(weights, d_weights, chunks[i], lengths[i],
+                                       reset if i == 0 else None, carry, rid)
+        self.recorder.record(
+            "engine.mixed_schedule", links=len(links), decode_rows=n_active,
+            refill_tokens=int(sum(ln.sum() for _, ln, _, _ in links)),
+            starved=sum(st for _, _, st, _ in links), budget=self.token_budget,
+            queue_depth=len(self._queue), horizon=n_links, plan_reused=reused)
+        self._c_multi_n.inc()
+        self._c_multi_links.inc(len(links))
         # The planner's window: the links are queued and nothing below needs
         # their results yet.
         self._plan_next_horizon(n_links, per_link, chain_dec, links)
-        self._consume_links(self._read_links(), links, was_active, retired)
+        with self._led_device("multi_step"):
+            outs = self._read_links()            # ONE read for the horizon
+        self._consume_links(outs, links, was_active, retired)
         return "mixed"
 
     def _plan_next_horizon(self, n_links, per_link, chain_dec, links):
@@ -1618,7 +2220,7 @@ class ContinuousEngine:
         for s in range(b):
             if act[s] and not surv[s]:
                 req_pred[s] = -1
-        for _c, _l, comp in links:
+        for _c, _l, _st, comp in links:
             for s in comp:
                 # A prompt completing this horizon decodes at the boundary
                 # (unless max_new_tokens == 1 retires it at its first token).
@@ -1636,47 +2238,126 @@ class ContinuousEngine:
         fp = (tuple(req_pred), tuple(int(p.size) for p in self._pending), n_active_pred,
               chain_pred, int(n_links), int(per_link), int(self.token_budget))
         self._staged_plan = (fp, plan)
-        self._win["plan_staged"] += 1
+        self._c_plan_staged.inc()
+        self.recorder.record("engine.plan_staged", links=len(plan[0]),
+                             predicted_active=n_active_pred)
+
+    @property
+    def degradation_level(self) -> int:
+        """The degradation ladder's level (0 without a ladder): 0 normal, 1
+        speculation off, 2 ``token_budget`` halved, 3 shedding new admits."""
+        return self._level
+
+    def _apply_degradation(self):
+        """Feed the SLO monitor's burn rate into the ladder and apply a level
+        change to the engine's knobs: the public ``token_budget`` an operator
+        can turn too, so de-escalation restores the value the ladder took
+        over. Over a mesh the first rank updates the ladder and broadcasts
+        the level."""
+        if self._ladder is None or self.slo is None:
+            return
+        level = burn = 0.0
+        if self._agree_mesh is None or dist.get_rank() == self._src:
+            burn = max((self.slo.burn_rate(t.name) for t in self.slo.targets), default=0.0)
+            level = self._ladder.update(burn)
+        level, burn = self._agree(np.asarray([level, burn], np.float64))
+        level = int(level)
+        if level == self._level:
+            return
+        self._level = level
+        if self._speculative:
+            self._spec_disabled = level >= 1
+        if self._mixed:
+            if level >= 2 and self._base_budget is None:
+                self._base_budget = self.token_budget
+                self.token_budget = max(self._b, self.token_budget // 2)
+            elif level < 2 and self._base_budget is not None:
+                self.token_budget = self._base_budget
+                self._base_budget = None
+        self._shed_all = level >= 3
+        self._g_degraded.set(level)
+        self.recorder.record(
+            "engine.degrade", level=level, name=self._ladder.LEVELS[level], burn_rate=burn,
+            spec_disabled=self._spec_disabled, token_budget=self.token_budget,
+            shedding=self._shed_all)
 
     def step(self, params=None, draft_params=None) -> list[int]:
-        """ONE scheduler iteration: admit queued requests into idle slots,
-        then one dispatch: a refill if any slot has pending prompt tokens,
-        else a decode block if any row is active, else nothing; with
-        ``mixed=True`` the fused links instead. Returns the ids of the
+        """ONE scheduler iteration: evict expired requests, admit queued ones
+        into idle slots, then one dispatch: a refill if any slot has pending
+        prompt tokens, else a decode block if any row is active, else
+        nothing; with ``mixed=True`` the fused links instead. A recoverable
+        dispatch fault is quarantined (see :class:`ContinuousEngine`); then
+        the degradation ladder reads the SLO monitor. Returns the ids of the
         requests that finished in this step (their outputs wait in
         ``pop_finished()``)."""
         if params is None:
             raise TypeError("step() without params: pass the params to serve")
-        self._check_draft_args(draft_params)
-        weights, d_weights = self._cast_params(params, draft_params)
-        retired: list[int] = []
-        with torch.no_grad():
-            self._admit()
-            # A dispatch stalls decode when rows were decoding but it
-            # advanced none of them (the split engine's refill).
-            had_active = bool(self._active.any())
-            t0 = time.perf_counter()
-            if self._mixed:
-                kind = self._mixed_dispatch(weights, d_weights, retired)
-            elif self._refill_dispatch(weights, d_weights, retired):
-                kind = "refill"
-            elif self._decode_dispatch(weights, d_weights, retired):
-                kind = "decode"
-            else:
-                kind = False
-            if kind:
-                dt = time.perf_counter() - t0
-                self._win[f"{kind}_s"] += dt
-                self._win[f"{kind}_n"] += 1
-                if kind == "refill" and had_active:
-                    self._win["stall_s"] += dt
+        # The ledger's top-level frame: the whole iteration is covered wall,
+        # "sched" unless a region inside claims its own bucket.
+        with self.ledger.measure("sched"):
+            self._check_draft_args(draft_params)
+            weights, d_weights = self._cast_params(params, draft_params)
+            retired: list[int] = []
+            with torch.no_grad():
+                # TTL eviction before admission: an expired queued request
+                # takes no slot, an expired one in flight frees its slot.
+                self._sweep_deadlines()
+                self._admit()
+                # A dispatch stalls decode when rows were decoding but it
+                # advanced none of them (the split engine's refill).
+                had_active = bool(self._active.any())
+                t0 = time.perf_counter()
+                self._seam_fault = None
+                try:
+                    if self._mixed:
+                        kind = self._mixed_dispatch(weights, d_weights, retired)
+                    elif self._refill_dispatch(weights, d_weights, retired):
+                        kind = "refill"
+                    elif self._decode_dispatch(weights, d_weights, retired):
+                        kind = "decode"
+                    else:
+                        kind = False
+                    if kind:
+                        self._book_dispatch(kind, time.perf_counter() - t0, t0, had_active,
+                                            len(retired))
+                except _RECOVERABLE_DISPATCH as e:
+                    # Over a mesh only the seam's faults are every rank's.
+                    if self._agree_mesh is not None and e is not self._seam_fault:
+                        raise
+                    self._on_dispatch_fault(e)
+                self._apply_degradation()
+            self._g_active.set(int(self._active.sum()))
+            self._g_queue.set(len(self._queue))
         return retired
+
+    def _book_dispatch(self, kind: str, dt: float, t0: float, had_active: bool, retired: int):
+        # Wall time accrues to the program class that ran (a mixed engine's
+        # fallthroughs book refill or decode); a refill with rows decoding
+        # stalls them, and the SLO feed sees a 0/1 stall per dispatch that
+        # had decoding rows.
+        with self.ledger.measure("telemetry"):
+            if kind == "refill":
+                self._c_refill_s.inc(dt)
+                self._c_refill_n.inc()
+                if had_active:
+                    self._c_stall_s.inc(dt)
+            elif kind == "decode":
+                self._c_decode_s.inc(dt)
+                self._c_decode_n.inc()
+            else:
+                self._c_mixed_s.inc(dt)
+                self._c_mixed_n.inc()
+            if had_active and self.slo is not None:
+                self.slo.observe("decode_stall_share", 1.0 if kind == "refill" else 0.0)
+            self.tracer.complete(f"engine.{kind}", t0, dt, retired=retired)
 
     # --- stats -------------------------------------------------------------
 
     def latency_stats(self) -> dict | None:
         """Latency percentiles over the requests completed in the current
-        stats window, in seconds, and the refill share of dispatch time."""
+        stats window, in seconds; the refill and decode-stall shares of
+        dispatch time; the shed rate (shed arrivals over offered ones) and
+        the deadline-miss rate (TTL evictions over retirements)."""
         comp = self._completed
         if not comp:
             return None
@@ -1694,43 +2375,62 @@ class ContinuousEngine:
         out.update(pcts([c["tpot"] for c in comp], "tpot"))
         out.update(pcts(self._itl, "itl"))
         out.update(pcts([c["e2e"] for c in comp], "e2e"))
-        w = self._win
-        busy = w["refill_s"] + w["decode_s"] + w["mixed_s"]
+        d = self._win_delta
+        refill_s, decode_s = d(self._c_refill_s), d(self._c_decode_s)
+        mixed_s, stall_s = d(self._c_mixed_s), d(self._c_stall_s)
+        busy = refill_s + decode_s + mixed_s
         out.update(
-            refill_s=w["refill_s"], decode_s=w["decode_s"], mixed_s=w["mixed_s"],
-            refill_frac=w["refill_s"] / busy if busy else None,
+            refill_s=refill_s, decode_s=decode_s, mixed_s=mixed_s,
+            refill_frac=refill_s / busy if busy else None,
             # The share of dispatch time that parked decoding rows behind
             # another slot's refill: what the mixed engine drives to ~0.
-            decode_stall_s=w["stall_s"],
-            decode_stall_share=w["stall_s"] / busy if busy else None,
-            refill_dispatches=w["refill_n"], decode_dispatches=w["decode_n"],
-            mixed_dispatches=w["mixed_n"],
+            decode_stall_s=stall_s,
+            decode_stall_share=stall_s / busy if busy else None,
+            refill_dispatches=int(d(self._c_refill_n)),
+            decode_dispatches=int(d(self._c_decode_n)),
+            mixed_dispatches=int(d(self._c_mixed_n)),
         )
-        if w["multi_n"]:
+        multi_n = d(self._c_multi_n)
+        if multi_n:
             # The horizon: links fused a dispatch, and how often the staged
             # plan was taken.
             out.update(
-                multi_dispatches=w["multi_n"],
-                steps_per_dispatch=w["multi_links"] / w["multi_n"],
-                plan_reuse_rate=w["plan_reused"] / max(1, w["plan_staged"]),
+                multi_dispatches=int(multi_n),
+                steps_per_dispatch=d(self._c_multi_links) / multi_n,
+                plan_reuse_rate=d(self._c_plan_reused) / max(1.0, d(self._c_plan_staged)),
             )
+        shed = d(self._c_shed)
+        offered = d(self._c_requests) + shed
+        done = d(self._c_finished) + d(self._c_req_failed)
+        out.update(
+            shed_rate=shed / offered if offered else 0.0,
+            deadline_miss_rate=d(self._c_deadline) / done if done else 0.0,
+            failed=int(d(self._c_req_failed)),
+            rerouted=int(d(self._c_rerouted)),
+        )
         if self._paged and self._prefix:
-            out["prefix_hit_rate"] = w["prefix_hits"] / w["requests"] if w["requests"] else 0.0
+            hits, admitted = d(self._c_pfx_hits), d(self._c_requests)
+            exp, miss = d(self._c_pfx_expected), d(self._c_tier_miss)
+            out.update(prefix_hit_rate=hits / admitted if admitted else 0.0,
+                       tier_miss_rate=miss / exp if exp else 0.0)
         return out
 
     def _snapshot_stats(self):
+        # The mode stats (None when no mode is on), as window deltas over the
+        # cumulative registry counters.
         stats = None
         if self._paged:
-            stats = dict(page_high_water=self._page_high, pages_total=self._paged_pages - 1,
-                         page_size=self._page_size, preemptions=self._win["preemptions"])
+            stats = dict(page_high_water=int(self._g_pages.high_water),
+                         pages_total=self._paged_pages - 1, page_size=self._page_size,
+                         preemptions=int(self._win_delta(self._c_preempt)))
             if self._prefix:
-                stats.update(prefix_hits=self._win["prefix_hits"],
-                             prefix_pages_reused=self._win["prefix_pages_reused"],
+                stats.update(prefix_hits=int(self._win_delta(self._c_pfx_hits)),
+                             prefix_pages_reused=int(self._win_delta(self._c_pfx_pages)),
                              prefix_pages_retained=len(self._cached_lru))
         if self._speculative:
             stats = stats or {}
-            acc, prop = self._win["spec_acc"], self._win["spec_prop"]
-            stats.update(spec_accepted=acc, spec_proposed=prop,
+            acc, prop = self._win_delta(self._c_spec_acc), self._win_delta(self._c_spec_prop)
+            stats.update(spec_accepted=int(acc), spec_proposed=int(prop),
                          spec_accept_rate=acc / prop if prop else None)
         self.last_stats = stats
         self.last_latency = self.latency_stats()
@@ -1762,8 +2462,9 @@ class ContinuousEngine:
         try:
             for i, p in enumerate(prompts):
                 self.add_request(p, rid=i)
-            while self.has_work():
-                self.step(params, draft_params)
+            with self.tracer.span("engine.serve", requests=len(prompts)):
+                while self.has_work():
+                    self.step(params, draft_params)
             ok = True
         finally:
             # The stats reflect this call even when it raises.
@@ -1781,6 +2482,23 @@ class ContinuousEngine:
                                               tokens=r.tokens))
         self._finished = stash
         return results
+
+    # Parts not ported yet.
+    drain_requests = _not_ported("drain_requests", "item 10 part 6 (KV export and ingest)")
+    export_kv = _not_ported("export_kv", "item 10 part 6 (KV export and ingest)")
+    ingest_kv = _not_ported("ingest_kv", "item 10 part 6 (KV export and ingest)")
+    spill_page = _not_ported("spill_page", "item 10 part 6 (KV export and ingest)")
+    fill_page = _not_ported("fill_page", "item 10 part 6 (KV export and ingest)")
+    swap_weights = _not_ported("swap_weights", "item 10 part 7 (weight swaps)")
+    compile_counts = _not_ported("compile_counts", "slice G (introspection)")
+    collective_inventory = _not_ported("collective_inventory", "slice G (introspection)")
+    program_hlo = _not_ported("program_hlo", "slice G (introspection)")
+    check_contracts = _not_ported("check_contracts", "slice G (introspection)")
+    explain_collectives = _not_ported("explain_collectives", "slice G (introspection)")
+    overlap_report = _not_ported("overlap_report", "slice G (introspection)")
+    comm_report = _not_ported("comm_report", "slice G (introspection)")
+    collective_axis_volume = _not_ported("collective_axis_volume", "slice G (introspection)")
+    dump_diagnostics = _not_ported("dump_diagnostics", "slice G (introspection)")
 
 
 def make_continuous_engine(config: TransformerConfig, mesh=None, rules=None, **kwargs):

@@ -27,6 +27,10 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: Libraries built or loaded in this process: a frame of the engine's
+#: goodput ledger during which it grew paid for a build or a load
+#: (``compile``), not for device work (``models/serving.py::_led_device``).
+loads = 0
 #: What nvcc printed for each source built in this process: with
 #: ``-Xptxas=-v``, every kernel's registers, shared memory and spills.
 reports: dict[str, str] = {}
@@ -86,6 +90,8 @@ def build(name: str) -> Path:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/{name}.cu``, built first if needed."""
+    global loads
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)))
+        loads += 1
     return _loaded[name]

@@ -111,6 +111,19 @@ def mfu(flops_per_iter: float, seconds_per_iter: float, name: str | None = None)
     return flops_per_iter / seconds_per_iter / peak
 
 
+def _sync(out) -> None:
+    """Wait until the work producing ``out`` is done: synchronize the device
+    of every CUDA tensor in ``out`` (tensors nested in lists, tuples and
+    dicts); CPU tensors and other values need nothing. The port's one
+    definition of "synced" (``telemetry/spans.py::device_sync``)."""
+    from torch.utils._pytree import tree_leaves
+
+    devices = {t.device for t in tree_leaves(out)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for device in devices:
+        torch.cuda.synchronize(device)
+
+
 def _need_cuda(what: str) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError(f"{what} measures the card and needs a CUDA device")

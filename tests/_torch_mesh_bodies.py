@@ -239,9 +239,158 @@ def serve_cases(mesh, cases, trees, queues):
     return out
 
 
-def mesh_serving_body(mesh, cases, trees, queues, generate, stamped):
+def registry_counts(registry):
+    """Every count a metrics registry holds: counters and gauges (but those
+    of seconds and burn rates), histograms' observation counts."""
+    out = {}
+    for key, value in registry.snapshot().items():
+        if isinstance(value, dict):
+            out[key] = value["count"]
+        elif "seconds" not in key and "burn_rate" not in key:
+            out[key] = value
+    return out
+
+
+def policy_cases(mesh, cfg_fields, engine, params, prompts, threads=None):
+    """The recovery policies through port engines of ``engine`` arguments,
+    over ``mesh`` under ``RULES_DP_TP`` (or on the CPU, ``mesh=None``): a
+    request past its deadline beside one within it, a bounded queue's shed,
+    and a sticky fault on request 1's dispatches (quarantine with
+    probation). → ``{case: (each request's (status, tokens), the registry's
+    counts)}``. On thread ranks (``threads``, by default whether ``mesh`` is
+    given) the one chaos injector is the process's: the world's first rank
+    installs it between barriers of the world."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from learning_jax_sharding_tpu_torch.models.serving import AdmissionError, ContinuousEngine
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+    from learning_jax_sharding_tpu_torch.robustness import ChaosInjector, Fault
+    from learning_jax_sharding_tpu_torch.telemetry import FlightRecorder
+
+    cfg = dataclasses.replace(CONFIG_TINY, **cfg_fields)
+    rules = None if mesh is None else logical.RULES_DP_TP
+
+    def make(**extra):
+        return ContinuousEngine(cfg, mesh, rules, device="cpu" if mesh is None else None,
+                                **engine, **extra)
+
+    def drain(eng):
+        done = {}
+        while eng.has_work():
+            eng.step(params)
+            done.update(eng.pop_finished())
+        return {rid: ("ok", r.tolist()) if isinstance(r, np.ndarray) else
+                (r.status, None if r.tokens is None else np.asarray(r.tokens).tolist())
+                for rid, r in sorted(done.items())}
+
+    out = {}
+    eng = make()
+    eng.add_request(prompts[0], rid=0, deadline_s=60.0)
+    eng.add_request(prompts[1], rid=1, deadline_s=1e-6)
+    out["deadline"] = (drain(eng), registry_counts(eng.registry))
+    eng = make(max_queue=2)
+    shed = []
+    for rid, p in enumerate(prompts[:3]):
+        try:
+            eng.add_request(p, rid=rid)
+        except AdmissionError as exc:
+            shed.append(str(exc))
+    out["shed"] = (drain(eng), registry_counts(eng.registry), shed)
+    eng = make()
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, rid=rid)
+    inj = ChaosInjector(Fault("engine.dispatch", "hang", rid=1, count=-1),
+                        recorder=FlightRecorder())
+    threads = mesh is not None if threads is None else threads
+    first = not threads or dist.get_rank() == 0
+    if threads:
+        dist.barrier()
+    if first:
+        inj.__enter__()
+    if threads:
+        dist.barrier()
+    try:
+        out["quarantine"] = (drain(eng), registry_counts(eng.registry))
+    finally:
+        if threads:
+            dist.barrier()
+        if first:
+            inj.__exit__(None, None, None)
+    return out
+
+
+def mid_dispatch_fault(mesh, cfg_fields, engine, params, prompts):
+    """A ``FloatingPointError`` (a NaN trap's) raised by the second model
+    call of a serve, inside the dispatch and past its chaos seam, through a
+    port engine of ``engine`` arguments over ``mesh`` under ``RULES_DP_TP``
+    (or on the CPU, ``mesh=None``). → ``("raised", the error)`` when it left
+    ``step()``, else ``("recovered", the dispatch faults counted)``."""
+    import dataclasses
+
+    from learning_jax_sharding_tpu_torch.models.serving import ContinuousEngine
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+
+    cfg = dataclasses.replace(CONFIG_TINY, **cfg_fields)
+    eng = ContinuousEngine(cfg, mesh, None if mesh is None else logical.RULES_DP_TP,
+                           device="cpu" if mesh is None else None, **engine)
+    forward, calls = eng._forward, []
+
+    def trapped(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise FloatingPointError("non-finite values in a model call's output")
+        return forward(*args, **kwargs)
+
+    eng._forward = trapped
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, rid=rid)
+    try:
+        while eng.has_work():
+            eng.step(params)
+    except FloatingPointError as exc:
+        return "raised", str(exc)
+    return "recovered", eng.registry.snapshot()["engine_dispatch_faults_total"]
+
+
+def mid_dispatch_fault_body(mesh, cfg_fields, engine, params, prompts):
+    """``mid_dispatch_fault`` over the thread ranks' ``mesh``. → every
+    rank's result."""
+    import torch.distributed as dist
+
+    out = mid_dispatch_fault(mesh, cfg_fields, engine, params, prompts)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return ranks
+
+
+def small_mesh_policy_body(mesh, cfg_fields, engine, params, prompts):
+    """``policy_cases`` on a (1, 2) mesh of the first two ranks of the
+    world ``mesh`` spans, while every other rank serves alone on its CPU:
+    the mesh engine's agreements must stay inside its own groups. → every
+    rank's results."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from learning_jax_sharding_tpu_torch.parallel import build_mesh
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # "uses only 2 of 4 devices"
+        sub = build_mesh((1, 2), mesh.mesh_dim_names, device_type="cpu")
+    inside = sub.get_coordinate() is not None
+    out = policy_cases(sub if inside else None, cfg_fields, engine, params, prompts,
+                       threads=True)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (inside, out))
+    return ranks
+
+
+def mesh_serving_body(mesh, cases, trees, queues, generate, stamped, policies):
     """The engine cases over the mesh; ``stamped_stream`` under
     ``RULES_DP_TP`` through an engine of ``stamped["engine"]`` arguments;
+    ``policy_cases`` with the ``policies`` arguments;
     paged serving under ``RULES_DP_TP`` (which must raise ``ValueError``);
     ragged greedy ``make_generate_fn`` and ragged speculative generate over
     the mesh. Every rank's results are gathered: → ``(rank 0's results,
@@ -259,6 +408,8 @@ def mesh_serving_body(mesh, cases, trees, queues, generate, stamped):
     cfg = dataclasses.replace(CONFIG_TINY, **generate["cfg"])
     eng = make_continuous_engine(cfg, mesh, logical.RULES_DP_TP, **stamped["engine"]).engine
     out["stamped"] = stamped_stream(eng, trees["float"], stamped["prompts"], stamped["stamps"])
+    out["policies"] = policy_cases(mesh, generate["cfg"], policies["engine"], trees["float"],
+                                   policies["prompts"])
     serve = make_continuous_engine(cfg, mesh, logical.RULES_DP_TP, paged_pages=9, page_size=16,
                                    **generate["engine"])
     try:
@@ -275,7 +426,8 @@ def mesh_serving_body(mesh, cases, trees, queues, generate, stamped):
         max_new_tokens=generate["new"], num_draft=2, ragged=True)
     out["spec_ragged"] = spec(trees["float"], trees["draft"], prompt, lengths=lengths).numpy()
     ranks = [None] * dist.get_world_size()
-    dist.all_gather_object(ranks, {**out["engine"], "stamped": out["stamped"]})
+    dist.all_gather_object(ranks, {**out["engine"], "stamped": out["stamped"],
+                                   "policies": out["policies"]})
     return out, ranks
 
 

@@ -17,7 +17,11 @@ and require equal tokens, as ``tests/test_torch_serving_modes.py`` does.
 Then: every rank serves the same tokens and stats; the mesh engine equals
 the port's one-device engine (tokens, stats, model and draft calls,
 dispatches) and, fed requests stamped out of add order under a starving
-token budget, retires each at the same step; paged serving under ``RULES_DP_TP`` raises ``ValueError`` as
+token budget, retires each at the same step; the recovery policies (a
+deadline eviction, a shed, a sticky-fault quarantine) take the one-device
+engine's decisions on every rank, and on a mesh smaller than its world (a
+second thread world); a fault raised inside a mesh dispatch propagates;
+paged serving under ``RULES_DP_TP`` raises ``ValueError`` as
 JAX's does; ragged ``make_generate_fn`` and ragged speculative generate over
 the mesh give JAX's tokens. The JAX side runs once a module, the port's
 mesh side in one thread world.
@@ -172,8 +176,10 @@ def port():
     generate = dict(cfg=BASE, engine=COMMON, prompt=prompt, lengths=lengths, new=NEW,
                     draft_cfg=DRAFT)
     stamped = dict(STAMPED, prompts=_queues()["mixed"])
+    policies = dict(engine=COMMON, prompts=_queues()["mixed"])
     return run_on_threads(bodies.mesh_serving_body, (2, 2), ("data", "model"),
-                          args=(_port_cases(), _port_trees(), _queues(), generate, stamped))
+                          args=(_port_cases(), _port_trees(), _queues(), generate, stamped,
+                                policies))
 
 
 @pytest.fixture(scope="module")
@@ -198,7 +204,7 @@ def test_engine_over_the_mesh_equals_jax(case, port, jax_results):
         assert got["stats"][0]["spec_accept_rate"] == 1.0
 
 
-@pytest.mark.parametrize("case", [*CASES, "stamped"])
+@pytest.mark.parametrize("case", [*CASES, "stamped", "policies"])
 def test_every_rank_serves_the_same(case, port):
     ranks = port[1]
     assert len(ranks) == 4
@@ -220,6 +226,47 @@ def test_stamped_arrivals_over_the_mesh_equal_one_device(port):
     want = bodies.stamped_stream(eng, _port_trees()["float"], _queues()["mixed"],
                                  STAMPED["stamps"])
     assert port[0]["stamped"] == want
+
+
+def test_policies_over_the_mesh_equal_one_device(port):
+    """A deadline eviction, a shed and a sticky-fault quarantine on the
+    (2, 2) thread ranks: every rank takes the one-device engine's decisions
+    (statuses, surviving tokens, every count of the registry), which
+    ``test_torch_engine_policies`` holds to the JAX engine's."""
+    want = bodies.policy_cases(None, BASE, COMMON, _port_trees()["float"], _queues()["mixed"])
+    got = port[0]["policies"]
+    assert got == want
+    assert got["deadline"][0][1][0] == "deadline" and got["deadline"][0][0][0] == "ok"
+    assert got["shed"][1]["engine_shed_total"] == 1 and len(got["shed"][2]) == 1
+    statuses = {rid: r[0] for rid, r in got["quarantine"][0].items()}
+    assert statuses == {0: "ok", 1: "poisoned", 2: "ok", 3: "ok"}
+    assert got["quarantine"][1]["engine_quarantined_total"] == 1
+
+
+def test_policies_on_a_mesh_smaller_than_the_world():
+    """The policies' agreements run in the mesh's own groups: a (1, 2) mesh
+    engine on two of four thread ranks serves, evicts, sheds and
+    quarantines while the other two ranks each serve alone, and every rank
+    takes the one-device engine's decisions."""
+    want = bodies.policy_cases(None, BASE, COMMON, _port_trees()["float"], _queues()["mixed"])
+    ranks = run_on_threads(bodies.small_mesh_policy_body, (2, 2), ("data", "model"),
+                           args=(BASE, COMMON, _port_trees()["float"], _queues()["mixed"]))
+    assert [inside for inside, _ in ranks] == [True, True, False, False]
+    for _, got in ranks:
+        assert got == want
+    assert {rid: r[0] for rid, r in want["quarantine"][0].items()} == {
+        0: "ok", 1: "poisoned", 2: "ok", 3: "ok"}
+
+
+def test_a_fault_inside_a_mesh_dispatch_propagates():
+    """A NaN trap raised past the dispatch seam is quarantined on one device
+    but propagates over a mesh, where the other ranks may already wait in
+    the dispatch's next collective."""
+    args = (BASE, COMMON, _port_trees()["float"], _queues()["mixed"][:2])
+    assert bodies.mid_dispatch_fault(None, *args) == ("recovered", 1)
+    ranks = run_on_threads(bodies.mid_dispatch_fault_body, (1, 2), ("data", "model"),
+                           args=args)
+    assert ranks == [("raised", "non-finite values in a model call's output")] * 2
 
 
 def test_paged_under_dp_tp_raises_as_jax(port, jax_results):

@@ -413,7 +413,7 @@ def test_kernel_wrappers_reject_other_devices():
         tmm.int4_matmul(torch.zeros(2, 64, device="meta"), q4, s)
     # Over a mesh (slice A, ported): a one-rank CPU mesh's per-shard wrapper
     # gives the plain product, w4a16 and w4a8; the int8 ring all-reduce and
-    # the engine's telemetry over a mesh name their slices.
+    # the engine's adapter pool over a mesh name their parts.
     mesh = single_device_mesh(device_type="cpu")
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32))
@@ -429,9 +429,9 @@ def test_kernel_wrappers_reject_other_devices():
                                    rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="slice F"):
         quantized_all_reduce(x, mesh=mesh, axis="data")
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(NotImplementedError, match="adapter_pool"):
         make_continuous_engine(CONFIG_TINY, mesh, port_logical.RULES_TP_SERVING, batch_size=1,
-                               max_new_tokens=1, registry=object())
+                               max_new_tokens=1, adapter_pool=object())
 
 
 @pytest.mark.parametrize("activation_bits", [16, 8])

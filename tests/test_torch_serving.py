@@ -325,14 +325,43 @@ def test_construction_errors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(deadline_s=1.0), dict(max_queue=4),
-    dict(degradation=object()), dict(adapter_pool=object()), dict(comm_compression=True),
-    dict(registry=object()), dict(tracer=object()),
+    dict(adapter_pool=object()), dict(comm_compression=True),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_arguments_raise(kw):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=name):
         ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+
+
+@pytest.mark.parametrize("arg", ["deadline_s", "max_queue", "max_dispatch_strikes",
+                                 "degradation", "registry", "tracer"])
+def test_ported_policy_and_telemetry_arguments(arg):
+    """The recovery policies' arguments raise JAX's ``ValueError`` with its
+    words; a supplied registry and tracer become the engine's own."""
+    from learning_jax_sharding_tpu.models.serving import ContinuousEngine as JaxEngine
+    from learning_jax_sharding_tpu.robustness import DegradationLadder as JaxLadder
+    from learning_jax_sharding_tpu_torch.robustness import DegradationLadder
+    from learning_jax_sharding_tpu_torch.telemetry import MetricsRegistry, Tracer
+
+    if arg in ("registry", "tracer"):
+        given = MetricsRegistry() if arg == "registry" else Tracer()
+        eng = ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **{arg: given})
+        assert getattr(eng, arg) is given
+        assert "engine_requests_total" in eng.registry.snapshot()
+        return
+    bad = {"deadline_s": 0, "max_queue": 0, "max_dispatch_strikes": 0}.get(arg)
+    kw = {arg: bad}
+    if arg == "degradation":
+        jax_kw, kw = dict(degradation=JaxLadder()), dict(degradation=DegradationLadder())
+    else:
+        jax_kw = kw
+    mesh = build_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    cfg = dataclasses.replace(JAX_TINY, dtype=jnp.float32)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(cfg, mesh, RULES_TP_SERVING, **COMMON, **jax_kw)
+    with pytest.raises(ValueError) as got:
+        ContinuousEngine(CONFIG_TINY, device="cpu", **COMMON, **kw)
+    assert str(got.value) == str(want.value) and arg in str(got.value)
 
 
 @pytest.mark.parametrize("kw,match", [
