@@ -4117,6 +4117,256 @@ def run_engine_policies(ref_outs, card):
     return out
 
 
+def _handoff_rows(pre, dec, params, prompts):
+    """``prompts`` (ids 0, 1, ...) served disaggregated, by hand (the fleet
+    router is slice F): each request prefilled and retired on ``pre``, its
+    row exported, moved by ``fleet.kv_transfer.transfer_tree`` into
+    ``dec``'s row layout (clipped at its valid length) once ``dec`` has a
+    free slot, ingested and decoded there. → ``({rid: tokens}, [{rid,
+    export_s, transfer_s, ingest_s, bytes, length}])``; each stage timed
+    on the host clock up to a device synchronize."""
+    from learning_jax_sharding_tpu_torch.fleet import transfer_tree
+
+    dec.ensure_cache(params)
+    dst, dims = dec.kv_row_shardings(), dec.kv_row_seq_dims()
+    for i, p in enumerate(prompts):
+        pre.add_request(p, rid=i)
+    parked, out, moves, plans = [], {}, [], {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    while pre.has_work() or parked or dec.has_work():
+        if pre.has_work():
+            done = pre.step(params)
+            fin = pre.pop_finished()
+            for rid in done:
+                (rows, length), export_s = timed(lambda rid=rid: pre.export_kv(rid))
+                parked.append((rid, rows, length, int(np.asarray(fin[rid])[-1]), export_s))
+        while parked and dec.free_slots():
+            rid, rows, length, first, export_s = parked.pop(0)
+            (moved, st), transfer_s = timed(lambda: transfer_tree(
+                rows, dst, stop=length, seq_dims=dims, plan_cache=plans))
+            _, ingest_s = timed(lambda: dec.ingest_kv(params, prompts[rid], first, moved,
+                                                      rid=rid))
+            moves.append(dict(rid=rid, length=length, bytes=st["bytes"],
+                              segments=st["segments"], export_s=export_s,
+                              transfer_s=transfer_s, ingest_s=ingest_s))
+        if dec.has_work():
+            dec.step(params)
+        out.update(dec.pop_finished())
+    return out, moves
+
+
+def run_engine_handoff(ref_outs, card):
+    """``[engine] handoff`` (slice 18): the engine's KV handoff, KV tier and
+    weight swaps, at the 125M model's full width in bf16 with
+    ``ENGINE_COMMON``'s shapes, on the ``[engine]`` phase's weights (seed 0)
+    and its first ``B`` prompts. (1) Disaggregated serving: an unpaged
+    prefill engine (``max_new_tokens=1``) retires each request, its row goes
+    through ``export_kv`` → ``transfer_tree`` → ``ingest_kv`` into an
+    unpaged decode engine, which decodes the rest; gates: tokens equal to
+    the ``[engine]`` phase's (``ref_outs``) 8 of 8, decode attention once a
+    layer per model call of either engine. (2) The KV tier: a paged +
+    prefix engine serves cold, spills every retained page to host memory,
+    fills them back and serves warm; gates: warm prefix hits 8 of 8 and
+    equal tokens, a second spill of every page bit-equal to the first,
+    decode attention's paged launches once a layer per model call. (3) The
+    swap on that engine: a drain-mode ``swap_weights`` (the weights times
+    1.01, version 1) staged with the slots full and 8 more queued, stepped
+    with the old params, then a preempt-mode swap back to the weights
+    (version 2); gates: nothing dropped, versions {0, 1} then {2}, each
+    response equal to a solo serve under its version's weights (the
+    reference for versions 0 and 2). Both engines' ledgers reconcile, with
+    ``kv_handoff`` and ``swap`` seconds booked. Printed beside ``card``:
+    export and ingest ms and MB a request, spill and fill ms and GB/s a
+    page, stage ms and the swap's stall seconds."""
+    cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
+    params = Transformer(CONFIG_125M, device="cuda", seed=0).state_dict()
+    prompts = engine_prompts()[:B]
+    ref = [np.asarray(o) for o in ref_outs[:B]]
+    out, bad = {}, []
+
+    def differing(outs, want, rids):
+        return [i for i in rids if not np.array_equal(np.asarray(outs[i]), want[i % B])]
+
+    def counted(engines, fn):
+        """``fn()`` with decode attention's counters zeroed before and read
+        after → (its result, launches, the engines' model calls)."""
+        before = [e.model_forwards for e in engines]
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, read_launches(), sum(e.model_forwards for e in engines) - sum(before)
+
+    # (1) Disaggregated serving.
+    pre = make_continuous_engine(cfg, **dict(ENGINE_COMMON, max_new_tokens=1)).engine
+    dec = make_continuous_engine(cfg, **ENGINE_COMMON).engine
+    _handoff_rows(pre, dec, params, prompts[:1])                 # warm-up
+    (tokens, moves), launches, calls = counted(
+        [pre, dec], lambda: _handoff_rows(pre, dec, params, prompts))
+    differ = differing(tokens, ref, range(B))
+    want = cfg.num_layers * calls
+    mean = lambda key: statistics.mean(m[key] for m in moves)  # noqa: E731
+    dis = dict(model_calls=calls, launches={k: launches[k] for k in (
+        "decode_attention", "decode_attention_paged", "decode_attention_tensor_core",
+        "decode_attention_split")}, tokens_equal=B - len(differ),
+        export_ms=mean("export_s") * 1e3, transfer_ms=mean("transfer_s") * 1e3,
+        ingest_ms=mean("ingest_s") * 1e3, mb_per_request=mean("bytes") / 1e6,
+        row_tokens=mean("length"), segments_per_request=mean("segments"),
+        reconcile=[e.ledger.reconcile()["ok"] for e in (pre, dec)],
+        kv_handoff_s=[e.ledger.window_buckets()["kv_handoff"] for e in (pre, dec)],
+        moves=moves)
+    log(f"[engine] handoff disaggregated: {B} requests prefilled on one engine and decoded "
+        f"on another, {calls} model calls, decode attention {launches['decode_attention']} "
+        f"launches (want {want}); tokens equal to the [engine] phase's in "
+        f"{dis['tokens_equal']} of {B}; a request: export {dis['export_ms']:.3f} ms, "
+        f"transfer {dis['transfer_ms']:.3f} ms, ingest {dis['ingest_ms']:.3f} ms, "
+        f"{dis['mb_per_request']:.3f} MB over {dis['segments_per_request']:.1f} segments "
+        f"({dis['row_tokens']:.0f} valid tokens) on {card}")
+    if differ:
+        bad.append(f"handoff: requests {differ} differ from the [engine] phase's")
+    if launches["decode_attention"] != want or launches["decode_attention_paged"]:
+        bad.append(f"handoff: decode attention {launches}, want {want} (none paged)")
+    if not all(dis["reconcile"]) or not all(s > 0 for s in dis["kv_handoff_s"]):
+        bad.append(f"handoff: ledgers {dis['reconcile']}, kv_handoff {dis['kv_handoff_s']}")
+    out["disaggregated"] = dis
+    del pre, dec
+    torch.cuda.empty_cache()
+
+    # (2) The KV tier.
+    eng = make_continuous_engine(cfg, **ENGINE_COMMON, paged_pages=ENGINE_PAGES,
+                                 page_size=ENGINE_PAGE, prefix_cache=True).engine
+    eng.serve(params, prompts)                                    # warm-up
+    eng.flush_prefix_cache()
+    cold, launches, calls = counted([eng], lambda: eng.serve(params, prompts))
+    keys = eng.retained_prefixes()
+    spills, fills, first = [], [], {}
+    for key in keys:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, st = eng.spill_page(key, drop=True)
+        spills.append((time.perf_counter() - t0, st["bytes"]))
+        first[key] = rows
+    for key in keys:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.fill_page(key, first[key])
+        torch.cuda.synchronize()
+        fills.append((time.perf_counter() - t0, st["bytes"]))
+    warm, warm_launches, warm_calls = counted([eng], lambda: eng.serve(params, prompts))
+    hits = eng.last_stats["prefix_hits"]
+    unequal = [i for i, key in enumerate(keys) if not all(
+        torch.equal(a, b) for a, b in zip(first[key], eng.spill_page(key, drop=False)[0]))]
+    tier = dict(
+        pages=len(keys), page_mb=spills[0][1] / 1e6 if spills else None,
+        spill_ms=statistics.mean(s for s, _ in spills) * 1e3,
+        fill_ms=statistics.mean(s for s, _ in fills) * 1e3,
+        spill_gb_s=sum(b for _, b in spills) / sum(s for s, _ in spills) / 1e9,
+        fill_gb_s=sum(b for _, b in fills) / sum(s for s, _ in fills) / 1e9,
+        warm_hits=hits, warm_equal=B - len(differing(warm, ref, range(B))),
+        cold_equal=B - len(differing(cold, ref, range(B))), second_spill_unequal=unequal,
+        launches=dict(cold=launches["decode_attention_paged"], cold_calls=calls,
+                      warm=warm_launches["decode_attention_paged"], warm_calls=warm_calls),
+        warm_stats=eng.last_stats)
+    log(f"[engine] handoff tier: {len(keys)} retained pages of {tier['page_mb']:.3f} MB spilled "
+        f"and filled back; a page: spill {tier['spill_ms']:.3f} ms "
+        f"({tier['spill_gb_s']:.3f} GB/s), fill {tier['fill_ms']:.3f} ms "
+        f"({tier['fill_gb_s']:.3f} GB/s); warm serve prefix hits {hits} of {B}, tokens equal "
+        f"in {tier['warm_equal']} (cold {tier['cold_equal']}); second spill unequal pages "
+        f"{unequal}; paged decode attention {tier['launches']} on {card}")
+    if hits != B or tier["warm_equal"] != B or tier["cold_equal"] != B or unequal or not keys:
+        bad.append(f"tier: {tier}")
+    for k in ("cold", "warm"):
+        if tier["launches"][k] != cfg.num_layers * tier["launches"][f"{k}_calls"]:
+            bad.append(f"tier: {k} serve's paged decode attention {tier['launches']}")
+
+    # (3) The swap, on the same engine.
+    new = {k: v * 1.01 for k, v in params.items()}
+    solo = make_continuous_engine(cfg, **ENGINE_COMMON)
+    solo_new = solo(new, prompts)
+    del solo
+    for rid, p in enumerate(prompts + prompts):
+        eng.add_request(p, rid=100 + rid)
+    eng.step(params)                                    # 8 admitted, 8 queued
+    busy = [r for r in eng._req if r >= 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = eng.swap_weights(new, version=1)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    staged_bytes = eng.registry.get("engine_swap_bytes_total").value
+    done = {}
+
+    def drive():
+        while eng.has_work():
+            eng.step(params)                            # stale params: the installed win
+            done.update(eng.pop_finished())
+
+    _, launches, calls = counted([eng], drive)
+    stall = eng.registry.get("engine_swap_stall_seconds")
+    stall_s, stall_n = stall.sum, stall.count           # the drain swap's alone
+    versions = {rid: eng.finished_versions[rid] for rid in done}
+    old = [r - 100 for r, v in versions.items() if v == 0]
+    fresh = [r - 100 for r, v in versions.items() if v == 1]
+    by_rid = {r - 100: t for r, t in done.items()}
+    wrong = differing(by_rid, ref, old) + differing(by_rid, [np.asarray(o) for o in solo_new],
+                                                    fresh)
+    drops = [r for r, t in done.items() if not isinstance(t, np.ndarray)]
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, rid=200 + rid)
+    eng.step()
+    preempted = eng.swap_weights(params, version=2, mode="preempt")
+    done2 = {}
+    while eng.has_work():
+        eng.step()
+        done2.update(eng.pop_finished())
+    versions2 = {eng.finished_versions[r] for r in done2}
+    wrong2 = differing({r - 200: t for r, t in done2.items()}, ref, range(B))
+    rec = eng.ledger.reconcile()
+    buckets = eng.ledger.window_buckets()
+    swap = dict(staged=staged, stage_ms=stage_ms, stall_s=stall_s, stall_observations=stall_n,
+                busy_at_stage=len(busy),
+                versions=sorted(set(versions.values())), requests=len(done), drops=drops,
+                old=len(old), new=len(fresh), differing=wrong, preempt_staged=preempted,
+                preempt_versions=sorted(versions2), preempt_differing=wrong2,
+                swap_bytes=staged_bytes,
+                decode_attention_paged=launches["decode_attention_paged"], model_calls=calls,
+                reconcile={k: rec[k] for k in ("ok", "wall_s", "sum_s", "residual_s", "eps")},
+                kv_handoff_s=buckets["kv_handoff"], swap_s=buckets["swap"])
+    log(f"[engine] handoff swap: drain-mode stage {stage_ms:.3f} ms "
+        f"({swap['swap_bytes'] / 1e6:.1f} MB staged), stall {swap['stall_s']:.6f} s "
+        f"(stage to commit, {len(busy)} requests in flight); {len(done)} responses, "
+        f"{len(drops)} dropped, versions {swap['versions']} ({len(old)} old, {len(fresh)} new), "
+        f"{len(wrong)} differing from a solo serve under their version; preempt-mode swap "
+        f"versions {swap['preempt_versions']}, {len(wrong2)} differing; ledger reconcile "
+        f"{swap['reconcile']}, kv_handoff {swap['kv_handoff_s']:.6f} s, swap "
+        f"{swap['swap_s']:.6f} s on {card}")
+    if (not staged or stall_n != 1 or drops or swap["versions"] != [0, 1] or wrong
+            or len(done) != 2 * B
+            or not preempted or swap["preempt_versions"] != [2] or wrong2):
+        bad.append(f"swap: {swap}")
+    if swap["decode_attention_paged"] != cfg.num_layers * calls:
+        bad.append(f"swap: paged decode attention {swap['decode_attention_paged']} for "
+                   f"{calls} model calls")
+    if not rec["ok"] or not swap["kv_handoff_s"] > 0 or not swap["swap_s"] > 0:
+        bad.append(f"swap: ledger {swap['reconcile']}, kv_handoff {swap['kv_handoff_s']}, "
+                   f"swap {swap['swap_s']}")
+    out["tier"], out["swap"] = tier, swap
+    out["launches"] = (dis["launches"]["decode_attention"] + tier["launches"]["cold"]
+                       + tier["launches"]["warm"] + swap["decode_attention_paged"])
+    del eng
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"[engine] handoff: {'; '.join(bad)}")
+    return out
+
+
 def _shards(layout):
     """The (data, model) coordinates of a layout, rank order."""
     return [(i, j) for i in range(layout[0]) for j in range(layout[1])]
@@ -4522,6 +4772,9 @@ def main() -> int:
     engine_policies = run_engine_policies(engine_ref_outs, card)
     torch.cuda.empty_cache()
     mark("[engine] policies")
+    engine_handoff = run_engine_handoff(engine_ref_outs, card)
+    torch.cuda.empty_cache()
+    mark("[engine] handoff")
     mesh_shards = run_mesh_shards(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] shards")
@@ -4769,6 +5022,10 @@ def main() -> int:
         # The [engine] policies phase's counted serve (telemetry attached).
         n = engine_policies["telemetry"]["launches"].get(entry["name"], 0)
         entry["policies_launches"] = n or None
+        # The [engine] handoff phase's counted runs: the disaggregated serve,
+        # the tier's cold and warm serves and the swaps' steps.
+        entry["handoff_launches"] = (engine_handoff["launches"]
+                                     if entry["name"] == "decode_attention" else None)
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -4787,6 +5044,7 @@ def main() -> int:
                       "designs_1p4b": designs_1p4b, "checks_1p4b": errs_1p4b,
                       "mesh_1x1": mesh_1x1, "mesh_threads": mesh_threads,
                       "engine_mesh": engine_mesh, "engine_policies": engine_policies,
+                      "engine_handoff": engine_handoff,
                       "mesh_shards": mesh_shards}, default=str))
     print(card)
     print(json.dumps(result_line(torch.cuda.get_device_name(0))))

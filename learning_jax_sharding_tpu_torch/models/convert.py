@@ -118,6 +118,27 @@ def param_logical_axes(name: str) -> tuple:
     raise KeyError(f"no logical axes for parameter {name!r}")
 
 
+def layout_tensors(model: torch.nn.Module) -> list[tuple[str, torch.Tensor, bool]]:
+    """The tensors a model's layout places, ``[(name, tensor, is_param)]``:
+    every parameter and every int4 ``q4``/``scale`` buffer."""
+    named = [(n, t, True) for n, t in model.named_parameters()]
+    return named + [(n, t, False) for n, t in model.named_buffers()
+                    if n.rsplit(".", 1)[-1] in ("q4", "scale")]
+
+
+def install_tensor(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> None:
+    """Make ``tensor`` the parameter or buffer ``name`` of ``model`` in place
+    of the one there (nothing copied; a parameter keeps its
+    ``requires_grad``)."""
+    owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in owner._parameters:
+        grad = owner._parameters[leaf].requires_grad
+        owner._parameters[leaf] = torch.nn.Parameter(tensor, requires_grad=grad)
+    else:
+        owner._buffers[leaf] = tensor
+
+
 def shard_params(model: torch.nn.Module, mesh, rules, state: Mapping | None = None) -> None:
     """Lay every parameter (and int4 ``q4``/``scale`` buffer) of ``model``
     out over ``mesh`` IN PLACE, as a DTensor placed by its logical axes
@@ -128,19 +149,10 @@ def shard_params(model: torch.nn.Module, mesh, rules, state: Mapping | None = No
     state dict, cast to each tensor's dtype); each rank keeps its slice,
     nothing is sent."""
     axes = getattr(model, "logical_axes", param_logical_axes)
-    named = [(n, t, True) for n, t in model.named_parameters()]
-    named += [(n, t, False) for n, t in model.named_buffers()
-              if n.rsplit(".", 1)[-1] in ("q4", "scale")]
-    for name, old, is_param in named:
+    for name, old, _ in layout_tensors(model):
         value = old.detach() if state is None else torch.as_tensor(state[name])
         if hasattr(value, "full_tensor"):
             value = value.full_tensor()
         value = value.to(device=old.device, dtype=old.dtype)
         placements = logical_placements(mesh, rules, axes(name))
-        new = put(value, placements, mesh)
-        owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
-        leaf = name.rsplit(".", 1)[-1]
-        if is_param:
-            owner._parameters[leaf] = torch.nn.Parameter(new, requires_grad=old.requires_grad)
-        else:
-            owner._buffers[leaf] = new
+        install_tensor(model, name, put(value, placements, mesh))

@@ -85,12 +85,24 @@ The recovery policies are the JAX engine's: request deadlines, a bounded
 queue, the SLO-driven degradation ladder and the quarantine of requests
 whose dispatches fault (see :class:`ContinuousEngine`).
 
+The engine also hands work between engines and tiers, as the JAX engine
+does: ``drain_requests`` retires every request with a terminal status and
+returns records to requeue elsewhere; ``export_kv`` / ``ingest_kv`` hand a
+finished prefill's cache row to a decode engine (disaggregated serving,
+through ``fleet/kv_transfer.py``'s transfer plan); ``spill_page`` /
+``fill_page`` demote a retained prefix page to host memory and promote it
+back, and ``prefix_digest`` exports the prefix registry's page hashes; and
+``swap_weights`` stages new weights in the serving layout and commits them
+between dispatches with no request dropped, each response carrying the one
+``weights_version`` it was served under. Every byte these move goes through
+``parallel/resharding.py``'s counted plans and into the goodput ledger's
+``kv_handoff`` and ``swap`` buckets.
+
 Not ported yet, each raising ``NotImplementedError`` naming its part:
-multi-LoRA adapters (``adapter_pool``, ``add_request(adapter=)``),
-communication compression (``comm_compression``), the drain and the KV
-handoff (``drain_requests``, ``export_kv`` / ``ingest_kv``, ``spill_page``
-/ ``fill_page``), weight swaps (``swap_weights``) and the introspection
-of slice G (``compile_counts``, ``collective_inventory``, ``program_hlo``,
+multi-LoRA adapters (``adapter_pool``, ``add_request(adapter=)``, items 12
+and 15), communication compression and the transfer codecs
+(``comm_compression``, slice F) and the introspection of slice G
+(``compile_counts``, ``collective_inventory``, ``program_hlo``,
 ``check_contracts``, ``explain_collectives``, ``overlap_report``,
 ``comm_report``, ``collective_axis_volume``, ``dump_diagnostics``).
 """
@@ -99,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import math
 import time
 from collections import deque
@@ -107,6 +120,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.attention import (
@@ -121,7 +135,12 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     make_param_caster,
     whole_logits,
 )
-from learning_jax_sharding_tpu_torch.models.convert import shard_params
+from learning_jax_sharding_tpu_torch.models.convert import (
+    install_tensor,
+    layout_tensors,
+    param_logical_axes,
+    shard_params,
+)
 from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
 from learning_jax_sharding_tpu_torch.models.quantize import dequantize_tree
 from learning_jax_sharding_tpu_torch.models.speculative import (
@@ -137,7 +156,21 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     TransformerConfig,
 )
 from learning_jax_sharding_tpu_torch.ops import _build
-from learning_jax_sharding_tpu_torch.parallel.logical import activate
+from learning_jax_sharding_tpu_torch.parallel.logical import activate, logical_placements
+from learning_jax_sharding_tpu_torch.parallel.resharding import (
+    HostBuffer,
+    devices_indices_map,
+    execute_transfer,
+    plan_transfer,
+    reshard_tree,
+    sharding_of,
+)
+from learning_jax_sharding_tpu_torch.parallel.sharding import (
+    NamedSharding,
+    P,
+    local_slice,
+    placements_to_spec,
+)
 from learning_jax_sharding_tpu_torch.robustness.chaos import (
     InjectedFault,
     chaos_active,
@@ -156,6 +189,12 @@ from learning_jax_sharding_tpu_torch.utils.profiling import annotate
 #: abort, a NaN trap); anything else propagates.
 _RECOVERABLE_DISPATCH = (InjectedFault, FloatingPointError)
 
+#: The cache leaves with a leading physical-page dim on paged engines: what
+#: ``spill_page`` and ``fill_page`` move one page of, a layer at a time in
+#: this order. The per-row counters and the block table stay: a retained
+#: prefix page carries K/V only, and its mapping is host state.
+_PAGE_LEAF_KEYS = ("key", "value", "key_scale", "value_scale")
+
 
 class AdmissionError(RuntimeError):
     """Admission control rejected the request (bounded queue full, or the
@@ -167,12 +206,14 @@ class RequestFailure:
     """A request that retired without completing, surfaced through
     ``pop_finished``: status ``"deadline"`` (its TTL passed), ``"poisoned"``
     (quarantined after repeated dispatch faults), ``"malformed"`` (its
-    prompt failed the admission check) or ``"shutdown"``
-    (:meth:`ContinuousEngine.close` drained it). ``tokens`` holds the
-    partial ``[prompt, generated...]`` output when it had been admitted."""
+    prompt failed the admission check), ``"shutdown"``
+    (:meth:`ContinuousEngine.close` drained it) or ``"rerouted"`` (drained
+    by :meth:`ContinuousEngine.drain_requests` to be recomputed elsewhere:
+    terminal only for this engine). ``tokens`` holds the partial ``[prompt,
+    generated...]`` output when it had been admitted."""
 
     rid: int
-    status: str              # deadline|poisoned|malformed|shutdown
+    status: str              # deadline|poisoned|malformed|shutdown|rerouted
     error: str | None = None
     tokens: np.ndarray | None = None
 
@@ -195,6 +236,11 @@ def _tensor_state(t: torch.Tensor):
     tracks none (it can change only inside ``torch.inference_mode()``, and
     keys on its identity alone)."""
     return None if t.is_inference() else t._version
+
+
+def _storage(t: torch.Tensor) -> int:
+    """The address of a tensor's storage (a DTensor's local one)."""
+    return (t.to_local() if isinstance(t, DTensor) else t).untyped_storage().data_ptr()
 
 
 def _same_tensors(key, cached) -> bool:
@@ -224,12 +270,14 @@ class _Request:
     strikes: int = 0                      # dispatch faults while admitted
     enqueue_t: float | None = None        # when this engine queued it
     tenant: str | None = None             # SLO / trace label
+    version: int = 0                      # weights version pinned at admission
+    ingested: bool = False                # prefilled on another engine (ingest_kv)
 
 
-#: The JAX engine's counters of parts not ported yet (the KV handoff and
-#: tier, compression, the prefix router, swaps, adapters): registered at
-#: zero so the engine exports the same series.
-_UNPORTED_COUNTERS = (
+#: The JAX engine's counters after ``engine_rerouted_total``, in its order
+#: (a scrape lists them so): the KV handoff and tier, compression (slice F:
+#: at zero), the prefix router's, swaps, adapters (items 12 and 15: at zero).
+_LATER_COUNTERS = (
     ("engine_kv_exports_total", "retired-request KV rows exported for disaggregated handoff"),
     ("engine_kv_ingests_total",
      "externally prefilled requests ingested (disaggregated handoff)"),
@@ -621,6 +669,25 @@ class ContinuousEngine:
         # by the next horizon dispatch only when the boundary state matches.
         self._staged_plan = None
         self._link_out: list[torch.Tensor] = []    # queued link outputs, read at the sync
+        # Weight swaps: ``weights_version`` is pinned on every request at
+        # admission and logged at retirement (``finished_versions``, rid →
+        # version); a staged swap waits for its commit, after which the
+        # committed (weights, draft weights) serve whatever params a caller
+        # passes.
+        self.weights_version = 0
+        self.finished_versions: dict[int, int] = {}
+        self._staged_swap: dict | None = None
+        self._installed: tuple | None = None
+        self._swap_plan_cache: dict = {}       # host transfer plans of swaps
+        # The KV tier: ``prefix_epoch`` bumps on every change of the prefix
+        # registry's keys (register, evict, spill, fill, flush), so a digest
+        # is valid while its epoch matches; the router's predicted and the
+        # realized prefix hit of each admission, by request id.
+        self.prefix_epoch = 0
+        self._digest_cache: tuple | None = None
+        self.expected_prefix: dict[int, int] = {}
+        self.prefix_realized: dict[int, int] = {}
+        self._page_plan_cache: dict = {}       # spill and fill plans
         self._init_telemetry(registry, tracer, slo, recorder)
         self._init_slots()
         if paged:
@@ -699,10 +766,22 @@ class ContinuousEngine:
         self._c_rerouted = c("engine_rerouted_total",
                              "requests drained with status 'rerouted' — failover/handoff "
                              "requeue onto another fleet replica, never a lost request")
-        for name, help_text in _UNPORTED_COUNTERS:
+        for name, help_text in _LATER_COUNTERS:
             c(name, help_text)
-        self._c_pfx_expected = r.get("engine_prefix_expected_total")
-        self._c_tier_miss = r.get("engine_tier_misses_total")
+        g = r.get
+        self._c_kv_exports = g("engine_kv_exports_total")
+        self._c_kv_ingests = g("engine_kv_ingests_total")
+        self._c_pg_spills = g("engine_kv_page_spills_total")
+        self._c_pg_fills = g("engine_kv_page_fills_total")
+        self._c_pg_bytes_out = g("engine_kv_page_spill_bytes_total")
+        self._c_pg_bytes_in = g("engine_kv_page_fill_bytes_total")
+        self._c_kv_raw_bytes = g("engine_kv_raw_bytes_total")
+        self._c_pfx_expected = g("engine_prefix_expected_total")
+        self._c_tier_miss = g("engine_tier_misses_total")
+        self._c_swap_staged = g("engine_swap_staged_total")
+        self._c_swap_commits = g("engine_swap_commits_total")
+        self._c_swap_aborted = g("engine_swap_aborted_total")
+        self._c_swap_bytes = g("engine_swap_bytes_total")
         self._g_degraded = r.gauge("engine_degradation_level",
                                    "current graceful-degradation ladder level (0 = normal)")
         self._g_queue = r.gauge("engine_queue_depth", "requests waiting for a slot")
@@ -712,16 +791,19 @@ class ContinuousEngine:
                                    "reference-free retained prefix pages")
         r.gauge("engine_comm_compression_active",
                 "1 while quantized serving collectives are compiled in").set(0)
-        r.gauge("engine_kv_compression_ratio",
-                "raw/wire byte ratio of the most recent counted KV transfer batch (1.0 when "
-                "no codec is attached)").set(1.0)
+        self._g_comp_ratio = r.gauge(
+            "engine_kv_compression_ratio",
+            "raw/wire byte ratio of the most recent counted KV transfer batch (1.0 when "
+            "no codec is attached)")
+        self._g_comp_ratio.set(1.0)
         h = r.histogram
         self._h_ttft = h("engine_ttft_seconds", "arrival to first visible token")
         self._h_tpot = h("engine_tpot_seconds", "per-request mean inter-token seconds")
         self._h_itl = h("engine_itl_seconds", "raw host-visibility gaps")
         self._h_wait = h("engine_queue_wait_seconds", "arrival to slot admission")
         self._h_e2e = h("engine_e2e_seconds", "arrival to retirement")
-        h("engine_swap_stall_seconds", "stage-to-commit latency of weight swaps (drain or preempt)")
+        self._h_swap_stall = h("engine_swap_stall_seconds",
+                               "stage-to-commit latency of weight swaps (drain or preempt)")
         # The goodput ledger: step() is the top-level frame ("sched"), the
         # regions inside claim their buckets, idle is derived.
         self.ledger = GoodputLedger(registry=r)
@@ -768,6 +850,10 @@ class ContinuousEngine:
         # cannot lose a row's counter reset.
         self._needs_reset = np.zeros((b,), bool)
         self._reset_to = np.zeros((b,), np.int32)
+        # Retired request → its slot while the slot's KV row is intact (the
+        # export window of the handoff); an entry goes when the slot is
+        # reused.
+        self._export_ok: dict[int, int] = {}
 
     def _init_pool(self):
         # Host-owned page allocator: page 0 is scratch; a slot holds a
@@ -786,6 +872,7 @@ class ContinuousEngine:
         self._refcnt: dict[int, int] = {}
         self._cached_lru: dict[int, None] = {}
         self._shared_count = [0] * b   # leading registry pages per slot
+        self.prefix_epoch += 1         # any earlier digest is stale
         self._g_pages.set(0)
         self._g_retained.set(0)
 
@@ -831,23 +918,43 @@ class ContinuousEngine:
         pool and prefix registry are dropped. The engine stays usable: the
         next dispatch creates the cache again (``cache_creations`` counts
         it)."""
-        now = time.perf_counter()
-        n = 0
-        for slot in range(self._b):
-            if self._slot_req[slot] is not None:
-                self._fail_slot(slot, "shutdown", "engine closed", now)
-                n += 1
-        while self._queue:
-            self._fail_request(self._queue.popleft(), "shutdown", "engine closed", now=now)
-            n += 1
-        self._g_queue.set(0)
-        self._g_active.set(0)
-        self.recorder.record("engine.drain", status="shutdown", n=n)
+        self.drain_requests(status="shutdown", error="engine closed")
         self._cache = self._d_cache = None
         self._cast_src = self._cast_key = self._cast_out = None
+        self._export_ok = {}
         if self._paged:
             self._init_pool()
         self.recorder.record("engine.close")
+
+    def drain_requests(self, *, status: str = "rerouted", error: str | None = None) -> list[dict]:
+        """Retire EVERY queued and in-flight request with the terminal
+        ``status`` (through ``pop_finished``; the default ``"rerouted"``, a
+        failover drain, counts into ``engine_rerouted_total`` and
+        ``latency_stats()["rerouted"]``) and return records to requeue them
+        elsewhere, ``{rid, prompt, deadline_s, arrival_t}``, slots first,
+        then the queue. A drained request recomputes exactly on whatever
+        engine admits it again: greedy decoding is deterministic and every
+        draw is keyed by (request id, generated position). The device state
+        needs no repair (admission resets the per-row counters)."""
+        now = time.perf_counter()
+        records: list[dict] = []
+
+        def rec(r):
+            records.append(dict(rid=r.rid, prompt=r.prompt, deadline_s=r.deadline_s,
+                                arrival_t=r.arrival_t))
+
+        for slot in range(self._b):
+            if self._slot_req[slot] is not None:
+                rec(self._slot_req[slot])
+                self._fail_slot(slot, status, error, now)
+        while self._queue:
+            r = self._queue.popleft()
+            rec(r)
+            self._fail_request(r, status, error, now=now)
+        self._g_queue.set(0)
+        self._g_active.set(0)
+        self.recorder.record("engine.drain", status=status, n=len(records))
+        return records
 
     def flush_prefix_cache(self):
         """Drop every retained prefix page: call between checkpoints, since
@@ -860,11 +967,18 @@ class ContinuousEngine:
                 "flush_prefix_cache() requires an idle engine: drain "
                 "in-flight work first (params must not change mid-request)"
             )
+        self._drop_prefix_registry()
+
+    def _drop_prefix_registry(self):
+        # flush_prefix_cache without its idle guard: a swap's commit calls
+        # it with empty slots (every retained page is reference-free then;
+        # queued requests admit after the commit, under the new weights).
         for pid in list(self._cached_lru):
             del self._cached_lru[pid]
             del self._prefix_registry[self._key_of_page.pop(pid)]
             del self._refcnt[pid]
             self._free_pages.append(pid)
+        self.prefix_epoch += 1         # every exported digest is stale
         self._update_high_water()
 
     # --- page allocator ----------------------------------------------------
@@ -882,6 +996,7 @@ class ContinuousEngine:
             del self._cached_lru[pid]
             del self._prefix_registry[self._key_of_page.pop(pid)]
             del self._refcnt[pid]
+            self.prefix_epoch += 1
             return pid
         raise RuntimeError(
             f"page pool exhausted ({self._paged_pages - 1} pages "
@@ -937,6 +1052,7 @@ class ContinuousEngine:
                             self._key_of_page[pid] = key
                             self._refcnt[pid] = 0
                             self._cached_lru[pid] = None
+                            self.prefix_epoch += 1
                             continue
                     self._free_pages.append(pid)
             else:
@@ -1104,7 +1220,15 @@ class ContinuousEngine:
         return rid
 
     def has_work(self) -> bool:
-        return bool(self._queue) or any(r >= 0 for r in self._req)
+        # A staged swap is work: one more step() commits it.
+        return (bool(self._queue) or any(r >= 0 for r in self._req)
+                or self._staged_swap is not None)
+
+    @property
+    def swap_pending(self) -> bool:
+        """Whether a staged weight swap waits for its commit (staging another
+        raises meanwhile)."""
+        return self._staged_swap is not None
 
     def queue_depth(self) -> int:
         """Requests waiting for a slot."""
@@ -1166,7 +1290,7 @@ class ContinuousEngine:
                 self._h_tpot.observe(rec["tpot"])
             self.tracer.async_end("request", r.rid, generated=n)
             self.recorder.record("engine.retire", rid=r.rid, slot=slot, generated=n,
-                                 ttft=rec["ttft"], e2e=rec["e2e"])
+                                 ttft=rec["ttft"], e2e=rec["e2e"], version=r.version)
             if self.slo is not None:
                 ten = r.tenant
                 self.slo.observe("queue_wait", rec["queue_wait"], tenant=ten)
@@ -1182,30 +1306,48 @@ class ContinuousEngine:
                 if self.trace_sink.auto_complete:
                     self.trace_sink.complete(r.rid, status="ok", finish_t=now)
         self._finished[r.rid] = r
+        # Every response is attributable to the one weights version pinned
+        # at its (last) admission.
+        self.finished_versions[r.rid] = r.version
         retired.append(r.rid)
+        # The export window opens: the row's KV stays intact until a later
+        # admission reuses the slot.
+        self._export_ok[r.rid] = slot
         self._free_slot(slot)
         if self._paged:
             self._release(slot)
 
-    def _record_trace_legs(self, r: _Request, now: float, *, generated=0, status="ok"):
+    def _record_trace_legs(self, r: _Request, now: float, *, generated=0, wasted=False,
+                           status="ok"):
         """Append this engine's legs of ``r``'s journey to the trace sink,
         from the request's own stamps: queue from its enqueue to its
-        admission, prefill to its first token, decode to ``now``."""
-        ts, rep = self.trace_sink, self.trace_replica
+        admission, prefill to its first token, decode to ``now``, each
+        with the weights version it ran under. ``wasted`` marks compute a
+        drain throws away (it is recomputed elsewhere). An ingested request
+        has a decode leg only: its queue and prefill ran on another
+        engine."""
+        ts, rep, v = self.trace_sink, self.trace_replica, r.version
         q0 = r.enqueue_t if r.enqueue_t is not None else r.arrival_t
         if r.admit_t is None:
             # Never admitted: all wait.
             ts.leg(r.rid, "queue", q0, now, replica=rep, status=status)
             return
+        if r.ingested:
+            ts.leg(r.rid, "decode", q0, now, replica=rep, generated=generated, version=v,
+                   wasted=wasted, status=status)
+            return
         ts.leg(r.rid, "queue", q0, r.admit_t, replica=rep)
         ft = r.first_token_t
         if ft is None:
             # Retired mid-prefill.
-            ts.leg(r.rid, "prefill", r.admit_t, now, replica=rep, status=status)
+            ts.leg(r.rid, "prefill", r.admit_t, now, replica=rep, version=v, wasted=wasted,
+                   status=status)
             return
-        ts.leg(r.rid, "prefill", r.admit_t, ft, replica=rep, first_token_t=ft)
+        ts.leg(r.rid, "prefill", r.admit_t, ft, replica=rep, first_token_t=ft, version=v,
+               wasted=wasted)
         if now > ft:
-            ts.leg(r.rid, "decode", ft, now, replica=rep, generated=generated, status=status)
+            ts.leg(r.rid, "decode", ft, now, replica=rep, generated=generated, version=v,
+                   wasted=wasted, status=status)
 
     def _free_slot(self, slot: int):
         self._slot_req[slot] = None
@@ -1223,16 +1365,20 @@ class ContinuousEngine:
             r.tokens = tokens
         with self.ledger.measure("telemetry"):
             self._c_req_failed.inc()
+            if status == "rerouted":
+                self._c_rerouted.inc()
             self.recorder.record("engine.request_failed", rid=r.rid, status=status,
                                  error=error)
             if r.admit_t is not None:
                 # Close the span async_begin opened at first admission.
                 self.tracer.async_end("request", r.rid, status=status)
             if self.trace_sink is not None:
-                self._record_trace_legs(r, now, status=status)
-                if self.trace_sink.auto_complete:
+                # A reroute's compute is recomputed elsewhere: wasted legs.
+                self._record_trace_legs(r, now, wasted=status == "rerouted", status=status)
+                if self.trace_sink.auto_complete and status != "rerouted":
                     self.trace_sink.complete(r.rid, status=status, finish_t=now)
         self._finished[r.rid] = r
+        self.finished_versions[r.rid] = r.version
 
     def _fail_slot(self, slot: int, status: str, error: str, now=None):
         """Fail the request in ``slot`` (partial output kept) and free it;
@@ -1393,6 +1539,13 @@ class ContinuousEngine:
         return r
 
     def _admit(self):
+        if self._staged_swap is not None:
+            # A staged swap drains the engine: nothing admits until the
+            # slots are empty and the commit flips the version, or an
+            # admission now would pin the old version on a request that
+            # outlives it. The step that commits admits under the new one.
+            self._g_queue.set(len(self._queue))
+            return
         with self.ledger.measure("admission"):
             now = time.perf_counter()
             self._n_admits += 1
@@ -1420,6 +1573,11 @@ class ContinuousEngine:
                                      prompt_len=int(r.prompt.size),
                                      readmission=not first_admission)
                 prompt = r.prompt
+                # Pinned at every admission: a preempted request recomputes
+                # under, and is attributed to, the version serving now.
+                r.version = self.weights_version
+                # The slot is reused: the row retired here is gone.
+                self._export_ok = {k: v for k, v in self._export_ok.items() if v != slot}
                 self._slot_req[slot] = r
                 self._req[slot] = r.rid
                 self._plen[slot] = prompt.size
@@ -1454,6 +1612,20 @@ class ContinuousEngine:
                             self._c_pfx_hits.inc()
                             self._c_pfx_pages.inc(len(shared))
                         self._update_high_water()
+                    if first_admission:
+                        # The router's prediction (recorded under the rid
+                        # before placement) against what admission found: a
+                        # page evicted or spilled meanwhile re-prefills its
+                        # tokens, and the shortfall is counted.
+                        realized = len(shared) * self._page_size
+                        self.prefix_realized[r.rid] = realized
+                        exp = self.expected_prefix.pop(r.rid, None)
+                        if exp is not None and exp > 0:
+                            self._c_pfx_expected.inc()
+                            if realized < exp:
+                                self._c_tier_miss.inc()
+                                self.recorder.record("engine.tier_miss", rid=r.rid,
+                                                     expected=int(exp), realized=realized)
             self._g_queue.set(len(self._queue))
 
     # --- device programs ---------------------------------------------------
@@ -2282,21 +2454,30 @@ class ContinuousEngine:
             shedding=self._shed_all)
 
     def step(self, params=None, draft_params=None) -> list[int]:
-        """ONE scheduler iteration: evict expired requests, admit queued ones
-        into idle slots, then one dispatch: a refill if any slot has pending
-        prompt tokens, else a decode block if any row is active, else
-        nothing; with ``mixed=True`` the fused links instead. A recoverable
-        dispatch fault is quarantined (see :class:`ContinuousEngine`); then
-        the degradation ladder reads the SLO monitor. Returns the ids of the
-        requests that finished in this step (their outputs wait in
+        """ONE scheduler iteration: commit a staged weight swap when the slots
+        are empty, evict expired requests, admit queued ones into idle
+        slots, then one dispatch: a refill if any slot has pending prompt
+        tokens, else a decode block if any row is active, else nothing; with
+        ``mixed=True`` the fused links instead. A recoverable dispatch fault
+        is quarantined (see :class:`ContinuousEngine`); then the degradation
+        ladder reads the SLO monitor. Once a swap has committed the engine
+        owns its weights: they override whatever ``params`` the caller
+        passes, which may then be omitted. Returns the ids of the requests
+        that finished in this step (their outputs wait in
         ``pop_finished()``)."""
-        if params is None:
-            raise TypeError("step() without params: pass the params to serve")
         # The ledger's top-level frame: the whole iteration is covered wall,
         # "sched" unless a region inside claims its own bucket.
         with self.ledger.measure("sched"):
-            self._check_draft_args(draft_params)
-            weights, d_weights = self._cast_params(params, draft_params)
+            if self._staged_swap is not None:
+                self._try_commit_swap()
+            if self._installed is not None:
+                weights, d_weights = self._installed
+            elif params is None:
+                raise TypeError("step() without params: pass the params to serve, or "
+                                "swap_weights() first")
+            else:
+                self._check_draft_args(draft_params)
+                weights, d_weights = self._cast_params(params, draft_params)
             retired: list[int] = []
             with torch.no_grad():
                 # TTL eviction before admission: an expired queued request
@@ -2483,13 +2664,580 @@ class ContinuousEngine:
         self._finished = stash
         return results
 
-    # Parts not ported yet.
-    drain_requests = _not_ported("drain_requests", "item 10 part 6 (KV export and ingest)")
-    export_kv = _not_ported("export_kv", "item 10 part 6 (KV export and ingest)")
-    ingest_kv = _not_ported("ingest_kv", "item 10 part 6 (KV export and ingest)")
-    spill_page = _not_ported("spill_page", "item 10 part 6 (KV export and ingest)")
-    fill_page = _not_ported("fill_page", "item 10 part 6 (KV export and ingest)")
-    swap_weights = _not_ported("swap_weights", "item 10 part 7 (weight swaps)")
+    # --- weight swaps --------------------------------------------------------
+
+    def _serving_layout(self, model) -> dict:
+        """``{name: (layout, dtype)}`` of every tensor ``_load`` fills in
+        ``model``: on one device each state-dict entry, on the engine's
+        device; over a mesh each parameter and int4 ``q4``/``scale`` buffer,
+        placed by its logical axes (``shard_params``' layout)."""
+        if self._mesh is None:
+            device = sharding_of(torch.empty(0, device=self._device))
+            return {name: (device, t.dtype) for name, t in model.state_dict().items()}
+        axes = getattr(model, "logical_axes", param_logical_axes)
+        return {name: (NamedSharding(self._mesh, placements_to_spec(
+            self._mesh, logical_placements(self._mesh, self._rules, axes(name)), t.ndim)),
+            t.dtype) for name, t, _ in layout_tensors(model)}
+
+    def _stage(self, model, raw, cast, dequant, cfg) -> tuple[dict, int]:
+        """The cast weights ``cast`` (of the caller's ``raw`` tree) laid out
+        as ``_load`` lays them, in tensors of their own, with the live model
+        untouched → ``(staged tree, bytes moved)``. On one device a
+        dequantize-per-call tree stays as the calls take it; every other
+        tree is cast to each parameter's dtype and resharded into the serving
+        layout (over a mesh each rank slices its shard, dequantized first in
+        a non-fused dequantize mode)."""
+        with torch.no_grad():
+            if self._mesh is None and dequant:
+                tree = dict(cast)
+                dst = {name: sharding_of(t) for name, t in tree.items()}
+            else:
+                if dequant:
+                    cast = dequantize_tree(cast, cfg.param_dtype)
+                layout = self._serving_layout(model)
+                if set(cast) != set(layout):
+                    raise ValueError(
+                        f"swap_weights: the tree's names differ from the model's: missing "
+                        f"{sorted(set(layout) - set(cast))}, unexpected "
+                        f"{sorted(set(cast) - set(layout))}")
+                tree = {name: cast[name].to(dtype) for name, (_, dtype) in layout.items()}
+                dst = {name: sh for name, (sh, _) in layout.items()}
+            staged, stats = reshard_tree(tree, dst, plan_cache=self._swap_plan_cache)
+            # No staged tensor may share storage with the caller's tree, which
+            # the caller may go on updating in place (a redistribute into the
+            # placements a DTensor already has keeps its local tensor).
+            theirs = {_storage(t) for t in raw.values() if isinstance(t, torch.Tensor)}
+            staged = {name: t.clone() if _storage(t) in theirs else t
+                      for name, t in staged.items()}
+        return staged, int(stats["bytes"])
+
+    def _install(self, model, staged: dict, dequant: bool):
+        """Make ``staged`` the weights ``model`` serves (its tensors become the
+        parameters and buffers, nothing copied) → what every model call
+        then takes for it: None, or on one device in a dequantize-per-call
+        mode the staged tree itself."""
+        if self._mesh is None and dequant:
+            return staged
+        for name, t in staged.items():
+            install_tensor(model, name, t)
+        return None
+
+    def swap_weights(self, new_params, *, version: int, draft_params=None,
+                     mode: str = "drain") -> bool:
+        """Stage ``new_params`` for a weight swap with no request dropped, and
+        commit it between dispatches.
+
+        Staging happens now: the tree goes through the engine's inference
+        cast and is resharded into the serving layout
+        (``parallel.resharding.reshard_tree``: the device path where the
+        tensors already lie on the serving devices, the counted host plan
+        otherwise; plans are cached across swaps) into tensors of its own.
+        The engine serves the old weights meanwhile; nothing the scheduler
+        reads changes before the commit.
+
+        The commit installs the staged tensors as the model's weights and
+        sets ``weights_version`` to ``version``; from then on every dispatch
+        takes the installed weights as they are, casting nothing: they
+        override any ``params`` a caller passes to ``step()``, and no later
+        in-place update of ``new_params`` reaches them. It fires only with
+        every slot empty:
+
+        * ``mode="drain"``: admission pauses, requests in flight finish on
+          the old weights, and the first ``step()`` that finds the slots
+          empty commits and admits the queue under the new version;
+        * ``mode="preempt"``: every request in flight is requeued (recompute
+          preemption: it recomputes under the new weights) and the commit
+          happens at once.
+
+        Each request is attributed to one version: pinned at admission,
+        logged at retirement (``finished_versions``). On a paged engine the
+        commit drops the prefix registry and bumps ``prefix_epoch``. A fault
+        at the ``engine.swap_stage`` chaos seam (on any rank of a mesh,
+        while an injector is installed) or a recoverable staging failure
+        aborts the swap into ``engine_swap_aborted_total``: the engine keeps
+        its version. Returns True when staged (the commit may still wait),
+        False when aborted. Raises ``RuntimeError`` while a swap is
+        staged."""
+        if mode not in ("drain", "preempt"):
+            raise ValueError(f"mode must be 'drain' or 'preempt', got {mode!r}")
+        self._check_draft_args(draft_params)
+        if self._staged_swap is not None:
+            raise RuntimeError(
+                f"a weight swap is already staged (version {self._staged_swap['version']}): "
+                "it commits when the slots drain; stage the next version after that")
+        t0 = time.perf_counter()
+        with self.ledger.measure("swap"):
+            err = None
+            try:
+                chaos_hook("engine.swap_stage", version=version, mode=mode)
+            except _RECOVERABLE_DISPATCH as e:
+                err = e
+            if (self._agree_mesh is not None and chaos_active()
+                    and self._any_rank(err is not None) and err is None):
+                err = InjectedFault("engine.swap_stage", "remote",
+                                    "swap staging fault on another rank of the mesh")
+            if err is None:
+                try:
+                    staged, p_bytes = self._stage(self._model, new_params,
+                                                  self._maybe_cast(new_params), self._dequant,
+                                                  self._cfg)
+                    d_staged, d_bytes = None, 0
+                    if draft_params is not None:
+                        d_staged, d_bytes = self._stage(self._d_model, draft_params,
+                                                        self._d_cast(draft_params),
+                                                        self._d_dequant, self._d_cfg)
+                except _RECOVERABLE_DISPATCH as e:
+                    err = e
+            if err is not None:
+                self._c_swap_aborted.inc()
+                self.recorder.record("engine.swap_abort", version=version, mode=mode,
+                                     error=str(err))
+                return False
+            moved = p_bytes + d_bytes
+            self._staged_swap = dict(version=version, mode=mode, staged=(staged, d_staged),
+                                     staged_t=time.perf_counter())
+            self._c_swap_staged.inc()
+            self._c_swap_bytes.inc(moved)
+            self.recorder.record("engine.swap_stage", version=version, mode=mode, bytes=moved,
+                                 stage_s=time.perf_counter() - t0,
+                                 occupied=sum(q >= 0 for q in self._req),
+                                 queue_depth=len(self._queue))
+            if mode == "preempt":
+                for slot in range(self._b):
+                    if self._req[slot] >= 0:
+                        self._unadmit(slot)
+                        self._c_preempt.inc()
+            # An idle engine (and every preempt-mode swap) commits now; a
+            # draining one in the step() that empties it.
+            self._try_commit_swap()
+        return True
+
+    def _try_commit_swap(self) -> bool:
+        """The switch, between dispatches and only with every slot empty, so
+        no request straddles two versions. Over a mesh every rank commits in
+        the same step: the slots are equal on every rank."""
+        s = self._staged_swap
+        if s is None or any(q >= 0 for q in self._req):
+            return False
+        with self.ledger.measure("swap"):
+            if self._paged:
+                # Old weights' K/V must not seed requests of the new ones.
+                self._drop_prefix_registry()
+            staged, d_staged = s["staged"]
+            weights = self._install(self._model, staged, self._dequant)
+            d_weights = (None if d_staged is None
+                         else self._install(self._d_model, d_staged, self._d_dequant))
+            # Every dispatch from now on takes the installed tensors as they
+            # are: it casts and loads nothing, and no in-place update of the
+            # caller's tree (an optimizer step) can reach the served weights.
+            self._installed = (weights, d_weights)
+            prev = self.weights_version
+            self.weights_version = s["version"]
+            self._staged_swap = None
+            stall = time.perf_counter() - s["staged_t"]
+            self._c_swap_commits.inc()
+            self._h_swap_stall.observe(stall)
+            self.recorder.record("engine.swap_commit", version=s["version"], previous=prev,
+                                 mode=s["mode"], stall_s=stall)
+            if self.trace_sink is not None:
+                # Every request still queued admits under the new version.
+                for r in self._queue:
+                    self.trace_sink.instant(r.rid, "swap_pin", replica=self.trace_replica,
+                                            version=s["version"], previous=prev, stall_s=stall)
+        return True
+
+    # --- disaggregated prefill/decode handoff --------------------------------
+
+    def _check_handoff_supported(self, what: str):
+        if self._speculative:
+            raise ValueError(f"{what}: speculative engines are not supported: the draft cache "
+                             "would have to ride the handoff in lockstep")
+        if self._paged:
+            raise ValueError(f"{what}: paged engines are not supported: rows live behind "
+                             "host-owned block tables, not contiguous cache rows")
+
+    def ensure_cache(self, params, draft_params=None):
+        """Create the engine's zeroed KV cache without admitting work, as
+        ``ingest_kv`` and ``kv_row_shardings`` need it before the first row
+        lands (``cache_creations`` counts it); a no-op when it exists. The
+        port allocates its cache with no model call, so ``params`` (JAX's
+        signature) are not read; ``draft_params`` are checked."""
+        self._check_draft_args(draft_params)
+        if self._cache is None:
+            with torch.no_grad():
+                self._ensure_cache()
+                if self._paged:
+                    self._set_tables()
+
+    def _need_cache(self, what: str):
+        if self._cache is None:
+            raise RuntimeError(f"{what}: the engine holds no cache yet; call "
+                               "ensure_cache(params) first")
+
+    def _row_tree(self, leaf) -> dict:
+        """``leaf(tensor)`` over the cache's leaves, in the tree ``export_kv``
+        returns: ``{"layers": [{"key", "value", "index"[, "key_scale",
+        "value_scale"]}, ...], "position"}``."""
+        def layer(kv):
+            out = {"key": leaf(kv.key), "value": leaf(kv.value), "index": leaf(kv.index)}
+            if kv.key_scale is not None:
+                out.update(key_scale=leaf(kv.key_scale), value_scale=leaf(kv.value_scale))
+            return out
+
+        return {"layers": [layer(kv) for kv in self._cache.layers],
+                "position": leaf(self._cache.position)}
+
+    def _row_sharding(self, x):
+        """The layout of one row of cache leaf ``x`` (its dim 0, the batch or
+        a pool's pages, dropped): a DTensor's spec without its first entry;
+        over a mesh a plain (whole, equal on every rank) leaf's row is
+        replicated; on one device the engine's device."""
+        if isinstance(x, DTensor):
+            spec = placements_to_spec(x.device_mesh, x.placements, x.ndim)
+            return NamedSharding(x.device_mesh, P(*tuple(spec)[1:]))
+        if self._mesh is not None:
+            return NamedSharding(self._mesh, P())
+        return sharding_of(x)
+
+    @staticmethod
+    def _row_placements(placements):
+        return [Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > 0 else Replicate()
+                for pl in placements]
+
+    def _row(self, x, i: int, *, clone: bool = True):
+        """Row ``i`` of cache leaf ``x`` in its row layout
+        (:meth:`_row_sharding`). A DTensor's row comes from the ranks holding
+        it: along a mesh axis that splits dim 0 it is broadcast from its
+        holder in that axis' own group. ``clone=False`` may return a view."""
+        if not isinstance(x, DTensor):
+            row = x[i].clone() if clone else x[i]
+            if self._mesh is None:
+                return row
+            return DTensor.from_local(row, self._mesh, [Replicate()] * self._mesh.ndim,
+                                      run_check=False)
+        mesh, pls = x.device_mesh, x.placements
+        local, coord = x.to_local(), list(mesh.get_coordinate())
+        boxes = devices_indices_map(sharding_of(x), x.shape)
+        holder = next(r for r, box in boxes.items() if box[0].start <= i < box[0].stop)
+        owner = [int(c) for c in (mesh.mesh == holder).nonzero()[0]]
+        mine = boxes[dist.get_rank()][0]
+        splits = [m for m, pl in enumerate(pls) if isinstance(pl, Shard) and pl.dim == 0]
+        if mine.start <= i < mine.stop:
+            row = local[i - mine.start]
+            row = row.clone() if clone or splits else row
+        else:
+            row = torch.empty(local.shape[1:], dtype=local.dtype, device=local.device)
+        for m in splits:
+            src = list(coord)
+            src[m] = owner[m]
+            dist.broadcast(row, src=int(mesh.mesh[tuple(src)]), group=mesh.get_group(m))
+        shape = x.shape[1:]
+        return DTensor.from_local(row, mesh, self._row_placements(pls), run_check=False,
+                                  shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+    def _write_row(self, x, i: int, row):
+        """Write ``row`` into row ``i`` of cache leaf ``x`` in place. Over a
+        mesh a row in ``kv_row_shardings``' layout is a local copy on each
+        rank holding row ``i``; a row in another layout of the mesh is
+        redistributed first, a whole plain row sliced."""
+        if not isinstance(x, DTensor):
+            if isinstance(row, DTensor):
+                row = row.full_tensor()
+            x[i].copy_(row)
+            return
+        mesh = x.device_mesh
+        want = self._row_placements(x.placements)
+        if isinstance(row, DTensor):
+            if list(row.placements) != want:
+                row = row.redistribute(mesh, want)
+            local_row = row.to_local()
+        else:
+            local_row = local_slice(torch.as_tensor(row), mesh, want)
+        box = devices_indices_map(sharding_of(x), x.shape)[dist.get_rank()][0]
+        if box.start <= i < box.stop:
+            x.to_local()[i - box.start].copy_(local_row)
+
+    def kv_row_shardings(self) -> dict:
+        """Per-leaf layout of ONE cache row, the batch dim dropped, in
+        ``export_kv``'s tree: the destination a KV transfer plan reshards
+        into (``fleet.kv_transfer.transfer_tree``). A row delivered in this
+        layout makes ``ingest_kv`` a local copy on every rank."""
+        self._need_cache("kv_row_shardings")
+        return self._row_tree(self._row_sharding)
+
+    def kv_row_seq_dims(self) -> dict:
+        """Per-leaf SEQUENCE dim of one cache row (``-1``: none, move the leaf
+        whole), in ``export_kv``'s tree, for the transfer plan's
+        valid-length clipping. Read off the row shapes, never assumed: the
+        dense backend's rows are ``(L, N_kv, H)``, the blocked backend's
+        ``(N_kv, L, H)``; a row dim is the sequence dim iff it is the one
+        dim of size ``max_seq_len``, and an ambiguous row moves whole."""
+        self._need_cache("kv_row_seq_dims")
+        s = self._cfg.max_seq_len
+
+        def leaf(x):
+            if x.ndim < 2:
+                return -1
+            hits = [d for d, n in enumerate(tuple(x.shape[1:])) if n == s]
+            return hits[0] if len(hits) == 1 else -1
+
+        return self._row_tree(leaf)
+
+    def export_kv(self, rid: int):
+        """The prefill half of the disaggregated handoff: ``(rows, length)``
+        for a request that retired here, ``rows`` every cache leaf's row of
+        the slot it held (the per-row counters included; in
+        :meth:`kv_row_shardings`' layout of this engine), ``length`` the
+        row's valid length (``prompt + generated - 1``: the last emitted
+        token was never written back), which bounds the transfer plan. Valid
+        until a later admission reuses the slot: export right after the
+        ``step()`` that retired the request. Books ``kv_handoff``."""
+        self._check_handoff_supported("export_kv")
+        slot = self._export_ok.get(rid)
+        if slot is None:
+            raise KeyError(f"request {rid} is not exportable: it never retired here, or its "
+                           "slot was already reused by a later admission")
+        if self._cache is None:
+            raise RuntimeError("export_kv: the engine holds no cache")
+        with self.ledger.measure("kv_handoff"), torch.no_grad():
+            rows = self._row_tree(lambda x: self._row(x, slot))
+            length = max(0, self._plen[slot] + self._emitted[slot] - 1)
+            self._c_kv_exports.inc()
+            self.recorder.record("engine.kv_export", rid=rid, slot=slot, length=length)
+        return rows, length
+
+    def ingest_kv(self, params, prompt, first_token, rows, *, rid: int,
+                  deadline_s: float | None = None, arrival_t: float | None = None,
+                  admit_t: float | None = None, first_token_t: float | None = None,
+                  tenant: str | None = None) -> int:
+        """The decode half of the handoff: occupy a free slot with a request
+        whose prefill ran on another engine. Writes the transferred cache
+        ``rows`` (an ``export_kv`` tree, in :meth:`kv_row_shardings`' layout
+        after ``transfer_tree``), sets the row's counters to the prompt
+        length, and marks it decoding with ``first_token`` pending; the
+        request then advances through ``step()``. Greedy and sampled tokens
+        equal one engine's serve of the whole request (the rows hold the
+        bytes this engine's prefill would have written; every draw is keyed
+        by (request id, generated position)). The ``*_t`` stamps carry the
+        request's original clock across the handoff. Returns the slot;
+        raises ``RuntimeError`` when no slot is free. Books
+        ``kv_handoff``."""
+        self._check_handoff_supported("ingest_kv")
+        with self.ledger.measure("kv_handoff"), torch.no_grad():
+            p = np.asarray(prompt, np.int32).reshape(-1)
+            self._validate_prompt(p)
+            if (rid in self._finished or rid in self._req
+                    or any(r.rid == rid for r in self._queue)):
+                raise ValueError(f"request id {rid} already in use")
+            self._next_rid = max(self._next_rid, rid + 1)
+            slot = next((s for s in range(self._b) if self._req[s] < 0), None)
+            if slot is None:
+                raise RuntimeError("ingest_kv: no free slot; poll free_slots() before "
+                                   "transferring")
+            self.ensure_cache(params)
+            if len(rows["layers"]) != len(self._cache.layers):
+                raise ValueError(f"ingest_kv: {len(rows['layers'])} layers of rows for a "
+                                 f"cache of {len(self._cache.layers)}")
+            n = int(p.size)
+            for kv, row in zip(self._cache.layers, rows["layers"]):
+                for name in _PAGE_LEAF_KEYS:
+                    if getattr(kv, name) is not None:
+                        self._write_row(getattr(kv, name), slot, row[name])
+                kv.index[slot] = n
+            self._cache.position[slot] = n
+            now = time.perf_counter()
+            r = _Request(rid=rid, prompt=p, arrival_t=now if arrival_t is None else arrival_t,
+                         deadline_s=deadline_s, version=self.weights_version, tenant=tenant,
+                         enqueue_t=now, ingested=True)
+            r.admit_t = now if admit_t is None else admit_t
+            r.first_token_t = now if first_token_t is None else first_token_t
+            if deadline_s is not None:
+                self._any_req_deadline = True
+            self._export_ok = {k: v for k, v in self._export_ok.items() if v != slot}
+            self._slot_req[slot] = r
+            self._req[slot] = rid
+            self._plen[slot] = n
+            self._pending[slot] = np.zeros((0,), np.int32)
+            self._emitted[slot] = 1
+            self._out[slot] = list(p) + [int(first_token)]
+            self._ttimes[slot] = [r.first_token_t]
+            self._tok[slot] = int(first_token)
+            self._needs_reset[slot] = False
+            self._reset_to[slot] = 0
+            self._c_requests.inc()
+            self._c_kv_ingests.inc()
+            self.tracer.async_begin("request", rid, prompt_len=n, slot=slot)
+            self.recorder.record("engine.kv_ingest", rid=rid, slot=slot, length=n)
+            if (self._eos is not None and int(first_token) == self._eos) or self._max_new <= 1:
+                self._retire(slot, now, [])       # the first token ends it
+            else:
+                self._active[slot] = True
+                self._g_active.set(int(self._active.sum()))
+        return slot
+
+    # --- the KV tier: the prefix digest, page spill and fill -----------------
+
+    @staticmethod
+    def prefix_hash(key: bytes) -> bytes:
+        """The 8-byte hash of one registry key (page-aligned token-prefix
+        bytes): the unit :meth:`prefix_digest` exports."""
+        return hashlib.blake2b(key, digest_size=8).digest()
+
+    def prefix_digest(self) -> tuple[int, frozenset]:
+        """``(epoch, hashes)``: one :meth:`prefix_hash` per registered
+        page-aligned token prefix, for prefix-aware placement. ``epoch``
+        (``prefix_epoch``) bumps on every registry key change, so a digest
+        is valid while its epoch matches; the memo answers repeated
+        queries at once."""
+        if not (self._paged and self._prefix):
+            return (self.prefix_epoch, frozenset())
+        if self._digest_cache is None or self._digest_cache[0] != self.prefix_epoch:
+            self._digest_cache = (self.prefix_epoch, frozenset(
+                self.prefix_hash(k) for k in self._prefix_registry))
+        return self._digest_cache
+
+    def retained_prefixes(self) -> list[bytes]:
+        """Registry keys of the reference-free retained pages, oldest (the
+        LRU's eviction order) first: the tier's demotion candidates. Pages
+        shared by live slots are not listed."""
+        if not (self._paged and self._prefix):
+            return []
+        return [self._key_of_page[pid] for pid in self._cached_lru if pid in self._key_of_page]
+
+    def touch_prefix(self, key: bytes) -> bool:
+        """Refresh a resident reference-free prefix page in the LRU (a tier
+        touches a chain's resident ancestors before promoting its missing
+        descendants, so the promotion cannot evict them). False when the
+        key is not registered or its page is shared by a live slot."""
+        if not (self._paged and self._prefix):
+            return False
+        pid = self._prefix_registry.get(key)
+        if pid is None or pid not in self._cached_lru:
+            return False
+        self._cached_lru.pop(pid)
+        self._cached_lru[pid] = None
+        return True
+
+    def _check_tier_supported(self, what: str):
+        if not (self._paged and self._prefix):
+            raise RuntimeError(f"{what} requires a paged engine with prefix_cache=True")
+        if self._speculative:
+            # A speculative engine's page holds target and draft K/V under
+            # one id: moving the target's alone would corrupt the draft's.
+            raise RuntimeError(f"{what}: speculative engines are not tiered")
+
+    def _page_leaves(self) -> list:
+        """The page-pool leaves, layer by layer in ``_PAGE_LEAF_KEYS`` order:
+        the order of ``spill_page``'s rows."""
+        return [getattr(kv, name) for kv in self._cache.layers for name in _PAGE_LEAF_KEYS
+                if getattr(kv, name) is not None]
+
+    def _page_row_shardings(self) -> list:
+        """The layout of one page row of each page leaf (the pool dim
+        dropped), in ``spill_page``'s order: what a fill reshards into."""
+        return [self._row_sharding(x) for x in self._page_leaves()]
+
+    def spill_page(self, key: bytes, *, drop: bool = True, base_rows=None):
+        """Demote one retained prefix page out of device memory: its K/V rows
+        move to host memory through the counted ``parallel.resharding`` plan
+        (every rank of a mesh receives the whole rows; the bytes book
+        ``kv_handoff``). ``drop=True`` frees the page and takes its key out
+        of the registry; ``drop=False`` reads it and leaves it (a peer
+        copying a warm page). → ``(rows, stats)``: the host page rows (CPU
+        tensors; ``fill_page``'s input) and ``{"bytes", "raw_bytes",
+        "segments"}``. ``base_rows``, the delta codecs' reference, comes
+        with slice F."""
+        if base_rows is not None:
+            raise NotImplementedError("base_rows: ported with slice F (parallel/compression.py)")
+        self._check_tier_supported("spill_page")
+        pid = self._prefix_registry.get(key)
+        if pid is None:
+            raise KeyError("spill_page: key not in the prefix registry")
+        if drop and pid not in self._cached_lru:
+            raise RuntimeError("spill_page(drop=True): page is shared by live slots; it "
+                               "cannot leave the device mid-request")
+        if self._cache is None:
+            raise RuntimeError("spill_page: the engine holds no cache")
+        with self.ledger.measure("kv_handoff"), torch.no_grad():
+            rows, nbytes, nsegs = [], 0, 0
+            for x in self._page_leaves():
+                row = self._row(x, pid, clone=False)
+                src = sharding_of(row)
+                pkey = (tuple(row.shape), str(row.dtype), src, "spill", None)
+                plan = self._page_plan_cache.get(pkey)
+                if plan is None:
+                    plan = self._page_plan_cache[pkey] = plan_transfer(
+                        row.shape, row.element_size(), src, HostBuffer(), seq_dim=None,
+                        page_tokens=None)
+                buf, stats = execute_transfer(plan, row)
+                rows.append(buf)
+                nbytes += stats["bytes"]
+                nsegs += stats["segments"]
+            if drop:
+                del self._cached_lru[pid]
+                del self._prefix_registry[self._key_of_page.pop(pid)]
+                del self._refcnt[pid]
+                self._free_pages.append(pid)
+                self.prefix_epoch += 1
+                self._update_high_water()
+            self._c_pg_spills.inc()
+            self._c_pg_bytes_out.inc(nbytes)
+            self._c_kv_raw_bytes.inc(nbytes)
+            self._g_comp_ratio.set(1.0)
+            self.recorder.record("engine.kv_page_spill", pid=pid, bytes=nbytes,
+                                 raw_bytes=nbytes, segments=nsegs, dropped=drop)
+        return rows, {"bytes": nbytes, "raw_bytes": nbytes, "segments": nsegs}
+
+    def fill_page(self, key: bytes, rows) -> dict:
+        """Promote a spilled page back into device memory: take a page (which
+        may evict a colder retained one), move the host ``rows`` into this
+        cache's page-row layout through the counted plan, write them in, and
+        register ``key`` as a reference-free retained page, newest in the
+        LRU. The next admission whose prompt chain reaches ``key`` maps it
+        like any resident prefix page. → ``{"bytes", "raw_bytes",
+        "segments", "pid"}``. Raises ``ValueError`` if ``key`` is resident
+        (check the digest first)."""
+        self._check_tier_supported("fill_page")
+        if key in self._prefix_registry:
+            raise ValueError("fill_page: key is already resident")
+        if self._cache is None:
+            raise RuntimeError("fill_page: the engine holds no cache; ensure_cache() or "
+                               "serve a request first")
+        leaves = self._page_leaves()
+        if len(rows) != len(leaves):
+            raise ValueError(f"fill_page: {len(rows)} rows for {len(leaves)} page leaves")
+        with self.ledger.measure("kv_handoff"), torch.no_grad():
+            with self.ledger.measure("page_alloc"):
+                pid = self._take_page()
+            nbytes = nsegs = 0
+            for x, buf in zip(leaves, rows):
+                buf = buf if isinstance(buf, torch.Tensor) else torch.from_numpy(np.asarray(buf))
+                dst = self._row_sharding(x)
+                pkey = (tuple(buf.shape), str(buf.dtype), dst, "fill", None)
+                plan = self._page_plan_cache.get(pkey)
+                if plan is None:
+                    plan = self._page_plan_cache[pkey] = plan_transfer(
+                        buf.shape, buf.element_size(), HostBuffer(), dst, seq_dim=None,
+                        page_tokens=None)
+                out, stats = execute_transfer(plan, buf)
+                self._write_row(x, pid, out)
+                nbytes += stats["bytes"]
+                nsegs += stats["segments"]
+            self._prefix_registry[key] = pid
+            self._key_of_page[pid] = key
+            self._refcnt[pid] = 0
+            self._cached_lru[pid] = None
+            self.prefix_epoch += 1
+            self._update_high_water()
+            self._c_pg_fills.inc()
+            self._c_pg_bytes_in.inc(nbytes)
+            self._c_kv_raw_bytes.inc(nbytes)
+            self._g_comp_ratio.set(1.0)
+            self.recorder.record("engine.kv_page_fill", pid=pid, bytes=nbytes,
+                                 raw_bytes=nbytes, segments=nsegs)
+        return {"bytes": nbytes, "raw_bytes": nbytes, "segments": nsegs, "pid": pid}
+
+    # The introspection of slice G.
     compile_counts = _not_ported("compile_counts", "slice G (introspection)")
     collective_inventory = _not_ported("collective_inventory", "slice G (introspection)")
     program_hlo = _not_ported("program_hlo", "slice G (introspection)")

@@ -1,8 +1,8 @@
 """Parallelism layers over ``torch.distributed``: mesh (``DeviceMesh``),
 sharding placement (DTensor), logical axes, explicit collectives and the
-collective counts. Port of ``learning_jax_sharding_tpu/parallel``; the
-resharding planner, the multi-host bootstrap and the pipeline schedule come
-with slice D, the HLO analysis with slice G."""
+collective counts, and the resharding planner (``resharding``). Port of
+``learning_jax_sharding_tpu/parallel``; the multi-host bootstrap and the
+pipeline schedule come with slice D, the HLO analysis with slice G."""
 
 from learning_jax_sharding_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
