@@ -99,7 +99,9 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,6 +110,7 @@ import time
 import numpy as np
 import torch
 
+from learning_jax_sharding_tpu_torch.data import CyclicLMDataset
 from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.decoding import (
@@ -147,11 +150,14 @@ from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
 )
-from learning_jax_sharding_tpu_torch.training.loop import adamw
+from learning_jax_sharding_tpu_torch.telemetry import GoodputLedger, MetricsRegistry, Tracer
+from learning_jax_sharding_tpu_torch.training.checkpoint import CheckpointManager
+from learning_jax_sharding_tpu_torch.training.loop import TrainLoopConfig, adamw, evaluate, fit
 from learning_jax_sharding_tpu_torch.training.pipeline import (
     make_train_step,
     sharded_train_state,
 )
+from learning_jax_sharding_tpu_torch.utils.memory import device_hbm_bytes, memory_plan
 from learning_jax_sharding_tpu_torch.utils.bench import (
     bound,
     device_peak_flops,
@@ -200,6 +206,16 @@ TRAIN_LOSS = dict(
     loss_fn=functools.partial(fused_next_token_loss, chunk_size=128),
     loss_needs_params=True, apply_kwargs={"return_hidden": True},
 )
+# [train] fit: steps of the uninterrupted run, the resumed run's first
+# part, checkpoint interval, evaluate's batches, the lion/adafactor runs.
+FIT_STEPS, FIT_RESUME_AT, FIT_CKPT_EVERY, FIT_EVAL_BATCHES, FIT_OPT_STEPS = 12, 8, 4, 4, 5
+# The descent gate: evaluate's loss over the first FIT_EVAL_BATCHES
+# batches of the stream (those of steps 1-4) must fall by this many nats
+# over the 12 steps. Weights that did not move score the same loss to the
+# bit; the stream's batches differ from each other by more than the loss
+# falls from one step to the next, so the step losses cannot show it.
+FIT_DESCENT_MARGIN = 0.1
+FIT_TIME_STEPS = 8   # the timed fit without checkpoints
 # Flash against dense attention, one bf16 step on the same weights: the two
 # round p to bf16 at other points (online vs dense softmax).
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-2, 5e-2
@@ -282,6 +298,10 @@ COLD_BYTES = 120_000_000
 # coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
 QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
 LADDER_ROUNDS = 3
+# The int4 generates timed against their CUDA-core designs (time_int4_decode):
+# +64 tokens (the main path's +128 is checked and laddered above; the five
+# timed and profiled +128 generates took about 100 s on a slow host).
+INT4_TIME_NEW = 64
 PROBES_SOURCE = "learning_jax_sharding_tpu_torch/csrc/probes.cu"
 # The TPU probe kernels each probe kernel replaces (body, then every launch).
 PROBES_REPLACES = {
@@ -1160,6 +1180,271 @@ def run_fused_train_path(gen, card):
     del states
     return dict(launches=norm, flash_launches=flash_launches, descent_losses=losses,
                 step_check=check, timing=timing, profile=profile)
+
+
+def fit_model(**fields):
+    """The seeded 125M model of ``[time] 125M train step`` (flash attention)."""
+    cfg = dataclasses.replace(CONFIG_125M, attn_fn=flash.make_flash_attn_fn(), **fields)
+    return Transformer(cfg, device="cuda", seed=0)
+
+
+def fit_config(**fields):
+    return TrainLoopConfig(global_batch_size=TRAIN_B, learning_rate=3e-4, **fields)
+
+
+def poisoned_loss(y, batch, model):
+    """The fused loss, times NaN when the batch carries a nonzero
+    ``poison`` (the JAX package's ``TestSkipGuard`` poisoning): loss and
+    gradients go non-finite inside the step."""
+    loss = fused_next_token_loss(y, batch, model, chunk_size=128)
+    bad = batch["poison"].sum() > 0
+    return loss * torch.where(bad, torch.tensor(float("nan"), device=loss.device),
+                              torch.tensor(1.0, device=loss.device))
+
+
+def state_tensors(state) -> dict:
+    """Every parameter and optimizer slot of a train state, by name."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        out[name] = p.detach()
+        for slot, v in state.optimizer.state.get(p, {}).items():
+            out[f"{name}/{slot}"] = v
+    return out
+
+
+def run_fit_path(gen, card, step_ms):
+    """``[train] fit``: the port's training loop at the train step's shape
+    (125M, b=8, s=1024, bf16 compute, flash, the fused loss, AdamW) on a
+    learnable stream from seeded weights: 12 steps with checkpoints every 4
+    (2 kept), prefetch 2, a registry, tracer and ledger; 8 steps and a
+    fresh model's resume to 12; ``evaluate`` over the first 4 batches
+    before and after; one guarded step on a poisoned batch; 5 steps with
+    lion (and ``fused_norm=True``) and 5 with adafactor. Gates: descent
+    (evaluate's loss falls by ``FIT_DESCENT_MARGIN`` nats), the resumed
+    losses 9-12 within rtol 1e-6 of the uninterrupted run's, the restored
+    parameters and moments equal to the saved ones, 12 launches of each
+    flash kernel a step on the tensor cores, the guarded step leaving every
+    parameter and moment bit-equal, the ledger's reconciliation. Prints the
+    loop's steady ms/step, tok/s and MFU beside ``step_ms`` (the bare
+    8-step call's), the checkpoint's save and restore times, and the memory
+    plan beside the peak allocation."""
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fit_", dir=root)
+    stream = CyclicLMDataset(CONFIG_125M.vocab_size, TRAIN_S, seed=0)
+    kw = dict(loss_fn=TRAIN_LOSS["loss_fn"], step_kwargs={
+        k: v for k, v in TRAIN_LOSS.items() if k != "loss_fn"})
+    flops = CONFIG_125M.train_step_flops(TRAIN_B, TRAIN_S)
+    out = {}
+    try:
+        # The uninterrupted run, every phase's telemetry attached.
+        registry, tracer, ledger = MetricsRegistry(), Tracer(), GoodputLedger()
+        model = fit_model()
+        ev0 = evaluate(sharded_train_state(model, adamw(3e-4)), stream, None, None,
+                       batch_size=TRAIN_B, num_batches=FIT_EVAL_BATCHES, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.flash_attention.launches = dict.fromkeys(flash.flash_attention.launches, 0)
+        t0 = time.perf_counter()
+        state, hist = fit(model, stream, None, None, fit_config(
+            steps=FIT_STEPS, checkpoint_dir=os.path.join(tmp, "full"),
+            checkpoint_every=FIT_CKPT_EVERY, max_checkpoints=2, prefetch=2,
+            metrics_path=os.path.join(tmp, "metrics.jsonl")),
+            registry=registry, tracer=tracer, ledger=ledger, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(flash.flash_attention.launches)
+        losses = [h["loss"] for h in hist]
+        want = FIT_STEPS * CONFIG_125M.num_layers
+        log(f"[train] fit, {FIT_STEPS} steps (checkpoints every {FIT_CKPT_EVERY}, prefetch 2): "
+            f"losses {[round(x, 4) for x in losses]}; flash launches {launches} (want {want} "
+            f"each: {CONFIG_125M.num_layers} a step, every one on the tensor cores)")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"fit's losses are not finite: {losses}")
+        if launches != dict.fromkeys(FLASH_LAUNCH_KEYS, want):
+            raise AssertionError(f"fit launched flash {launches}, want {want} each")
+        rec = ledger.reconcile()
+        log(f"[train] fit ledger: reconcile ok={rec['ok']} residual {rec['residual_s']:.2e} s "
+            f"of {rec['wall_s']:.3f} s; buckets "
+            f"{ {k: round(v, 6) for k, v in rec['buckets'].items()} }; device families "
+            f"{ledger.device_families()}")
+        if not rec["ok"]:
+            raise AssertionError(f"fit's ledger does not reconcile: {rec}")
+        # The loop's own cost, apart from the checkpoint writer (whose
+        # serialisation overlaps every step after the first save): fit
+        # with no checkpoint dir, then the bare step on the same state with
+        # a loss read after every step (the loop's sync alone).
+        ckpt_rates = [h["seconds_per_step"] for h in hist if "seconds_per_step" in h]
+        t_state, t_hist = fit(fit_model(), stream, None, None, fit_config(
+            steps=FIT_TIME_STEPS, prefetch=2), registry=MetricsRegistry(), tracer=Tracer(),
+            ledger=GoodputLedger(), **kw)
+        rates = [h["seconds_per_step"] for h in t_hist if "seconds_per_step" in h]
+        logged_mfu = [h["mfu"] for h in t_hist if "mfu" in h]
+        bare = make_train_step(**TRAIN_LOSS)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in stream.batch(0).items()}
+        synced = []
+        for _ in range(FIT_TIME_STEPS):
+            t0 = time.perf_counter()
+            float(bare(t_state, batch)[1])
+            synced.append(time.perf_counter() - t0)
+        del t_state
+        step_s, synced_s = statistics.median(rates), statistics.median(synced[1:])
+        timing = dict(ms_per_step=step_s * 1e3, tok_s=TRAIN_B * TRAIN_S / step_s,
+                      mfu=mfu(flops, step_s),
+                      logger_mfu=statistics.median(logged_mfu) if logged_mfu else None,
+                      bare_step_ms=step_ms, synced_step_ms=synced_s * 1e3,
+                      host_ms_per_step=step_s * 1e3 - step_ms,
+                      sync_ms_per_step=synced_s * 1e3 - step_ms,
+                      loop_ms_per_step=(step_s - synced_s) * 1e3, seconds_per_step=rates,
+                      with_checkpoints_ms_per_step=statistics.median(ckpt_rates) * 1e3,
+                      with_checkpoints_mean_ms_per_step=statistics.mean(ckpt_rates) * 1e3,
+                      with_checkpoints_seconds_per_step=ckpt_rates, wall_s=wall)
+        log(f"[time] 125M fit b={TRAIN_B} s={TRAIN_S} bf16, flash + fused loss + AdamW, "
+            f"MetricsLogger steady {timing['ms_per_step']:.3f} ms/step (median of "
+            f"{len(rates)}, no checkpoints), {timing['tok_s']:.1f} tok/s, MFU "
+            f"{timing['mfu']:.4f} (the logger's median {timing['logger_mfu']}); [time] 125M "
+            f"train step {step_ms:.3f} ms/step: the loop adds {timing['host_ms_per_step']:.3f} "
+            f"ms a step, of which the per-step loss read {timing['sync_ms_per_step']:.3f} (the "
+            f"bare step read every step: {timing['synced_step_ms']:.3f} ms) and the loader, "
+            f"ledger and metrics {timing['loop_ms_per_step']:.3f}; with checkpoints every "
+            f"{FIT_CKPT_EVERY} (the writer overlapping the steps after the first save) median "
+            f"{timing['with_checkpoints_ms_per_step']:.3f}, mean "
+            f"{timing['with_checkpoints_mean_ms_per_step']:.3f} ms/step, {FIT_STEPS} steps in "
+            f"{wall:.3f} s; on {card}")
+        plan = memory_plan(state.model.config, TRAIN_B, TRAIN_S)
+        log(f"[train] fit memory: plan {plan.total / 2**30:.3f} GiB (params "
+            f"{plan.params / 2**30:.3f}, grads {plan.grads / 2**30:.3f}, optimizer "
+            f"{plan.optimizer_state / 2**30:.3f}, saved activations "
+            f"{plan.saved_activations / 2**30:.3f}, loss head {plan.loss_head / 2**30:.3f}), "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; card "
+            f"{device_hbm_bytes() / 2**30:.3f} GiB")
+        out.update(losses=losses, launches=launches, ledger=rec, timing=timing,
+                   memory=dict(plan=dataclasses.asdict(plan), max_allocated=peak,
+                               device_bytes=device_hbm_bytes()),
+                   registry_steps=registry.get("train_steps_total").value)
+
+        # Checkpoint save and restore, timed; the restore gate.
+        saved = {k: v.clone() for k, v in state_tensors(state).items()}
+        mb = sum(v.numel() * v.element_size() for v in saved.values()) / 1e6
+        with CheckpointManager(os.path.join(tmp, "timed")) as ckpt:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(FIT_STEPS, state)
+            staged = time.perf_counter() - t0
+            ckpt.wait()
+            written = time.perf_counter() - t0
+        del state, model
+        torch.cuda.empty_cache()
+        fresh = sharded_train_state(fit_model(), adamw(3e-4))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CheckpointManager(os.path.join(tmp, "full")) as ckpt:
+            kept = ckpt.all_steps()
+            ckpt.restore_latest(like=fresh)
+        torch.cuda.synchronize()
+        restored_s = time.perf_counter() - t0
+        got = state_tensors(fresh)
+        unequal = [k for k, v in saved.items() if k not in got or not torch.equal(got[k], v)]
+        log(f"[time] checkpoint of the 125M train state ({len(saved)} tensors, {mb:.1f} MB): "
+            f"save returns in {staged * 1e3:.3f} ms (the copies queued), on disk in "
+            f"{written * 1e3:.3f} ms; restore_latest {restored_s * 1e3:.3f} ms; kept steps "
+            f"{kept}; restored step {fresh.step}, {len(saved) - len(unequal)} of {len(saved)} "
+            f"tensors bit-equal to the saved ones, on {card}")
+        if unequal or fresh.step != FIT_STEPS or kept != [FIT_STEPS - FIT_CKPT_EVERY, FIT_STEPS]:
+            raise AssertionError(f"restore: step {fresh.step}, kept {kept}, unequal {unequal[:5]}")
+        out["checkpoint"] = dict(mb=mb, save_return_ms=staged * 1e3, save_disk_ms=written * 1e3,
+                                 restore_ms=restored_s * 1e3, tensors=len(saved))
+
+        # The descent gate: evaluate the restored state over the batches
+        # scored before the run.
+        t0 = time.perf_counter()
+        ev = evaluate(fresh, stream, None, None, batch_size=TRAIN_B,
+                      num_batches=FIT_EVAL_BATCHES, **kw)
+        drop = ev0["loss"] - ev["loss"]
+        log(f"[train] evaluate over the first {FIT_EVAL_BATCHES} batches: loss {ev0['loss']:.6f} "
+            f"before the run, {ev['loss']:.6f} (perplexity {ev['perplexity']:.3f}) after "
+            f"{FIT_STEPS} steps: fell {drop:.6f} nats (want at least {FIT_DESCENT_MARGIN}); "
+            f"{time.perf_counter() - t0:.3f} s")
+        if not math.isfinite(ev["loss"]) or not drop >= FIT_DESCENT_MARGIN:
+            raise AssertionError(f"fit did not descend: evaluate's loss {ev0['loss']} -> {ev['loss']}")
+        out["evaluate"] = dict(ev, before=ev0["loss"], drop=drop)
+
+        # The guarded step on a poisoned batch.
+        batch = {k: torch.from_numpy(v).cuda() for k, v in stream.batch(FIT_STEPS).items()}
+        batch["poison"] = torch.ones((TRAIN_B, 1), device="cuda")
+        step = make_train_step(loss_fn=poisoned_loss, skip_nonfinite=True, **kw["step_kwargs"])
+        before = {k: v.clone() for k, v in state_tensors(fresh).items()}
+        counts = (fresh.step, fresh.updates)
+        _, res = step(fresh, batch)
+        after = state_tensors(fresh)
+        moved = [k for k, v in before.items() if not torch.equal(after[k], v)]
+        log(f"[train] guarded step on a poisoned batch: loss {float(res['loss'])}, grad norm "
+            f"{float(res['grad_norm'])}; {len(before) - len(moved)} of {len(before)} parameters "
+            f"and moments bit-equal; step {counts[0]} -> {fresh.step}, updates {counts[1]} -> "
+            f"{fresh.updates}")
+        if (moved or math.isfinite(float(res["loss"])) or fresh.step != counts[0] + 1
+                or fresh.updates != counts[1]):
+            raise AssertionError(f"the guard moved {moved[:5]} or miscounted")
+        out["guard"] = dict(moved=len(moved), checked=len(before))
+        del fresh, before, after, saved, got
+        torch.cuda.empty_cache()
+
+        # The resumed run: 8 steps, then a fresh model's fit to 12.
+        part = os.path.join(tmp, "part")
+        fit(fit_model(), stream, None, None, fit_config(
+            steps=FIT_RESUME_AT, checkpoint_dir=part, checkpoint_every=FIT_RESUME_AT,
+            max_checkpoints=2), **kw)
+        torch.cuda.empty_cache()
+        resumed_state, resumed = fit(fit_model(), stream, None, None, fit_config(
+            steps=FIT_STEPS, checkpoint_dir=part, checkpoint_every=FIT_RESUME_AT,
+            max_checkpoints=2), **kw)
+        tail = [h["loss"] for h in resumed]
+        ref = losses[FIT_RESUME_AT:]
+        bit_equal = tail == ref
+        log(f"[train] resumed at {FIT_RESUME_AT}: steps {[h['step'] for h in resumed]}, losses "
+            f"{tail} against the uninterrupted {ref} ({'bit-equal' if bit_equal else 'not bit-equal'}"
+            f", rtol 1e-6)")
+        if [h["step"] for h in resumed] != list(range(FIT_RESUME_AT + 1, FIT_STEPS + 1)):
+            raise AssertionError(f"the resumed run took steps {[h['step'] for h in resumed]}")
+        np.testing.assert_allclose(tail, ref, rtol=1e-6)
+        out["resume"] = dict(losses=tail, reference=ref, bit_equal=bit_equal)
+        del resumed_state
+        torch.cuda.empty_cache()
+
+        # Lion (with the fused norm: rows 5-6 of the kernel table on a fit
+        # path) and adafactor, FIT_OPT_STEPS steps each.
+        out["optimizers"] = {}
+        for name, fields in (("lion", dict(fused_norm=True)), ("adafactor", {})):
+            reset_norm_launches()
+            st, h = fit(fit_model(**fields), stream, None, None, fit_config(
+                steps=FIT_OPT_STEPS, optimizer=name), **kw)
+            torch.cuda.synchronize()
+            norm = dict(norm_ops.fused_residual_norm.launches)
+            opt_losses = [x["loss"] for x in h]
+            rates = [x["seconds_per_step"] for x in h if "seconds_per_step" in x]
+            slots = sum(v.numel() for p in st.model.parameters()
+                        for k, v in st.optimizer.state[p].items() if k != "step")
+            log(f"[train] fit with {name}{' and fused_norm' if fields else ''}, "
+                f"{FIT_OPT_STEPS} steps: losses {[round(x, 4) for x in opt_losses]}, "
+                f"{statistics.median(rates) * 1e3:.3f} ms/step, {slots / 1e6:.3f} M optimizer "
+                f"state elements; fused-norm launches {norm}")
+            if not all(map(math.isfinite, opt_losses)):
+                raise AssertionError(f"{name}: non-finite losses {opt_losses}")
+            if fields:
+                per = norm_calls(CONFIG_125M) * FIT_OPT_STEPS
+                if norm != {"fwd": per, "fwd_nostats": 0, "bwd": per}:
+                    raise AssertionError(f"fused-norm fit launched {norm}, want {per} each")
+                out["norm_launches"] = norm
+            out["optimizers"][name] = dict(losses=opt_losses, ms_per_step=statistics.median(
+                rates) * 1e3, state_elements=slots)
+            del st
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def run_fused_generate(params, gen, tf_model, card):
@@ -2712,18 +2997,21 @@ def on_design(fn, design, module=mm4, rule="_variant", only=None):
     return call
 
 
-def time_int4_decode(q4, prompt, card, fns):
-    """The int4-fused and int4-w4a8 generates (b=8, prompt 128, +128), host
-    clock around a synchronised call, medians of 3 interleaved, beside the
+def time_int4_decode(q4, prompt, card):
+    """The int4-fused and int4-w4a8 generates (b=8, prompt 128,
+    +``INT4_TIME_NEW``), host clock around a synchronised call, medians of 3
+    interleaved, beside the
     same calls with every matmul that the rule gives the small-M design
     (the decode steps') launched on the CUDA-core design instead, and the
     int4-fused generate with every ``int4_ff`` on its CUDA-core design;
     then each of the five profiled: device-busy ms per token step and the
     int4 matmuls' and ``int4_ff``'s ms per step (their kernels' profiled
-    time over NEW steps)."""
+    time over ``INT4_TIME_NEW`` steps)."""
     calls = {}
     for mode, name in (("fused", "int4-fused"), ("fused_w4a8", "int4-w4a8")):
-        run = functools.partial(fns[mode], q4, prompt)
+        fn = make_generate_fn(CONFIG_125M, max_new_tokens=INT4_TIME_NEW,
+                              inference_dtype=torch.bfloat16, dequantize=mode)
+        run = functools.partial(fn, q4, prompt)
         calls[name] = run
         calls[f"{name}, decode on the CUDA cores"] = on_design(run, "cuda_core", only="small_m")
     calls["int4-fused, int4_ff on the CUDA cores"] = on_design(
@@ -2732,17 +3020,17 @@ def time_int4_decode(q4, prompt, card, fns):
     rows = {}
     for name, run in calls.items():
         sec = statistics.median(times[name])
-        ms = sec / NEW * 1e3
-        prof = profile_summary(f"125M {name} generate token step", run, NEW, ms)
+        ms = sec / INT4_TIME_NEW * 1e3
+        prof = profile_summary(f"125M {name} generate token step", run, INT4_TIME_NEW, ms)
         int4_ms = sum(v for kernel, v in prof["port_kernels_ms_per_step"].items()
                       if kernel.startswith("int4_matmul"))
         ff_ms = sum(v for kernel, v in prof["port_kernels_ms_per_step"].items()
                     if kernel.startswith("int4_ff"))
-        rows[name] = dict(tok_s=B * NEW / sec, ms_per_token_step=ms, seconds=times[name],
-                          int4_matmul_ms_per_step=int4_ms, int4_ff_ms_per_step=ff_ms,
-                          profile=prof)
-        log(f"[time] 125M {name} generate b={B} prompt {PROMPT} +{NEW} (interleaved): "
-            f"{B * NEW / sec:.1f} tok/s, {ms:.3f} ms/token-step (median of 3: "
+        rows[name] = dict(tok_s=B * INT4_TIME_NEW / sec, ms_per_token_step=ms,
+                          seconds=times[name], int4_matmul_ms_per_step=int4_ms,
+                          int4_ff_ms_per_step=ff_ms, profile=prof, new=INT4_TIME_NEW)
+        log(f"[time] 125M {name} generate b={B} prompt {PROMPT} +{INT4_TIME_NEW} "
+            f"(interleaved): {B * INT4_TIME_NEW / sec:.1f} tok/s, {ms:.3f} ms/token-step (median of 3: "
             f"{[round(t, 4) for t in times[name]]} s); profiled: device busy "
             f"{prof['busy_ms_per_step']:.3f} ms a step, int4 matmuls {int4_ms:.4f} ms and "
             f"int4_ff {ff_ms:.4f} ms a step on {card}")
@@ -3416,11 +3704,13 @@ MESH_RULES_TRAIN = "RULES_DP_TP_SP"
 MESH_RULES_GENERATE = "RULES_DP_TP"
 MESH_LOSS_RTOL = 1e-5
 MESH_LAYOUTS = ((2, 2), (2, 4))
-MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 16
-# The one-rank mesh generates: +32 tokens (the unsharded ones +128): a mesh
-# token step is host-bound at 4-8x the unsharded one, and at +128 the three
-# generates took 100 s of the run on a slow host.
-MESH_1X1_NEW = 32
+# The (2, 2) thread-rank generates: +8 tokens (about 2 s a model call on a
+# slow host; at +16 the phase took 70 s).
+MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 8
+# The one-rank mesh generates: +16 tokens (the unsharded ones +128): a mesh
+# token step is host-bound at 3-5x the unsharded one, and at +128 the three
+# generates took 100 s of the run on a slow host (46 s at +32).
+MESH_1X1_NEW = 16
 
 
 def _kernel_launches() -> dict:
@@ -3594,7 +3884,7 @@ def run_mesh_threads(card):
 # The engine over a mesh (``[engine] mesh``): the first eight requests of
 # engine_prompts() (one wave of the 8 slots), ENGINE_COMMON otherwise; the
 # (2, 2) variants as four thread ranks of this process on the one card,
-# +4 tokens a request in decode blocks of 4, the speculative variant +8 in
+# +2 tokens a request in decode blocks of 2, the speculative variant +8 in
 # blocks of two rounds (a request's two verify rounds in one block, so the
 # state carried from round to round runs over the mesh): a thread-rank
 # model call takes far longer than a one-rank one (DTensor's dispatch of
@@ -3603,7 +3893,7 @@ def run_mesh_threads(card):
 # 200 s of the run on a slow host.
 MESH_ENGINE_REQUESTS = 8
 MESH_ENGINE_SHAPE = (2, 2)
-MESH_ENGINE_NEW = 4
+MESH_ENGINE_NEW = 2
 MESH_SPEC_NEW = 8
 MESH_SPEC_ROUNDS = 2   # the (2, 2) speculative variant's rounds a decode block
 
@@ -4735,7 +5025,7 @@ def main() -> int:
     q4, q_prompt, quant, int4_fns = run_quantized_path(params, gen)
     ladder, fused_fn = run_ladder(params, q4, q_prompt, card, int4_fns)
     int4_prefill = time_int4_prefill(q4, q_prompt, card)
-    int4_decode = time_int4_decode(q4, q_prompt, card, int4_fns)
+    int4_decode = time_int4_decode(q4, q_prompt, card)
     quant_breakdown = int4_decode["int4-fused"]["profile"]
     del fused_fn, int4_fns
     torch.cuda.empty_cache()
@@ -4760,6 +5050,9 @@ def main() -> int:
     fused_train = run_fused_train_path(gen, card)
     torch.cuda.empty_cache()
     mark("train paths")
+    fit_path = run_fit_path(gen, card, train["ms_per_step"])
+    torch.cuda.empty_cache()
+    mark("[train] fit")
     mesh_1x1 = run_mesh_1x1(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] 1x1")
@@ -4867,6 +5160,10 @@ def main() -> int:
             # errors on the same inputs.
             design=f"{public} (bf16); cuda_core (fp32)",
             tensor_core_launches=train["launches"][f"{name}_tensor_core"],
+            # [train] fit's uninterrupted run (12 steps): every launch on the
+            # tensor cores.
+            fit_launches=fit_path["launches"][name],
+            fit_tensor_core_launches=fit_path["launches"][f"{name}_tensor_core"],
             cuda_core_ms=flash_times[name]["cuda_core_ms"],
             cuda_core_tflop_s=flash_times[name]["cuda_core_tflop_s"],
             cuda_core_max_err_bf16=flash_errs[torch.bfloat16, "cuda_core", "checked"][name],
@@ -4962,6 +5259,7 @@ def main() -> int:
         entries.append(dict(
             name=f"fused_norm_{name}", route="cuda", source=NORM_SOURCE,
             replaces=NORM_REPLACES[name], launches=fused_train["launches"][name],
+            fit_launches=fit_path["norm_launches"][name],
             generate_launches=fused_gen["launches"]["fwd_nostats" if name == "fwd" else name],
             generate_1p4b_launches=fused_1p4b["launches"]["fwd_nostats" if name == "fwd"
                                                           else name],
@@ -5035,6 +5333,7 @@ def main() -> int:
                                   for k, v in int4_decode.items()})
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
+                      "fit": fit_path,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
                       "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,

@@ -34,9 +34,15 @@ tensor-parallel generate (rectangular, ragged and speculative) and the
 continuous engine in every mode above, every kernel on its rank's shard,
 and the sharding lessons' cases (``cases/``, case 17 the engine).
 
+The training loop (``training/loop.py``: ``fit`` and ``evaluate`` over the
+batch loader of ``data/``, AdamW, lion and adafactor, checkpoints and
+exact resume in ``training/checkpoint.py``, per-step metrics, the
+non-finite guard, the watchdog and the recovery policies), on one device
+or over a mesh.
+
 Not ported yet: MoE, ``scan_layers``, ``remat``, the hybrid mesh, ZeRO-1,
-the engine's recovery policies, weight swaps and page spills, telemetry
-objects, fleet handoff and tenancy (each raises ``NotImplementedError``).
+the fleet router and tenancy's adapters (each raises
+``NotImplementedError``).
 """
 
 import torch

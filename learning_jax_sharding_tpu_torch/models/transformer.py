@@ -67,6 +67,7 @@ from learning_jax_sharding_tpu_torch.parallel.logical import (
     constrain,
     local_call,
     on_whole_shards,
+    reduce_partial_grad,
     vocab_parallel_xent,
     whole_call,
 )
@@ -441,8 +442,11 @@ class Transformer(nn.Module):
         tokens = constrain(tokens, BATCH, SEQ).long()
         # Over a mesh a vocabulary-split table's rows come back as masked
         # partial sums: each lookup is reduced on its own (the two masks
-        # cannot meet in one add).
-        x = constrain(self.tok_embed(tokens).to(cfg.dtype), BATCH, SEQ, EMBED)
+        # cannot meet in one add), and so is its gradient on the way back
+        # (a partial sum there, from the first block's split projections,
+        # cannot become the masked partial).
+        x = reduce_partial_grad(
+            constrain(self.tok_embed(tokens).to(cfg.dtype), BATCH, SEQ, EMBED))
         if self.pos_embed is not None:
             steps = torch.arange(s, device=self.device)
             if cache is None:

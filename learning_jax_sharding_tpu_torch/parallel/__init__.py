@@ -1,6 +1,7 @@
 """Parallelism layers over ``torch.distributed``: mesh (``DeviceMesh``),
 sharding placement (DTensor), logical axes, explicit collectives and the
-collective counts, and the resharding planner (``resharding``). Port of
+collective counts, the resharding planner (``resharding``) and each
+process's batch rows (``multihost``). Port of
 ``learning_jax_sharding_tpu/parallel``; the multi-host bootstrap and the
 pipeline schedule come with slice D, the HLO analysis with slice G."""
 

@@ -223,6 +223,31 @@ def constrain(x, *logical_axes: str | None):
     return x.redistribute(mesh, placements)
 
 
+class _ReducedGrad(torch.autograd.Function):
+    """The identity; its gradient's partial sums are reduced (to
+    replicated) on the way back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and any(p.is_partial() for p in grad.placements):
+            grad = grad.redistribute(grad.device_mesh, [
+                Replicate() if p.is_partial() else p for p in grad.placements])
+        return grad
+
+
+def reduce_partial_grad(x):
+    """``x`` as it is, whose gradient comes back with its partial sums
+    reduced. A DTensor redistributed out of a masked partial (a lookup in a
+    vocabulary-split table) needs it: DTensor cannot turn a partial-sum
+    gradient into the masked partial its redistribution's backward asks
+    for. A plain tensor passes untouched."""
+    return _ReducedGrad.apply(x) if isinstance(x, DTensor) else x
+
+
 def place(x, mesh: DeviceMesh, placements) -> DTensor:
     """``x`` (a DTensor, or a plain tensor taken as replicated) laid out as
     ``placements``; partial sums are reduced on the way."""

@@ -12,8 +12,7 @@ Port of ``learning_jax_sharding_tpu/robustness``:
 * :mod:`.recovery`: training-side recovery configuration
   (:class:`ResilienceConfig`) and :class:`PreemptionError`, for ``fit``.
 
-``matrix.py`` (the fault × policy matrix) waits for ``fit`` and
-checkpoints.
+``matrix.py`` (the fault × policy matrix) comes with slice E's rest.
 """
 
 from learning_jax_sharding_tpu_torch.robustness.chaos import (

@@ -20,11 +20,21 @@ injector is installed):
 ``engine.admit``          at slot admission; ``value`` is the request's
                           prompt. Kind ``mutate`` corrupts it (the engine
                           must fail the request, not wedge the slot).
+``train.step``            top of each ``fit()`` step. Kinds ``sigterm``
+                          (the preemption drill), ``slow``.
+``train.batch``           after the step's batch is fetched; ``value`` is
+                          the batch. Kind ``mutate`` poisons it (a poisoned
+                          batch makes the NaN inside the step, so the skip
+                          guard is exercised for real).
+``train.loss``            the host's reading of the step's loss; ``value``
+                          is the float. Kinds ``mutate`` (the spike drill),
+                          ``nan``.
 ========================  ====================================================
 
-The training sites (``train.step``, ``train.batch``) and the fleet's come
-with the modules that call them. :func:`corrupt_latest_checkpoint` waits
-for checkpoints (slice D).
+The fleet's sites come with the modules that call them. Checkpoint
+corruption needs no hook (the files are on the host):
+:func:`corrupt_latest_checkpoint` truncates or garbles the newest retained
+step on disk, so ``CheckpointManager.restore_latest`` must fall back.
 
 Every firing is recorded (``chaos.inject`` events) to the injector's
 flight recorder.
@@ -34,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pathlib
 import signal
 import time
 from typing import Any, Callable, Optional
@@ -174,10 +185,38 @@ def chaos_active() -> bool:
     return _ACTIVE is not None
 
 
-def corrupt_latest_checkpoint(directory, *, mode: str = "truncate", recorder=None):
-    """Corrupt the newest retained checkpoint step on disk, the fault a
-    checkpoint manager's restore must survive. The port has no checkpoints
-    yet: raises ``NotImplementedError`` naming slice D."""
-    raise NotImplementedError(
-        "corrupt_latest_checkpoint: ported with slice D (checkpoints)"
-    )
+def corrupt_latest_checkpoint(
+    directory: str | os.PathLike,
+    *,
+    mode: str = "truncate",
+    recorder: Any | None = None,
+) -> int | None:
+    """Corrupt the NEWEST retained checkpoint step on disk (the
+    partial-write / bit-rot fault ``CheckpointManager.restore_latest`` must
+    survive by falling back to an older step).
+
+    ``mode="truncate"`` halves every file under the step's directory;
+    ``mode="garble"`` overwrites each file's head with junk bytes. Returns
+    the corrupted step, or None when the directory holds no checkpoint."""
+    root = pathlib.Path(os.fspath(directory))
+    steps = sorted(
+        (int(p.name), p) for p in root.iterdir() if p.is_dir() and p.name.isdigit()
+    ) if root.exists() else []
+    if not steps:
+        return None
+    step, stepdir = steps[-1]
+    for f in sorted(stepdir.rglob("*")):
+        if not f.is_file():
+            continue
+        size = f.stat().st_size
+        if mode == "truncate":
+            with open(f, "r+b") as fh:
+                fh.truncate(size // 2)
+        elif mode == "garble":
+            with open(f, "r+b") as fh:
+                fh.write(b"\xde\xad\xbe\xef" * 4)
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+    if recorder is not None:
+        recorder.record("chaos.corrupt_checkpoint", step=step, mode=mode)
+    return step

@@ -1,11 +1,10 @@
 """Training-side recovery configuration and the preemption signal.
 
 Port of ``learning_jax_sharding_tpu/robustness/recovery.py``: plain data
-that ``training/loop.py::fit(resilience=ResilienceConfig(...))`` reads once
-``fit`` is ported (the non-finite step skip with bounded consecutive
-skips, loss-spike rollback to the last checkpoint, the emergency
-checkpoint on SIGTERM), and :class:`PreemptionError`, which ``fit`` raises
-after such a checkpoint.
+that ``training/loop.py::fit(resilience=ResilienceConfig(...))`` reads (the
+non-finite step skip with bounded consecutive skips, loss-spike rollback
+to the last checkpoint, the emergency checkpoint on SIGTERM), and
+:class:`PreemptionError`, which ``fit`` raises after such a checkpoint.
 """
 
 from __future__ import annotations

@@ -12,11 +12,13 @@ Port of ``learning_jax_sharding_tpu/telemetry`` (slice E's core):
 * :mod:`.ledger`: the goodput ledger, every second of a loop's wall clock
   in exactly one bucket, with a reconciliation invariant;
 * :mod:`.slo`: streaming percentiles and SLO targets with burn rates;
-* :mod:`.tracecontext`: request-scoped traces and their critical paths.
+* :mod:`.tracecontext`: request-scoped traces and their critical paths;
+* :mod:`.watchdog`: the training loop's non-finite and loss-spike probe,
+  the hang heartbeat and NaN localization.
 
-Consumer: ``models.serving.ContinuousEngine`` (its registry, tracer,
-recorder, ledger and ``trace_sink``). Not ported yet: ``compile_watch``,
-``devview``, ``watchdog``, ``commscope`` and ``economics``.
+Consumers: ``models.serving.ContinuousEngine`` (its registry, tracer,
+recorder, ledger and ``trace_sink``) and ``training.loop.fit``. Not ported
+yet: ``compile_watch``, ``devview``, ``commscope`` and ``economics``.
 """
 
 from learning_jax_sharding_tpu_torch.telemetry.flight_recorder import (  # noqa: F401
@@ -53,4 +55,10 @@ from learning_jax_sharding_tpu_torch.telemetry.tracecontext import (  # noqa: F4
     STAGES,
     TraceStore,
     merge_tracers,
+)
+from learning_jax_sharding_tpu_torch.telemetry.watchdog import (  # noqa: F401
+    Heartbeat,
+    NonFiniteError,
+    Watchdog,
+    localize_nan,
 )

@@ -37,16 +37,20 @@ from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, activate, co
 @dataclasses.dataclass
 class TrainState:
     """What a train step reads and updates IN PLACE: the model, the torch
-    optimizer over its parameters, ``step`` (the count of updates made),
-    the learning-rate ``schedule`` read at ``step`` before each update
-    (None: the optimizer's own rate), and the global-norm ``clip_norm``
-    applied to the gradients before it (None: no clipping)."""
+    optimizer over its parameters, ``step`` (the count of steps taken),
+    ``updates`` (the count of optimizer updates made: ``step`` less the
+    steps the non-finite guard skipped, the count optax keeps in its
+    state), the learning-rate ``schedule`` read at ``updates`` before each
+    update (None: the optimizer's own rate), and the global-norm
+    ``clip_norm`` applied to the gradients before it (None: no
+    clipping)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     schedule: Callable[[int], float] | None = None
     clip_norm: float | None = None
+    updates: int = 0
 
 
 def default_loss(y: torch.Tensor, batch: Any) -> torch.Tensor:
@@ -176,11 +180,19 @@ def make_train_step(
     the ``(steps_per_call,)`` losses. Nothing in a call waits for the
     device: the losses stay on it.
 
-    ``skip_nonfinite`` (gating the update on a finite loss and norm) is not
-    ported yet. ``donate_state`` has no counterpart: the update is in place.
+    ``skip_nonfinite``: gate the update on ``isfinite(loss) &
+    isfinite(grad_norm)``. A non-finite step leaves the parameters and the
+    whole optimizer state as they were (AdamW's per-parameter ``step``
+    count included, as optax's count in the refused state) and advances
+    ``state.step`` but not ``state.updates``; implies the grad-norm dict
+    output, so the caller sees why a step was skipped. The decision is
+    read on the host once a step (the JAX step selects on the device): a
+    torch optimizer keeps its count on the host, and skipping its update
+    keeps every slot exact. Over a mesh the loss and norm are whole on
+    every rank, so every rank decides alike. ``donate_state`` has no
+    counterpart: the update is in place.
     """
-    if skip_nonfinite:
-        raise NotImplementedError("skip_nonfinite: ported with slice E (robustness)")
+    with_grad_norm = with_grad_norm or skip_nonfinite
 
     def loss_of(state: TrainState, batch: Any, micro_idx: int) -> torch.Tensor:
         kwargs = dict(apply_kwargs or {})
@@ -239,12 +251,15 @@ def make_train_step(
             gnorm = global_norm(grads)
         if state.clip_norm is not None:
             clip_by_global_norm_(grads, state.clip_norm, gnorm)
+        state.step += 1
+        if skip_nonfinite and not bool(torch.isfinite(_full(loss)) & torch.isfinite(_full(gnorm))):
+            return {"loss": loss, "grad_norm": gnorm}
         if state.schedule is not None:
-            lr = state.schedule(state.step)
+            lr = state.schedule(state.updates)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
         state.optimizer.step()
-        state.step += 1
+        state.updates += 1
         return {"loss": loss, "grad_norm": gnorm} if with_grad_norm else loss
 
     def run(state: TrainState, batch: Any):

@@ -454,3 +454,68 @@ def mesh_decode_attention_body(mesh, calls):
         out[name] = ([_fulls(g) for g in got],
                      [tuple(placements_to_spec(mesh, g.placements, g.ndim)) for g in got])
     return out
+
+
+def fit_body(mesh, state_dict, dataset, fields, ckpt_dir):
+    """``training.loop.fit`` of CONFIG_TINY over the mesh under
+    RULES_DP_TP from ``state_dict``, checkpointing its last step into
+    ``ckpt_dir``: the losses, the final parameters and AdamW first moments
+    (whole)."""
+    from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY, Transformer
+    from learning_jax_sharding_tpu_torch.training.loop import TrainLoopConfig, fit
+
+    model = Transformer(CONFIG_TINY, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    cfg = TrainLoopConfig(global_batch_size=8, checkpoint_dir=ckpt_dir,
+                          checkpoint_every=fields["steps"], **fields)
+    state, history = fit(model, dataset, mesh, logical.RULES_DP_TP, cfg)
+    named = list(state.model.named_parameters())
+    return dict(losses=[h["loss"] for h in history],
+                params={n: _fulls(p.detach()) for n, p in named},
+                exp_avg={n: _fulls(state.optimizer.state[p]["exp_avg"]) for n, p in named})
+
+
+def checkpoint_body(mesh, state_dict, batch, save_dir, load_dir):
+    """CONFIG_TINY under RULES_DP_TP over the mesh: two AdamW steps saved
+    into ``save_dir`` (every rank its shards), and a fresh mesh state
+    restored from ``load_dir`` (saved on one device): both whole, with the
+    restored parameters' local shapes on this rank."""
+    from learning_jax_sharding_tpu_torch.models.transformer import (
+        CONFIG_TINY,
+        Transformer,
+        next_token_loss,
+    )
+    from learning_jax_sharding_tpu_torch.training.checkpoint import CheckpointManager
+    from learning_jax_sharding_tpu_torch.training.loop import adamw
+    from learning_jax_sharding_tpu_torch.training.pipeline import (
+        make_train_step,
+        sharded_train_state,
+    )
+
+    def state_of(seed):
+        model = Transformer(CONFIG_TINY, device="cpu", seed=seed)
+        if seed == 0:
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+        return sharded_train_state(model, adamw(3e-3), mesh=mesh, rules=logical.RULES_DP_TP)
+
+    def whole(state):
+        named = list(state.model.named_parameters())
+        return dict(step=state.step,
+                    params={n: _fulls(p.detach()) for n, p in named},
+                    exp_avg_sq={n: _fulls(state.optimizer.state[p]["exp_avg_sq"])
+                                for n, p in named})
+
+    state = state_of(0)
+    step = make_train_step(loss_fn=next_token_loss, mesh=mesh, rules=logical.RULES_DP_TP)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for _ in range(2):
+        step(state, batch)
+    with CheckpointManager(save_dir) as ckpt:
+        assert ckpt.save(2, state)
+    saved = whole(state)
+    fresh = state_of(7)
+    with CheckpointManager(load_dir) as ckpt:
+        ckpt.restore_latest(like=fresh)
+    restored = whole(fresh)
+    restored["local"] = {n: tuple(p.to_local().shape) for n, p in fresh.model.named_parameters()}
+    return dict(saved=saved, restored=restored)

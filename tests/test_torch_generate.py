@@ -161,7 +161,7 @@ def test_generate_validation(setup):
             generate.make_generate_fn(CONFIG_TINY, max_new_tokens=2)
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "learning_jax_sharding_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "learning_jax_sharding_tpu")
 
 
 def _port_sources():

@@ -442,8 +442,19 @@ def test_chaos_firing_sequences_equal():
 
 
 def test_corrupt_checkpoint_waits_for_slice_d(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice D"):
-        port_robustness.corrupt_latest_checkpoint(tmp_path)
+    """Checkpoints are ported (``tests/test_torch_checkpoint.py`` holds
+    the fallback): no step on disk corrupts nothing; the newest numbered
+    step is the one corrupted, in JAX's two modes."""
+    assert port_robustness.corrupt_latest_checkpoint(tmp_path) is None
+    for step in (3, 12):
+        (tmp_path / str(step)).mkdir()
+        (tmp_path / str(step) / "data").write_bytes(b"x" * 64)
+    (tmp_path / "20.partial").mkdir()
+    assert port_robustness.corrupt_latest_checkpoint(tmp_path) == 12
+    assert (tmp_path / "12" / "data").stat().st_size == 32
+    assert port_robustness.corrupt_latest_checkpoint(tmp_path, mode="garble") == 12
+    assert (tmp_path / "12" / "data").read_bytes()[:4] == b"\xde\xad\xbe\xef"
+    assert (tmp_path / "3" / "data").read_bytes() == b"x" * 64
 
 
 # --- degradation ladder and recovery config ---------------------------------------

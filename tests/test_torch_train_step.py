@@ -38,6 +38,7 @@ from torch.distributed.tensor import DTensor
 from learning_jax_sharding_tpu_torch import parallel as port_parallel
 from learning_jax_sharding_tpu_torch.models.attention import MultiHeadAttention
 from learning_jax_sharding_tpu_torch.parallel import logical as port_logical
+from learning_jax_sharding_tpu_torch.parallel import multihost
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import (
     CONFIG_125M,
@@ -358,10 +359,10 @@ def test_unported_parts_name_their_slice():
             TransformerConfig(**{field: True})
     with pytest.raises(NotImplementedError, match="slice D"):
         from_flax_params({"blocks": {}}, CONFIG_TINY)
-    for name in ("lion", "adafactor"):
-        with pytest.raises(NotImplementedError, match="slice D"):
-            loop.default_optimizer(loop.TrainLoopConfig(steps=1, global_batch_size=1,
-                                                        optimizer=name))
+    # lion and adafactor are ported (tests/test_torch_train_loop.py holds them).
+    for name, kind in (("lion", loop.Lion), ("adafactor", loop.Adafactor)):
+        assert isinstance(loop.default_optimizer(loop.TrainLoopConfig(
+            steps=1, global_batch_size=1, optimizer=name)), kind)
     with pytest.raises(ValueError, match="unknown optimizer"):
         loop.default_optimizer(loop.TrainLoopConfig(steps=1, global_batch_size=1,
                                                     optimizer="sgd"))
@@ -389,8 +390,15 @@ def test_unported_parts_name_their_slice():
                                      rules=port_logical.RULES_DP_TP, zero1_axis="data")
     with pytest.raises(NotImplementedError, match="slice D"):
         port_parallel.build_hybrid_mesh((1, 1), (1, 1))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        pipeline.make_train_step(skip_nonfinite=True)
+    # skip_nonfinite is ported; what fit leaves names its slice.
+    _, out = pipeline.make_train_step(loss_fn=next_token_loss, skip_nonfinite=True)(
+        pipeline.sharded_train_state(model, loop.adamw(3e-4)), batch)
+    assert set(out) == {"loss", "grad_norm"}
+    with pytest.raises(NotImplementedError, match="slice G"):
+        loop.fit(model, None, None, None, loop.TrainLoopConfig(steps=1, global_batch_size=1),
+                 contract="golden.json")
+    with pytest.raises(NotImplementedError, match="slice D"):
+        multihost.initialize()
 
 
 def test_chip_smoke_reports_the_one_card_it_used():
