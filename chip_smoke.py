@@ -86,6 +86,19 @@ ledger's reconciliation, its buckets and telemetry share, a
 ``utils/profiling.trace`` capture holding the engine's ranges; then the
 recovery policies: a deadline eviction, a shed, a sticky-fault quarantine
 (batchmates bit-equal) and degraded speculation under an unreachable SLO.
+``[train] remat`` (slice 20): the 125M train step (``make_train_step``)
+under block remat with each policy (None, "dots", "dots_no_batch"), with
+``scan_layers=True`` and with remat + ``fused_norm=True``, each variant's
+first step from the plain step's weights counted and held bit for bit to
+its twin without remat (the plain or the fused-norm step): the flash
+forward launched again in the backward (24 a step, dK/dV and dQ 12) and
+the fused-norm forwards likewise, full remat's peak memory below the plain
+step's, each variant timed. ``[beam]`` (slice 20): beam search at the full width of GPT-2 small
+(the config from its published ``GPT2Config`` fields, seeded weights
+through the HF export and import, bit-equal), decode attention at the
+search's shapes against its plain version, beam 1 against greedy generate
+and beam 4 on the blocked against the dense backend in fp32, the scores
+against a dense forward, one bf16 search counted, timed and profiled.
 Each path's kernel
 launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -106,13 +119,22 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 from learning_jax_sharding_tpu_torch.data import CyclicLMDataset
 from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
-from learning_jax_sharding_tpu_torch.models.convert import shard_params
+from learning_jax_sharding_tpu_torch.models.beam import make_beam_search_fn
+from learning_jax_sharding_tpu_torch.models.convert import (
+    config_from_hf_gpt2,
+    params_from_hf_gpt2,
+    shard_params,
+    stack_scan_params,
+    state_dict_from_params,
+    unstack_scan_params,
+)
 from learning_jax_sharding_tpu_torch.models.decoding import (
     apply_dequantize_policy,
     derive_decode_config,
@@ -1445,6 +1467,274 @@ def run_fit_path(gen, card, step_ms):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# [train] remat: each variant's first make_train_step step from the same
+# seeded weights (a stacked model takes them through stack_scan_params),
+# held bit for bit to its twin without remat (REMAT_TWIN, else the plain
+# step) and within the flash-vs-dense step tolerances to the plain step.
+REMAT_VARIANTS = {
+    "plain": {},
+    "remat": dict(remat=True),
+    "remat_dots": dict(remat=True, remat_policy="dots"),
+    "remat_dots_no_batch": dict(remat=True, remat_policy="dots_no_batch"),
+    "scan_layers": dict(scan_layers=True),
+    "fused_norm": dict(fused_norm=True),
+    "remat_fused_norm": dict(remat=True, fused_norm=True),
+}
+REMAT_TWIN = {"remat_fused_norm": "fused_norm"}
+REMAT_TIME_STEPS = 4   # the steps each variant is timed over (after two)
+
+
+def run_remat_path(gen, card):
+    """``[train] remat``: the 125M train step (b=8, s=1024, bf16, flash,
+    the fused loss, ``make_train_step`` with AdamW) under block remat with
+    each policy, with ``scan_layers=True``, with ``fused_norm=True`` and
+    with remat + ``fused_norm=True``, each from the plain step's seeded
+    weights. Every gate reads each variant's first step, its counters set
+    to 0 just before it: the loss and the gradients it leaves on the model
+    bit-equal to its twin's (remat and ``scan_layers`` change no kernel and
+    no input of one) and within the flash-vs-dense step tolerances of the
+    plain step's; the flash launches, forward 24 under block remat (each
+    recomputed in the backward), 12 without, dK/dV and dQ 12; the
+    fused-norm launches, 25 forwards plus the 24 of the blocks recomputed,
+    25 backwards. The second step gives each variant's peak memory above
+    what it held before (weights, gradients, AdamW's moments); full remat
+    must lower it. Then the ms a step, the variants interleaved."""
+    flash_fn = flash.make_flash_attn_fn()
+    base_cfg = dataclasses.replace(CONFIG_125M, attn_fn=flash_fn)
+    params = Transformer(base_cfg, device="cuda", seed=0).state_dict()
+    batch = train_batch(gen, CONFIG_125M.vocab_size)
+    layers, calls = CONFIG_125M.num_layers, norm_calls(CONFIG_125M)
+    step = make_train_step(**TRAIN_LOSS)
+    states, rows, twins = {}, {}, {}
+    for name, fields in REMAT_VARIANTS.items():
+        cfg = dataclasses.replace(base_cfg, **fields)
+        model = Transformer(cfg, device="cuda", seed=0)
+        model.load_state_dict(stack_scan_params(params) if cfg.scan_layers else params)
+        states[name] = sharded_train_state(model, adamw(3e-4))
+        torch.cuda.synchronize()
+        flash.flash_attention.launches = dict.fromkeys(flash.flash_attention.launches, 0)
+        reset_norm_launches()
+        _, loss = step(states[name], batch)
+        torch.cuda.synchronize()
+        launches = dict(flash=dict(flash.flash_attention.launches),
+                        fused_norm=dict(norm_ops.fused_residual_norm.launches))
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if cfg.scan_layers:
+            grads = unstack_scan_params(grads)
+        remat = bool(fields.get("remat"))
+        want_flash = {"fwd": 2 * layers if remat else layers, "bwd_dkv": layers,
+                      "bwd_dq": layers}
+        got_flash = {k: launches["flash"][k] for k in want_flash}
+        want_norm = ({"fwd": calls + (calls - 1) * remat, "fwd_nostats": 0, "bwd": calls}
+                     if fields.get("fused_norm") else dict.fromkeys(("fwd", "fwd_nostats", "bwd"), 0))
+        rows[name] = dict(loss=loss.item(), launches=launches)
+        if got_flash != want_flash:
+            raise AssertionError(f"{name}: flash launches {got_flash}, want {want_flash}")
+        if launches["fused_norm"] != want_norm:
+            raise AssertionError(f"{name}: fused-norm launches {launches['fused_norm']}, "
+                                 f"want {want_norm}")
+        if name == "plain" or name in REMAT_TWIN.values():
+            twins[name] = (loss, grads)
+        if name == "plain":
+            log(f"[train] remat plain: loss {loss.item():.6f}; flash {got_flash}")
+            continue
+        loss0, grads0 = twins["plain"]
+        rel = {n: ((g - grads0[n]).float().norm() / grads0[n].float().norm()).item()
+               for n, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        diff = abs(loss.item() - loss0.item())
+        rows[name].update(loss_diff=diff, worst_grad_rel_err=rel[worst], worst_grad=worst)
+        twin = REMAT_TWIN.get(name, "plain") if remat or cfg.scan_layers else None
+        if twin:
+            twin_loss, twin_grads = twins[twin]
+            rows[name].update(twin=twin, bit_equal=bool(torch.equal(loss, twin_loss)) and all(
+                torch.equal(g, twin_grads[n]) for n, g in grads.items()))
+        log(f"[train] remat {name}: loss {loss.item():.6f} vs plain {loss0.item():.6f} (diff "
+            f"{diff:.2e}, tol {STEP_LOSS_TOL:g}); worst grad rel Frobenius err {rel[worst]:.3e} "
+            f"({worst}, tol {STEP_GRAD_TOL:g}); "
+            + (f"bit-equal to {twin}: {rows[name]['bit_equal']}; " if twin else "")
+            + f"flash {got_flash}; fused norm {launches['fused_norm']} (want {want_norm})")
+        if not diff <= STEP_LOSS_TOL:
+            raise AssertionError(f"{name}: loss {loss.item()} vs plain {loss0.item()}")
+        if not rel[worst] <= STEP_GRAD_TOL:
+            raise AssertionError(f"{name}: grad of {worst} differs by {rel[worst]}")
+        if twin and not rows[name]["bit_equal"]:
+            raise AssertionError(f"{name}: loss or gradients not bit-equal to {twin}'s step")
+        del grads, rel
+    del twins, params
+    torch.cuda.empty_cache()
+    for name, state in states.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, batch)
+        torch.cuda.synchronize()
+        rows[name]["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    peak0 = rows["plain"]["peak_bytes"]
+    log("[train] remat peak memory of the second step above what it held before: " + ", ".join(
+        f"{name} {row['peak_bytes'] / 2**30:.3f} GiB" for name, row in rows.items()))
+    if not rows["remat"]["peak_bytes"] < peak0:
+        raise AssertionError(f"full remat's peak {rows['remat']['peak_bytes']} is not below "
+                             f"the plain step's {peak0}")
+    secs = interleaved_seconds({name: functools.partial(step, st, batch)
+                                for name, st in states.items()}, rounds=REMAT_TIME_STEPS)
+    for name, s in secs.items():
+        rows[name]["ms_per_step"] = statistics.median(s) * 1e3
+        rows[name]["step_seconds"] = s
+        log(f"[time] 125M train step b={TRAIN_B} s={TRAIN_S} bf16, {name}: "
+            f"{rows[name]['ms_per_step']:.3f} ms/step (median of {len(s)}: "
+            f"{[round(x, 4) for x in s]} s), peak {rows[name]['peak_bytes'] / 2**30:.3f} GiB "
+            f"above the step's start, on {card}")
+    del states
+    torch.cuda.empty_cache()
+    return rows
+
+
+# [beam]: GPT-2 small's published GPT2Config (the "gpt2" checkpoint's
+# fields), weights seeded and tied, B=2 rows of a 64-token prompt, +32.
+GPT2_SMALL = dict(n_layer=12, n_embd=768, n_head=12, vocab_size=50257, n_positions=1024,
+                  layer_norm_epsilon=1e-5, activation_function="gelu_new", n_inner=None)
+BEAM_B, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 64, 32
+BEAM_SCORE_TOL = 1e-3   # fp32: the blocked vs dense scores; the score vs a dense forward's
+
+
+def beam_decode_launches(cfg, dtype) -> dict:
+    """Decode attention's launches in one search as the wrapper's rules give
+    them: the prefill's (B rows of the prompt) and every token step's (B·K
+    rows), a layer each."""
+    layers, n, h = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    prefill = da._plan(dtype, BEAM_B, BEAM_PROMPT, n, n, h, cfg.max_seq_len)[:2]
+    step = da._plan(dtype, BEAM_B * BEAM_K, 1, n, n, h, cfg.max_seq_len)[:2]
+    steps = BEAM_NEW - 1
+    return {"decode_attention": layers * (1 + steps),
+            "decode_attention_tensor_core": layers * ((prefill[0] == "tensor_core")
+                                                      + steps * (step[0] == "tensor_core")),
+            "decode_attention_split": layers * ((prefill[1] > 1) + steps * (step[1] > 1)),
+            "designs": {"prefill": f"{prefill[0]}/{prefill[1]}", "step": f"{step[0]}/{step[1]}"}}
+
+
+def counted_search(search, params, prompt, label, dtype, cfg):
+    """One search with decode attention's counters from zero, held to
+    ``beam_decode_launches`` → (tokens, scores, launches)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out, scores = search(params, prompt)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_launches().items() if k.startswith("decode_attention")
+           and k != "decode_attention_paged"}
+    want = beam_decode_launches(cfg, dtype)
+    designs = want.pop("designs")
+    log(f"[beam] {label}: decode attention {got} (want {want}: {cfg.num_layers} a model "
+        f"call, prefill {designs['prefill']}, token steps {designs['step']})")
+    if got != want:
+        raise AssertionError(f"{label}: decode attention launches {got}, want {want}")
+    check_output(out, BEAM_B, BEAM_PROMPT + BEAM_NEW, cfg.vocab_size)
+    if not torch.isfinite(scores).all():
+        raise AssertionError(f"{label}: scores {scores}")
+    return out, scores, dict(got, **designs)
+
+
+def run_beam_path(gen, card):
+    """``[beam]``: beam search (``models/beam.py``) at the full width of
+    GPT-2 small, its config from ``config_from_hf_gpt2`` on the published
+    fields, seeded weights carried through ``state_dict_from_params`` →
+    ``params_from_hf_gpt2`` (bit-equal). Decode attention at the search's
+    prefill and token-step shapes against its plain version. fp32: beam 1
+    gives ``make_generate_fn``'s greedy tokens; beam 4 gives the same tokens
+    and scores on the blocked and the dense backend; the blocked search's
+    scores equal the mean log-probability of its tokens under a dense
+    forward. Each counted search launches decode attention once a layer a
+    model call on the designs the rules give. bf16: one search timed (tok/s
+    of the returned hypotheses and of all beams) and profiled (idle
+    share)."""
+    hf_config = types.SimpleNamespace(**GPT2_SMALL)
+    cfg = config_from_hf_gpt2(hf_config)
+    params = Transformer(cfg, device="cuda", seed=0).state_dict()
+    params["lm_head.weight"] = params["tok_embed.weight"].clone()   # GPT-2 ties its head
+    hf_sd = state_dict_from_params(params)
+    back = params_from_hf_gpt2(types.SimpleNamespace(state_dict=lambda: hf_sd,
+                                                     config=hf_config))
+    unequal = [n for n, t in params.items() if not torch.equal(t.cpu(), back[n])]
+    log(f"[beam] GPT-2 small ({cfg.num_layers} x {cfg.features}, vocab {cfg.vocab_size}): "
+        f"{len(hf_sd)} HF tensors; round trip of {len(params)} tensors, {len(unequal)} unequal")
+    if unequal or set(back) != set(params):
+        raise AssertionError(f"HF round trip changed {unequal or set(back) ^ set(params)}")
+    params = {n: t.to("cuda") for n, t in back.items()}
+    del hf_sd, back
+    n, h, length = cfg.num_heads, cfg.head_dim, cfg.max_seq_len
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[str(dtype)[6:]] = max(
+            kernel_case("beam_prefill", gen, dtype, b=BEAM_B, s=BEAM_PROMPT, n=n, n_kv=n, h=h,
+                        length=length, index=zero),
+            kernel_case("beam_step", gen, dtype, b=BEAM_B * BEAM_K, s=1, n=n, n_kv=n, h=h,
+                        length=length, index=zero + BEAM_PROMPT + BEAM_NEW // 2))
+    prompt = torch.randint(0, cfg.vocab_size, (BEAM_B, BEAM_PROMPT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    greedy = make_generate_fn(cfg, max_new_tokens=BEAM_NEW)(params, prompt)
+    beam1, _, launches1 = counted_search(
+        make_beam_search_fn(cfg, beam_size=1, max_new_tokens=BEAM_NEW), params, prompt,
+        "fp32 beam 1", torch.float32, cfg)
+    if not torch.equal(beam1, greedy):
+        raise AssertionError("beam 1 differs from greedy generate")
+    runs = {}
+    for backend in ("blocked", "dense"):
+        search = make_beam_search_fn(dataclasses.replace(cfg, decode_attention=backend),
+                                     beam_size=BEAM_K, max_new_tokens=BEAM_NEW)
+        if backend == "blocked":
+            runs[backend] = counted_search(search, params, prompt, "fp32 beam 4 blocked",
+                                           torch.float32, cfg)
+        else:
+            runs[backend] = search(params, prompt)
+    (tok_b, sc_b, launches4), (tok_d, sc_d) = runs["blocked"], runs["dense"]
+    score_diff = (sc_b - sc_d).abs().max().item()
+    log(f"[beam] fp32 beam 4, blocked vs dense: tokens equal {torch.equal(tok_b, tok_d)}, "
+        f"scores {sc_b.tolist()} vs {sc_d.tolist()} (max diff {score_diff:.2e}, tol "
+        f"{BEAM_SCORE_TOL:g})")
+    if not torch.equal(tok_b, tok_d) or not score_diff <= BEAM_SCORE_TOL:
+        raise AssertionError("beam 4: the blocked and dense backends differ")
+    model = Transformer(cfg, device="cuda").eval()
+    model.load_state_dict(params)
+    with torch.no_grad():
+        logp = torch.log_softmax(model(tok_b[:, :-1]).float(), dim=-1)
+    picked = logp.gather(-1, tok_b[:, 1:].long()[..., None])[..., 0]
+    forward = picked[:, BEAM_PROMPT - 1:].sum(1) / BEAM_NEW
+    forward_diff = (forward - sc_b).abs().max().item()
+    log(f"[beam] fp32 beam 4 scores vs a dense forward's mean log-probability: max diff "
+        f"{forward_diff:.2e} (tol {BEAM_SCORE_TOL:g})")
+    if not forward_diff <= BEAM_SCORE_TOL:
+        raise AssertionError(f"beam 4 scores differ from the forward's by {forward_diff}")
+    del model, logp
+
+    bf16 = make_beam_search_fn(cfg, beam_size=BEAM_K, max_new_tokens=BEAM_NEW,
+                               inference_dtype=torch.bfloat16)
+    _, _, launches_bf16 = counted_search(bf16, params, prompt, "bf16 beam 4", torch.bfloat16, cfg)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16(params, prompt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = statistics.median(secs)
+    row = dict(tok_s=BEAM_B * BEAM_NEW / sec, beam_tok_s=BEAM_B * BEAM_K * BEAM_NEW / sec,
+               ms_per_model_call=sec / BEAM_NEW * 1e3, search_seconds=secs)
+    log(f"[time] GPT-2 small beam search b={BEAM_B} k={BEAM_K} prompt {BEAM_PROMPT} "
+        f"+{BEAM_NEW} bf16: {row['tok_s']:.1f} tok/s of hypotheses, {row['beam_tok_s']:.1f} of "
+        f"beams, {row['ms_per_model_call']:.3f} ms a model call (median of 3: "
+        f"{[round(s, 4) for s in secs]} s) on {card}")
+    row["profile"] = profile_summary("GPT-2 small beam search model call",
+                                     lambda: bf16(params, prompt), BEAM_NEW,
+                                     row["ms_per_model_call"])
+    del params
+    torch.cuda.empty_cache()
+    return dict(row, max_abs_err=errs, launches={"fp32 beam 1": launches1,
+                                                 "fp32 beam 4 blocked": launches4,
+                                                 "bf16 beam 4": launches_bf16},
+                blocked_vs_dense_score_diff=score_diff, score_vs_forward_diff=forward_diff)
 
 
 def run_fused_generate(params, gen, tf_model, card):
@@ -3704,13 +3994,15 @@ MESH_RULES_TRAIN = "RULES_DP_TP_SP"
 MESH_RULES_GENERATE = "RULES_DP_TP"
 MESH_LOSS_RTOL = 1e-5
 MESH_LAYOUTS = ((2, 2), (2, 4))
-# The (2, 2) thread-rank generates: +8 tokens (about 2 s a model call on a
-# slow host; at +16 the phase took 70 s).
-MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 8
-# The one-rank mesh generates: +16 tokens (the unsharded ones +128): a mesh
+# The (2, 2) thread-rank generates: +4 tokens (about 2 s a model call on a
+# slow host; at +16 the phase took 70 s; cut from +8 to make room for
+# [train] remat and [beam]).
+MESH_THREAD_STEPS, MESH_THREAD_NEW = 2, 4
+# The one-rank mesh generates: +8 tokens (the unsharded ones +128): a mesh
 # token step is host-bound at 3-5x the unsharded one, and at +128 the three
-# generates took 100 s of the run on a slow host (46 s at +32).
-MESH_1X1_NEW = 16
+# generates took 100 s of the run on a slow host (46 s at +32; cut from +16
+# with the thread-rank generates).
+MESH_1X1_NEW = 8
 
 
 def _kernel_launches() -> dict:
@@ -3807,13 +4099,16 @@ def run_mesh_1x1(gen, card):
             raise AssertionError(f"[mesh] 1x1 generate {label}: tokens differ from the "
                                  f"unsharded generate's")
         # One round (the checked calls above warmed both up): the mesh
-        # generates are host-bound at 4-8x the unsharded time.
+        # generates are host-bound at 4-8x the unsharded time. A token step
+        # here is a whole call over its MESH_1X1_NEW new tokens, the prefill
+        # included, so it depends on that depth.
         times = interleaved_seconds({name: functools.partial(fn, tree, prompt)
                                      for name, fn in fns.items()}, rounds=1)
         ms = {name: statistics.median(t) / MESH_1X1_NEW * 1e3 for name, t in times.items()}
-        log(f"[time] [mesh] 1x1 125M generate {label} (interleaved, one call each): mesh "
-            f"{ms['mesh']:.3f} ms/token-step, unsharded {ms['one']:.3f}; DTensor dispatch "
-            f"{ms['mesh'] - ms['one']:.3f} ms/token-step on {card}")
+        log(f"[time] [mesh] 1x1 125M generate {label} (interleaved, one call each, over its "
+            f"+{MESH_1X1_NEW} with the prefill): mesh {ms['mesh']:.3f} ms/token-step, unsharded "
+            f"{ms['one']:.3f}; DTensor dispatch {ms['mesh'] - ms['one']:.3f} ms/token-step on "
+            f"{card}")
         out["generate"][label] = dict(launches=launches["mesh"], ms_per_token_step=ms,
                                       dtensor_ms_per_token_step=ms["mesh"] - ms["one"],
                                       seconds=times)
@@ -5053,6 +5348,12 @@ def main() -> int:
     fit_path = run_fit_path(gen, card, train["ms_per_step"])
     torch.cuda.empty_cache()
     mark("[train] fit")
+    remat_path = run_remat_path(gen, card)
+    torch.cuda.empty_cache()
+    mark("[train] remat")
+    beam_path = run_beam_path(gen, card)
+    torch.cuda.empty_cache()
+    mark("[beam]")
     mesh_1x1 = run_mesh_1x1(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] 1x1")
@@ -5324,6 +5625,16 @@ def main() -> int:
         # the tier's cold and warm serves and the swaps' steps.
         entry["handoff_launches"] = (engine_handoff["launches"]
                                      if entry["name"] == "decode_attention" else None)
+        # [beam]'s counted searches; [train] remat's one step of each variant.
+        entry["beam_launches"] = ({k: v["decode_attention"] for k, v in
+                                   beam_path["launches"].items()}
+                                  if entry["name"] == "decode_attention" else None)
+        kind, _, key = entry["name"].partition("_")
+        if entry["name"].startswith("fused_norm_"):
+            kind, key = "fused_norm", entry["name"][len("fused_norm_"):]
+        entry["remat_launches"] = ({variant: row["launches"][kind][key]
+                                    for variant, row in remat_path.items()}
+                                   if kind in ("flash", "fused_norm") else None)
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -5333,7 +5644,7 @@ def main() -> int:
                                   for k, v in int4_decode.items()})
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
-                      "fit": fit_path,
+                      "fit": fit_path, "train_remat": remat_path, "beam": beam_path,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
                       "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,

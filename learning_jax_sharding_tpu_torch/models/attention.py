@@ -27,6 +27,10 @@ int4 state dict (``models/quantize.py::quantize_tree``) through the fused
 kernels; int4 MHA without biases runs q/k/v through one ``int4_matmul3``
 launch, as the JAX module routes it.
 
+``remat_attention=True`` recomputes the dense attention core in the backward
+(``torch.utils.checkpoint``, nothing saved); a custom ``attn_fn`` (the flash
+kernels, which save only their output and log-sum-exp) is left as it is.
+
 ``kv_cache_dtype=torch.int8`` stores the caches as int8 with a fp32 scale
 per (token, kv head), both backends writing through the one
 :func:`quantize_kv_chunk`: the dense backend dequantizes the whole buffer
@@ -43,6 +47,7 @@ import math
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from learning_jax_sharding_tpu_torch.models.convert import KERNEL_AXES
 from learning_jax_sharding_tpu_torch.models.quantize import Int4Linear, projection_dense
@@ -340,6 +345,7 @@ class MultiHeadAttention(nn.Module):
         quantization: str | None = None,
         quantization_group: int = 128,
         quantized_matmul_fn=None,
+        remat_attention: bool = False,
         device=None,
         generator: torch.Generator | None = None,
     ):
@@ -360,6 +366,7 @@ class MultiHeadAttention(nn.Module):
         self.decode_paged, self.decode_page_count = decode_paged, decode_page_count
         self.quantization, self.quantization_group = quantization, quantization_group
         self.use_bias = use_bias
+        self.remat_attention = remat_attention
         kw = dict(quantization=quantization, use_bias=use_bias, dtype=dtype,
                   param_dtype=param_dtype, group_size=quantization_group, device=device,
                   generator=generator, matmul_fn=quantized_matmul_fn)
@@ -504,13 +511,13 @@ class MultiHeadAttention(nn.Module):
                 mask = sliding_window_mask(s, self.window, device=x.device)
             else:
                 mask = causal_mask(s, device=x.device) if self.causal else None
-            k, v = repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads)
-            if active_mesh()[0] is not None:
-                spec = (BATCH, None, HEADS, None)
-                out = local_call(lambda q_, k_, v_: dot_product_attention(q_, k_, v_, mask=mask),
-                                 (q, k, v), (spec,) * 3, spec)
+            dense = functools.partial(self._dense_attention, mask=mask)
+            if self.remat_attention and torch.is_grad_enabled():
+                # Only the O(S²) core is recomputed, and nothing in it saved
+                # (JAX's nothing_saveable policy).
+                out = checkpoint(dense, q, k, v, use_reentrant=False)
             else:
-                out = dot_product_attention(q, k, v, mask=mask)
+                out = dense(q, k, v)
         else:
             if self.window is not None:
                 raise ValueError(
@@ -529,6 +536,16 @@ class MultiHeadAttention(nn.Module):
         if self.dropout_rate > 0.0 and not deterministic:
             out = dropout(out, self.dropout_rate, generator)
         return out
+
+    def _dense_attention(self, q, k, v, *, mask):
+        """The dense attention core (k/v repeated to every query head): on
+        each shard's batch rows and heads over a mesh."""
+        k, v = repeat_kv(k, self.num_heads), repeat_kv(v, self.num_heads)
+        if active_mesh()[0] is None:
+            return dot_product_attention(q, k, v, mask=mask)
+        spec = (BATCH, None, HEADS, None)
+        return local_call(lambda q_, k_, v_: dot_product_attention(q_, k_, v_, mask=mask),
+                          (q, k, v), (spec,) * 3, spec)
 
     @staticmethod
     def _advance(cache: KVCache, s: int, chunk_lengths) -> torch.Tensor:

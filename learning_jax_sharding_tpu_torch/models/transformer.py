@@ -35,17 +35,31 @@ no active mesh), and every custom kernel runs on local shards: the flash
 and decode-attention wrappers, the int4 wrapper
 (``quantized_matmul_fn``), and here the fused norm and the losses.
 
-Not ported yet: MoE feed-forwards, ``scan_layers`` and ``remat``; each raises
-``NotImplementedError`` naming the slice that brings it.
+``remat=True`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant) under the named
+``remat_policy`` (:func:`resolve_remat_policy`); ``remat_attention=True``
+recomputes only the dense attention core. ``scan_layers=True`` keeps the
+blocks as one :class:`ScannedBlocks` whose parameters carry a leading
+``(num_layers,)`` dim (``blocks.attn.query.weight``, no layer index in the
+name; ``models/convert.py::stack_scan_params`` / ``unstack_scan_params``
+carry a state dict across), training and evaluation only.
+
+Not ported yet: MoE feed-forwards (``num_experts``), which raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.attention import (
@@ -53,7 +67,7 @@ from learning_jax_sharding_tpu_torch.models.attention import (
     MultiHeadAttention,
     linear,
 )
-from learning_jax_sharding_tpu_torch.models.convert import KERNEL_AXES
+from learning_jax_sharding_tpu_torch.models.convert import KERNEL_AXES, install_tensor
 from learning_jax_sharding_tpu_torch.models.quantize import projection_dense
 from learning_jax_sharding_tpu_torch.ops.fused_norm import fused_residual_norm
 from learning_jax_sharding_tpu_torch.ops.int4_ff import int4_ff, int4_ff_eligible
@@ -71,6 +85,90 @@ from learning_jax_sharding_tpu_torch.parallel.logical import (
     vocab_parallel_xent,
     whole_call,
 )
+
+
+#: The matmul ops each saving policy keeps. JAX's ``checkpoint_dots`` saves
+#: every ``dot_general``; ``checkpoint_dots_with_no_batch_dims`` saves those
+#: without batch dimensions in the ``dot_general`` sense, which is every
+#: ``Dense`` projection (q, k, v, out, up, down: ``aten.mm``/``aten.addmm``
+#: here) but not the attention's ``b,n``-batched score and value einsums
+#: (``aten.bmm``). ``jax.ad_checkpoint.print_saved_residuals`` on the JAX
+#: model shows exactly that: 6 Dense outputs a block under
+#: ``"dots_no_batch"``, those and the two einsums under ``"dots"``.
+_SAVED_DOTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
+
+
+def _save_ops_policy(saved, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(name: str | None):
+    """A named block-rematerialization policy → the ``context_fn`` of
+    ``torch.utils.checkpoint.checkpoint``, or None for plain checkpointing.
+
+    ``None``/``"nothing"``: save nothing, recompute the whole block (the
+    ``jax.checkpoint`` default). ``"dots"``: selective checkpointing that
+    saves every matmul output (``aten.mm``, ``aten.addmm``, ``aten.bmm``)
+    and recomputes the rest. ``"dots_no_batch"``: saves only the products
+    without a batch dimension, the projections (``aten.mm``/``aten.addmm``),
+    and recomputes the attention's batched einsums (``aten.bmm``): what
+    JAX's ``checkpoint_dots_with_no_batch_dims`` saves (``_SAVED_DOTS``).
+    A custom kernel's ``autograd.Function`` (the flash and fused-norm
+    kernels) is no matmul, as a ``pallas_call`` is no ``dot_general``: it is
+    recomputed under every policy."""
+    if name is None or name == "nothing":
+        return None
+    if name not in _SAVED_DOTS:
+        raise ValueError(
+            f"unknown remat_policy {name!r}: expected None, 'nothing', "
+            f"'dots', or 'dots_no_batch'"
+        )
+    policy = functools.partial(_save_ops_policy, _SAVED_DOTS[name])
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_call(fn, x: torch.Tensor, *, generator: torch.Generator | None = None,
+               context_fn=None) -> torch.Tensor:
+    """``fn(x)`` under non-reentrant ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward (``context_fn``: a policy
+    from :func:`resolve_remat_policy`).
+
+    ``generator``: the explicit generator ``fn`` draws dropout from.
+    Checkpointing restores only the default CPU and CUDA generators, so the
+    recompute would draw other masks and the gradients would be silently
+    wrong: the recompute replays ``generator`` from the state it had before
+    the forward, then puts back the state it has now."""
+    kwargs = dict(use_reentrant=False)
+    if context_fn is not None:
+        kwargs["context_fn"] = context_fn
+    if generator is None:
+        return checkpoint(fn, x, **kwargs)
+    start, forward_done = generator.get_state(), []
+
+    def replayed(h):
+        if not forward_done:
+            forward_done.append(True)
+            return fn(h)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(h)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(replayed, x, **kwargs)
+
+
+def layer_runner(remat: bool, generator: torch.Generator | None = None, context_fn=None):
+    """``run(fn, x)`` for one layer of a stack: ``fn(x)``, or under
+    ``remat`` :func:`remat_call` with ``generator`` and ``context_fn``."""
+    if not remat:
+        return lambda fn, x: fn(x)
+    return lambda fn, x: remat_call(fn, x, generator=generator, context_fn=context_fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +192,10 @@ class TransformerConfig:
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    remat: bool = False
-    scan_layers: bool = False
+    remat: bool = False                 # recompute each block's activations
+    remat_policy: str | None = None     # what remat saves (resolve_remat_policy)
+    remat_attention: bool = False       # recompute only the dense attention core
+    scan_layers: bool = False           # one stacked block (ScannedBlocks)
     attn_fn: object = None
     num_experts: int = 0
     norm: str = "layernorm"
@@ -112,14 +212,15 @@ class TransformerConfig:
     quantized_matmul_fn: object = None  # per-shard int4 matmul (a mesh)
 
     def __post_init__(self):
-        later = {
-            "num_experts": (self.num_experts > 0, "the MoE slice"),
-            "scan_layers": (self.scan_layers, "slice D (training breadth)"),
-            "remat": (self.remat, "slice D (training breadth)"),
-        }
-        for name, (used, where) in later.items():
-            if used:
-                raise NotImplementedError(f"{name}: ported with {where}")
+        # 'nothing' is the default policy, so only one that changes what is
+        # saved demands remat=True; a typo fails here.
+        if resolve_remat_policy(self.remat_policy) is not None and not self.remat:
+            raise ValueError(
+                "remat_policy is set but remat=False — the policy would "
+                "be silently ignored; set remat=True (or drop the policy)"
+            )
+        if self.num_experts > 0:
+            raise NotImplementedError("num_experts: ported with the MoE slice")
 
     def train_step_flops(self, batch: int, seq: int) -> float:
         """Analytic model FLOPs of one train step (fwd + bwd ≈ 3× fwd), the
@@ -311,7 +412,7 @@ class TransformerBlock(nn.Module):
             kv_cache_dtype=cfg.kv_cache_dtype, decode_attention=cfg.decode_attention,
             decode_block_k=cfg.decode_block_k, decode_ragged=cfg.decode_ragged,
             decode_paged=cfg.decode_paged, decode_page_count=cfg.decode_page_count,
-            quantization=cfg.quantization,
+            quantization=cfg.quantization, remat_attention=cfg.remat_attention,
             quantization_group=cfg.quantization_group, device=device, generator=generator,
         )
         self.ln_ff = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
@@ -334,6 +435,48 @@ class TransformerBlock(nn.Module):
             x = x + self.attn(self.ln_attn(x), **attend)
             h = self.ln_ff(x)
         return constrain(x + self.ff(h), BATCH, SEQ, EMBED)
+
+
+class ScannedBlocks(TransformerBlock):
+    """The ``scan_layers`` stack: the structure of one
+    :class:`TransformerBlock` whose every parameter carries a leading
+    ``(num_layers,)`` dim, so the names have no layer index
+    (``attn.query.weight`` of shape ``(L, out, in)``; logical axes led by
+    ``LAYERS``, ``models/convert.py::param_logical_axes``).
+
+    Each layer's weights are drawn as an unrolled stack draws them, one
+    block after another from the model's generator (distinct layers, as
+    JAX's ``split_rngs``; the same seed gives the unrolled model's weights,
+    stacked). A forward unbinds every stacked tensor once and runs the
+    layers in order through a weightless template block
+    (``torch.func.functional_call``): one ``(L, …)`` gradient a tensor,
+    where indexing each layer would write a whole ``(L, …)`` zero gradient
+    for every layer. Under ``remat`` each layer is checkpointed on its own.
+    Training and evaluation only (no decode caches)."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        self.num_layers = cfg.num_layers
+        rest = [dict(TransformerBlock(cfg, device=device, generator=generator).named_parameters())
+                for _ in range(1, cfg.num_layers)]
+        for name, first in list(self.named_parameters()):
+            install_tensor(self, name, torch.stack([first.detach()]
+                                                   + [r[name].detach() for r in rest]))
+        # Outside the module tree: it holds no weights of its own.
+        self.__dict__["_layer"] = TransformerBlock(cfg, device="meta")
+
+    def forward(self, x, *, deterministic: bool = True, generator=None, run=None):
+        """``run``: how each layer is called (:func:`layer_runner`)."""
+        run = run or layer_runner(False)
+        slices = {name: p.unbind(0) for name, p in self.named_parameters()}
+        kwargs = dict(deterministic=deterministic, generator=generator)
+        for i in range(self.num_layers):
+            weights = {name: parts[i] for name, parts in slices.items()}
+            x = run(functools.partial(self._run_layer, weights, kwargs), x)
+        return x
+
+    def _run_layer(self, weights, kwargs, x):
+        return torch.func.functional_call(self._layer, weights, (x,), kwargs, strict=True)
 
 
 @dataclasses.dataclass
@@ -370,10 +513,19 @@ class Transformer(nn.Module):
             self.pos_embed = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.features, dtype=cfg.param_dtype, device=device)
             )
-        self.blocks = nn.ModuleList(
-            TransformerBlock(cfg, device=device, generator=gen)
-            for _ in range(cfg.num_layers)
-        )
+        if cfg.scan_layers:
+            if cfg.decode:
+                raise ValueError(
+                    "scan_layers does not support decode mode yet: use the "
+                    "unrolled stack for KV-cached generation"
+                )
+            self.blocks = ScannedBlocks(cfg, device=device, generator=gen)
+        else:
+            self.blocks = nn.ModuleList(
+                TransformerBlock(cfg, device=device, generator=gen)
+                for _ in range(cfg.num_layers)
+            )
+        self._remat_context = resolve_remat_policy(cfg.remat_policy)
         self.ln_out = make_norm(
             cfg.norm, cfg.features, cfg.dtype, cfg.param_dtype, cfg.norm_eps, device=device,
             fused=cfg.fused_norm,
@@ -463,12 +615,19 @@ class Transformer(nn.Module):
             if cache is not None:
                 cache.position += s if chunk_lengths is None else chunk_lengths.to(torch.int32)
         x = constrain(x, BATCH, SEQ, EMBED)
-        for i, block in enumerate(self.blocks):
-            x = block(
-                x, deterministic=deterministic, generator=generator,
-                cache=None if cache is None else cache.layers[i],
-                chunk_lengths=chunk_lengths,
-            )
+        # Remat wraps the training call only: never the decode path, nor a
+        # forward that records no graph.
+        run = layer_runner(cfg.remat and not cfg.decode and torch.is_grad_enabled(),
+                           None if deterministic else generator, self._remat_context)
+        if cfg.scan_layers:
+            x = self.blocks(x, deterministic=deterministic, generator=generator, run=run)
+        else:
+            for i, block in enumerate(self.blocks):
+                x = run(functools.partial(
+                    block, deterministic=deterministic, generator=generator,
+                    cache=None if cache is None else cache.layers[i],
+                    chunk_lengths=chunk_lengths,
+                ), x)
         x = self.ln_out(x)[0] if cfg.fused_norm else self.ln_out(x)
         if return_hidden:
             return x
