@@ -99,6 +99,16 @@ through the HF export and import, bit-equal), decode attention at the
 search's shapes against its plain version, beam 1 against greedy generate
 and beam 4 on the blocked against the dense backend in fp32, the scores
 against a dense forward, one bf16 search counted, timed and profiled.
+``[train] precision``, ``[train] zero1`` and ``[train] lora`` (slice D's
+optimizer wrappers): the 125M fused-norm train step in bf16 parameters
+under ``with_ema(master_weights(adamw))`` (launches as the plain step's;
+every parameter on JAX's delta arithmetic from its fp32 master, the EMA on
+a host recompute; a generate from ``ema_params``; ms a step, memory and
+optimizer-state bytes against the plain fp32 AdamW step); the same steps
+on a (2, 1) data mesh of thread ranks with the state ZeRO-1 split (losses
+against the one card's, each rank half its state bytes); and rank-8 LoRA
+over the frozen base (step 0's loss the base's bit for bit, the base
+unchanged, a generate from ``merge_lora``'s tree).
 Each path's kernel
 launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -174,6 +184,14 @@ from learning_jax_sharding_tpu_torch.ops.decode_attention import (
 )
 from learning_jax_sharding_tpu_torch.telemetry import GoodputLedger, MetricsRegistry, Tracer
 from learning_jax_sharding_tpu_torch.training.checkpoint import CheckpointManager
+from learning_jax_sharding_tpu_torch.training.ema import ema_params, with_ema
+from learning_jax_sharding_tpu_torch.training.lora import (
+    lora_train_state,
+    make_lora_train_step,
+    merge_lora,
+)
+from learning_jax_sharding_tpu_torch.training.precision import master_weights
+from learning_jax_sharding_tpu_torch.training.zero import state_bytes
 from learning_jax_sharding_tpu_torch.training.loop import TrainLoopConfig, adamw, evaluate, fit
 from learning_jax_sharding_tpu_torch.training.pipeline import (
     make_train_step,
@@ -319,7 +337,8 @@ COLD_BYTES = 120_000_000
 # element (a few times below the row's max) rounds several times more
 # coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
 QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
-LADDER_ROUNDS = 3
+LADDER_ROUNDS = 2   # the int4 ladder's interleaved rounds
+ENGINE_TIME_ROUNDS = 2   # the interleaved rounds of [engine]'s and [engine] modes' timed serves
 # The int4 generates timed against their CUDA-core designs (time_int4_decode):
 # +64 tokens (the main path's +128 is checked and laddered above; the five
 # timed and profiled +128 generates took about 100 s on a slow host).
@@ -1592,6 +1611,263 @@ def run_remat_path(gen, card):
     return rows
 
 
+# [train] precision / zero1 / lora: the 125M train step (b=8, s=1024, flash,
+# fused norm, the fused loss) under the optimizer wrappers of slice D.
+OPT_STEPS = 8           # the counted call of each phase
+OPT_EMA_DECAY = 0.999
+OPT_EMA_TOL = 1e-6      # the card's EMA vs a host recompute from the same operands
+OPT_ZERO1_RTOL = 1e-3   # the (2, 1) thread-rank losses vs the one-card run's
+OPT_ZERO1_SHAPE = (2, 1)
+OPT_NEW = 16            # tokens the EMA and merged-LoRA generates add to a 128 prompt
+LORA_RANK = 8
+
+
+def _opt_cfg(**fields):
+    """The 125M config of the optimizer phases: flash attention, fused norm."""
+    return dataclasses.replace(CONFIG_125M, attn_fn=flash.make_flash_attn_fn(),
+                               fused_norm=True, **fields)
+
+
+def _wrapped_adamw():
+    return with_ema(master_weights(adamw(3e-4)), OPT_EMA_DECAY)
+
+
+def _counted_call(label, call, steps, layers, frozen_norms=0):
+    """``call()`` with the flash and fused-norm counters from zero, held to
+    ``steps`` train steps' launches → (its result, the launches). The first
+    ``frozen_norms`` norms of a step see no input that takes a gradient
+    (LoRA's first one: frozen embeddings and norm): a forward without
+    statistics and no backward."""
+    torch.cuda.synchronize()
+    _reset_kernel_launches()
+    out = call()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _kernel_launches().items()
+           if k.startswith(("flash_", "fused_norm_")) and v}
+    per = (norm_calls(CONFIG_125M) - frozen_norms) * steps
+    want = {**{f"flash_{k}": steps * layers for k in FLASH_LAUNCH_KEYS},
+            "fused_norm_fwd": per, "fused_norm_bwd": per}
+    if frozen_norms:
+        want["fused_norm_fwd_nostats"] = frozen_norms * steps
+    log(f"[train] {label}: launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return out, got
+
+
+def _step_memory(step, state, batch) -> int:
+    """Peak bytes a step allocates above what was held before it
+    (activations, gradients and the update's temporaries)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step(state, batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def _ema_generate(label, cfg, tree, prompt):
+    """A generate (+OPT_NEW) from ``tree`` with decode attention's counters
+    from zero, held to ``generate_decode_launches``."""
+    fn = make_generate_fn(cfg, max_new_tokens=OPT_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(tree, prompt)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_launches().items() if k.startswith("decode_attention")
+           and k != "decode_attention_paged"}
+    want = dict(generate_decode_launches(cfg, b=prompt.shape[0], prompt=prompt.shape[1],
+                                         new=OPT_NEW),
+                decode_attention=cfg.num_layers * OPT_NEW)
+    log(f"[train] {label} generate: decode attention {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{label} generate: decode attention launches {got}, want {want}")
+    check_output(out, prompt.shape[0], prompt.shape[1] + OPT_NEW, cfg.vocab_size)
+    return got
+
+
+def run_precision_path(gen, card, batch):
+    """``[train] precision``: the 125M train step in bf16 parameters under
+    ``with_ema(master_weights(adamw(3e-4)))``. One counted ``OPT_STEPS``-step
+    call (flash and fused-norm launches as the plain step's, the loss
+    falls); one more step, after which every parameter equals JAX's delta
+    arithmetic from its fp32 master (``p + (m.to(bf16) − p)`` on the
+    parameter before it, bit for bit) and every EMA a host recompute from
+    its operands within ``OPT_EMA_TOL``; a generate from ``ema_params``
+    (decode attention counted); the ms a step, the peak and the
+    optimizer-state bytes against the plain fp32 AdamW step's, interleaved.
+    → the row, with the losses ``[train] zero1`` is held to."""
+    cfg = _opt_cfg(param_dtype=torch.bfloat16)
+    state = sharded_train_state(Transformer(cfg, device="cuda", seed=0), _wrapped_adamw())
+    plain = sharded_train_state(Transformer(_opt_cfg(), device="cuda", seed=0), adamw(3e-4))
+    stacked = {k: v.expand(OPT_STEPS, *v.shape) for k, v in batch.items()}
+    multi = make_train_step(steps_per_call=OPT_STEPS, **TRAIN_LOSS)
+    step = make_train_step(**TRAIN_LOSS)
+    (_, losses), launches = _counted_call("precision", lambda: multi(state, stacked),
+                                          OPT_STEPS, cfg.num_layers)
+    losses = losses.tolist()
+    log(f"[train] precision: {OPT_STEPS} steps, losses {[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"precision: losses {losses}")
+    opt = state.optimizer
+    named = list(state.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named}
+    ema_before = {n: opt.state[p]["ema"].cpu().clone() for n, p in named}
+    step(state, batch)
+    torch.cuda.synchronize()
+    landed = ema_err = 0
+    for n, p in named:
+        slots = opt.state[p]
+        want = before[n] + (slots["master"].to(p.dtype) - before[n])
+        landed += bool(torch.equal(p.detach(), want))
+        host = ema_before[n] + (1.0 - OPT_EMA_DECAY) * (p.detach().float().cpu() - ema_before[n])
+        ema_err = max(ema_err, (slots["ema"].cpu() - host).abs().max().item())
+    log(f"[train] precision: {landed} of {len(named)} bf16 parameters equal to JAX's delta "
+        f"arithmetic from their masters; EMA vs host recompute max |err| {ema_err:.3e} "
+        f"(tol {OPT_EMA_TOL:g})")
+    if landed != len(named):
+        raise AssertionError(f"precision: {len(named) - landed} parameters off the delta")
+    if not ema_err <= OPT_EMA_TOL:
+        raise AssertionError(f"precision: EMA off its host recompute by {ema_err}")
+    del before, ema_before
+    prompt = batch["inputs"][:, :PROMPT]
+    ema_launches = _ema_generate("precision EMA", CONFIG_125M, ema_params(state), prompt)
+    row = dict(losses=losses, launches=launches, ema_generate_launches=ema_launches,
+               params_on_delta=landed, ema_max_abs_err=ema_err, state_bytes=state_bytes(opt),
+               count_bytes=sum(opt.state[p]["step"].element_size() for _, p in named))
+    multi(plain, stacked)                                       # the plain step's state
+    row["plain_state_bytes"] = state_bytes(plain.optimizer)
+    row["param_bytes"], row["plain_param_bytes"] = (
+        sum(p.numel() * p.element_size() for p in st.model.parameters()) for st in (state, plain))
+    row["step_peak_bytes"] = _step_memory(step, state, batch)
+    row["plain_step_peak_bytes"] = _step_memory(step, plain, batch)
+    secs = interleaved_seconds({"precision": functools.partial(multi, state, stacked),
+                                "plain": functools.partial(multi, plain, stacked)})
+    row.update({f"{k}_ms_per_step": statistics.median(v) / OPT_STEPS * 1e3
+                for k, v in secs.items()}, call_seconds=secs)
+    gib = {k: row[k] / 2**30 for k in ("param_bytes", "state_bytes", "step_peak_bytes",
+                                      "plain_param_bytes", "plain_state_bytes",
+                                      "plain_step_peak_bytes")}
+    log(f"[time] 125M train step b={TRAIN_B} s={TRAIN_S}, fused norm: bf16 params under "
+        f"with_ema(master_weights(adamw)) {row['precision_ms_per_step']:.3f} ms/step, params "
+        f"{gib['param_bytes']:.3f} GiB + optimizer state {gib['state_bytes']:.3f} GiB, a step's "
+        f"peak above them {gib['step_peak_bytes']:.3f} GiB; plain fp32 AdamW "
+        f"{row['plain_ms_per_step']:.3f} ms/step, {gib['plain_param_bytes']:.3f} + "
+        f"{gib['plain_state_bytes']:.3f} GiB, peak above {gib['plain_step_peak_bytes']:.3f} GiB "
+        f"(median of 3 {OPT_STEPS}-step calls, interleaved) on {card}")
+    del state, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def _zero1_rank(mesh, batch):
+    """A rank of ``[train] zero1``: the precision phase's state under ZeRO-1
+    over ``data`` → (losses of one counted call, this rank's optimizer-state
+    bytes, the call's seconds, its peak bytes)."""
+    from learning_jax_sharding_tpu_torch.parallel import logical
+
+    rules = logical.RULES_DP_TP
+    cfg = dataclasses.replace(CONFIG_125M, attn_fn=flash.make_flash_attn_fn(mesh, rules),
+                              fused_norm=True, param_dtype=torch.bfloat16)
+    state = sharded_train_state(Transformer(cfg, device="cuda", seed=0), _wrapped_adamw(),
+                                mesh=mesh, rules=rules, zero1_axis="data")
+    multi = make_train_step(steps_per_call=OPT_STEPS, mesh=mesh, rules=rules, **TRAIN_LOSS)
+    stacked = {k: v.expand(OPT_STEPS, *v.shape) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = multi(state, stacked)
+    torch.cuda.synchronize()
+    return losses.tolist(), state_bytes(state.optimizer), time.perf_counter() - t0
+
+
+def run_zero1_path(card, batch, one_card):
+    """``[train] zero1``: the precision phase's steps on a (2, 1) data mesh
+    of thread ranks (NCCL refuses two ranks on one card), the optimizer
+    state ZeRO-1 split over data: the losses within ``OPT_ZERO1_RTOL`` of
+    the one-card run's, each rank's optimizer-state bytes half of it (the
+    scalar step counts aside), the two ranks' flash and fused-norm
+    launches those of 2 × ``OPT_STEPS`` steps."""
+    from learning_jax_sharding_tpu_torch.parallel import run_on_threads
+
+    ranks = math.prod(OPT_ZERO1_SHAPE)
+    (losses, nbytes, seconds), launches = _counted_call(
+        f"zero1 ({ranks} thread ranks)",
+        lambda: run_on_threads(_zero1_rank, OPT_ZERO1_SHAPE, ("data", "model"),
+                               device_type="cuda", args=(batch,)),
+        ranks * OPT_STEPS, CONFIG_125M.num_layers)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_card["losses"]))
+    scalars = one_card["count_bytes"]
+    half = (nbytes - scalars) * 2 == one_card["state_bytes"] - scalars
+    log(f"[train] zero1: losses {[round(x, 4) for x in losses]} vs one card "
+        f"{[round(x, 4) for x in one_card['losses']]}, max rel diff {rel:.2e} (limit "
+        f"{OPT_ZERO1_RTOL:g}); rank 0's optimizer state {nbytes / 2**30:.4f} GiB vs one card "
+        f"{one_card['state_bytes'] / 2**30:.4f} GiB (half: {half}); {seconds:.1f} s for "
+        f"{OPT_STEPS} steps ({seconds / OPT_STEPS * 1e3:.1f} ms/step, the ranks taking turns "
+        f"on one card and one interpreter) on {card}")
+    if not rel <= OPT_ZERO1_RTOL:
+        raise AssertionError(f"zero1: losses {losses} vs {one_card['losses']}")
+    if not half:
+        raise AssertionError(f"zero1: {nbytes} bytes a rank, one card {one_card['state_bytes']}")
+    return dict(losses=losses, max_rel_diff=rel, state_bytes=nbytes, launches=launches,
+                call_seconds=seconds, ms_per_step=seconds / OPT_STEPS * 1e3, ranks=ranks)
+
+
+def run_lora_path(gen, card, batch):
+    """``[train] lora``: rank-8 adapters over the frozen 125M base (fp32
+    weights, flash, fused norm, the fused loss) under ``adamw(3e-4)``: one
+    counted step whose loss is the base step's bit for bit (B starts at 0),
+    then ``OPT_STEPS - 1`` more; the base bit-unchanged; a generate from
+    ``merge_lora``'s tree (decode attention counted); the ms a step, the
+    peak and the adapters' optimizer-state bytes."""
+    cfg = _opt_cfg()
+    model = Transformer(cfg, device="cuda", seed=0)
+    base = {n: p.detach() for n, p in model.named_parameters()}
+    before = {n: t.clone() for n, t in base.items()}
+    lgen = torch.Generator(device="cuda").manual_seed(LORA_RANK)
+    ls = lora_train_state(lgen, base, adamw(3e-4), LORA_RANK)
+    step = make_lora_train_step(model, adamw(3e-4), **TRAIN_LOSS)
+    with torch.enable_grad():
+        hidden = model(batch["inputs"], return_hidden=True)
+        base_loss = TRAIN_LOSS["loss_fn"](hidden, batch, model).detach()
+    del hidden
+    (ls, first), launches = _counted_call("lora", lambda: step(base, ls, batch), 1,
+                                          cfg.num_layers, frozen_norms=1)
+    losses = [first]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(OPT_STEPS - 1):
+        ls, loss = step(base, ls, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [x.item() for x in losses]
+    unchanged = all(torch.equal(base[n], t) for n, t in before.items())
+    log(f"[train] lora rank {LORA_RANK}: step 0 loss {losses[0]!r} vs the base's "
+        f"{base_loss.item()!r} (bit-equal: {bool(torch.equal(first, base_loss))}); losses "
+        f"{[round(x, 4) for x in losses]}; base unchanged: {unchanged}")
+    if not torch.equal(first, base_loss):
+        raise AssertionError(f"lora: step 0 loss {first} vs base {base_loss}")
+    if not unchanged or not losses[-1] < losses[0]:
+        raise AssertionError(f"lora: base unchanged {unchanged}, losses {losses}")
+    del before
+    merged = {n: t.detach() for n, t in merge_lora(base, ls).items()}
+    gen_launches = _ema_generate("lora merged", CONFIG_125M, merged, batch["inputs"][:, :PROMPT])
+    row = dict(losses=losses, launches=launches, generate_launches=gen_launches,
+               ms_per_step=seconds / (OPT_STEPS - 1) * 1e3, peak_bytes=peak,
+               state_bytes=state_bytes(ls.opt_state),
+               adapter_params=sum(t.numel() for ab in ls.adapters.values() for t in ab.values()))
+    log(f"[time] 125M LoRA rank {LORA_RANK} step b={TRAIN_B} s={TRAIN_S}: "
+        f"{row['ms_per_step']:.3f} ms/step ({OPT_STEPS - 1} steps), a step's peak above "
+        f"what was held {peak / 2**30:.3f} GiB, adapters {row['adapter_params']} parameters, optimizer "
+        f"state {row['state_bytes'] / 2**20:.2f} MiB on {card}")
+    del ls, merged, model, base
+    torch.cuda.empty_cache()
+    return row
+
+
 # [beam]: GPT-2 small's published GPT2Config (the "gpt2" checkpoint's
 # fields), weights seeded and tied, B=2 rows of a 64-token prompt, +32.
 GPT2_SMALL = dict(n_layer=12, n_embd=768, n_head=12, vocab_size=50257, n_positions=1024,
@@ -2483,7 +2759,7 @@ def run_engine_path(params, q4, card):
     # The int4 engine once more with its decode calls' matmuls (the small-M
     # design's) on the CUDA-core design: what the redesign moved end to end.
     calls[int4_cc] = on_design(call(int4_cc, "int4+paged+prefix"), "cuda_core", only="small_m")
-    secs = interleaved_seconds(calls)
+    secs = interleaved_seconds(calls, ENGINE_TIME_ROUNDS)
     timing = {}
     for label, times in secs.items():
         sec = statistics.median(times)
@@ -2495,10 +2771,11 @@ def run_engine_path(params, q4, card):
             refill_frac=statistics.median(x["refill_frac"] for x in lats),
             page_high_water=None if st is None else st["page_high_water"])
         log(f"[time] 125M engine serve, {label} (interleaved): {timing[label]['tok_s']:.1f} "
-            f"generated tok/s, {sec:.3f} s per serve (median of 3: "
+            f"generated tok/s, {sec:.3f} s per serve (median of {ENGINE_TIME_ROUNDS}: "
             f"{[round(t, 4) for t in times]}); TTFT p50 {timing[label]['ttft_p50'] * 1e3:.1f} "
             f"ms, refill {timing[label]['refill_frac']:.3f} of dispatch time (medians over the "
-            f"3 serves), page high-water {timing[label]['page_high_water']} on {card}")
+            f"{ENGINE_TIME_ROUNDS} serves), page high-water {timing[label]['page_high_water']} "
+            f"on {card}")
     serve, tree = engines["paged+prefix"]
     calls = runs["paged+prefix warm"]["model_forwards"]
     profile = profile_summary(
@@ -2834,7 +3111,7 @@ def run_engine_modes(params, gen, card):
                 (engines[name].last_latency, engines[name].last_stats))
         return run_once
 
-    secs = interleaved_seconds({name: timed(name) for name in engines})
+    secs = interleaved_seconds({name: timed(name) for name in engines}, ENGINE_TIME_ROUNDS)
     timing = {}
     for name, times in secs.items():
         sec = statistics.median(times)
@@ -2849,7 +3126,8 @@ def run_engine_modes(params, gen, card):
             spec_accept_rate=statistics.median(rates) if rates else None)
         t = timing[name]
         log(f"[time] engine modes {name} (interleaved): {t['tok_s']:.1f} generated tok/s, "
-            f"{sec:.3f} s per serve (median of 3: {[round(x, 4) for x in times]}); TTFT p50 "
+            f"{sec:.3f} s per serve (median of {ENGINE_TIME_ROUNDS}: "
+            f"{[round(x, 4) for x in times]}); TTFT p50 "
             f"{t['ttft_p50'] * 1e3:.1f} ms, ITL p99 {t['itl_p99'] * 1e3:.1f} ms, decode stall "
             f"share {t['decode_stall_share']:.3f}, spec_accept_rate {t['spec_accept_rate']} "
             f"on {card}")
@@ -5354,6 +5632,14 @@ def main() -> int:
     beam_path = run_beam_path(gen, card)
     torch.cuda.empty_cache()
     mark("[beam]")
+    opt_batch = train_batch(gen, CONFIG_125M.vocab_size)
+    precision_path = run_precision_path(gen, card, opt_batch)
+    mark("[train] precision")
+    zero1_path = run_zero1_path(card, opt_batch, precision_path)
+    torch.cuda.empty_cache()
+    mark("[train] zero1")
+    lora_path = run_lora_path(gen, card, opt_batch)
+    mark("[train] lora")
     mesh_1x1 = run_mesh_1x1(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] 1x1")
@@ -5635,6 +5921,16 @@ def main() -> int:
         entry["remat_launches"] = ({variant: row["launches"][kind][key]
                                     for variant, row in remat_path.items()}
                                    if kind in ("flash", "fused_norm") else None)
+        # [train] precision / zero1 / lora: each phase's counted call, and
+        # decode attention in the EMA and merged-LoRA generates.
+        entry["optimizer_launches"] = ({
+            "precision (8 steps)": precision_path["launches"].get(entry["name"], 0),
+            "zero1 (2 ranks x 8 steps)": zero1_path["launches"].get(entry["name"], 0),
+            "lora (1 step)": lora_path["launches"].get(entry["name"], 0)}
+            if kind in ("flash", "fused_norm") else
+            {"precision EMA generate": precision_path["ema_generate_launches"],
+             "lora merged generate": lora_path["generate_launches"]}
+            if entry["name"] == "decode_attention" else None)
     generate = dict(tok_s=main_path["tok_s"], ms_per_token_step=main_path["ms_per_step"],
                     teacher_forced_max_gap=main_path["gap"], step_breakdown=breakdown)
     quantized = dict(runs=quant, ladder=ladder, int4_fused_step_breakdown=quant_breakdown,
@@ -5645,6 +5941,8 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "generate": generate, "quantized": quantized,
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fit": fit_path, "train_remat": remat_path, "beam": beam_path,
+                      "train_precision": precision_path, "train_zero1": zero1_path,
+                      "train_lora": lora_path,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
                       "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,

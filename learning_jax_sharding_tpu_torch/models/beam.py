@@ -42,10 +42,12 @@ from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.attention import _local
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.models.decoding import (
+    batch_ranks,
     check_sequence_budget,
     derive_decode_config,
     make_cached_apply,
     make_param_caster,
+    pad_rows,
     whole_logits,
 )
 from learning_jax_sharding_tpu_torch.models.generate import vocab_limit_filter
@@ -55,7 +57,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
-from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, activate, logical_placements
+from learning_jax_sharding_tpu_torch.parallel.logical import activate
 from learning_jax_sharding_tpu_torch.parallel.sharding import local_rows
 
 NEG_INF = -1e9
@@ -150,9 +152,10 @@ def make_beam_search_fn(
     ``mesh``/``rules``: every rank calls ``search`` with the same arguments;
     the weights are laid out over the mesh on each call, the caches are
     born split, each step's logits are gathered whole before the pick, and
-    the beam reorder stays inside each rank's rows: ``B`` must be a multiple
-    of the ranks the batch splits over (``ValueError`` otherwise). Over a
-    mesh ``dequantize`` dequantizes once a call.
+    the beam reorder stays inside each rank's rows: a batch the ranks it
+    splits over do not divide is padded with copies of its first row
+    (``models.decoding.pad_rows``), dropped from the result. Over a mesh
+    ``dequantize`` dequantizes once a call.
     """
     if beam_size < 1:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")
@@ -167,13 +170,11 @@ def make_beam_search_fn(
             "the batch, which would need per-beam block tables (use the "
             "continuous engine for paged serving)"
         )
-    data_size = 1          # the ranks a batch dim splits over (rows of one rank hold their beams)
     if mesh is not None:
         if rules is None:
             raise ValueError("rules are required when a mesh is given")
         device = mesh.device_type if device is None else device
-        for dim, placement in enumerate(logical_placements(mesh, rules, (BATCH,))):
-            data_size *= mesh.size(dim) if placement.is_shard() else 1
+    split = batch_ranks(mesh, rules)      # rows of one rank hold their beams
     device = resolve_device(device)
     cfg = derive_decode_config(config, inference_dtype)
     if ragged:
@@ -219,12 +220,11 @@ def make_beam_search_fn(
         if not ragged and lengths is not None:
             raise ValueError("lengths requires make_beam_search_fn(ragged=True)")
         prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
+        real = prompt.shape[0]
+        prompt = pad_rows(prompt, split)
+        if ragged:
+            lengths = pad_rows(torch.as_tensor(lengths, device=device).to(torch.int32), split)
         b, prompt_len = prompt.shape
-        if b % data_size:
-            raise ValueError(
-                f"over a mesh the batch B={b} must be a multiple of the ranks "
-                f"its rows split over ({data_size}): a row's beams stay in its rank"
-            )
         check_sequence_budget(
             prompt_len + max_new_tokens, cfg.max_seq_len,
             f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens})",
@@ -246,7 +246,6 @@ def make_beam_search_fn(
         # Prefill once at B rows; the first logits from each row's last
         # valid position.
         if ragged:
-            lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
             logits, prefilled = apply(None, prompt, lengths)
             last = whole_logits(logits, lengths - 1)
         else:
@@ -298,7 +297,7 @@ def make_beam_search_fn(
         best_tokens = all_buf[row_of, best]
         best_score = all_scores[row_of, best]
         if not ragged:
-            return torch.cat([prompt, best_tokens], dim=1), best_score
+            return torch.cat([prompt, best_tokens], dim=1)[:real], best_score[:real]
         # Row b's hypothesis starts at its length; every other cell past the
         # prompt, the caller's padding included, is the fill.
         fill = 0 if eos_id is None else eos_id
@@ -306,6 +305,6 @@ def make_beam_search_fn(
         padded = torch.nn.functional.pad(prompt, (0, max_new_tokens))
         out = torch.where(col < lengths[:, None], padded, fill).to(torch.int32)
         cols = lengths.long()[:, None] + torch.arange(max_new_tokens, device=device)
-        return out.scatter_(1, cols, best_tokens), best_score
+        return out.scatter_(1, cols, best_tokens)[:real], best_score[:real]
 
     return search

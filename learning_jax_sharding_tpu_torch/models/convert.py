@@ -47,7 +47,10 @@ from learning_jax_sharding_tpu_torch.parallel.sharding import put
 
 
 def _tensor(x: Any) -> torch.Tensor:
-    return torch.from_numpy(np.array(x))
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":          # ml_dtypes' bf16: its bits, reinterpreted
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
 
 
 def _dense(prefix: str, node: Mapping) -> dict:
@@ -192,6 +195,82 @@ def param_logical_axes(name: str) -> tuple:
     if leaf in ("q4", "scale"):
         return (None, k_out)
     raise KeyError(f"no logical axes for parameter {name!r}")
+
+
+def is_kernel_weight(name: str) -> bool:
+    """Whether the port's tensor ``name`` is a projection's ``(out, in)``
+    weight (a JAX ``(in, out)`` kernel, transposed; a ``scan_layers`` stack
+    led by its layer dim)."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-1] == "weight" and parts[-2] in KERNEL_AXES
+
+
+def jax_dim_order(name: str, ndim: int) -> tuple[int, ...]:
+    """The dims of the port's tensor ``name`` in the order of the JAX
+    leaf's: a kernel weight's last two swapped, every other tensor's as
+    they are. A rule that walks a leaf's dims (ZeRO-1's first divisible dim)
+    walks them in this order to place the port's tensor as JAX places its
+    leaf."""
+    if is_kernel_weight(name) and ndim >= 2:
+        return (*range(ndim - 2), ndim - 1, ndim - 2)
+    return tuple(range(ndim))
+
+
+def _jax_path(name: str) -> tuple[str, ...]:
+    """The JAX tree path of the port's kernel weight ``name``
+    (``blocks.0.attn.query.weight`` → ``block_0/attn/query/kernel``)."""
+    parts = name.split(".")[:-1]
+    if parts[0] == "blocks" and len(parts) > 1 and parts[1].isdigit():
+        parts = [f"block_{parts[1]}", *parts[2:]]
+    return (*parts, "kernel")
+
+
+def _at(tree: Mapping, path: tuple[str, ...]):
+    for key in path:
+        if not isinstance(tree, Mapping) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def adapters_from_flax(adapters: Mapping, cfg) -> dict[str, dict[str, torch.Tensor]]:
+    """A JAX LoRA adapter tree (``training.lora.init_lora``, leaves as
+    numpy) → the port's adapters, ``{weight name: {"lora_a", "lora_b"}}``:
+    A ``(in, r)`` and B ``(r, out)`` keep JAX's orientation, so nothing is
+    transposed."""
+    out = {}
+    for name in _kernel_names(cfg):
+        node = _at(adapters, _jax_path(name))
+        if node is not None:
+            out[name] = {k: _tensor(node[k]) for k in ("lora_a", "lora_b")}
+    return out
+
+
+def _kernel_names(cfg) -> list[str]:
+    names = [f"blocks.{i}.{site}.weight" for i in range(cfg.num_layers)
+             for site in ("attn.query", "attn.key", "attn.value", "attn.out", "ff.up", "ff.down")]
+    return names + ["lm_head.weight"]
+
+
+def load_optimizer_slot_(optimizer, model: torch.nn.Module, slot: str,
+                         values: Mapping[str, torch.Tensor]) -> None:
+    """Write ``values`` (by parameter name, the port's layout: a JAX
+    ``MasterWeightsState``'s ``master`` or ``EmaState``'s ``ema`` through
+    :func:`from_flax_params`) into the slot ``slot`` (``"master"``,
+    ``"ema"``) that a wrapped optimizer (``training.precision``,
+    ``training.ema``, under ZeRO-1 or not) keeps for each parameter, IN
+    PLACE: JAX's masters or EMA carried across. Each slot keeps its own
+    placement (a slice of the whole value under ZeRO-1)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in values:
+                dst = optimizer.slot_tensor(p, slot)
+                src = torch.as_tensor(values[name]).to(device=dst.device, dtype=dst.dtype)
+                if isinstance(dst, DTensor):
+                    src = distribute_tensor(src, dst.device_mesh, dst.placements)
+                dst.copy_(src)
 
 
 def layout_tensors(model: torch.nn.Module) -> list[tuple[str, torch.Tensor, bool]]:

@@ -11,7 +11,9 @@ Port of ``learning_jax_sharding_tpu/models/decoding.py``:
   optionally dequantizing an int8/int4 state dict inside each call;
 * :func:`check_sequence_budget` — the prompt + new vs ``max_seq_len`` guard;
 * :func:`whole_logits` — a model call's logits whole on every rank of a
-  mesh, at each row's picked position.
+  mesh, at each row's picked position;
+* :func:`batch_ranks` / :func:`pad_rows` — a batch padded to a multiple of
+  the ranks its rows split over, so any batch runs over a mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, logical_placements
 from learning_jax_sharding_tpu_torch.parallel.sharding import local_rows
 
 
@@ -166,3 +169,25 @@ def whole_logits(logits: torch.Tensor, pos: torch.Tensor | None = None) -> torch
     out_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in pl]
     return DTensor.from_local(picked.contiguous(), mesh, out_pl, run_check=False,
                               shape=torch.Size((b, v)), stride=(v, 1)).full_tensor()
+
+
+def batch_ranks(mesh, rules) -> int:
+    """The ranks a batch dim splits over under ``rules`` (1 with no mesh)."""
+    if mesh is None:
+        return 1
+    size = 1
+    for dim, placement in enumerate(logical_placements(mesh, rules, (BATCH,))):
+        size *= mesh.size(dim) if placement.is_shard() else 1
+    return size
+
+
+def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x`` with copies of its row 0 appended until its rows are a multiple
+    of ``multiple``. The decoders run a padded batch over a mesh whose
+    batch split does not divide the caller's (JAX's placement splits such
+    a batch unevenly) and return only the caller's rows: every row is
+    computed on its own, so a pad row reaches no real row's result."""
+    if x.shape[0] % multiple == 0:
+        return x
+    extra = multiple - x.shape[0] % multiple
+    return torch.cat([x, x[:1].expand(extra, *x.shape[1:])], dim=0)

@@ -24,10 +24,12 @@ from torch.distributed.tensor import DTensor
 from learning_jax_sharding_tpu_torch import resolve_device
 from learning_jax_sharding_tpu_torch.models.decoding import (
     apply_dequantize_policy,
+    batch_ranks,
     check_sequence_budget,
     derive_decode_config,
     make_cached_apply,
     make_param_caster,
+    pad_rows,
     whole_logits,
 )
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
@@ -201,6 +203,9 @@ def make_generate_fn(
     dequantizes the state dict once a call (the same weights a model call
     would see). Ragged over a mesh keeps the per-row lengths and cache
     counters whole on every rank; each rank's attention takes its rows.
+    A batch the mesh's batch split does not divide is padded with copies
+    of its first row (``models.decoding.pad_rows``), which are dropped from
+    the result.
     """
     if ragged and prefill_chunk_size is not None:
         raise ValueError(
@@ -223,6 +228,7 @@ def make_generate_fn(
     in_apply = bool(dequantize) and not fused and mesh is None
     cached_apply = make_cached_apply(model, dequantize=in_apply, dequant_dtype=cfg.param_dtype)
     scope = (lambda: activate(mesh, rules)) if mesh is not None else contextlib.nullcontext
+    split = batch_ranks(mesh, rules)
 
     @torch.no_grad()
     def generate(
@@ -239,6 +245,10 @@ def make_generate_fn(
         if not ragged and lengths is not None:
             raise ValueError("lengths requires make_generate_fn(ragged=True)")
         prompt = torch.as_tensor(prompt, device=device).to(torch.int32)
+        real = prompt.shape[0]
+        prompt = pad_rows(prompt, split)
+        if ragged:
+            lengths = pad_rows(torch.as_tensor(lengths, device=device).to(torch.int32), split)
         b, prompt_len = prompt.shape
         check_sequence_budget(
             prompt_len + max_new_tokens, cfg.max_seq_len,
@@ -271,7 +281,6 @@ def make_generate_fn(
         rows = torch.arange(b, device=device)
 
         if ragged:
-            lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
             # Each row's pad tail writes garbage K/V past its length, masked
             # now and overwritten as the row generates; the first logits come
             # from each row's own last valid position.
@@ -327,7 +336,7 @@ def make_generate_fn(
             for i in range(1, max_new_tokens):
                 tok, cache, seen = advance(tok, cache, seen)
                 buffer[:, i] = tok
-            return assemble(buffer)
+            return assemble(buffer)[:real]
 
         # EOS early exit: finished rows are frozen to EOS (their model step
         # still runs in the batch, its output overwritten). One host read of
@@ -335,13 +344,13 @@ def make_generate_fn(
         buffer[:, 1:] = eos_id
         finished = tok == eos_id
         i = 1
-        while i < max_new_tokens and not bool(finished.all()):
+        while i < max_new_tokens and not bool(finished[:real].all()):
             active = (~finished).to(torch.int32) if ragged else None
             nxt, cache, seen = advance(tok, cache, seen, active)
             tok = torch.where(finished, eos_id, nxt).to(torch.int32)
             buffer[:, i] = tok
             finished = finished | (tok == eos_id)
             i += 1
-        return assemble(buffer)
+        return assemble(buffer)[:real]
 
     return generate

@@ -597,8 +597,15 @@ class Transformer(nn.Module):
         # cannot meet in one add), and so is its gradient on the way back
         # (a partial sum there, from the first block's split projections,
         # cannot become the masked partial).
-        x = reduce_partial_grad(
-            constrain(self.tok_embed(tokens).to(cfg.dtype), BATCH, SEQ, EMBED))
+        table = self.tok_embed.weight
+        if table.dtype.itemsize < cfg.dtype.itemsize:
+            # A low-precision table under a wider compute dtype is gathered
+            # upcast, as Flax's promote_dtype does: its gradient then sums a
+            # repeated token's rows in the compute dtype, rounded once.
+            looked_up = nn.functional.embedding(tokens, table.to(cfg.dtype))
+        else:
+            looked_up = self.tok_embed(tokens).to(cfg.dtype)
+        x = reduce_partial_grad(constrain(looked_up, BATCH, SEQ, EMBED))
         if self.pos_embed is not None:
             steps = torch.arange(s, device=self.device)
             if cache is None:

@@ -116,15 +116,13 @@ def lr_schedule(cfg: TrainLoopConfig) -> Schedule:
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """``optax.adamw`` (optionally behind ``optax.clip_by_global_norm``) as
-    a description of a torch optimizer.
-
-    ``torch.optim.AdamW`` computes the same update: its decoupled decay
-    ``p·(1 − lr·wd)`` followed by the Adam step equals optax's ``−lr·(m̂ /
-    (√v̂ + eps) + wd·p)``, both on the old ``p``; like optax it decays every
-    parameter (norms, biases and embeddings too). ``learning_rate`` is a
-    number or a ``step -> lr`` schedule. ``clip_norm``: the gradients are
-    scaled by ``clip_norm / ‖g‖`` when their global norm ``‖g‖`` reaches it
-    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).
+    a description of a torch optimizer (:class:`_AdamW`: optax's arithmetic
+    op for op, so fp32 masters under ``training.precision`` round as JAX's
+    do). Like optax it decays every parameter (norms, biases and embeddings
+    too). ``learning_rate`` is a number or a ``step -> lr`` schedule.
+    ``clip_norm``: the gradients are scaled by ``clip_norm / ‖g‖`` when their
+    global norm ``‖g‖`` reaches it (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``).
     """
 
     learning_rate: Union[float, Schedule]
@@ -139,12 +137,9 @@ class AdamW:
         lr = self.learning_rate
         return lr(step) if callable(lr) else lr
 
-    def create(self, params) -> torch.optim.AdamW:
+    def create(self, params) -> torch.optim.Optimizer:
         """The torch optimizer over ``params`` (one parameter group)."""
-        return torch.optim.AdamW(
-            params, lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.weight_decay,
-        )
+        return _AdamW(params, self.schedule(0), self.b1, self.b2, self.eps, self.weight_decay)
 
 
 def adamw(
@@ -170,6 +165,62 @@ ADAFACTOR_DECAY_RATE = 0.8
 ADAFACTOR_EPS = 1e-30
 ADAFACTOR_CLIPPING_THRESHOLD = 1.0
 ADAFACTOR_MIN_PARAM_SCALE = 1e-3
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 − decay^count`` in float32, on the host from the host's
+    count (float32 ``pow`` rounds as XLA's does for these)."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+class _AdamW(torch.optim.Optimizer):
+    """``optax.adamw`` as a torch optimizer, in optax's order of float32
+    operations (foreach ops): ``m ← (1−b1)·g + b1·m``, ``v ← (1−b2)·g² +
+    b2·v``, ``u = (m / (1−b1^t)) / (√(v / (1−b2^t)) + eps) + wd·p``, ``p ←
+    p + (−lr)·u``. Slots ``exp_avg``, ``exp_avg_sq`` and the host count
+    ``step``, as ``torch.optim.AdamW`` names them (whose fused arithmetic
+    rounds otherwise)."""
+
+    def __init__(self, params, lr, b1, b2, eps, weight_decay):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            by_count: dict[int, list] = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                by_count.setdefault(int(state["step"]), []).append(p)
+            for count, params in by_count.items():
+                self._update(group, count, params)
+
+    def _update(self, group, count: int, params: list) -> None:
+        b1, b2, wd = group["b1"], group["b2"], group["weight_decay"]
+        grads = [p.grad for p in params]
+        mus = [self.state[p]["exp_avg"] for p in params]
+        nus = [self.state[p]["exp_avg_sq"] for p in params]
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - b1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1.0 - b2)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, sq)
+        denom = torch._foreach_div(nus, _bias_correction(b2, count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        upd = torch._foreach_div(mus, _bias_correction(b1, count))
+        torch._foreach_div_(upd, denom)
+        if wd:
+            torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+        torch._foreach_mul_(upd, -group["lr"])
+        torch._foreach_add_(params, upd)
 
 
 class _Lion(torch.optim.Optimizer):
@@ -373,7 +424,8 @@ def default_optimizer(cfg: TrainLoopConfig):
 
 
 def _snapshot(state) -> tuple:
-    """Clones of every parameter and optimizer slot, and the counts."""
+    """Clones of every parameter and optimizer slot (a wrapped optimizer's
+    masters, EMA and ZeRO slices among them), and the counts."""
     params = [p.detach().clone() for p in state.model.parameters()]
     slots = {p: {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in s.items()}
              for p, s in state.optimizer.state.items()}
@@ -381,12 +433,22 @@ def _snapshot(state) -> tuple:
 
 
 def _put_back(state, snap) -> None:
+    """The parameters, then the optimizer state, as ``snap`` holds them:
+    slots written in place (the state only grows, so every slot of the
+    snapshot is there), or the state cleared when it had none."""
     params, slots, state.step, state.updates = snap
     with torch.no_grad():
         for p, old in zip(state.model.parameters(), params):
             p.copy_(old)
-    state.optimizer.state.clear()
-    state.optimizer.state.update(slots)
+        if not slots:
+            state.optimizer.state.clear()
+        for p, saved in slots.items():
+            live = state.optimizer.state[p]
+            for k, v in saved.items():
+                if isinstance(v, torch.Tensor):
+                    live[k].copy_(v)
+                else:
+                    live[k] = v
     state.optimizer.zero_grad(set_to_none=True)
 
 

@@ -16,7 +16,8 @@ runs the model under ``parallel.logical.activate(mesh, rules)`` (one SPMD
 program per rank, the collectives DTensor's), with the batch split as
 ``(BATCH, SEQ)``; the mean loss over the global batch makes the gradients
 the data-axis average, reduced to each parameter's placement before the
-update. ZeRO-1 (``zero1_axis``) comes with slice D (``training/zero.py``).
+update: or, under ZeRO-1 (``zero1_axis``, ``training/zero.py``), to the
+placement of its slice of the optimizer state (a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.distributed.tensor import DTensor
 
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
 from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, activate, constrain
+from learning_jax_sharding_tpu_torch.training.wrapped import create
 
 
 @dataclasses.dataclass
@@ -93,23 +95,28 @@ def clip_by_global_norm_(
 def sharded_train_state(model: nn.Module, optimizer, *, mesh=None, rules=None,
                         zero1_axis: str | None = None) -> TrainState:
     """The train state of ``model`` under ``optimizer`` (an
-    ``training.loop.AdamW``, e.g. ``adamw(3e-4)``), whose torch optimizer is
-    built here over the model's parameters.
+    ``training.loop.AdamW``, e.g. ``adamw(3e-4)``, or a wrapper of one:
+    ``training.precision.master_weights``, ``training.ema.with_ema``), whose
+    torch optimizer is built here over the model's parameters.
 
     With ``mesh``/``rules`` the model's parameters are laid out over the
     mesh first (``models.convert.shard_params``: each a DTensor placed by
     its logical axes; every rank built the same full model, and keeps its
     slice), so the optimizer's moments are born sharded the same way.
-    ``zero1_axis`` (the optimizer state split over one more axis) is ported
-    with slice D (``training/zero.py``)."""
-    if zero1_axis is not None:
-        raise NotImplementedError("zero1_axis: ported with slice D (training/zero.py)")
+    ``zero1_axis`` (with a mesh): the whole optimizer state (moments,
+    masters, EMA) split 1/D over that axis more (``training.zero``)."""
     if mesh is not None:
         if rules is None:
             raise ValueError("rules are required when a mesh is given")
         shard_params(model, mesh, rules)
+    if zero1_axis is not None:
+        if mesh is None:
+            raise ValueError("zero1_axis needs a mesh")
+        from learning_jax_sharding_tpu_torch.training.zero import Zero1
+
+        optimizer = Zero1(optimizer, zero1_axis)
     return TrainState(
-        model=model, optimizer=optimizer.create(model.parameters()),
+        model=model, optimizer=create(optimizer, list(model.named_parameters())),
         schedule=optimizer.schedule, clip_norm=optimizer.clip_norm,
     )
 
@@ -240,11 +247,13 @@ def make_train_step(
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum_steps)
+        target = getattr(state.optimizer, "grad_placements", lambda p: tuple(p.placements))
         for p in params:
             # Over a mesh: partial sums of a gradient (the data axis, a
-            # contraction split) reduced to its parameter's placement.
-            if isinstance(p.grad, DTensor) and p.grad.placements != p.placements:
-                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
+            # contraction split) reduced to its parameter's placement, or
+            # under ZeRO-1 scattered to its optimizer slice's.
+            if isinstance(p.grad, DTensor) and tuple(p.grad.placements) != target(p):
+                p.grad = p.grad.redistribute(p.device_mesh, target(p))
         grads = [p.grad for p in params if p.grad is not None]
         gnorm = None
         if with_grad_norm or state.clip_norm is not None:

@@ -36,9 +36,11 @@ from learning_jax_sharding_tpu.parallel.logical import RULES_DP_TP as JAX_RULES_
 from learning_jax_sharding_tpu_torch.models import beam
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
+from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.parallel import run_on_threads
 from learning_jax_sharding_tpu_torch.parallel.logical import RULES_DP_TP
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -256,20 +258,78 @@ def test_mesh_threads_match_one_device(setup):
     np.testing.assert_array_equal(one[0], _jax(setup, **kw)[0])
 
 
-def _mesh_refusal_body(mesh, sd, prompt):
-    """Rank body: a batch of 3 rows over a data axis of 2 → the error."""
-    fn = beam.make_beam_search_fn(CONFIG_TINY, mesh, RULES_DP_TP, beam_size=2,
-                                  max_new_tokens=2)
+def _odd_batch_body(mesh, sd, prompt, ragged, lengths, kw, sizes):
+    """Rank body: greedy generate, ragged generate and beam search (plain
+    and ragged) over a (2, 2) mesh (RULES_DP_TP) at batches the data axis
+    does not divide → ``{(fn, B): outputs}``."""
+    gen = make_generate_fn(CONFIG_TINY, mesh, RULES_DP_TP, max_new_tokens=NEW)
+    rgen = make_generate_fn(CONFIG_TINY, mesh, RULES_DP_TP, max_new_tokens=NEW, ragged=True)
+    fn = beam.make_beam_search_fn(CONFIG_TINY, mesh, RULES_DP_TP, **kw)
+    rfn = beam.make_beam_search_fn(CONFIG_TINY, mesh, RULES_DP_TP, ragged=True, **kw)
+    out = {}
+    for b in sizes:
+        out["generate", b] = (gen(sd, prompt[:b]).numpy(),)
+        out["ragged", b] = (rgen(sd, ragged[:b], lengths=lengths[:b]).numpy(),)
+        out["beam", b] = tuple(t.numpy() for t in fn(sd, prompt[:b]))
+        out["beam_ragged", b] = tuple(t.numpy() for t in rfn(sd, ragged[:b],
+                                                             lengths=lengths[:b]))
+    serve = make_continuous_engine(CONFIG_TINY, mesh, RULES_DP_TP, batch_size=3,
+                                   max_new_tokens=2, refill_chunk=4)
     try:
-        fn(sd, prompt[:3])
+        serve(sd, [prompt[0]])
     except ValueError as exc:
-        return str(exc)
-    return None
+        out["engine"] = str(exc)
+    return out
 
 
-def test_mesh_refuses_batch_not_a_multiple_of_the_data_axis(setup):
-    """A row's beams must stay in its rank: B not a multiple of the data
-    axis is refused on every rank before any collective."""
-    msg = run_on_threads(_mesh_refusal_body, (2, 2), ("data", "model"),
-                         args=(setup["sd"], setup["prompt"]))
-    assert msg is not None and "B=3" in msg and "(2)" in msg, msg
+ODD_SIZES = (3, 1)
+ODD_FNS = ("generate", "ragged", "beam", "beam_ragged")
+
+
+@pytest.fixture(scope="module")
+def odd_batches(setup, mesh22):
+    """JAX's results on its (2, 2) mesh and the port's on (2, 2) thread
+    ranks, at every batch of ``ODD_SIZES``."""
+    kw = dict(beam_size=2, max_new_tokens=NEW, eos_id=setup["eos"])
+    ragged = setup["ragged"]
+    jax_gen = jax_generate_fn(JAX_TINY, mesh22, JAX_RULES_DP_TP, max_new_tokens=NEW)
+    jax_rgen = jax_generate_fn(JAX_TINY, mesh22, JAX_RULES_DP_TP, max_new_tokens=NEW,
+                               ragged=True)
+    jax_fn = jax_beam.make_beam_search_fn(JAX_TINY, mesh22, JAX_RULES_DP_TP, **kw)
+    jax_rfn = jax_beam.make_beam_search_fn(JAX_TINY, mesh22, JAX_RULES_DP_TP, ragged=True,
+                                           **kw)
+    want, params = {}, setup["params"]
+    with jax.default_matmul_precision("float32"):
+        for b in ODD_SIZES:
+            lengths = jnp.asarray(LENGTHS[:b], jnp.int32)
+            want["generate", b] = (np.asarray(jax_gen(params, jnp.asarray(setup["prompt"][:b]))),)
+            want["ragged", b] = (np.asarray(jax_rgen(params, jnp.asarray(ragged[:b]),
+                                                     jax.random.key(0), lengths)),)
+            want["beam", b] = tuple(map(np.asarray, jax_fn(params, jnp.asarray(setup["prompt"][:b]))))
+            want["beam_ragged", b] = tuple(map(np.asarray, jax_rfn(
+                params, jnp.asarray(ragged[:b]), lengths=lengths)))
+    got = run_on_threads(_odd_batch_body, (2, 2), ("data", "model"),
+                         args=(setup["sd"], setup["prompt"], ragged,
+                               np.asarray(LENGTHS, np.int32), kw, ODD_SIZES))
+    return got, want
+
+
+def test_engine_slots_not_a_multiple_of_the_data_axis_raise(odd_batches):
+    """The engine's slots are its cache rows, born split over data: three
+    slots over a data axis of 2 raise ``ValueError`` before serving, as the
+    JAX engine's ``shard_map`` does (``batch_size`` must divide evenly)."""
+    got, _ = odd_batches
+    assert "does not split 2 ways" in got["engine"]
+
+
+@pytest.mark.parametrize("b", ODD_SIZES)
+@pytest.mark.parametrize("fn", ODD_FNS)
+def test_mesh_batch_not_a_multiple_of_the_data_axis_equals_jax(fn, b, odd_batches):
+    """A batch of 3 (and of 1) over a data axis of 2: the port pads it to a
+    multiple of the data ranks and drops the pad rows, JAX splits it
+    unevenly; tokens equal, beam scores within ``SCORE_ATOL``."""
+    got, want = (side[fn, b] for side in odd_batches)
+    assert got[0].shape == want[0].shape == (b, 8 + NEW)
+    np.testing.assert_array_equal(got[0], want[0])
+    if fn.startswith("beam"):
+        np.testing.assert_allclose(got[1], want[1], atol=SCORE_ATOL, rtol=0)

@@ -30,6 +30,7 @@ from learning_jax_sharding_tpu_torch.models.convert import (  # noqa: E402
     state_dict_from_params,
 )
 from learning_jax_sharding_tpu_torch.models.transformer import Transformer  # noqa: E402
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

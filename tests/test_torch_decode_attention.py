@@ -20,6 +20,7 @@ from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     auto_block_k,
     decode_attention,
 )
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

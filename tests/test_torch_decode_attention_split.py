@@ -32,6 +32,7 @@ from learning_jax_sharding_tpu_torch.ops.decode_attention import (
     decode_attention_split_reference,
     split_ranges,
 )
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

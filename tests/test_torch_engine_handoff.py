@@ -49,6 +49,7 @@ from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.parallel import run_on_threads
 from learning_jax_sharding_tpu_torch.utils import prng
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

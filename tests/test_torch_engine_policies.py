@@ -43,6 +43,7 @@ from learning_jax_sharding_tpu_torch import telemetry as port_telemetry
 from learning_jax_sharding_tpu_torch.models import serving as port_serving
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,7 @@ from tests.test_torch_engine_swap import (
     port_one_device_cases,
     swap_cases,
 )
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

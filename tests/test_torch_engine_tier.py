@@ -32,6 +32,7 @@ from tests.test_torch_engine_handoff import (
     _tier_prompts,
     _trees,
 )
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -40,6 +40,7 @@ from learning_jax_sharding_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_reference,
     make_flash_attn_fn,
 )
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,6 +38,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     next_token_loss,
 )
 from learning_jax_sharding_tpu_torch.ops import fused_norm as fn
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

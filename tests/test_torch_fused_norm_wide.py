@@ -27,6 +27,7 @@ import torch
 from learning_jax_sharding_tpu.ops.fused_norm import fused_residual_norm as jax_fused
 from learning_jax_sharding_tpu_torch.ops import fused_norm as fn
 from tests.test_torch_fused_norm import _jax_side, _port_side, _within_one_bf16_ulp
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,7 @@ from learning_jax_sharding_tpu.parallel.logical import RULES_DP_TP
 from learning_jax_sharding_tpu_torch.models import generate
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -29,6 +29,7 @@ from learning_jax_sharding_tpu.ops import int4_matmul as jmm
 from learning_jax_sharding_tpu_torch.models.quantize import quantize_leaf_int4
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_125M
 from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from learning_jax_sharding_tpu.models import quantize as jq
 from learning_jax_sharding_tpu.ops import int4_ff as jff
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_125M
 from learning_jax_sharding_tpu_torch.ops import int4_ff as ff4
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -39,6 +39,7 @@ from learning_jax_sharding_tpu_torch.models.attention import KVCache, quantize_k
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.ops.decode_attention import decode_attention
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

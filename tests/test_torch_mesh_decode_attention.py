@@ -27,6 +27,7 @@ from learning_jax_sharding_tpu_torch.models.attention import quantize_kv_chunk
 from learning_jax_sharding_tpu_torch.parallel import run_on_threads
 from tests import _torch_mesh_bodies as bodies
 from tests.test_torch_paged_decode_attention import _new, _pools
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -51,6 +51,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.parallel import run_on_threads
 from tests import _torch_mesh_bodies as bodies
 from tests.test_torch_quantized_generate import GROUP, _jax_quantize_tree
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from learning_jax_sharding_tpu_torch.models import transformer
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params, param_logical_axes
 from learning_jax_sharding_tpu_torch.parallel import logical, mesh
 from tests import _torch_mesh_bodies as bodies
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 RULE_SETS = [name for name in dir(jax_logical) if name.startswith("RULES_")]
 

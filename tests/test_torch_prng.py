@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from learning_jax_sharding_tpu_torch.utils import prng
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 SEEDS = [0, 1, 5, 42, 1234, 2**31 - 1, 2**32 - 1, -1, -7, 2**33 + 5]
 SHAPES = [(), (1,), (3,), (2, 5), (4, 257), (3, 2, 7)]

@@ -46,6 +46,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import TransformerConfig
 from learning_jax_sharding_tpu_torch.ops import probes
 from learning_jax_sharding_tpu_torch.scripts import perf_call_floor, perf_launch_audit
 from learning_jax_sharding_tpu_torch.utils import bench
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engin
 from learning_jax_sharding_tpu_torch.parallel import logical as port_logical
 from learning_jax_sharding_tpu_torch.parallel import single_device_mesh
 from learning_jax_sharding_tpu_torch.parallel.collectives import quantized_all_reduce
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

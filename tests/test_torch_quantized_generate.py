@@ -30,6 +30,7 @@ from learning_jax_sharding_tpu.parallel import build_mesh
 from learning_jax_sharding_tpu.parallel.logical import RULES_DP_TP
 from learning_jax_sharding_tpu_torch.models import attention, decoding, generate, transformer
 from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

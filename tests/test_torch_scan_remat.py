@@ -46,6 +46,7 @@ from learning_jax_sharding_tpu_torch.parallel.logical import LAYERS, RULES_DP_TP
 from learning_jax_sharding_tpu_torch.training.checkpoint import CheckpointManager
 from learning_jax_sharding_tpu_torch.training.loop import adamw
 from learning_jax_sharding_tpu_torch.training.pipeline import make_train_step, sharded_train_state
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,7 @@ from learning_jax_sharding_tpu_torch.models.serving import (
     make_continuous_engine,
 )
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

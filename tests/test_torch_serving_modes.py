@@ -42,6 +42,7 @@ from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.serving import make_continuous_engine
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from tests import _torch_mesh_bodies as bodies
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

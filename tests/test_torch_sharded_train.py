@@ -40,6 +40,7 @@ from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY
 from learning_jax_sharding_tpu_torch.parallel import run_on_mesh
 from tests import _torch_mesh_bodies as bodies
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 RULES = ["RULES_DP_TP_SP", "RULES_FSDP", "RULES_REFERENCE"]
 B, S, STEPS, SNAPSHOT = 8, 32, 10, 3

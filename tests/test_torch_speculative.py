@@ -35,6 +35,7 @@ from learning_jax_sharding_tpu_torch.models.convert import from_flax_params
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn, top_k_filter
 from learning_jax_sharding_tpu_torch.models.speculative import make_speculative_generate_fn
 from learning_jax_sharding_tpu_torch.models.transformer import CONFIG_TINY, Transformer
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

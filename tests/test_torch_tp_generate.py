@@ -36,6 +36,7 @@ from learning_jax_sharding_tpu_torch.ops import int4_matmul as mm4
 from learning_jax_sharding_tpu_torch.parallel import run_on_mesh, run_on_threads
 from tests import _torch_mesh_bodies as bodies
 from tests.test_torch_quantized_generate import _jax_quantize_tree
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 GROUP, NEW = 16, 6
 JAX_CFG = dataclasses.replace(jax_transformer.CONFIG_TINY, quantization_group=GROUP,

@@ -76,6 +76,7 @@ from learning_jax_sharding_tpu_torch.telemetry.watchdog import Heartbeat, NonFin
 from learning_jax_sharding_tpu_torch.training import loop, pipeline
 from learning_jax_sharding_tpu_torch.training.checkpoint import CheckpointManager
 from tests import _torch_mesh_bodies as bodies
+from tests._torch_jax import quick_jax_compiles  # noqa: F401
 
 torch.set_num_threads(1)
 

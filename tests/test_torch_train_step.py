@@ -50,7 +50,7 @@ from learning_jax_sharding_tpu_torch.models.transformer import (
     next_token_loss,
 )
 from learning_jax_sharding_tpu_torch.ops.flash_attention import make_flash_attn_fn
-from learning_jax_sharding_tpu_torch.training import loop, pipeline
+from learning_jax_sharding_tpu_torch.training import loop, pipeline, zero
 
 torch.set_num_threads(1)
 
@@ -385,9 +385,13 @@ def test_unported_parts_name_their_slice():
         pipeline.sharded_train_state(model, loop.adamw(3e-4), mesh=mesh)
     with pytest.raises(ValueError, match="rules are required"):
         pipeline.make_train_step(mesh=mesh)(state, batch)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        pipeline.sharded_train_state(model, loop.adamw(3e-4), mesh=mesh,
-                                     rules=port_logical.RULES_DP_TP, zero1_axis="data")
+    # ZeRO-1 is ported (tests/test_torch_zero1.py holds it against JAX); it
+    # wants a mesh, and its quantized sync names slice F.
+    with pytest.raises(ValueError, match="zero1_axis needs a mesh"):
+        pipeline.sharded_train_state(model, loop.adamw(3e-4), zero1_axis="data")
+    with pytest.raises(NotImplementedError, match="slice F"):
+        zero.make_zero1_update(loss_fn=next_token_loss, mesh=mesh,
+                               rules=port_logical.RULES_DP_TP, quantized_comm=True)
     with pytest.raises(NotImplementedError, match="slice D"):
         port_parallel.build_hybrid_mesh((1, 1), (1, 1))
     # skip_nonfinite is ported; what fit leaves names its slice.
