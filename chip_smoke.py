@@ -108,7 +108,14 @@ optimizer-state bytes against the plain fp32 AdamW step); the same steps
 on a (2, 1) data mesh of thread ranks with the state ZeRO-1 split (losses
 against the one card's, each rank half its state bytes); and rank-8 LoRA
 over the frozen base (step 0's loss the base's bit for bit, the base
-unchanged, a generate from ``merge_lora``'s tree).
+unchanged, a generate from ``merge_lora``'s tree). Slice 22: ``[train]
+sequence parallel`` (``bench.py::bench_longcontext``'s step on a (2, 2)
+mesh of thread ranks with ring attention, under remat, and with Ulysses
+over the flash kernels, against one-card steps of the same weights),
+``[train] moe`` (the 125M MoE step, E=8, top-2, the scatter dispatch,
+against the einsum one; its flash launches, descent and aux losses; timed
+beside the dense step), ``[generate] moe`` and ``[mesh] moe a2a``
+(``moe_a2a_ff`` on a (2, 1) thread mesh against the grouped einsum).
 Each path's kernel
 launches are counted from zero around one run. Times the paths and the kernels, profiles the paths,
 and prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -151,6 +158,7 @@ from learning_jax_sharding_tpu_torch.models.decoding import (
     make_cached_apply,
     make_param_caster,
 )
+from learning_jax_sharding_tpu_torch.models import moe as moe_models
 from learning_jax_sharding_tpu_torch.models.generate import make_generate_fn
 from learning_jax_sharding_tpu_torch.models.quantize import (
     dequantize_leaf_int4,
@@ -192,8 +200,15 @@ from learning_jax_sharding_tpu_torch.training.lora import (
 )
 from learning_jax_sharding_tpu_torch.training.precision import master_weights
 from learning_jax_sharding_tpu_torch.training.zero import state_bytes
-from learning_jax_sharding_tpu_torch.training.loop import TrainLoopConfig, adamw, evaluate, fit
+from learning_jax_sharding_tpu_torch.training.loop import (
+    TrainLoopConfig,
+    adamw,
+    evaluate,
+    fit,
+    sgd,
+)
 from learning_jax_sharding_tpu_torch.training.pipeline import (
+    make_eval_step,
     make_train_step,
     sharded_train_state,
 )
@@ -337,12 +352,20 @@ COLD_BYTES = 120_000_000
 # element (a few times below the row's max) rounds several times more
 # coarsely, in all 73 projections of a forward; the bound is 3× TF_GAP.
 QUANT_TF_GAP = {"fused": 0.1, "fused_w4a8": 0.3}
-LADDER_ROUNDS = 2   # the int4 ladder's interleaved rounds
-ENGINE_TIME_ROUNDS = 2   # the interleaved rounds of [engine]'s and [engine] modes' timed serves
-# The int4 generates timed against their CUDA-core designs (time_int4_decode):
-# +64 tokens (the main path's +128 is checked and laddered above; the five
-# timed and profiled +128 generates took about 100 s on a slow host).
-INT4_TIME_NEW = 64
+# The timed depths, cut to pay for later phases (no gate reads them): the
+# decode ladder's interleaved rounds and those of [engine]'s and [engine]
+# modes' timed serves (3 until slice 21, 2 until slice 22: one round of each
+# took about 10 s and 25 s on an H100 host), and the int4 generates timed
+# against their CUDA-core designs (time_int4_decode): +16 tokens (the main
+# path's +128 is checked and laddered above; +64 until slice 22, whose five
+# generates took about 17 s at three calls each).
+LADDER_ROUNDS = 1
+ENGINE_TIME_ROUNDS = 1
+INT4_TIME_NEW = 16
+# [mesh] 1x1's train step and [engine] mesh's one-rank serve, each timed
+# interleaved with its unsharded twin: one round (3 until slice 22; a
+# round took about 2.5 s and 2.9 s on an H100 host).
+MESH_TIME_ROUNDS = 1
 PROBES_SOURCE = "learning_jax_sharding_tpu_torch/csrc/probes.cu"
 # The TPU probe kernels each probe kernel replaces (body, then every launch).
 PROBES_REPLACES = {
@@ -372,7 +395,10 @@ DECODE_1P4B = {"token step": (1, AUDIT.PROMPT + AUDIT.NEW // 2), "prefill": (AUD
 # The 1.4B prefill chunk against caches of 4 to 12 64-slot tiles, at index 0
 # and as the cache's last chunk: where a split of a chunk starts to pay
 # (ops/decode_attention.py::MIN_PIECE_TILES).
-CHUNK_SWEEP_TILES = tuple(range(4, 13))
+# Every other cache size from 4 to 12 tiles (every one until slice 22: the
+# nine sizes' checks and split sweeps refitted SPLIT_TARGET_BLOCKS in slice
+# 12; the five keep both ends and the middle).
+CHUNK_SWEEP_TILES = tuple(range(4, 13, 2))
 NORM_SOURCE = "learning_jax_sharding_tpu_torch/csrc/fused_norm.cu"
 NORM_REPLACES = {"fwd": "learning_jax_sharding_tpu/ops/fused_norm.py:57",
                  "bwd": "learning_jax_sharding_tpu/ops/fused_norm.py:82"}
@@ -2611,7 +2637,8 @@ def run_engine_path(params, q4, card):
     0.1 of a dense forward; warm prefix hits 24 of 24 with 8 pages reused
     each; decode attention launched exactly once a layer per model call
     (paged launches only in the paged engines). Then every variant's serve
-    timed interleaved (medians of 3) and one warm paged serve profiled."""
+    timed interleaved (``ENGINE_TIME_ROUNDS`` rounds) and one warm paged
+    serve profiled."""
     cfg = dataclasses.replace(CONFIG_125M, decode_attention="blocked")
     prompts = engine_prompts()
     paged = dict(paged_pages=ENGINE_PAGES, page_size=ENGINE_PAGE)
@@ -2899,8 +2926,8 @@ def run_engine_modes(params, gen, card):
     difference, where any, a near tie of the Gumbel-perturbed scores within
     0.1); decode attention launched once a layer per model call, a
     speculative round ``num_draft + 1`` draft calls and one verify call.
-    Then every variant's serve timed interleaved (medians of 3) and one
-    wave of each mode profiled per model call."""
+    Then every variant's serve timed interleaved (``ENGINE_TIME_ROUNDS``
+    rounds) and one wave of each mode profiled per model call."""
     import warnings
 
     from learning_jax_sharding_tpu_torch.models.generate import filtered_logits
@@ -4337,9 +4364,10 @@ def run_mesh_1x1(gen, card):
     if not rel <= MESH_LOSS_RTOL:
         raise AssertionError(f"[mesh] 1x1 train losses differ by {rel} relative")
     times = interleaved_seconds({name: functools.partial(steps[name], state, stacked)
-                                 for name, state in states.items()})
+                                 for name, state in states.items()}, MESH_TIME_ROUNDS)
     ms = {name: statistics.median(t) / K_STEPS * 1e3 for name, t in times.items()}
-    log(f"[time] [mesh] 1x1 125M train step (interleaved, median of 3 {K_STEPS}-step calls): "
+    log(f"[time] [mesh] 1x1 125M train step (interleaved, median of {MESH_TIME_ROUNDS} "
+        f"{K_STEPS}-step calls): "
         f"mesh {ms['mesh']:.3f} ms/step, unsharded {ms['one']:.3f}; DTensor dispatch "
         f"{ms['mesh'] - ms['one']:.3f} ms/step on {card}")
     out["train"] = dict(losses=losses, max_rel_diff=rel, launches=launches["mesh"],
@@ -4586,7 +4614,7 @@ def run_engine_mesh(gen, card):
         raise AssertionError(f"[engine] mesh 1x1: launches {launches}, model calls {calls}, "
                              f"equal requests {same}")
     secs = interleaved_seconds({name: functools.partial(serve, params, prompts)
-                                for name, serve in serves.items()})
+                                for name, serve in serves.items()}, MESH_TIME_ROUNDS)
     ms = {name: statistics.median(t) * 1e3 / calls[name] for name, t in secs.items()}
     profile = profile_summary(f"125M engine serve over a one-rank mesh, per model call "
                               f"({calls['mesh']} a serve)",
@@ -4595,7 +4623,7 @@ def run_engine_mesh(gen, card):
     out["one_rank"] = dict(model_calls=calls["mesh"], launches=launches["mesh"],
                            ms_per_model_call=ms, host_ms_added=ms["mesh"] - ms["one"],
                            seconds=secs, profile=profile, tokens_equal=sum(same))
-    log(f"[time] [engine] mesh 1x1 split serve (interleaved, medians of 3): mesh "
+    log(f"[time] [engine] mesh 1x1 split serve (interleaved, medians of {MESH_TIME_ROUNDS}): mesh "
         f"{ms['mesh']:.3f} ms a model call, no mesh {ms['one']:.3f}; the mesh adds "
         f"{ms['mesh'] - ms['one']:.3f} ms of host time a model call on {card}")
     one_toks = toks["one"]
@@ -5473,6 +5501,463 @@ def run_mesh_shards(gen, card):
     return rows_out
 
 
+# ---------------------------------------------------------------------------
+# Slice 22: sequence-parallel attention and the routed MoE feed-forward
+# ---------------------------------------------------------------------------
+
+# [train] sequence parallel: bench.py::bench_longcontext's shape (125M, 6
+# heads x 128, S=8192, b=2, causal) on a (2, 2) data x model mesh of thread
+# ranks under RULES_DP_SP (the sequence over model).
+SP_FIELDS = dict(num_heads=6, head_dim=128, max_seq_len=8192)
+SP_B, SP_S, SP_SHAPE = 2, 8192, (2, 2)
+# The ring keeps fp32 (1, 6, 4096, 4096) score blocks (~400 MB) of every hop
+# for its backward: tens of GB a rank over 12 layers, four ranks on one card.
+# Its step runs under remat (bit-equal to the step without since slice 20),
+# so one layer's blocks live at a time.
+SP_LR = 3e-4
+# [train] moe: bench.py::bench_moe_125m (E=8, top-2, capacity 1.25, the
+# scatter dispatch, b=4, s=1024, sgd(3e-4), fused loss, 2 steps a call).
+MOE_FIELDS = dict(num_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_B, MOE_STEPS, MOE_LR = 4, 2, 3e-4
+# tests/test_moe.py::TestSortDispatch's bounds (outputs, aux loss, gradients).
+MOE_SORT_TOL = dict(out=(1e-5, 1e-5), aux=1e-6, grad=(2e-4, 2e-4))
+# tests/test_moe.py::TestAllToAllDispatch's bounds (:324 outputs, :354 grads).
+MOE_A2A_TOL = dict(out=(1e-5, 1e-5), grad=(2e-4, 2e-4))
+MOE_A2A_SHAPE = (2, 1)
+# [generate] moe: b=8, a 128-token prompt, +32, greedy, bf16.
+MOE_GEN_NEW = 32
+
+
+def _sp_cfg(**fields):
+    return dataclasses.replace(CONFIG_125M, **SP_FIELDS, **fields)
+
+
+def _rel_errors(model, refs) -> dict:
+    """Each parameter's gradient (whole) against each reference's in
+    ``refs`` (``{name: {param: grad}}``): relative Frobenius errors."""
+    out = {ref: {} for ref in refs}
+    for name, p in model.named_parameters():
+        g = (p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad).float()
+        for ref, grads in refs.items():
+            out[ref][name] = ((g - grads[name]).norm() / grads[name].norm()).item()
+    return out
+
+
+def _worst(rel: dict) -> tuple[str, float]:
+    name = max(rel, key=rel.get)
+    return name, rel[name]
+
+
+def _sp_rank(mesh, strategy, batch, refs):
+    """A rank of ``[train] sequence parallel``: one counted step of the
+    strategy from the one-card step's weights (seed 0), then one timed
+    step; the ring's collectives of one forward."""
+    import torch.distributed as dist
+
+    from learning_jax_sharding_tpu_torch.ops.ring_attention import make_ring_attn_fn
+    from learning_jax_sharding_tpu_torch.ops.ulysses import make_ulysses_attn_fn
+    from learning_jax_sharding_tpu_torch.parallel import logical
+    from learning_jax_sharding_tpu_torch.parallel.hlo import counting_permutes
+
+    rules = logical.RULES_DP_SP
+    inner_shapes = []
+    if strategy == "ring":
+        fields = dict(attn_fn=make_ring_attn_fn(mesh, rules), remat=True)
+    else:
+        flash_fn = flash.make_flash_attn_fn()
+
+        def counted_flash(q, k, v, *, causal=False):
+            inner_shapes.append(tuple(q.shape))
+            return flash_fn(q, k, v, causal=causal)
+
+        fields = dict(attn_fn=make_ulysses_attn_fn(mesh, rules, attn_fn=counted_flash))
+    state = sharded_train_state(Transformer(_sp_cfg(**fields), device="cuda", seed=0),
+                                sgd(SP_LR), mesh=mesh, rules=rules)
+    step = make_train_step(mesh=mesh, rules=rules, **TRAIN_LOSS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_permutes() as hops:
+        _, loss = step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rel = _rel_errors(state.model, refs)
+    shapes = list(inner_shapes)
+    losses = [None] * dist.get_world_size()
+    dist.all_gather_object(losses, float(loss))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    return dict(losses=losses, rel=rel, first_s=first_s, step_s=time.perf_counter() - t0,
+                inner_shapes=shapes, hops=hops["collective-permute"],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def run_seq_parallel_path(gen, card):
+    """``[train] sequence parallel``: one train step with ring attention
+    and one with Ulysses over the flash kernels, each on a (2, 2) mesh of
+    four thread ranks, against a one-card step at the same shape and
+    weights computing attention with the same arithmetic: Ulysses against
+    the flash step, the ring (an fp32 online softmax) against the step with
+    the dense fp32-softmax attention (under remat). Gates: the loss (1e-2
+    relative) and every parameter's gradient (5e-2 relative Frobenius),
+    every rank's loss equal; Ulysses' flash forwards on each rank 12 a step
+    at (1, 8192, 3, 128) and the kernels' launches 4 x 12 each a step; the
+    ring's hops 2 x (n - 1) a layer a forward, counted as
+    collective-permutes over its step (a forward, remat's recompute, the
+    gradients' hops back). The dense and the ring steps' distance from the
+    flash step is printed beside (in bf16 at S=8192 the flash kernel's
+    rounding of p alone moves the attention weights' gradients by about
+    5e-2). ms a step of each."""
+    from learning_jax_sharding_tpu_torch.parallel import run_on_threads
+
+    layers = CONFIG_125M.num_layers
+    tokens = torch.randint(0, CONFIG_125M.vocab_size, (SP_B, SP_S + 1), generator=gen,
+                           device="cuda")
+    batch = {"inputs": tokens[:, :-1].contiguous(), "targets": tokens[:, 1:].contiguous()}
+    step = make_train_step(**TRAIN_LOSS)
+    refs, ref_losses = {}, {}
+    for name, fields in (("dense", dict(attn_fn=None, remat=True)),
+                         ("flash", dict(attn_fn=flash.make_flash_attn_fn()))):
+        state = sharded_train_state(Transformer(_sp_cfg(**fields), device="cuda", seed=0),
+                                    sgd(SP_LR))
+        ref_losses[name] = float(step(state, batch)[1])
+        refs[name] = {n: p.grad.detach().float().clone()
+                      for n, p in state.model.named_parameters()}
+        if name == "dense":
+            del state
+    ref_loss = ref_losses["flash"]
+    floor = _worst({n: ((g - refs["flash"][n]).norm() / refs["flash"][n].norm()).item()
+                    for n, g in refs["dense"].items()})
+    log(f"[train] sequence parallel: one card, dense (remat) vs flash: loss "
+        f"{ref_losses['dense']:.6f} vs {ref_loss:.6f}; worst grad rel Frobenius err "
+        f"{floor[1]:.3e} ({floor[0]}; not gated: bf16 rounding of the two attentions)")
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    one_ms = min(secs) * 1e3
+    del state, step
+    torch.cuda.empty_cache()
+    log(f"[train] sequence parallel: one-card flash step b={SP_B} S={SP_S} 6 heads x 128, "
+        f"loss {ref_loss:.6f}, {one_ms:.3f} ms/step (best of 2) on {card}")
+    out = dict(one_card=dict(loss=ref_loss, dense_loss=ref_losses["dense"], ms_per_step=one_ms,
+                             dense_vs_flash_worst_grad=list(floor)))
+    n = SP_SHAPE[1]
+    for strategy in ("ring", "ulysses"):
+        _reset_kernel_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_on_threads(_sp_rank, SP_SHAPE, ("data", "model"), device_type="cuda",
+                             args=(strategy, batch, refs))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernel_launches().items()
+                    if k.startswith("flash_") and v}
+        against = "dense" if strategy == "ring" else "flash"
+        diff = abs(res["losses"][0] - ref_losses[against]) / abs(ref_losses[against])
+        worst, err = _worst(res["rel"][against])
+        flash_worst = _worst(res["rel"]["flash"])
+        label = f"[train] sequence parallel, {strategy}{' (remat)' if strategy == 'ring' else ''}"
+        log(f"{label}: losses a rank {[round(x, 6) for x in res['losses']]} vs the one-card "
+            f"{against} step's {ref_losses[against]:.6f} (rel diff {diff:.2e}, tol "
+            f"{STEP_LOSS_TOL:g}); worst grad rel Frobenius err {err:.3e} ({worst}, tol "
+            f"{STEP_GRAD_TOL:g}); against the flash step {flash_worst[1]:.3e} "
+            f"({flash_worst[0]}); flash launches {launches}; peak "
+            f"{res['peak'] / 2**30:.2f} GiB (4 ranks)")
+        if not diff <= STEP_LOSS_TOL:
+            raise AssertionError(f"{strategy}: loss {res['losses'][0]} vs {ref_losses[against]}")
+        if not err <= STEP_GRAD_TOL:
+            raise AssertionError(f"{strategy}: grad of {worst} off by {err}")
+        if len(set(res["losses"])) != 1:
+            raise AssertionError(f"{strategy}: the ranks' losses differ: {res['losses']}")
+        row = dict(loss=res["losses"][0], against=against, rel_loss_diff=diff,
+                   worst_grad_rel_err=err, worst_grad=worst,
+                   vs_flash_worst_grad=list(flash_worst), first_step_ms=res["first_s"] * 1e3,
+                   ms_per_step=res["step_s"] * 1e3, peak_bytes=res["peak"], launches=launches)
+        if strategy == "ring":
+            # A forward's hops, again in remat's recompute, and the
+            # gradients' hops back: three times (n - 1) x 2 x layers.
+            want = (n - 1) * 2 * layers
+            log(f"{label}: {res['hops']} collective-permutes in the counted step (want 3 x "
+                f"{want}: {want} a forward, recomputed once, and the gradients' hops back); "
+                f"no flash launch")
+            if res["hops"] != 3 * want or launches:
+                raise AssertionError(f"ring: {res['hops']} hops in a step, launches {launches}")
+            row["step_hops"] = res["hops"]
+        else:
+            shape = (SP_B // SP_SHAPE[0], SP_S, SP_FIELDS["num_heads"] // n,
+                     SP_FIELDS["head_dim"])
+            # The counted step and the timed one, four ranks each.
+            want = {f"flash_{k}": 2 * 4 * layers for k in FLASH_LAUNCH_KEYS}
+            log(f"{label}: rank 0's flash forwards {len(res['inner_shapes'])} at "
+                f"{sorted(set(res['inner_shapes']))} (want {layers} at {shape})")
+            if res["inner_shapes"] != [shape] * layers or launches != want:
+                raise AssertionError(f"ulysses: rank 0 flash calls {res['inner_shapes']}, "
+                                     f"launches {launches}, want {want}")
+            row["rank_flash_shape"] = list(shape)
+        log(f"[time] sequence parallel {strategy} step b={SP_B} S={SP_S} on four thread ranks "
+            f"of one card: {row['ms_per_step']:.1f} ms/step (first step "
+            f"{row['first_step_ms']:.1f}; one card {one_ms:.1f}; thread ranks time DTensor's "
+            f"dispatch and the interpreter more than the links) on {card}")
+        out[strategy] = row
+        torch.cuda.empty_cache()
+    del refs
+    return out
+
+
+def _moe_cfg(**fields):
+    return dataclasses.replace(CONFIG_125M, **{"attn_fn": flash.make_flash_attn_fn(),
+                                               **MOE_FIELDS, **fields})
+
+
+def _moe_layer(dispatch, seed, **kw):
+    """The 125M MoE layer's widths (768 -> 3072, E=8, top-2, capacity 1.25),
+    fp32."""
+    return moe_models.MoEFeedForward(
+        CONFIG_125M.features, CONFIG_125M.hidden, num_experts=MOE_FIELDS["num_experts"],
+        top_k=MOE_FIELDS["moe_top_k"], capacity_factor=MOE_FIELDS["moe_capacity_factor"],
+        dtype=torch.float32, dispatch=dispatch, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed), **kw)
+
+
+def _within(label, got, want, rtol, atol):
+    err = ((got - want).abs() - rtol * want.abs()).max().item()
+    if not err <= atol:
+        raise AssertionError(f"{label}: off by {err} past rtol {rtol}")
+    return (got - want).abs().max().item()
+
+
+def check_moe_dispatch(gen):
+    """The scatter dispatch against the einsum one at the 125M MoE layer's
+    widths in fp32 (b=4, s=1024): outputs, aux loss and gradients within
+    TestSortDispatch's bounds."""
+    x = torch.randn(MOE_B, TRAIN_S, CONFIG_125M.features, generator=gen, device="cuda")
+    runs = {}
+    for dispatch in ("einsum", "scatter"):
+        layer = _moe_layer(dispatch, 0)
+        with moe_models.collecting("losses") as aux:
+            out = layer(x)
+        torch.sin(out).sum().backward()
+        runs[dispatch] = (out.detach(), aux[0].detach(),
+                          {n: p.grad for n, p in layer.named_parameters()})
+    (oe, ae, ge), (os_, as_, gs) = runs["einsum"], runs["scatter"]
+    errs = dict(out=_within("scatter vs einsum out", os_, oe, *MOE_SORT_TOL["out"]),
+                aux=abs(as_ - ae).item() / abs(ae).item())
+    if not errs["aux"] <= MOE_SORT_TOL["aux"]:
+        raise AssertionError(f"scatter vs einsum aux: {as_} vs {ae}")
+    errs["grad"] = max(_within(f"scatter vs einsum grad {n}", gs[n], g, *MOE_SORT_TOL["grad"])
+                       for n, g in ge.items())
+    log(f"[train] moe: scatter vs einsum at the 125M MoE layer (fp32, {MOE_B}x{TRAIN_S} "
+        f"tokens): max abs err out {errs['out']:.2e}, aux rel {errs['aux']:.2e}, grads "
+        f"{errs['grad']:.2e} (TestSortDispatch's bounds {MOE_SORT_TOL})")
+    return errs
+
+
+def run_moe_train_path(gen, card):
+    """``[train] moe``: the 125M MoE train step (E=8, top-2, scatter, b=4,
+    sgd, fused loss): one step against the einsum dispatch's on the same
+    weights (the step check's bounds), the 2-step call's flash launches
+    (12 + 12 + 12 a step) and descent, a step with the aux losses (its
+    loss above ln V and above the same weights' loss without them); ms a
+    step, tok/s and activated MFU beside the dense 125M step's under the
+    same harness (b=4, sgd)."""
+    layer_errs = check_moe_dispatch(gen)
+    tokens = torch.randint(0, CONFIG_125M.vocab_size, (MOE_B, TRAIN_S + 1), generator=gen,
+                           device="cuda")
+    batch = {"inputs": tokens[:, :-1].contiguous(), "targets": tokens[:, 1:].contiguous()}
+    step = make_train_step(**TRAIN_LOSS)
+    first = {}
+    for dispatch in ("einsum", "scatter"):
+        state = sharded_train_state(Transformer(_moe_cfg(moe_dispatch=dispatch), device="cuda",
+                                                seed=0), sgd(MOE_LR))
+        loss = float(step(state, batch)[1])
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        first[dispatch] = (loss, grads)
+        if dispatch == "einsum":
+            del state
+    (le, ge), (ls, gs) = first["einsum"], first["scatter"]
+    rel = {n: ((gs[n] - g).norm() / g.norm()).item() for n, g in ge.items()}
+    worst = max(rel, key=rel.get)
+    diff = abs(ls - le) / abs(le)
+    log(f"[train] moe: scatter vs einsum, one 125M step: loss {ls:.6f} vs {le:.6f} (rel diff "
+        f"{diff:.2e}, tol {STEP_LOSS_TOL:g}); worst grad rel Frobenius err {rel[worst]:.3e} "
+        f"({worst}, tol {STEP_GRAD_TOL:g})")
+    if not diff <= STEP_LOSS_TOL or not rel[worst] <= STEP_GRAD_TOL:
+        raise AssertionError(f"moe scatter vs einsum step: loss {ls} vs {le}, {worst} {rel[worst]}")
+    del first, ge, gs
+
+    multi = make_train_step(steps_per_call=MOE_STEPS, **TRAIN_LOSS)
+    stacked = {k: v.expand(MOE_STEPS, *v.shape) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    _reset_kernel_launches()
+    _, losses = multi(state, stacked)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernel_launches().items() if k.startswith("flash_") and v}
+    want = {f"flash_{k}": MOE_STEPS * CONFIG_125M.num_layers for k in FLASH_LAUNCH_KEYS}
+    losses = [ls, *losses.tolist()]
+    log(f"[train] moe: {MOE_STEPS}-step call: launches {launches} (want {want}); losses "
+        f"{[round(x, 5) for x in losses]} over three steps")
+    if launches != want:
+        raise AssertionError(f"moe call launched {launches}, want {want}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe: the loss did not descend: {losses}")
+
+    plain_loss = float(make_eval_step(**TRAIN_LOSS)(state, batch))
+    aux_loss = float(make_train_step(aux_loss_collection="losses", **TRAIN_LOSS)(state, batch)[1])
+    ln_v = math.log(CONFIG_125M.vocab_size)
+    log(f"[train] moe: a step with the aux losses: {aux_loss:.6f} (ln V {ln_v:.6f}; the same "
+        f"weights without them {plain_loss:.6f})")
+    if not aux_loss > ln_v or not aux_loss > plain_loss:
+        raise AssertionError(f"moe aux step: {aux_loss} vs ln V {ln_v}, plain {plain_loss}")
+
+    def timed(state, call):
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(state, stacked)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return sorted(secs)[1] / MOE_STEPS, secs
+
+    rows = {}
+    moe_s, moe_secs = timed(state, multi)
+    params = {n: t for n, t in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    dense = sharded_train_state(
+        Transformer(dataclasses.replace(CONFIG_125M, attn_fn=flash.make_flash_attn_fn()),
+                    device="cuda", seed=0), sgd(MOE_LR))
+    multi(dense, stacked)                                   # warm-up
+    dense_s, dense_secs = timed(dense, multi)
+    del dense
+    torch.cuda.empty_cache()
+    for name, s, secs, cfg in (("moe", moe_s, moe_secs, _moe_cfg(moe_dispatch="scatter")),
+                               ("dense", dense_s, dense_secs, CONFIG_125M)):
+        flops = cfg.train_step_flops(MOE_B, TRAIN_S)
+        rows[name] = dict(ms_per_step=s * 1e3, tok_s=MOE_B * TRAIN_S / s, mfu=mfu(flops, s),
+                          flops_per_step=flops, call_seconds=secs)
+    m, d = rows["moe"], rows["dense"]
+    log(f"[time] 125M MoE (E=8, top-2, scatter) train step b={MOE_B} s={TRAIN_S}, sgd: "
+        f"{m['ms_per_step']:.3f} ms/step, {m['tok_s']:.1f} tok/s, activated MFU {m['mfu']:.4f} "
+        f"({m['flops_per_step'] / 1e12:.3f} TFLOP/step activated); the dense 125M step under "
+        f"the same harness {d['ms_per_step']:.3f} ms/step, {d['tok_s']:.1f} tok/s, MFU "
+        f"{d['mfu']:.4f} (medians of 3 {MOE_STEPS}-step calls) on {card}")
+    return dict(layer_check=layer_errs, step_check=dict(loss_scatter=ls, loss_einsum=le,
+                rel_loss_diff=diff, worst_grad_rel_err=rel[worst], worst_grad=worst),
+                launches=launches, losses=losses, aux_step_loss=aux_loss,
+                no_aux_loss=plain_loss, time=rows), params
+
+
+def run_moe_generate_path(params, gen, card):
+    """``[generate] moe``: greedy bf16 generation of the 125M MoE model
+    (b=8, 128 + 32) through ``make_generate_fn``: decode attention once a
+    layer a model call (the prefill's on the tensor cores, every token
+    step split), a teacher-forced gap within ``TF_GAP``; tok/s and ms a
+    token step. Then the same weights served at capacity E / top_k, where
+    no token drops, also within ``TF_GAP``: at the model's 1.25 a token
+    step's 8 tokens get 3 slots an expert, so a token's output hangs on its
+    batchmates' routing, which the teacher-forced forward over the whole
+    sequence does not share."""
+    e, k = MOE_FIELDS["num_experts"], MOE_FIELDS["moe_top_k"]
+    cfg = _moe_cfg(moe_dispatch="scatter", attn_fn=None)
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    fn = make_generate_fn(cfg, max_new_tokens=MOE_GEN_NEW, inference_dtype=torch.bfloat16)
+    fn(params, prompt)                                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(params, prompt)
+    torch.cuda.synchronize()
+    got = {k_: v for k_, v in read_launches().items() if k_.startswith("decode_attention")
+           and k_ != "decode_attention_paged"}
+    want = dict(generate_decode_launches(cfg, b=B, prompt=PROMPT, new=MOE_GEN_NEW),
+                decode_attention=cfg.num_layers * MOE_GEN_NEW)
+    log(f"[generate] moe: decode attention {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"moe generate: decode attention launches {got}, want {want}")
+    check_output(out, B, PROMPT + MOE_GEN_NEW, cfg.vocab_size)
+    tf_model = Transformer(dataclasses.replace(cfg, param_dtype=torch.bfloat16), device="cuda",
+                           seed=1).eval()
+    tf_model.load_state_dict(params)
+    span = ([PROMPT] * B, [PROMPT + MOE_GEN_NEW] * B)
+    gaps = {cfg.moe_capacity_factor: teacher_forced_gap(tf_model, out, *span)}
+    no_drop = dataclasses.replace(cfg, moe_capacity_factor=e / k)
+    out_e_k = make_generate_fn(no_drop, max_new_tokens=MOE_GEN_NEW,
+                               inference_dtype=torch.bfloat16)(params, prompt)
+    for block in tf_model.blocks:
+        block.moe.capacity_factor = no_drop.moe_capacity_factor
+    gaps[no_drop.moe_capacity_factor] = teacher_forced_gap(tf_model, out_e_k, *span)
+    del tf_model
+    log(f"[generate] moe teacher-forced max gap by capacity factor "
+        f"{ {c: round(g, 4) for c, g in gaps.items()} } (limit {TF_GAP})")
+    if max(gaps.values()) > TF_GAP:
+        raise AssertionError(f"moe generate teacher-forced gaps {gaps} > {TF_GAP}")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, prompt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = sorted(secs)[1]
+    row = dict(launches=got, gap=gaps[cfg.moe_capacity_factor],
+               gap_capacity_e_over_k=gaps[no_drop.moe_capacity_factor],
+               tok_s=B * MOE_GEN_NEW / sec, ms_per_step=sec / MOE_GEN_NEW * 1e3, seconds=secs)
+    log(f"[time] 125M MoE generate b={B} prompt {PROMPT} +{MOE_GEN_NEW} bf16: "
+        f"{row['tok_s']:.1f} tok/s, {row['ms_per_step']:.3f} ms/token-step (median of 3: "
+        f"{[round(s, 4) for s in secs]}) on {card}")
+    return row
+
+
+def _a2a_rank(mesh, x, seed):
+    """A rank of ``[mesh] moe a2a``: the all-to-all dispatch's output and
+    gradients (whole) at the 125M MoE layer's widths."""
+    from learning_jax_sharding_tpu_torch.ops.moe_dispatch import make_moe_a2a_fn
+    from learning_jax_sharding_tpu_torch.parallel import logical
+
+    rules = logical.RULES_DP_EP_A2A
+    layer = _moe_layer("alltoall", seed, dispatch_fn=make_moe_a2a_fn(mesh, rules))
+    with logical.activate(mesh, rules):
+        out = layer(x).full_tensor()
+        torch.sin(out).sum().backward()
+    grads = {n: p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+             for n, p in layer.named_parameters()}
+    return out.detach(), grads
+
+
+def run_moe_a2a_path(gen, card):
+    """``[mesh] moe a2a``: ``moe_a2a_ff`` (one all-to-all each way over
+    ``data``) on a (2, 1) mesh of thread ranks at the 125M MoE layer's
+    widths (fp32, b=4, s=1024), against the einsum dispatch run per token
+    group on one rank: outputs and gradients within
+    TestAllToAllDispatch's bounds."""
+    from learning_jax_sharding_tpu_torch.parallel import run_on_threads
+
+    x = torch.randn(MOE_B, TRAIN_S, CONFIG_125M.features, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    out, grads = run_on_threads(_a2a_rank, MOE_A2A_SHAPE, ("data", "model"), device_type="cuda",
+                                args=(x, 1))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ref_layer = _moe_layer("einsum", 1)
+    groups = MOE_A2A_SHAPE[0]
+    ref = torch.cat([ref_layer(xg) for xg in x.chunk(groups)])
+    torch.sin(ref).sum().backward()
+    errs = dict(out=_within("a2a out", out, ref.detach(), *MOE_A2A_TOL["out"]))
+    errs["grad"] = max(_within(f"a2a grad {n}", grads[n], p.grad, *MOE_A2A_TOL["grad"])
+                       for n, p in ref_layer.named_parameters())
+    log(f"[mesh] moe a2a: moe_a2a_ff on {MOE_A2A_SHAPE} thread ranks vs the grouped einsum "
+        f"({groups} groups of {MOE_B * TRAIN_S // groups} tokens, {CONFIG_125M.features} -> "
+        f"{CONFIG_125M.hidden}, E=8, top-2, fp32):"
+        f" max abs err out {errs['out']:.2e}, grads {errs['grad']:.2e} (bounds "
+        f"{MOE_A2A_TOL}); {secs:.2f} s forward + backward on {card}")
+    return dict(errors=errs, seconds=secs)
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one ``nvcc`` each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5640,6 +6125,19 @@ def main() -> int:
     mark("[train] zero1")
     lora_path = run_lora_path(gen, card, opt_batch)
     mark("[train] lora")
+    seq_parallel = run_seq_parallel_path(gen, card)
+    torch.cuda.empty_cache()
+    mark("[train] sequence parallel")
+    moe_train, moe_params = run_moe_train_path(gen, card)
+    torch.cuda.empty_cache()
+    mark("[train] moe")
+    moe_generate = run_moe_generate_path(moe_params, gen, card)
+    del moe_params
+    torch.cuda.empty_cache()
+    mark("[generate] moe")
+    moe_a2a = run_moe_a2a_path(gen, card)
+    torch.cuda.empty_cache()
+    mark("[mesh] moe a2a")
     mesh_1x1 = run_mesh_1x1(gen, card)
     torch.cuda.empty_cache()
     mark("[mesh] 1x1")
@@ -5923,6 +6421,16 @@ def main() -> int:
                                    if kind in ("flash", "fused_norm") else None)
         # [train] precision / zero1 / lora: each phase's counted call, and
         # decode attention in the EMA and merged-LoRA generates.
+        # Slice 22: each strategy's counted and timed steps on four thread
+        # ranks (Ulysses' flash on each rank's (1, 8192, 3, 128) heads; the
+        # ring runs no flash), the MoE train call, the MoE generate.
+        entry["seq_parallel_launches"] = ({
+            s: seq_parallel[s]["launches"].get(entry["name"], 0) for s in ("ring", "ulysses")}
+            if kind == "flash" else None)
+        entry["moe_launches"] = ({"train (2-step call)": moe_train["launches"][entry["name"]]}
+                                 if kind == "flash" else
+                                 {"generate": moe_generate["launches"]["decode_attention"]}
+                                 if entry["name"] == "decode_attention" else None)
         entry["optimizer_launches"] = ({
             "precision (8 steps)": precision_path["launches"].get(entry["name"], 0),
             "zero1 (2 ranks x 8 steps)": zero1_path["launches"].get(entry["name"], 0),
@@ -5942,7 +6450,9 @@ def main() -> int:
                       "train": train, "train_step_check": step, "sdpa": sdpa_times,
                       "fit": fit_path, "train_remat": remat_path, "beam": beam_path,
                       "train_precision": precision_path, "train_zero1": zero1_path,
-                      "train_lora": lora_path,
+                      "train_lora": lora_path, "train_seq_parallel": seq_parallel,
+                      "train_moe": moe_train, "generate_moe": moe_generate,
+                      "mesh_moe_a2a": moe_a2a,
                       "fused_norm_train": fused_train, "fused_norm_generate": fused_gen,
                       "fused_norm_generate_1p4b": fused_1p4b,
                       "int8_cache_generate": int8_gen, "engine": engine,

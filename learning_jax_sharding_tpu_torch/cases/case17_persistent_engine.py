@@ -15,9 +15,10 @@ whole mesh), with random weights from a seed. Proven in turn:
 5. chained decode blocks serve the unchained tokens;
 
 and every rank serves the same. Head dim 64, which the decode-attention
-kernel takes, so the same case runs on the card:
+kernel takes. It runs on the card unless the caller asks for the CPU
+(``--cpu``, ``main(device_type="cpu")``):
 
-    python -m learning_jax_sharding_tpu_torch.cases.case17_persistent_engine [--cuda]
+    python -m learning_jax_sharding_tpu_torch.cases.case17_persistent_engine [--cpu]
 """
 
 import dataclasses
@@ -110,10 +111,11 @@ def body(mesh):
     return mine
 
 
-def main(device_type: str = "cpu"):
+def main(device_type: str = "cuda"):
+    """Run the case on a (2, 4) mesh of thread ranks on ``device_type``."""
     torch.set_num_threads(1)
     return run_on_threads(body, (2, 4), ("data", "model"), device_type=device_type)
 
 
 if __name__ == "__main__":
-    main("cuda" if "--cuda" in sys.argv[1:] else "cpu")
+    main(device_type="cpu" if "--cpu" in sys.argv[1:] else "cuda")

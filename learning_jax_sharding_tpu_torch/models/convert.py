@@ -36,6 +36,7 @@ import torch
 
 from learning_jax_sharding_tpu_torch.parallel.logical import (
     EMBED,
+    EXPERT,
     HEADS,
     LAYERS,
     MLP,
@@ -77,6 +78,12 @@ def _block(prefix: str, blk: Mapping) -> dict:
     for name in ("query", "key", "value", "out"):
         out.update(_dense(f"{prefix}.attn.{name}", blk["attn"][name]))
     out.update(_norm(f"{prefix}.ln_ff", blk["ln_ff"]))
+    if "moe" in blk:
+        # The expert stacks keep the JAX layout; the router is a Dense.
+        moe = blk["moe"]
+        out.update(_dense(f"{prefix}.moe.router", moe["router"]))
+        out.update({f"{prefix}.moe.{name}": _tensor(moe[name]) for name in ("up", "down")})
+        return out
     for name in ("up", "down"):
         out.update(_dense(f"{prefix}.ff.{name}", blk["ff"][name]))
     return out
@@ -98,6 +105,40 @@ def from_flax_params(params: Mapping, cfg) -> dict[str, torch.Tensor]:
     sd.update(_norm("ln_out", params["ln_out"]))
     sd.update(_dense("lm_head", params["lm_head"]))
     return sd
+
+
+def to_flax_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`from_flax_params`: the port's state dict (an
+    unrolled one: ``blocks.<i>.…``) → the JAX ``Transformer`` param tree
+    with numpy leaves (``(out, in)`` weights transposed back into ``(in,
+    out)`` kernels, norm ``weight`` back to ``scale``; the MoE expert stacks
+    and quantized nodes as they are)."""
+    tree: dict = {}
+    for name, value in sd.items():
+        value = torch.as_tensor(value).detach().cpu()
+        # bf16 leaves go out as fp32 (exact); numpy has no bf16 of its own.
+        arr = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            parts = [f"block_{parts[1]}", *parts[2:]]
+        leaf = parts[-1]
+        if name == "tok_embed.weight":
+            path = ["tok_embed", "embedding"]
+        elif len(parts) == 1:
+            path = parts                                # pos_embed
+        elif parts[-2] in ("ln_attn", "ln_ff", "ln_out"):
+            path = parts[:-1] + ["scale" if leaf == "weight" else leaf]
+        elif leaf == "weight":
+            path, arr = parts[:-1] + ["kernel"], arr.swapaxes(-1, -2)
+        elif leaf in ("q", "q4", "scale") and parts[-3:-2] != ["moe"]:
+            path = parts[:-1] + ["kernel", leaf]      # a quantized projection
+        else:
+            path = parts                                # biases, the expert stacks
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def _is_stacked(name: str) -> bool:
@@ -163,6 +204,16 @@ KERNEL_AXES = {
     "up": (EMBED, MLP),
     "down": (MLP, EMBED),
     "lm_head": (EMBED, VOCAB),
+    "router": (EMBED, EXPERT),
+}
+
+
+#: The MoE FF's tensors in the port's layout: the expert stacks as JAX
+#: declares them, the router's ``(EMBED, EXPERT)`` kernel as an ``(out, in)``
+#: weight (``models/moe.py``).
+MOE_AXES = {
+    "up": (EXPERT, EMBED, MLP),
+    "down": (EXPERT, MLP, EMBED),
 }
 
 
@@ -185,6 +236,8 @@ def param_logical_axes(name: str) -> tuple:
     site, leaf = parts[-2], parts[-1]
     if site in ("ln_attn", "ln_ff", "ln_out"):
         return (EMBED,)
+    if site == "moe" and leaf in MOE_AXES:
+        return MOE_AXES[leaf]
     if site not in KERNEL_AXES:
         raise KeyError(f"no logical axes for parameter {name!r}")
     k_in, k_out = KERNEL_AXES[site]

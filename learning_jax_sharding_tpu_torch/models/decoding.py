@@ -72,6 +72,14 @@ def apply_dequantize_policy(
             f"got {dequantize!r}"
         )
     fused = dequantize in ("fused", "fused_w4a8")
+    if fused and cfg.num_experts > 0:
+        # JAX's MoE FF declares float expert stacks, so a fused-mode tree
+        # fails to apply there (a Flax parameter-shape error).
+        raise ValueError(
+            f"dequantize={dequantize!r} serves int4 trees through the fused "
+            "dense kernels; an MoE model's expert stacks serve with "
+            "dequantize=True"
+        )
     if fused:
         w4a8 = dequantize == "fused_w4a8"
         cfg = dataclasses.replace(cfg, quantization="int4_w4a8" if w4a8 else "int4")

@@ -18,8 +18,9 @@ full precision.
 
 :class:`Int4Linear` runs an int4 projection through the fused kernels
 (``ops/int4_matmul.py``); :func:`projection_dense` is the one dispatch every
-projection site builds through. MoE expert stacks (3-D) come with the MoE
-slice.
+projection site builds through. The MoE expert stacks (3-D, ``(E, in,
+out)``) quantize with a scale per expert and channel (int4: per expert,
+group and channel); the router stays fp32.
 """
 
 from __future__ import annotations
@@ -122,8 +123,11 @@ def quantize_tree(
     """Replace each matched ``{prefix}.weight`` (``nn.Linear``, ``(out,
     in)``) with ``{prefix}.q``/``{prefix}.scale`` (int8) or
     ``{prefix}.q4``/``{prefix}.scale`` (int4, ``bits=4``) in the JAX
-    ``(in, out)`` layout; everything else is carried over as it is.
-    ``group_size`` applies to int4 only."""
+    ``(in, out)`` layout, and each MoE expert stack ``{name}`` (``(E, in,
+    out)``) with ``{name}.q``/``{name}.scale`` or ``{name}.q4``/
+    ``{name}.scale``, a scale per (expert, channel) or per (expert, group,
+    channel); everything else is carried over as it is. ``group_size``
+    applies to int4 only."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     out = {}
@@ -131,12 +135,13 @@ def quantize_tree(
         if not match(name, value):
             out[name] = value
             continue
-        if value.ndim != 2:
-            raise NotImplementedError(
-                f"{name}: 3-D MoE expert stacks are quantized with the MoE slice"
-            )
-        prefix = name.rsplit(".", 1)[0]
-        kernel = value.detach().T                            # (in, out), as Flax
+        if value.ndim == 3:
+            # An MoE expert stack, already (E, in, out): each expert keeps
+            # its own scales, the node named after the stack.
+            prefix, kernel = name, value.detach()
+        else:
+            prefix = name.rsplit(".", 1)[0]
+            kernel = value.detach().T                        # (in, out), as Flax
         node = quantize_leaf(kernel) if bits == 8 else quantize_leaf_int4(kernel, group_size)
         for key, tensor in node.items():
             out[f"{prefix}.{key}"] = tensor.contiguous()
@@ -145,7 +150,9 @@ def quantize_tree(
 
 def dequantize_tree(params: Mapping[str, torch.Tensor], dtype=torch.bfloat16) -> dict:
     """Inverse of :func:`quantize_tree`: each quantized node becomes
-    ``{prefix}.weight`` ``(out, in)`` in ``dtype``; the rest is unchanged."""
+    ``{prefix}.weight`` ``(out, in)`` in ``dtype`` (an expert stack's node
+    the stack ``{prefix}`` itself, ``(E, in, out)``); the rest is
+    unchanged."""
     prefixes = _quantized_prefixes(params)
     out = {}
     for name, value in params.items():
@@ -160,7 +167,10 @@ def dequantize_tree(params: Mapping[str, torch.Tensor], dtype=torch.bfloat16) ->
             else:
                 node["q"] = params[f"{prefix}.q"]
                 kernel = dequantize_leaf(node, dtype)
-            out[f"{prefix}.weight"] = kernel.T
+            if kernel.ndim == 3:
+                out[prefix] = kernel
+            else:
+                out[f"{prefix}.weight"] = kernel.T
     return out
 
 

@@ -44,8 +44,11 @@ blocks as one :class:`ScannedBlocks` whose parameters carry a leading
 name; ``models/convert.py::stack_scan_params`` / ``unstack_scan_params``
 carry a state dict across), training and evaluation only.
 
-Not ported yet: MoE feed-forwards (``num_experts``), which raise
-``NotImplementedError`` naming the slice that brings them.
+``num_experts > 0`` swaps every block's dense FF for the routed
+``models/moe.py::MoEFeedForward`` (``moe``), with ``moe_top_k``,
+``moe_capacity_factor``, ``moe_dispatch`` and ``moe_dispatch_fn``; its
+load-balancing losses are sown into ``"losses"``
+(``training.pipeline.make_train_step(aux_loss_collection="losses")``).
 """
 
 from __future__ import annotations
@@ -197,7 +200,11 @@ class TransformerConfig:
     remat_attention: bool = False       # recompute only the dense attention core
     scan_layers: bool = False           # one stacked block (ScannedBlocks)
     attn_fn: object = None
-    num_experts: int = 0
+    num_experts: int = 0                # > 0: a routed MoE FF in every block
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"        # "einsum" | "scatter" | "alltoall" (models/moe.py)
+    moe_dispatch_fn: object = None      # "alltoall": ops.moe_dispatch.make_moe_a2a_fn(mesh)
     norm: str = "layernorm"
     fused_norm: bool = False
     decode: bool = False
@@ -219,16 +226,18 @@ class TransformerConfig:
                 "remat_policy is set but remat=False — the policy would "
                 "be silently ignored; set remat=True (or drop the policy)"
             )
-        if self.num_experts > 0:
-            raise NotImplementedError("num_experts: ported with the MoE slice")
 
     def train_step_flops(self, batch: int, seq: int) -> float:
         """Analytic model FLOPs of one train step (fwd + bwd ≈ 3× fwd), the
         JAX config's count: ``6 × matmul_params`` per token plus the
         attention einsums, causal attention at half the S² (what a
-        tile-skipping kernel computes)."""
+        tile-skipping kernel computes). MoE counts the ACTIVATED parameters
+        a token: ``top_k`` expert FFs and the router."""
+        ff_params = 2 * self.features * self.hidden
+        if self.num_experts > 0:
+            ff_params = ff_params * self.moe_top_k + self.features * self.num_experts
         matmul_params = (
-            self.num_layers * (self._attn_proj_params + 2 * self.features * self.hidden)
+            self.num_layers * (self._attn_proj_params + ff_params)
             + self.features * self.vocab_size        # lm_head
         )
         attn_per_token = (
@@ -249,10 +258,13 @@ class TransformerConfig:
     @property
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks + head), the JAX
-        config's count."""
+        config's count (MoE: E expert FFs and the router)."""
+        ff_params = 2 * self.features * self.hidden             # ff up + down
+        if self.num_experts > 0:
+            ff_params = ff_params * self.num_experts + self.features * self.num_experts
         per_block = (
             self._attn_proj_params
-            + 2 * self.features * self.hidden                    # ff up + down
+            + ff_params
             + 4 * self.features                                  # 2 LN scale+bias
         )
         pos = 0 if self.rope else self.max_seq_len * self.features
@@ -275,6 +287,9 @@ CONFIG_TINY = TransformerConfig(
     max_seq_len=64,
     dtype=torch.float32,
 )
+
+#: Tiny MoE variant: 4 experts, top-2 routing.
+CONFIG_TINY_MOE = dataclasses.replace(CONFIG_TINY, num_experts=4)
 
 
 class Norm(nn.Module):
@@ -391,7 +406,9 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + Attn(LN(x)); x + FF(LN(x)). Under ``fused_norm``
+    """Pre-LN block: x + Attn(LN(x)); x + FF(LN(x)), the FF routed
+    (``moe``, :class:`models.moe.MoEFeedForward`) when ``num_experts > 0``.
+    Under ``fused_norm``
     the boundary between the two (the attention residual add and ``ln_ff``)
     is one fused call; the FF residual stays a plain add."""
 
@@ -416,12 +433,23 @@ class TransformerBlock(nn.Module):
             quantization_group=cfg.quantization_group, device=device, generator=generator,
         )
         self.ln_ff = make_norm(cfg.norm, cfg.features, eps=cfg.norm_eps, **norm)
-        self.ff = FeedForward(
-            cfg.features, cfg.hidden, use_bias=cfg.use_bias, dtype=cfg.dtype,
-            param_dtype=cfg.param_dtype, quantization=cfg.quantization,
-            quantization_group=cfg.quantization_group,
-            quantized_matmul_fn=cfg.quantized_matmul_fn, device=device, generator=generator,
-        )
+        if cfg.num_experts > 0:
+            from learning_jax_sharding_tpu_torch.models.moe import MoEFeedForward
+
+            self.moe = MoEFeedForward(
+                cfg.features, cfg.hidden, num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor, dispatch=cfg.moe_dispatch,
+                dispatch_fn=cfg.moe_dispatch_fn, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, device=device, generator=generator,
+            )
+        else:
+            self.ff = FeedForward(
+                cfg.features, cfg.hidden, use_bias=cfg.use_bias, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, quantization=cfg.quantization,
+                quantization_group=cfg.quantization_group,
+                quantized_matmul_fn=cfg.quantized_matmul_fn, device=device,
+                generator=generator,
+            )
 
     def forward(self, x, *, deterministic: bool = True, generator=None,
                 cache: KVCache | None = None, chunk_lengths=None):
@@ -434,7 +462,11 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.attn(self.ln_attn(x), **attend)
             h = self.ln_ff(x)
-        return constrain(x + self.ff(h), BATCH, SEQ, EMBED)
+        if hasattr(self, "moe"):
+            ff = self.moe(h, deterministic=deterministic, generator=generator)
+        else:
+            ff = self.ff(h)
+        return constrain(x + ff, BATCH, SEQ, EMBED)
 
 
 class ScannedBlocks(TransformerBlock):
@@ -641,10 +673,12 @@ class Transformer(nn.Module):
         return constrain(linear(self.lm_head, x, cfg.dtype), BATCH, SEQ, VOCAB)
 
 
-def _chunk_total(hidden: torch.Tensor, targets: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """Summed fp32 cross-entropy of one chunk's logits (compute-dtype head
-    product)."""
-    logits = nn.functional.linear(hidden, head)
+def _chunk_total(hidden: torch.Tensor, targets: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Summed fp32 cross-entropy of one chunk's logits (the head product in
+    the compute dtype, the head cast inside the chunk as the JAX loss casts
+    it: each chunk's gradient comes back in the weight's dtype, so the
+    chunks' gradients add up in it)."""
+    logits = nn.functional.linear(hidden, weight.to(hidden.dtype))
     return nn.functional.cross_entropy(
         logits.float().flatten(0, 1), targets.flatten().long(), reduction="sum"
     )
@@ -658,15 +692,16 @@ def fused_next_token_loss(
     ``hidden`` is the final-norm output (``model(tokens,
     return_hidden=True)``), ``batch["targets"]`` the inputs shifted left by
     one. Per sequence chunk: the head product in the compute dtype (the
-    ``(V, M)`` ``model.lm_head.weight``, cast once), then fp32
-    cross-entropy, summed; the total is divided by ``B·S``. Each chunk runs
+    ``(V, M)`` ``model.lm_head.weight`` cast in each chunk, as JAX casts
+    it: the chunks' head gradients then add up in fp32, not in bf16), then
+    fp32 cross-entropy, summed; the total is divided by ``B·S``. Each chunk runs
     under ``torch.utils.checkpoint``, so forward and backward hold the
     logits of one chunk only, as ``jax.checkpoint`` does in the JAX loss.
     """
     b, s, _ = hidden.shape
     if s % chunk_size:
         raise ValueError(f"seq len {s} not divisible by chunk_size {chunk_size}")
-    head = model.lm_head.weight.to(hidden.dtype)
+    head = model.lm_head.weight
     targets = batch["targets"]
     if active_mesh()[0] is not None:
         return _sharded_fused_loss(hidden, targets, head, chunk_size)
@@ -680,11 +715,12 @@ def fused_next_token_loss(
     return total / (b * s)
 
 
-def _sharded_chunk_total(hidden, targets, head):
-    """One chunk's summed cross-entropy over a mesh: the head product as
-    DTensor places it, the logits constrained as the JAX loss constrains
-    them, then :func:`vocab_parallel_xent` on each shard."""
-    logits = constrain(nn.functional.linear(hidden, head), BATCH, SEQ, VOCAB)
+def _sharded_chunk_total(hidden, targets, weight):
+    """One chunk's summed cross-entropy over a mesh: the head (cast here,
+    as in :func:`_chunk_total`) product as DTensor places it, the logits
+    constrained as the JAX loss constrains them, then
+    :func:`vocab_parallel_xent` on each shard."""
+    logits = constrain(nn.functional.linear(hidden, weight.to(hidden.dtype)), BATCH, SEQ, VOCAB)
     return vocab_parallel_xent(logits, targets)
 
 

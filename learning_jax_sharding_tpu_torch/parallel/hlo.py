@@ -12,6 +12,7 @@ The HLO text parser and everything built on it are ported with slice G
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable
 
 from torch.distributed.tensor.debug import CommDebugMode
@@ -35,15 +36,24 @@ _KINDS = (
     ("alltoall", "all-to-all"),
 )
 
-_PERMUTES: list[int] = []
+class _Permutes(threading.local):
+    # One open count a ``counting`` block of this thread (a thread rank
+    # counts its own hops only).
+    open: list[int]
+
+    def __init__(self):
+        self.open = []
+
+
+_PERMUTES = _Permutes()
 
 
 def note_permute() -> None:
-    """Count one ring hop (``parallel.collectives``' point-to-point
-    exchange, which ``CommDebugMode`` does not see) as a
-    ``collective-permute`` in every count running."""
-    for i in range(len(_PERMUTES)):
-        _PERMUTES[i] += 1
+    """Count one ring hop (``parallel.collectives``' permute, an
+    exchange hidden from ``CommDebugMode``) as a ``collective-permute`` in
+    every count this thread has running."""
+    for i in range(len(_PERMUTES.open)):
+        _PERMUTES.open[i] += 1
 
 
 @contextlib.contextmanager
@@ -51,7 +61,7 @@ def counting():
     """Count the collectives issued under the block: yields a dict that is
     filled in, under :data:`COLLECTIVE_OPS` names, when the block ends."""
     counts = {op: 0 for op in COLLECTIVE_OPS}
-    _PERMUTES.append(0)
+    _PERMUTES.open.append(0)
     mode = CommDebugMode()
     try:
         with mode:
@@ -62,7 +72,21 @@ def counting():
                 if frag in str(op):
                     counts[kind] += n
                     break
-        counts["collective-permute"] += _PERMUTES.pop()
+        counts["collective-permute"] += _PERMUTES.open.pop()
+
+
+@contextlib.contextmanager
+def counting_permutes():
+    """Count only the ring hops (``collective-permute``) issued under the
+    block on this thread: yields ``{"collective-permute": n}``, filled in
+    when the block ends. No ``CommDebugMode``, whose module tracker cannot
+    follow models run by several thread ranks at once."""
+    counts = {"collective-permute": 0}
+    _PERMUTES.open.append(0)
+    try:
+        yield counts
+    finally:
+        counts["collective-permute"] = _PERMUTES.open.pop()
 
 
 def collective_counts(fn: Callable, *args, **kwargs) -> dict[str, int]:

@@ -167,14 +167,19 @@ def axis_rules(rules: Rules):
 @contextlib.contextmanager
 def activate(mesh: DeviceMesh, rules: Rules):
     """Enter the mesh and the logical rules together. Inside, plain tensors
-    meeting DTensors count as replicated (``implicit_replication``)."""
+    meeting DTensors count as replicated (``implicit_replication``), and a
+    backward runs on the calling thread: the binding is this thread's, as
+    is the replication flag on newer torch, and CUDA autograd would
+    otherwise run the backward, and a checkpoint's recompute in it, on its
+    device thread, where neither holds."""
     prev = (_ACTIVE.mesh, _ACTIVE.rules)
     _ACTIVE.mesh, _ACTIVE.rules = mesh, tuple(rules)
     # implicit_replication resets its flag on exit: enter it at the
     # outermost level only, so a nested activate leaves it on.
     outer = prev[0] is None
     try:
-        with implicit_replication() if outer else contextlib.nullcontext():
+        with (implicit_replication() if outer else contextlib.nullcontext(),
+              torch.autograd.set_multithreading_enabled(False)):
             yield
     finally:
         _ACTIVE.mesh, _ACTIVE.rules = prev

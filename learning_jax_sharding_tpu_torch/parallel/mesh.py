@@ -238,9 +238,9 @@ def run_on_threads(
     one card (NCCL refuses two ranks on one GPU). The group is torch's
     in-process ``"threaded"`` backend (``torch.testing._internal``), whose
     collectives copy between the ranks' tensors wherever they lie (it has
-    no point-to-point sends: ``collectives.ring_allgather_matmul`` needs
-    :func:`run_on_mesh`); autograd
-    runs on the calling thread meanwhile (that backend's condition). An
+    no point-to-point sends, so the port's ring hops are all-to-alls,
+    ``parallel.collectives``); autograd runs on the calling thread
+    meanwhile (that backend's condition). An
     exception on any rank wakes the ranks waiting in a collective and
     raises here with its traceback."""
     from torch.testing._internal.distributed import multi_threaded_pg as threaded

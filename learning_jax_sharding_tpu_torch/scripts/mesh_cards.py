@@ -1,6 +1,6 @@
 """The mesh paths across cards: a (2, 2) data × model mesh, one NCCL rank a card.
 
-    python -m learning_jax_sharding_tpu_torch.scripts.mesh_cards
+    python -m learning_jax_sharding_tpu_torch.scripts.mesh_cards [--parts all|base|seq,moe]
 
 Needs four GPUs (``chip_smoke.py`` runs :func:`run` with the four ranks as
 threads of one process on one card). On card 0 the parent runs the
@@ -20,6 +20,18 @@ kernel launches (held to :func:`tp_launches`), and host-clock ms a step and
 a token step on both sides with the cards' name and power limit. The last
 line is one JSON object of all of it; the run fails when a loss, a gap or
 the launches leave their bounds, or a rank fails.
+
+The sequence-parallel and MoE parts (``seq``, ``moe``): the long-context
+train step (``bench.py::bench_longcontext``'s shape: 6 heads x 128,
+S=8192, b=2, sgd) on card 0 with the flash kernels, then on the (2, 2)
+mesh under ``RULES_DP_SP`` with ring attention (under remat) and with
+Ulysses over the flash kernels (losses within ``SEQ_LOSS_RTOL`` of card
+0's, every rank equal, ms a step); and ``moe_a2a_ff`` at the 125M MoE
+layer's widths (fp32, 4 x 1024 tokens, E=8, top-2) under
+``RULES_DP_EP_A2A`` (experts over ``data``), each rank holding the output
+and the gradients to the einsum dispatch run per token group on its own
+card (``A2A_TOL``), and ms of the forward and backward. ``--parts seq,moe``
+runs only those (``base``: only the train call and the generates).
 """
 
 from __future__ import annotations
@@ -61,6 +73,12 @@ LOSS_RTOL = 1e-3
 TF_GAP = 0.1
 TRAIN_RULES, GENERATE_RULES = "RULES_DP_TP_SP", "RULES_DP_TP"
 ROUNDS = 3
+# The sequence-parallel steps (bench.py::bench_longcontext) and the MoE
+# layer of the all-to-all dispatch (bench.py::bench_moe_125m's widths).
+SEQ_B, SEQ_FIELDS, SEQ_LR = 2, dict(num_heads=6, head_dim=128, max_seq_len=8192), 3e-4
+SEQ_LOSS_RTOL = 1e-2
+A2A_TOKENS, A2A_EXPERTS, A2A_TOL = 4 * 1024, 8, dict(out=(1e-5, 1e-5), grad=(2e-4, 2e-4))
+PARTS = ("base", "seq", "moe")
 
 
 def card_line() -> str:
@@ -167,6 +185,136 @@ def run(mesh=None, *, steps: int = STEPS, new: int = NEW, rounds: int = ROUNDS,
     return out
 
 
+def _seq_batch(device, cfg):
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SEQ_B, cfg.max_seq_len + 1), generator=gen)
+    return {"inputs": tokens[:, :-1].to(device), "targets": tokens[:, 1:].to(device)}
+
+
+def run_seq(mesh=None, *, device_type: str = "cuda", cfg=None, rounds: int = ROUNDS) -> dict:
+    """The long-context train step: on one card with the flash kernels, or
+    over ``mesh`` (``RULES_DP_SP``) with ring attention (under remat: one
+    layer's score blocks at a time) and with Ulysses over the flash
+    kernels → each one's first loss, every rank's (over a mesh), and the
+    host seconds of ``rounds`` more steps."""
+    from learning_jax_sharding_tpu_torch.ops.ring_attention import make_ring_attn_fn
+    from learning_jax_sharding_tpu_torch.ops.ulysses import make_ulysses_attn_fn
+    from learning_jax_sharding_tpu_torch.training.loop import sgd
+
+    base = cfg or dataclasses.replace(CONFIG_125M, **SEQ_FIELDS)
+    batch = _seq_batch(device_type, base)
+    rules = logical.RULES_DP_SP if mesh is not None else None
+    if mesh is None:
+        variants = {"flash": dict(attn_fn=flash.make_flash_attn_fn())}
+    else:
+        variants = {"ring": dict(attn_fn=make_ring_attn_fn(mesh, rules), remat=True),
+                    "ulysses": dict(attn_fn=make_ulysses_attn_fn(
+                        mesh, rules, attn_fn=flash.make_flash_attn_fn()))}
+    loss_fn = functools.partial(fused_next_token_loss, chunk_size=CHUNK)
+    out = {}
+    for name, fields in variants.items():
+        state = sharded_train_state(
+            Transformer(dataclasses.replace(base, **fields), device=device_type, seed=0),
+            sgd(SEQ_LR), mesh=mesh, rules=rules)
+        step = make_train_step(loss_fn=loss_fn, loss_needs_params=True,
+                               apply_kwargs={"return_hidden": True}, mesh=mesh, rules=rules)
+        loss = float(step(state, batch)[1])
+        ranks = [loss]
+        if mesh is not None:
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, loss)
+        out[name] = {"loss": loss, "rank_losses": ranks,
+                     "seconds": [_timed(lambda: step(state, batch))[1] for _ in range(rounds)]}
+        del state
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _a2a_layer(dispatch, device_type, features, hidden, **kw):
+    from learning_jax_sharding_tpu_torch.models.moe import MoEFeedForward
+
+    return MoEFeedForward(features, hidden, num_experts=A2A_EXPERTS, top_k=2,
+                          capacity_factor=1.25, dtype=torch.float32, dispatch=dispatch,
+                          device=device_type,
+                          generator=torch.Generator(device=device_type).manual_seed(1), **kw)
+
+
+def _err(got, want, rtol, atol) -> float:
+    """How far ``got`` is past ``rtol`` of ``want`` (within: ≤ ``atol``)."""
+    return ((got - want).abs() - rtol * want.abs()).max().item()
+
+
+def run_moe_a2a(mesh, *, device_type: str = "cuda", features: int = CONFIG_125M.features,
+                hidden: int = CONFIG_125M.hidden, tokens: int = A2A_TOKENS,
+                rounds: int = ROUNDS) -> dict:
+    """``moe_a2a_ff`` over ``mesh`` (experts over ``data``): the output and
+    every gradient, gathered whole, against the einsum dispatch run per
+    token group on this rank's own card → the excesses past ``A2A_TOL``
+    (within: ≤ its atol) and the host seconds of a forward and backward."""
+    from learning_jax_sharding_tpu_torch.ops.moe_dispatch import make_moe_a2a_fn
+
+    rules = logical.RULES_DP_EP_A2A
+    x = torch.randn(4, tokens // 4, features,
+                    generator=torch.Generator().manual_seed(2)).to(device_type)
+    layer = _a2a_layer("alltoall", device_type, features, hidden,
+                       dispatch_fn=make_moe_a2a_fn(mesh, rules))
+
+    def call():
+        layer.zero_grad(set_to_none=True)
+        with logical.activate(mesh, rules):
+            out = layer(x).full_tensor()
+            torch.sin(out).sum().backward()
+        return out.detach()
+
+    out = call()
+    grads = {n: p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+             for n, p in layer.named_parameters()}
+    ref_layer = _a2a_layer("einsum", device_type, features, hidden)
+    groups = mesh.size(mesh.mesh_dim_names.index("data"))
+    ref = torch.cat([ref_layer(xg) for xg in x.chunk(groups)])
+    torch.sin(ref).sum().backward()
+    return {"out_excess": _err(out, ref.detach(), *A2A_TOL["out"]),
+            "grad_excess": max(_err(grads[n], p.grad, *A2A_TOL["grad"])
+                               for n, p in ref_layer.named_parameters()),
+            "seconds": [_timed(call)[1] for _ in range(rounds)]}
+
+
+def run_new(mesh=None, *, parts=("seq", "moe")) -> dict:
+    """The parts ``seq`` and ``moe`` of one process: on one card (no mesh)
+    the flash step; over a mesh the ring and Ulysses steps and the
+    all-to-all dispatch."""
+    out = {}
+    if "seq" in parts:
+        out["seq"] = run_seq(mesh)
+    if "moe" in parts and mesh is not None:
+        out["moe"] = run_moe_a2a(mesh)
+    return out
+
+
+def compare_new(mesh: dict, one: dict) -> tuple[dict, list[str]]:
+    """The ring and Ulysses losses against card 0's flash step, every
+    rank's loss equal; the all-to-all's excesses → (result, failures)."""
+    result, bad = {}, []
+    if "seq" in mesh:
+        ref = one["seq"]["flash"]
+        result["seq_one_card_ms_per_step"] = statistics.median(ref["seconds"]) * 1e3
+        for name, row in mesh["seq"].items():
+            rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
+            result[f"seq_{name}"] = dict(loss=row["loss"], one_card_loss=ref["loss"],
+                                         rel_diff=rel, rank_losses=row["rank_losses"],
+                                         ms_per_step=statistics.median(row["seconds"]) * 1e3)
+            if not rel <= SEQ_LOSS_RTOL or len(set(row["rank_losses"])) != 1:
+                bad.append(f"{name}: loss {row['rank_losses']} vs one card {ref['loss']}")
+    if "moe" in mesh:
+        row = mesh["moe"]
+        result["moe_a2a"] = dict(row, ms=statistics.median(row["seconds"]) * 1e3)
+        if not (row["out_excess"] <= A2A_TOL["out"][1]
+                and row["grad_excess"] <= A2A_TOL["grad"][1]):
+            bad.append(f"moe a2a past its bounds: {row}")
+    return result, bad
+
+
 def compare(mesh: dict, one: dict, new: int = NEW) -> dict:
     """The mesh run against the one-card run: the losses' largest relative
     difference, and per generate the share of equal new tokens, the first
@@ -218,30 +366,50 @@ def main() -> int:
         return 1
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
+    parts = PARTS
+    if "--parts" in sys.argv:
+        arg = sys.argv[sys.argv.index("--parts") + 1]
+        parts = PARTS if arg == "all" else tuple(arg.split(","))
+    result, bad = {"cards": card.splitlines(), "shape": SHAPE}, []
+    new_parts = tuple(p for p in parts if p != "base")
+    if new_parts:
+        one_new = run_new(parts=new_parts)
+        mesh_new = run_on_mesh(functools.partial(run_new, parts=new_parts), SHAPE,
+                               device_type="cuda", backend="nccl", timeout=1500, threads=None)
+        new_result, bad = compare_new(mesh_new, one_new)
+        result.update(new_result)
+    if "base" in parts:
+        bad += _run_base(result)
+    for key, val in result.items():
+        print(f"[mesh_cards] {key}: {val}", flush=True)
+    print(json.dumps(result, default=str))
+    for failure in bad:
+        print(f"mesh_cards: {failure}", file=sys.stderr)
+    return 1 if bad else 0
+
+
+def _run_base(result: dict) -> list[str]:
+    """The train call and the generates on card 0 and over the mesh,
+    into ``result`` → the failures."""
     one = run()
     mesh = run_on_mesh(run, SHAPE, device_type="cuda", backend="nccl", timeout=1500,
                        threads=None)
     rank0 = {k: sum(mesh[f"{name}_launches"][k] for name in ("train", "float", "fused"))
              for k in mesh["train_launches"]}
-    result = {"cards": card.splitlines(), "shape": SHAPE, **compare(mesh, one),
-              "launches_rank0": rank0, "launches_rank0_want": tp_launches(one, 1),
-              "train_launches_rank0": mesh["train_launches"],
-              "train_ms_per_step": {k: statistics.median(r["train_seconds"]) / STEPS * 1e3
-                                    for k, r in (("mesh", mesh), ("one", one))}}
+    result.update({**compare(mesh, one), "launches_rank0": rank0,
+                   "launches_rank0_want": tp_launches(one, 1),
+                   "train_launches_rank0": mesh["train_launches"],
+                   "train_ms_per_step": {k: statistics.median(r["train_seconds"]) / STEPS * 1e3
+                                         for k, r in (("mesh", mesh), ("one", one))}})
     for mode in ("float", "fused"):
         result[mode].update(
             launches_rank0=mesh[f"{mode}_launches"],
             ms_per_token_step={k: statistics.median(r[f"{mode}_seconds"]) / NEW * 1e3
                                for k, r in (("mesh", mesh), ("one", one))})
-    for key, val in result.items():
-        print(f"[mesh_cards] {key}: {val}", flush=True)
-    print(json.dumps(result, default=str))
     bad = failures(result)
     if rank0 != result["launches_rank0_want"]:
         bad.append(f"rank 0 launched {rank0}, want {result['launches_rank0_want']}")
-    for failure in bad:
-        print(f"mesh_cards: {failure}", file=sys.stderr)
-    return 1 if bad else 0
+    return bad
 
 
 if __name__ == "__main__":

@@ -223,6 +223,22 @@ class _AdamW(torch.optim.Optimizer):
         torch._foreach_add_(params, upd)
 
 
+class _SGD(torch.optim.Optimizer):
+    """``optax.sgd`` as a torch optimizer (foreach ops): the update
+    ``g · (−lr)`` rounded, then added, as optax applies it. No state."""
+
+    def __init__(self, params, lr):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                torch._foreach_add_(
+                    params, torch._foreach_mul([p.grad for p in params], -group["lr"]))
+
+
 class _Lion(torch.optim.Optimizer):
     """``optax.lion`` as a torch optimizer (foreach ops): the update is
     ``sign(b1·m + (1−b1)·g) + wd·p``, scaled by ``−lr``; then ``m ← b2·m +
@@ -390,6 +406,29 @@ class Adafactor:
         return _Adafactor(params, self.schedule(0))
 
 
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd`` (no momentum) as a description of a torch optimizer
+    (:class:`_SGD`). ``learning_rate`` is a number or a schedule."""
+
+    learning_rate: Union[float, Schedule]
+    clip_norm: Optional[float] = None
+
+    def schedule(self, step: int) -> float:
+        """The learning rate of the update made after ``step`` updates."""
+        lr = self.learning_rate
+        return lr(step) if callable(lr) else lr
+
+    def create(self, params) -> torch.optim.Optimizer:
+        return _SGD(params, self.schedule(0))
+
+
+def sgd(learning_rate: Union[float, Schedule]) -> SGD:
+    """The counterpart of ``optax.sgd(learning_rate)``: plain gradient
+    descent, no optimizer state."""
+    return SGD(learning_rate)
+
+
 def lion(learning_rate: Union[float, Schedule], *, weight_decay: float = 1e-3) -> Lion:
     """The counterpart of ``optax.lion``, with its defaults."""
     return Lion(learning_rate, weight_decay=weight_decay)
@@ -490,7 +529,8 @@ def fit(
             ``loss_needs_params`` through ``step_kwargs``).
         step_kwargs: more ``training.pipeline.make_train_step`` arguments
             (e.g. ``loss_needs_params=True, apply_kwargs={"return_hidden":
-            True}`` for the fused loss).
+            True}`` for the fused loss; ``aux_loss_collection="losses"``
+            for MoE models).
         registry: a ``telemetry.MetricsRegistry``: the per-step metrics as
             ``train_*`` series.
         tracer: a ``telemetry.Tracer``: the run's phases (setup, restore,

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import operator
 from typing import Any, Callable
 
 import numpy as np
@@ -32,6 +34,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from learning_jax_sharding_tpu_torch.models.convert import shard_params
+from learning_jax_sharding_tpu_torch.models.moe import collecting
 from learning_jax_sharding_tpu_torch.parallel.logical import BATCH, activate, constrain
 from learning_jax_sharding_tpu_torch.training.wrapped import create
 
@@ -148,6 +151,7 @@ def make_train_step(
     *,
     loss_fn: Callable[..., torch.Tensor] = default_loss,
     dropout_seed: int | None = None,
+    aux_loss_collection: str | None = None,
     loss_needs_params: bool = False,
     apply_kwargs: dict[str, Any] | None = None,
     grad_accum_steps: int = 1,
@@ -174,6 +178,13 @@ def make_train_step(
     microbatch drawing from a generator seeded by ``(dropout_seed, step,
     microbatch)``, the counterpart of the JAX step's folded ``dropout_rng``.
     None keeps dropout off.
+
+    ``aux_loss_collection``: the name of a collection (``"losses"``) whose
+    values the forward sows (``models.moe.sow``: the MoE load-balancing
+    terms, one a routed layer) are summed into the task loss, as JAX sums
+    the sown ``"losses"``. They are gathered around the forward only
+    (``models.moe.collecting``), so a block that ``remat`` recomputes in
+    the backward adds nothing the second time: each layer counts once.
 
     ``grad_accum_steps``: split the batch along its leading dim into this
     many microbatches; loss and gradients are averaged over them before the
@@ -211,10 +222,25 @@ def make_train_step(
                 deterministic=False,
                 generator=torch.Generator(device=device).manual_seed(seed),
             )
-        y = state.model(_inputs_of(batch), **kwargs)
+        if aux_loss_collection is None:
+            y = state.model(_inputs_of(batch), **kwargs)
+            aux = ()
+        else:
+            with collecting(aux_loss_collection) as aux:
+                y = state.model(_inputs_of(batch), **kwargs)
         loss = loss_fn(y, batch, state.model) if loss_needs_params else loss_fn(y, batch)
         # Over a mesh: the loss whole on every rank (partial sums reduced).
-        return constrain(loss) if isinstance(loss, DTensor) else loss
+        loss = constrain(loss) if isinstance(loss, DTensor) else loss
+        if aux:
+            # Summed first, then added, as the JAX step adds its sum. Over a
+            # mesh the (whole, plain) sum joins as a replicated DTensor, so
+            # its gradient comes back a plain tensor.
+            total = functools.reduce(operator.add, aux)
+            if isinstance(loss, DTensor):
+                total = DTensor.from_local(total, loss.device_mesh, loss.placements,
+                                           run_check=False)
+            loss = loss + total
+        return loss
 
     def one_step(state: TrainState, batch: Any):
         with _scope(mesh, rules):

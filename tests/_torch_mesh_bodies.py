@@ -37,10 +37,9 @@ def _fulls(x):
     return x.full_tensor().detach().numpy().copy()
 
 
-def parallel_body(mesh, a_host, b_host, ring=True):
+def parallel_body(mesh, a_host, b_host):
     """Every case's shard shapes, distinct shards, replication and
-    collectives; the five collective matmuls' results and collectives (the
-    ring's point-to-point sends only with ``ring``)."""
+    collectives; the five collective matmuls' results and collectives."""
     out = {"cases": {}, "matmuls": {}}
     for name, (sa, sb, sc) in CASES.items():
         a = put(a_host, shard_dims(mesh, 2, **sa))
@@ -64,8 +63,6 @@ def parallel_body(mesh, a_host, b_host, ring=True):
         "dp_tp": lambda: coll.dp_tp_matmul(a_host, b_host, mesh=mesh, dp_axis="x", tp_axis="y"),
         "ring": lambda: coll.ring_allgather_matmul(a_host, b_host, mesh=mesh, axis="y"),
     }
-    if not ring:
-        del calls["ring"]
     for name, call in calls.items():
         with counting() as counts:
             c = call()
@@ -519,3 +516,15 @@ def checkpoint_body(mesh, state_dict, batch, save_dir, load_dir):
     restored = whole(fresh)
     restored["local"] = {n: tuple(p.to_local().shape) for n, p in fresh.model.named_parameters()}
     return dict(saved=saved, restored=restored)
+
+
+
+def backward_thread_body(mesh):
+    """Fault F9: whether a backward may run on another thread (CUDA
+    autograd's device thread) before, inside and after ``activate``."""
+    from learning_jax_sharding_tpu_torch.parallel.logical import RULES_DP_SP, activate
+
+    before = torch._C._is_multithreading_enabled()
+    with activate(mesh, RULES_DP_SP):
+        inside = torch._C._is_multithreading_enabled()
+    return before, inside, torch._C._is_multithreading_enabled()

@@ -212,10 +212,10 @@ def test_run_on_threads_raises_a_rank_failure_with_its_traceback():
 def test_run_on_threads_equals_run_on_mesh(port, operands):
     """Cases 1a-4 and the collective matmuls with the eight ranks as threads
     of this process: the same layouts, values and collectives. The ring
-    matmul stays out: the threaded group has no point-to-point sends."""
-    got = parallel.run_on_threads(bodies.parallel_body, (2, 4), ("x", "y"),
-                                  args=(*operands, False))
-    assert set(got["matmuls"]) == set(port["matmuls"]) - {"ring"}
+    matmul too: its hops are all-to-alls with one non-empty split, which the
+    threaded group (no point-to-point sends) runs as gloo does."""
+    got = parallel.run_on_threads(bodies.parallel_body, (2, 4), ("x", "y"), args=operands)
+    assert set(got["matmuls"]) == set(port["matmuls"])
     for kind in ("cases", "matmuls"):
         for name, row in port[kind].items():
             if name not in got[kind]:

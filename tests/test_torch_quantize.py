@@ -151,8 +151,12 @@ def test_quantize_tree_matches_jax(tiny_params, jax_trees, bits, group):
 def test_quantize_tree_rejects():
     with pytest.raises(ValueError, match="bits must be 8 or 4"):
         tq.quantize_tree({}, bits=2)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tq.quantize_tree({"blocks.0.moe.up": torch.zeros(2, 4, 4)}, bits=4)
+    # The 3-D MoE expert stacks quantize (tests/test_torch_moe.py holds them
+    # byte-equal to JAX's); an odd contraction dim is refused in them too.
+    assert set(tq.quantize_tree({"blocks.0.moe.up": torch.zeros(2, 4, 4)}, bits=4)) == {
+        "blocks.0.moe.up.q4", "blocks.0.moe.up.scale"}
+    with pytest.raises(ValueError, match="even contraction dim"):
+        tq.quantize_tree({"blocks.0.moe.up": torch.zeros(2, 3, 4)}, bits=4)
     for fn in (jq.quantize_leaf_int4, tq.quantize_leaf_int4):
         lib = jnp if fn is jq.quantize_leaf_int4 else torch
         with pytest.raises(ValueError, match="even contraction dim"):

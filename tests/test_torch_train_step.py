@@ -354,8 +354,9 @@ def test_attention_module_routes_attn_fn():
 
 def test_unported_parts_name_their_slice():
     """Repair: the messages name the slice that brings each part."""
-    with pytest.raises(NotImplementedError, match="num_experts: ported with the MoE slice"):
-        TransformerConfig(num_experts=4)
+    # MoE is ported (slice D's item 12 part 4; tests/test_torch_moe.py holds
+    # it against JAX): the config builds.
+    assert TransformerConfig(num_experts=4).num_experts == 4
     # remat, scan_layers and stacked trees are ported (slice D's item 6;
     # tests/test_torch_scan_remat.py holds them against JAX).
     TransformerConfig(scan_layers=True, remat=True)

@@ -85,8 +85,13 @@ def test_device_default_is_the_gpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        TransformerConfig(num_experts=4)
+    # MoE is ported (tests/test_torch_moe.py holds it against JAX): a block
+    # of a config with experts holds the routed FF in place of the dense one.
+    moe_block = Transformer(TransformerConfig(num_experts=4, num_layers=1, vocab_size=64,
+                                              features=32, num_heads=2, head_dim=16,
+                                              hidden=64, max_seq_len=16),
+                            device="cpu").blocks[0]
+    assert hasattr(moe_block, "moe") and not hasattr(moe_block, "ff")
     # remat and scan_layers are ported (tests/test_torch_scan_remat.py holds
     # them against JAX).
     TransformerConfig(scan_layers=True, remat=True, remat_policy="dots")
